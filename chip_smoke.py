@@ -1,0 +1,475 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+with nvcc (into ``src/repro_torch/kernels/_build/``, at first use),
+then:
+
+1. holds every kernel against its plain PyTorch version on the card,
+   in float32 and bfloat16, at the shapes the main path gives it;
+2. drives the main path through the entry points a user calls: a binary
+   RBF ``SVC(engine="pallas")`` fit by SMO on a Pavia-shaped problem
+   (~29.5k x 102), certified by a float64 KKT check of a recomputed
+   gradient;
+3. packs, saves, loads and serves it with ``Predictor(engine="pallas")``
+   in requests of several sizes, labels checked against the plain
+   chunked predictor on the same card;
+4. times each kernel, its plain version and one PyTorch library call for
+   the same function, beside the least time the card could take
+   (``bound_ms``): ``ms`` / ``plain_ms`` / ``library_ms`` are CUDA-event
+   medians of one call as the caller sees it (host enqueue included),
+   ``*device_ms`` the profiler's device time of the same call.
+
+Each phase prints one JSON line. The line before the last is the
+``kernels`` summary, the last ``{"ok": true, "device": ...}``. Any
+failed check exits non-zero. Without CUDA it exits non-zero at once.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM rate and the
+# non-tensor-core float32 rate the kernels' IEEE FMAs run at
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+SEED = 7
+GRAM_TOL = dict(rtol=2e-5, atol=2e-6)      # tests/test_kernels_pallas.py
+DECISION_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_kernels_pallas.py
+CSRC = "src/repro_torch/kernels/csrc"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def emit(**obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call, CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of one call: the CUPTI durations of every kernel
+    the call launched (torch.profiler), without the host's share."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max())
+
+
+# ------------------------------------------------------------- phases
+def phase_parity(ops, K, G, KS, D, dev, n_train: int, d: int, n_sv: int,
+                 n_test: int) -> dict:
+    """Each kernel against its plain version at main-path shapes."""
+    rng = np.random.default_rng(SEED)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    errs = {}
+    x = t(rng.normal(size=(n_train, d)))
+    for dt in ("fp32", "bf16"):
+        tdt = ops.tile_dtype(dt)
+        xk = x.to(tdt)
+        x2 = K.sqnorms(xk)
+        blk, blk2 = xk[:2048], x2[:2048]   # one matvec chunk of the engine
+        for mode in ("rbf", "linear"):
+            got = ops.rbf_gram(blk, xk, gamma=0.01, mode=mode, a2=blk2, b2=x2)
+            want = G.rbf_gram_plain(blk, xk, blk2, x2, gamma=0.01, mode=mode)
+            tol = GRAM_TOL if mode == "rbf" else dict(rtol=2e-5, atol=1e-4)
+            ok = torch.allclose(got, want, **tol)
+            emit(phase="parity", kernel="rbf_gram", mode=mode, dtype=dt,
+                 shape=[2048, n_train, d], max_abs_err=max_err(got, want),
+                 bound=tol, ok=ok)
+            check(ok, f"rbf_gram {mode} {dt} disagrees with its plain version")
+            if mode == "rbf" and dt == "fp32":
+                errs["rbf_gram"] = max_err(got, want)
+        i = torch.tensor(n_train // 3, device=dev)
+        got = ops.gram_row(xk, x2, i, gamma=0.01)
+        want = G.gram_row_plain(xk, x2, i, gamma=0.01)
+        ok = torch.allclose(got, want, **GRAM_TOL)
+        emit(phase="parity", kernel="rbf_gram_row", dtype=dt,
+             shape=[n_train, d], max_abs_err=max_err(got, want),
+             bound=GRAM_TOL, ok=ok)
+        check(ok, f"rbf_gram_row {dt} disagrees with its plain version")
+        if dt == "fp32":
+            errs["rbf_gram_row"] = max_err(got, want)
+
+    # kkt_select: random state, a tie across blocks, an all-masked input
+    n = n_train
+    f = t(rng.normal(size=n))
+    alpha = rng.uniform(0, 1, n)
+    alpha[rng.random(n) < 0.4] = 0.0
+    alpha[rng.random(n) < 0.2] = 1.0
+    alpha = t(alpha)
+    y = t(np.where(rng.random(n) < 0.5, 1.0, -1.0))
+    mask = t(rng.random(n) < 0.9, torch.bool)
+    lo, hi = torch.zeros(n, device=dev), torch.ones(n, device=dev)
+    tie = torch.zeros(n, device=dev)
+    tie[[n - 5, n // 3, n // 7, n // 2]] = -2.0
+    cases = {"random": (f, alpha, y, mask, lo, hi),
+             "tie": (tie, torch.full((n,), 0.5, device=dev),
+                     torch.ones(n, device=dev), torch.ones_like(mask), lo, hi),
+             "all_masked": (f, alpha, y, torch.zeros_like(mask), lo, hi)}
+    for name, args in cases.items():
+        got = [float(v) for v in ops.kkt_select(*args)]
+        want = [float(v) for v in KS.kkt_select_plain(*args)]
+        ok = got == want
+        emit(phase="parity", kernel="kkt_select", case=name, n=n, got=got,
+             want=want, ok=ok)
+        check(ok, f"kkt_select {name}: {got} != {want}")
+    check([float(v) for v in ops.kkt_select(*cases["tie"])][:2]
+          == [-2.0, n // 7],
+          "kkt_select tie did not go to the lowest index")
+    errs["kkt_select"] = 0.0
+
+    for dt in ("fp32", "bf16"):
+        tdt = ops.tile_dtype(dt)
+        z = t(rng.normal(size=(n_test, d)))
+        sv = t(rng.normal(size=(n_sv, d)))
+        cf = t(rng.normal(size=n_sv))
+        got = ops.decision(z, sv, cf, gamma=0.01, compute_dtype=dt)
+        want = D.decision_plain(z.to(tdt), sv.to(tdt), cf, gamma=0.01)
+        ok = torch.allclose(got, want, **DECISION_TOL)
+        emit(phase="parity", kernel="decision", dtype=dt,
+             shape=[n_test, n_sv, d], max_abs_err=max_err(got, want),
+             bound=DECISION_TOL, ok=ok)
+        check(ok, f"decision {dt} disagrees with its plain version")
+        if dt == "fp32":
+            errs["decision"] = max_err(got, want)
+        z1024 = z[:1024].contiguous()
+        one = ops.multitask_decision(z1024, sv[None], cf[None], gamma=0.01,
+                                     compute_dtype=dt)
+        same = torch.equal(one[0], ops.decision(z1024, sv, cf, gamma=0.01,
+                                                compute_dtype=dt))
+        emit(phase="parity", kernel="multitask_decision", dtype=dt,
+             case="T=1 equals decision bit for bit", ok=same)
+        check(same, "multitask_decision T=1 differs from decision")
+        # the binary serving bucket, and a 9-class Pavia one-vs-one bucket
+        for shape in ((1, n_sv, 1024), (36, 4096, 1024)):
+            tasks, w, nt = shape
+            svb = t(rng.normal(size=(tasks, w, d)))
+            cfb = t(rng.normal(size=(tasks, w)))
+            zb = z[:nt].contiguous()
+            for mode in ("rbf", "linear"):
+                got = ops.multitask_decision(zb, svb, cfb, gamma=0.01,
+                                             mode=mode, compute_dtype=dt)
+                want = D.multitask_decision_plain(
+                    zb.to(tdt), svb.to(tdt), cfb, gamma=0.01, mode=mode)
+                # linear mode sums w d products of size ~1 into values of
+                # size ~sqrt(w d): float32 rounding then scales with the
+                # largest value, not with each (possibly cancelling) one
+                tol = (DECISION_TOL if mode == "rbf" else dict(
+                    rtol=2e-4, atol=2e-5 * float(want.abs().max())))
+                ok = torch.allclose(got, want, **tol)
+                emit(phase="parity", kernel="multitask_decision", dtype=dt,
+                     mode=mode, shape=[tasks, w, d, nt],
+                     max_abs_err=max_err(got, want), bound=tol, ok=ok)
+                check(ok, f"multitask_decision {mode} {dt} {shape} "
+                          "disagrees with its plain version")
+                if dt == "fp32" and mode == "rbf" and tasks == 1:
+                    errs["multitask_decision"] = max_err(got, want)
+    torch.cuda.synchronize()
+    return errs
+
+
+def warm_fit_profile(SVC, dev, xtr, ytr, n_iter):
+    """The same fit again, warm: its wall time, then once more under
+    torch.profiler for the device's busy time and kernel launches (the
+    profiler's own overhead lowers the busy share it reports)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def fit():
+        SVC(engine="pallas", shrink_every=4, device=dev).fit(xtr, ytr)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    fit()
+    warm_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        prof_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    launched = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    busy = {"profiled_wall_s": prof_s, "device_busy_s": dev_us / 1e6,
+            "busy_share": dev_us / 1e6 / prof_s if dev_us else None,
+            "device_kernels": launched,
+            "device_kernels_per_iter": launched / max(n_iter, 1),
+            "top": [[e.key[:60], e.count, e.self_device_time_total]
+                    for e in top]}
+    return warm_s, busy
+
+
+def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
+    x, y = data.load_pavia_like(n_per_class=16384, n_classes=2, seed=SEED)
+    x = data.normalize(x)
+    xtr, ytr, xte, yte = data.train_test_split(x, y, test_frac=0.1,
+                                               seed=SEED)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    clf = SVC(engine="pallas", shrink_every=4, device=dev).fit(xtr, ytr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(ops.launches)
+    warm_s, busy = warm_fit_profile(SVC, dev, xtr, ytr, clf.n_iter_)
+    # held-out margins through the engine path (the decision kernel)
+    ops.reset_launches()
+    xs = torch.from_numpy(clf.support_vectors_).to(dev)
+    df_engine = smo.decision_function(
+        xs, torch.ones(len(xs), device=dev),
+        torch.from_numpy(clf.dual_coef_).to(dev), clf.b_,
+        torch.from_numpy(xte).to(dev), kernel=clf.kernel_params,
+        engine=clf.engine_cfg).cpu().numpy()
+    torch.cuda.synchronize()
+    check_launches = dict(ops.launches)
+    serve_mod.save(path, serve_mod.pack(clf))
+
+    # certificate: the f64 KKT violation of a gradient recomputed from
+    # scratch by one matvec (not the solver's own bookkeeping)
+    yy = torch.from_numpy(np.where(ytr == clf.classes_[1], 1.0, -1.0)
+                          .astype(np.float32)).to(dev)
+    alpha = torch.from_numpy(clf.alpha_).to(dev)
+    eng = KE.make_engine(torch.from_numpy(xtr).to(dev), clf.kernel_params,
+                         "pallas")
+    f = eng.matvec(alpha * yy) - yy
+    kkt = float(smo.kkt_violation(alpha, yy, f, 0.0, clf.smo_cfg.C))
+    acc = float(np.mean(np.where(df_engine > 0, clf.classes_[1],
+                                 clf.classes_[0]) == yte))
+    emit(phase="fit", n=int(xtr.shape[0]), d=int(xtr.shape[1]),
+         n_iter=clf.n_iter_, converged=clf.converged_, kkt_f64=kkt,
+         tol=clf.smo_cfg.tol, n_support=clf.n_support_, fit_s=fit_s,
+         fit_s_warm=warm_s, profile=busy,
+         gamma=clf.kernel_params.gamma, launches=fit_launches,
+         launches_per_iter={k: v / max(clf.n_iter_, 1)
+                            for k, v in fit_launches.items()},
+         heldout_check_launches=check_launches, heldout_acc=acc)
+    check(clf.converged_, "SMO fit did not converge")
+    check(kkt <= clf.smo_cfg.tol, f"f64 KKT {kkt} > tol {clf.smo_cfg.tol}")
+    for k in ("rbf_gram_row", "kkt_select"):
+        check(fit_launches[k] > 0, f"fit launched no {k}")
+    check(check_launches["decision"] > 0, "held-out check launched no "
+          "decision kernel")
+    main_launches = {k: fit_launches[k] + check_launches[k]
+                     for k in fit_launches}
+    return xtr, xte, df_engine, main_launches, fit_s
+
+
+def phase_serve(ops, serve_mod, dev, path, xte, df_engine):
+    packed = serve_mod.load(path)
+    ops.reset_launches()
+    pred = serve_mod.Predictor(packed, engine="pallas", device=dev)
+    pred.warmup((1, 37, 256, 1024))
+    sizes = (1, 37, 256, 1024, len(xte))
+    rates, labels = {}, None
+    for size in sizes:
+        starts = range(0, len(xte), size)[:max(1, 2048 // size)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [pred.predict(xte[s:s + size]) for s in starts]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates[str(size)] = sum(len(g) for g in got) / dt
+        if size == len(xte):
+            labels = got[0]
+    dfs = pred.decision_function(xte)
+    torch.cuda.synchronize()
+    serve_launches = dict(ops.launches)
+    plain = serve_mod.Predictor(packed, engine="chunked", device=dev)
+    want_labels = plain.predict(xte)
+    want_df = plain.decision_function(xte)
+    same = bool(np.array_equal(labels, want_labels))
+    close = bool(np.allclose(dfs, want_df, **DECISION_TOL))
+    emit(phase="serve", n_test=len(xte), rows_per_s=rates,
+         n_programs=pred.n_programs, launches=serve_launches,
+         labels_equal_chunked=same,
+         max_abs_err_vs_chunked=float(np.abs(dfs - want_df).max()),
+         max_abs_err_vs_engine_path=float(np.abs(dfs - df_engine).max()))
+    check(same, "pallas predictor labels differ from the chunked predictor")
+    check(close, "pallas predictor decisions differ from the chunked one")
+    check(bool(np.allclose(dfs, df_engine, **DECISION_TOL)),
+          "predictor decisions differ from the engine decision path")
+    check(serve_launches["multitask_decision"] > 0,
+          "serving launched no multitask_decision kernel")
+    return serve_launches, packed
+
+
+def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
+                 launches):
+    """Kernel, plain version and one library call, at main-path shapes."""
+    x = torch.from_numpy(xtr).to(dev)
+    zte = torch.from_numpy(xte).to(dev)
+    nte = zte.shape[0]
+    n, d = x.shape
+    x2 = K.sqnorms(x)
+    blk, blk2 = x[:2048], x2[:2048]
+    i = torch.tensor(n // 3, device=dev)
+    bank = packed.buckets[0]
+    sv = torch.from_numpy(bank.sv_x[0]).to(dev)
+    cf = torch.from_numpy(bank.sv_coef[0]).to(dev)
+    w = sv.shape[0]
+    z = x[:1024].contiguous()
+    f = torch.randn(n, device=dev)
+    alpha = torch.rand(n, device=dev)
+    yv = torch.where(torch.rand(n, device=dev) < 0.5, 1.0, -1.0)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    lo, hi = torch.zeros(n, device=dev), torch.ones(n, device=dev)
+
+    def lib_rbf(a, b):
+        return torch.exp(-gamma * torch.cdist(a, b).square())
+
+    rows = [
+        ("rbf_gram", "rbf_gram.cu", "src/repro/kernels/rbf_gram.py:91",
+         lambda: ops.rbf_gram(blk, x, gamma=gamma, a2=blk2, b2=x2),
+         lambda: G.rbf_gram_plain(blk, x, blk2, x2, gamma=gamma),
+         lambda: lib_rbf(blk, x),
+         4 * (2048 * d + n * d + 2048 + n + 2048 * n),
+         2048 * n * (2 * d + 6)),
+        ("rbf_gram_row", "rbf_gram.cu", "src/repro/kernels/rbf_gram.py:91",
+         lambda: ops.gram_row(x, x2, i, gamma=gamma),
+         lambda: G.gram_row_plain(x, x2, i, gamma=gamma),
+         lambda: lib_rbf(x, x[n // 3:n // 3 + 1]),
+         4 * (n * d + 2 * n), n * (2 * d + 6)),
+        ("kkt_select", "kkt_select.cu", "src/repro/kernels/kkt_select.py:57",
+         lambda: ops.kkt_select(f, alpha, yv, mask, lo, hi),
+         lambda: KS.kkt_select_plain(f, alpha, yv, mask, lo, hi),
+         None, 21 * n + 24, 12 * n),
+        ("decision", "decision.cu", "src/repro/kernels/decision.py:59",
+         lambda: ops.decision(zte, sv, cf, gamma=gamma),
+         lambda: D.decision_plain(zte, sv, cf, gamma=gamma),
+         lambda: lib_rbf(zte, sv) @ cf,
+         4 * (nte * d + w * d + w + nte), nte * w * (2 * d + 8)),
+        ("multitask_decision", "decision.cu",
+         "src/repro/kernels/decision.py:121",
+         lambda: ops.multitask_decision(z, sv[None], cf[None], gamma=gamma),
+         lambda: D.multitask_decision_plain(z, sv[None], cf[None],
+                                            gamma=gamma),
+         lambda: (lib_rbf(z, sv) @ cf)[None],
+         4 * (1024 * d + w * d + w + 1024), 1024 * w * (2 * d + 8)),
+    ]
+    out = []
+    for name, src, replaces, kern, plain, lib, n_bytes, n_ops in rows:
+        saved = dict(ops.launches)          # timing launches do not count
+        ms = median_ms(kern)
+        plain_ms = median_ms(plain)
+        ms2 = median_ms(kern)               # kernel, plain, kernel: spread
+        library_ms = median_ms(lib) if lib is not None else None
+        dev = {"device_ms": device_ms(kern),
+               "plain_device_ms": device_ms(plain),
+               "library_device_ms": (device_ms(lib) if lib is not None
+                                     else None)}
+        ops.launches.update(saved)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        out.append({"name": name, "route": "cuda",
+                    "source": f"{CSRC}/{src}", "replaces": replaces,
+                    "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": ms, "ms_repeat": ms2,
+                    "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": library_ms, **dev})
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import data, serve as serve_mod
+    from repro_torch.core import kernel_engine as KE, kernels as K, smo
+    from repro_torch.core.svm import SVC
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import decision as D
+    from repro_torch.kernels import kkt_select as KS
+    from repro_torch.kernels import rbf_gram as G
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.library()
+    emit(phase="build", card=card, torch=torch.__version__,
+         cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
+         nvcc_s=_build.build_seconds[0] if _build.build_seconds else None)
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "chip_smoke_model.npz")
+    xtr, xte, df_engine, fit_launches, _ = phase_fit(
+        ops, data, smo, KE, serve_mod, SVC, dev, path)
+    serve_launches, packed = phase_serve(ops, serve_mod, dev, path, xte,
+                                         df_engine)
+    launches = {k: fit_launches[k] + serve_launches[k] for k in ops.KERNELS}
+    for k, v in launches.items():
+        check(v > 0, f"main path launched no {k} kernel")
+    errs = phase_parity(ops, K, G, KS, D, dev, n_train=xtr.shape[0],
+                        d=xtr.shape[1], n_sv=packed.n_support,
+                        n_test=len(xte))
+    kernels = phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed,
+                           packed.kernel.gamma, errs, launches)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,346 @@
+"""KernelEngine — every Gram evaluation of the port, one interface.
+
+Mirrors ``repro/core/kernel_engine.py``; one ``EngineConfig`` means the
+same thing in both packages. An engine lives on the device of the
+training matrix it is given::
+
+    engine.full()            # (n, n) Gram
+    engine.diag()            # (n,)  K(x_i, x_i)
+    engine.row(i, cache)     # ((n,), cache) one kernel row, LRU-cached
+    engine.block(rows, cols) # (r, c) arbitrary sub-block
+    engine.matvec(v)         # (n,)  K @ v, streamed over row blocks
+    engine.cross(z)          # (t, n) K(z, X) test-vs-train block
+    engine.decide(z, coef,b) # (t,)  K(z, X) @ coef + b
+    engine.init_cache()      # LRU row-cache state (None if unused)
+
+Backends: ``dense`` (precomputed (n, n) Gram), ``chunked`` (rows on the
+fly, O(n d) memory, LRU row cache), ``pallas`` (the chunked layout with
+the RBF / linear Gram, its rows and the decision values on the port's
+hand-written CUDA kernels; the name is the reference's, kept so that a
+config means the same in both packages) and ``auto`` (dense up to
+``dense_limit`` samples, chunked above). The plain backends compute
+with PyTorch ops in full float32 (TF32 stays off, the default of
+``torch.backends.cuda.matmul.allow_tf32``).
+
+Row indices are 0-d int64 tensors on the engine's device, and the row
+cache decides hit or miss on the device, so the SMO loop never waits
+for the host to learn either. The cache is updated in place (the
+reference threads a functional copy through its loop); hit and miss
+counts follow the reference exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import kernels as K
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static engine selection/config (same fields and defaults as the
+    reference).
+
+    backend:     auto | dense | chunked | pallas. The reference's
+                 sharded and low-rank (nystrom | rff) backends raise
+                 NotImplementedError here until their slice is ported.
+    cache_slots: LRU row-cache capacity (chunked/pallas row mode).
+    chunk:       row-block size for matvec()/decide() streaming.
+    dense_limit: 'auto' picks dense up to this n, chunked above; also the
+                 guard above which chunked/pallas full() refuse.
+    shard_axis:  the sharded backend's mesh axis (not ported yet).
+    gram_dtype:  "fp32" (exact, default) or "bf16" (bf16 operands with
+                 f32 accumulation and f32 epilogue).
+    rank / landmarks / seed: low-rank backends only (not ported yet).
+    """
+
+    backend: str = "auto"
+    cache_slots: int = 32
+    chunk: int = 2048
+    dense_limit: int = 8192
+    shard_axis: Optional[str] = None
+    gram_dtype: str = "fp32"
+    rank: int = 256
+    landmarks: str = "uniform"
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class RowCache:
+    """LRU row-cache state, all on the engine's device, updated in place."""
+
+    keys: torch.Tensor    # (slots,) int64 row index per slot, -1 = empty
+    stamp: torch.Tensor   # (slots,) int64 last-use tick (min = LRU victim)
+    rows: torch.Tensor    # (slots, n) float32 cached kernel rows
+    clock: torch.Tensor   # () int64 monotone tick
+    hits: torch.Tensor    # () int64 lookup statistics
+    misses: torch.Tensor  # () int64
+
+
+def take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``t[i]`` for a 0-d index tensor, gathered on the device (plain
+    indexing with a 0-d tensor may read it on the host)."""
+    return t.index_select(0, i.reshape(1))[0]
+
+
+class KernelEngine:
+    """Base: owns x + kernel params; subclasses define the Gram strategy."""
+
+    backend = "base"
+
+    def __init__(self, x: torch.Tensor, kernel: K.KernelParams,
+                 cfg: EngineConfig = EngineConfig()):
+        self.x = x.to(torch.float32).contiguous()
+        self.n = self.x.shape[0]
+        self.device = self.x.device
+        self.kernel = kernel
+        self.cfg = cfg
+        self._gram_fn = K.make_gram_fn(kernel, compute_dtype=cfg.gram_dtype)
+
+    # -------------------------------------------------------- interface
+    def full(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def diag(self) -> torch.Tensor:
+        if self.kernel.name == "rbf":  # K(x, x) = exp(0) exactly
+            return torch.ones((self.n,), dtype=torch.float32,
+                              device=self.device)
+        return torch.cat([torch.diagonal(self._gram_fn(xb, xb))
+                          for xb in self._row_blocks()])
+
+    def row(self, i: torch.Tensor, cache=None):
+        raise NotImplementedError
+
+    def block(self, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+        return self._gram_fn(self.x[rows], self.x[cols])
+
+    def cross(self, z: torch.Tensor) -> torch.Tensor:
+        return self._gram_fn(z.to(torch.float32), self.x)
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def decide(self, z: torch.Tensor, coef: torch.Tensor,
+               b: torch.Tensor | float = 0.0) -> torch.Tensor:
+        """K(z, X) @ coef + b, streamed over test-row chunks."""
+        z = z.to(torch.float32)
+        chunk = min(self.cfg.chunk, max(z.shape[0], 1))
+        out = [self.cross(zb) @ coef for zb in torch.split(z, chunk)]
+        if not out:
+            return torch.zeros((0,), dtype=torch.float32,
+                               device=self.device) + b
+        return torch.cat(out) + b
+
+    def init_cache(self) -> Optional[RowCache]:
+        return None
+
+    def _row_blocks(self):
+        return torch.split(self.x, min(self.cfg.chunk, max(self.n, 1)))
+
+
+class DenseKernelEngine(KernelEngine):
+    """Precomputed (n, n) Gram — the n <= ~8k fast path."""
+
+    backend = "dense"
+
+    def __init__(self, x, kernel, cfg: EngineConfig = EngineConfig(), *,
+                 gram: Optional[torch.Tensor] = None):
+        super().__init__(x, kernel, cfg)
+        self.gram = (self._gram_fn(self.x, self.x) if gram is None
+                     else gram.to(device=self.device, dtype=torch.float32))
+
+    def full(self):
+        return self.gram
+
+    def diag(self):
+        return torch.diagonal(self.gram)
+
+    def row(self, i, cache=None):
+        return take(self.gram, i), cache
+
+    def block(self, rows, cols):
+        return self.gram[rows][:, cols]
+
+    def matvec(self, v):
+        return self.gram @ v
+
+
+class ChunkedKernelEngine(KernelEngine):
+    """On-the-fly rows + LRU row cache; O(n d) resident memory."""
+
+    backend = "chunked"
+
+    def _compute_row(self, i: torch.Tensor) -> torch.Tensor:
+        return self._gram_fn(self.x, take(self.x, i)[None, :])[:, 0]
+
+    def _fill_slot(self, i, slot, hit, rows) -> None:
+        """Write row i into ``rows[slot]`` unless ``hit``. The plain
+        path computes the row either way and selects on the device."""
+        slot1 = slot.reshape(1)
+        cur = rows.index_select(0, slot1)[0]
+        rows.index_copy_(0, slot1,
+                         torch.where(hit, cur, self._compute_row(i))[None])
+
+    def init_cache(self) -> Optional[RowCache]:
+        slots = self.cfg.cache_slots
+        if slots <= 0:
+            return None
+        dev = self.device
+
+        def zero():
+            return torch.zeros((), dtype=torch.int64, device=dev)
+
+        return RowCache(
+            keys=torch.full((slots,), -1, dtype=torch.int64, device=dev),
+            stamp=torch.zeros((slots,), dtype=torch.int64, device=dev),
+            rows=torch.zeros((slots, self.n), dtype=torch.float32,
+                             device=dev),
+            clock=zero(), hits=zero(), misses=zero())
+
+    def row(self, i, cache: Optional[RowCache] = None):
+        if cache is None:
+            return self._compute_row(i), None
+        hit_vec = cache.keys == i
+        hit = hit_vec.any()
+        # hit: the slot holding i; miss: the least recently used slot
+        slot = torch.where(hit, torch.argmax(hit_vec.to(torch.int32)),
+                           torch.argmin(cache.stamp))
+        tick = cache.clock + 1
+        self._fill_slot(i, slot, hit, cache.rows)
+        slot1 = slot.reshape(1)
+        cache.keys.index_copy_(0, slot1, i.reshape(1).to(torch.int64))
+        cache.stamp.index_copy_(0, slot1, tick.reshape(1))
+        cache.clock = tick
+        cache.hits = cache.hits + hit.to(torch.int64)
+        cache.misses = cache.misses + (~hit).to(torch.int64)
+        return cache.rows.index_select(0, slot1)[0], cache
+
+    def matvec(self, v):
+        return torch.cat([self._gram_fn(xb, self.x) @ v
+                          for xb in self._row_blocks()])
+
+    def _refuse_full(self):
+        if self.n > self.cfg.dense_limit:
+            raise RuntimeError(
+                f"{type(self).__name__}.full(): refusing to materialize a "
+                f"({self.n}, {self.n}) Gram (dense_limit="
+                f"{self.cfg.dense_limit}); use row()/block()/matvec()")
+
+    def full(self):
+        self._refuse_full()
+        return torch.cat([self._gram_fn(xb, self.x)
+                          for xb in self._row_blocks()])
+
+
+class PallasKernelEngine(ChunkedKernelEngine):
+    """The chunked layout with the Gram hot spots on the CUDA kernels.
+
+    RBF and linear rows, blocks and matvec blocks go through
+    ``ops.gram_row`` / ``ops.rbf_gram``, and RBF decisions through
+    ``ops.decision``; on a CUDA tensor each launches its kernel or
+    raises. Other kernels take the plain path, as the reference's
+    pallas backend falls back to jnp for them. The training matrix is
+    kept once at the compute precision, with its squared norms.
+    """
+
+    backend = "pallas"
+
+    def __init__(self, x, kernel, cfg: EngineConfig = EngineConfig()):
+        super().__init__(x, kernel, cfg)
+        self._mode = kernel.name if kernel.name in ("rbf", "linear") else None
+        self._xk = self.x.to(ops.tile_dtype(cfg.gram_dtype)).contiguous()
+        self._x2 = K.sqnorms(self._xk)
+
+    def _gram(self, a, b, a2=None, b2=None):
+        return ops.rbf_gram(a, b, gamma=self.kernel.gamma, mode=self._mode,
+                            compute_dtype=self.cfg.gram_dtype, a2=a2, b2=b2)
+
+    def _compute_row(self, i):
+        if self._mode is None:
+            return super()._compute_row(i)
+        return ops.gram_row(self._xk, self._x2, i, gamma=self.kernel.gamma,
+                            mode=self._mode)
+
+    def _fill_slot(self, i, slot, hit, rows) -> None:
+        if self._mode is None:
+            return super()._fill_slot(i, slot, hit, rows)
+        ops.gram_row(self._xk, self._x2, i, gamma=self.kernel.gamma,
+                     mode=self._mode, out=rows, slot=slot, skip=hit)
+
+    def cross(self, z):
+        if self._mode is None:
+            return super().cross(z)
+        return self._gram(z, self._xk, b2=self._x2)
+
+    def block(self, rows, cols):
+        if self._mode is None:
+            return super().block(rows, cols)
+        return self._gram(self._xk[rows], self._xk[cols], self._x2[rows],
+                          self._x2[cols])
+
+    def matvec(self, v):
+        if self._mode is None:
+            return super().matvec(v)
+        step = min(self.cfg.chunk, max(self.n, 1))
+        return torch.cat([
+            self._gram(self._xk[s:s + step], self._xk,
+                       self._x2[s:s + step], self._x2) @ v
+            for s in range(0, self.n, step)])
+
+    def decide(self, z, coef, b=0.0):
+        if self.kernel.name == "rbf":
+            return ops.decision(z, self.x, coef, b, gamma=self.kernel.gamma,
+                                compute_dtype=self.cfg.gram_dtype)
+        return super().decide(z, coef, b)
+
+    def full(self):
+        self._refuse_full()
+        if self._mode is None:
+            return super().full()
+        return self._gram(self._xk, self._xk, self._x2, self._x2)
+
+
+_BACKENDS = {
+    "dense": DenseKernelEngine,
+    "chunked": ChunkedKernelEngine,
+    "pallas": PallasKernelEngine,
+}
+
+# the reference's other backends, and the slice that ports each
+UNPORTED_BACKENDS = {
+    "sharded": "data-parallel SMO (ROADMAP A.11)",
+    "nystrom": "the low-rank tier (ROADMAP A.8)",
+    "rff": "the low-rank tier (ROADMAP A.8)",
+}
+
+
+def check_backend(backend: str) -> None:
+    """Raise for a backend name this slice cannot build."""
+    if backend in UNPORTED_BACKENDS:
+        raise NotImplementedError(
+            f"engine backend {backend!r} is not ported yet; it comes with "
+            f"{UNPORTED_BACKENDS[backend]}")
+    if backend != "auto" and backend not in _BACKENDS:
+        raise ValueError(
+            f"unknown engine backend {backend!r}; expected one of "
+            f"{sorted([*_BACKENDS, *UNPORTED_BACKENDS])} or 'auto'")
+
+
+def make_engine(x: torch.Tensor, kernel: K.KernelParams,
+                cfg: EngineConfig | str = EngineConfig(), *,
+                gram: Optional[torch.Tensor] = None) -> KernelEngine:
+    """Resolve an EngineConfig (or backend name) into an engine bound to
+    ``x``, on ``x``'s device. A provided ``gram`` forces the dense
+    backend (the reference's shim for precomputed Grams)."""
+    if isinstance(cfg, str):
+        cfg = EngineConfig(backend=cfg)
+    if gram is not None:
+        return DenseKernelEngine(x, kernel, cfg, gram=gram)
+    check_backend(cfg.backend)
+    backend = cfg.backend
+    if backend == "auto":
+        backend = "dense" if x.shape[0] <= cfg.dense_limit else "chunked"
+    return _BACKENDS[backend](x, kernel, cfg)

@@ -1,0 +1,397 @@
+"""Parallel binary SMO — the paper's CUDA solver, in PyTorch on the card.
+
+Mirrors the unsharded half of ``repro/core/smo.py``: first-order
+working-set selection SMO (Keerthi modification 2) over the general
+box-constrained dual QP
+
+    min_a 1/2 a'Qa + p'a   s.t. sum_i y_i a_i = 0,  lo <= a <= hi
+
+with Q_ij = y_i y_j K(x_i, x_j), working on the optimality vector
+f_i = y_i ((Q a)_i + p_i); ``binary_smo`` is the classification
+instance (p = -1, box [0, C]).
+
+The reference runs the whole solve on the device (``lax.while_loop``
+around ``fori_loop``). Here the loop is eager PyTorch, built so that it
+does not wait for the host on every iteration: the working pair, every
+scalar of the pair update and the ``step_live`` flag stay 0-d tensors
+on the device, the kernel-row cache decides hit or miss on the device,
+and the host reads one pair of numbers (converged?, n_iter) per block
+of ``check_every`` iterations — the paper's "convergence checks on the
+host for every set of iterations on the device". As in the reference,
+a block always runs all its iterations (a step after convergence is a
+no-op), ``n_iter`` counts only live steps, and ``max_iter`` is tested
+per block. On the card, selection is the ``kkt_select`` kernel and the
+two kernel rows per iteration come from the ``rbf_gram`` row kernel
+(``engine="pallas"``).
+
+``kkt_violation`` is the solver-independent optimality certificate,
+computed in float64.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import kernel_engine as KE
+from repro_torch.core import kernels as K
+from repro_torch.core.kernel_engine import take
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class SMOConfig:
+    """Solver hyper-parameters (box constraint + stopping rule). The
+    reference's legacy ``precompute_gram`` / ``use_pallas`` shims are
+    not carried over: pass ``engine=`` instead."""
+
+    C: float = 1.0
+    tol: float = 1e-3
+    max_iter: int = 100_000       # hard cap on SMO pair updates
+    check_every: int = 32         # device iterations per convergence check
+    selection: str = "first"      # first (paper) | second (WSS2)
+    shrink_every: int = 0         # convergence checks between adaptive-
+                                  # shrinking passes; 0 disables shrinking
+    shrink_slack: float = 1.0     # freeze corridor slack, in units of tol
+
+
+class SMOResult(NamedTuple):
+    alpha: torch.Tensor      # (n,) Lagrange multipliers
+    b: torch.Tensor          # () bias, decision = sum a_i y_i K(x_i, .) + b
+    n_iter: torch.Tensor     # () pair updates actually applied
+    converged: torch.Tensor  # () bool
+    gap: torch.Tensor        # () final b_low - b_up
+    n_active: torch.Tensor   # () samples still active at exit
+
+
+@dataclasses.dataclass
+class _State:
+    alpha: torch.Tensor
+    f: torch.Tensor
+    n_iter: torch.Tensor
+    b_up: torch.Tensor
+    b_low: torch.Tensor
+    active: torch.Tensor     # (n,) bool adaptive-shrinking active set
+    cache: Optional[KE.RowCache]
+
+
+def _selection(f, alpha, y, mask, lo, hi):
+    """Working-set selection: (b_up, i_up, b_low, i_low), 0-d tensors.
+
+    The reduction stage — the CUDA block-reduce of the paper. On the
+    card it is one ``kkt_select`` kernel launch; membership epsilon is
+    relative to the box width, 1e-6 (hi - lo) (see the reference)."""
+    return ops.kkt_select(f, alpha, y, mask, lo, hi)
+
+
+def _pair_update(a_i, a_j, y_i, y_j, f_i, f_j, k_ii, k_jj, k_ij,
+                 lo_i, hi_i, lo_j, hi_j):
+    """Scalar two-multiplier update for the working pair (i, j): the
+    Newton step on a_j clipped to the segment the equality constraint
+    cuts out of the box, with exact-bound snapping (reference
+    ``_pair_update``, expression for expression)."""
+    eta = torch.clamp_min(k_ii + k_jj - 2.0 * k_ij, 1e-12)
+    a_j_new = a_j + y_j * (f_i - f_j) / eta
+    same = y_i == y_j
+    # same sign: a_i + a_j is conserved; opposite: a_j - a_i is conserved
+    lo_seg = torch.where(same, torch.maximum(lo_j, a_i + a_j - hi_i),
+                         torch.maximum(lo_j, lo_i + a_j - a_i))
+    hi_seg = torch.where(same, torch.minimum(hi_j, a_i + a_j - lo_i),
+                         torch.minimum(hi_j, hi_i + a_j - a_i))
+    a_j_new = torch.minimum(torch.maximum(a_j_new, lo_seg), hi_seg)
+    a_i_new = a_i + y_i * y_j * (a_j - a_j_new)
+
+    snap_i = 1e-6 * (hi_i - lo_i)
+    snap_j = 1e-6 * (hi_j - lo_j)
+    a_j_new = torch.where(a_j_new < lo_j + snap_j, lo_j,
+                          torch.where(a_j_new > hi_j - snap_j, hi_j, a_j_new))
+    a_i_new = torch.where(a_i_new < lo_i + snap_i, lo_i,
+                          torch.where(a_i_new > hi_i - snap_i, hi_i, a_i_new))
+    return a_i_new, a_j_new
+
+
+def _membership(alpha, y, lo, hi, eps):
+    pos, neg = y > 0, y <= 0
+    not_upper = alpha < hi - eps    # can increase
+    not_lower = alpha > lo + eps    # can decrease
+    in_up = (pos & not_upper) | (neg & not_lower)
+    in_low = (pos & not_lower) | (neg & not_upper)
+    return in_up, in_low, not_upper & not_lower
+
+
+def _shrink_active(f, alpha, y, mask, b_up, b_low, lo, hi, cfg: SMOConfig):
+    """Samples that may still join a violating pair (LIBSVM-style): a
+    bound-pinned sample is frozen once its f lies beyond the current
+    [b_up, b_low] corridor on its non-violating side (slack in units of
+    tol); free samples are never frozen."""
+    slack = cfg.shrink_slack * cfg.tol
+    in_up, in_low, free = _membership(alpha, y, lo, hi, 1e-6 * (hi - lo))
+    keep_up = in_up & (f <= b_low + slack)
+    keep_low = in_low & (f >= b_up - slack)
+    return mask & (free | keep_up | keep_low)
+
+
+def kkt_violation(alpha, y, f, lo, hi, tol: float = 0.0, mask=None,
+                  r=None) -> torch.Tensor:
+    """Max per-sample KKT violation of the box QP at ``alpha``, in
+    float64 — the solver-independent optimality certificate.
+
+    ``f`` is the optimality vector y_i ((Q alpha)_i + p_i); recompute it
+    from scratch to certify a solver rather than trust its bookkeeping.
+    Returns min_r max_i [(r - f_i)_+ on I_up, (f_i - r)_+ on I_low]
+    == max(0, (b_low - b_up) / 2), or with ``r`` given the violation at
+    that pinned multiplier. ``tol`` loosens the bound-membership epsilon
+    (as a fraction of the box width); 0 keeps the solver's 1e-6 rule.
+    A 0-d float64 tensor on ``alpha``'s device."""
+    f64 = torch.float64
+    dev = alpha.device if isinstance(alpha, torch.Tensor) else "cpu"
+
+    def cast(v, dtype=f64):  # tensors move; anything else is copied in
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=dtype)
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    alpha, f, y = cast(alpha), cast(f), cast(y)
+    lo = cast(lo).broadcast_to(alpha.shape)
+    hi = cast(hi).broadcast_to(alpha.shape)
+    mask = (torch.ones(alpha.shape, dtype=torch.bool, device=dev)
+            if mask is None else cast(mask, torch.bool))
+    in_up, in_low, _ = _membership(alpha, y, lo, hi,
+                                   max(1e-6, tol) * (hi - lo))
+    b_up = torch.min(torch.where(mask & in_up, f, torch.inf))
+    b_low = torch.max(torch.where(mask & in_low, f, -torch.inf))
+    zero = torch.zeros((), dtype=f64, device=dev)
+    if r is None:
+        return torch.maximum(zero, (b_low - b_up) / 2.0)
+    return torch.maximum(zero, torch.maximum(r - b_up, b_low - r))
+
+
+def _smo_iteration(st: _State, *, y, mask, lo, hi, engine: KE.KernelEngine,
+                   cfg: SMOConfig, diag=None, shrink: bool = False) -> None:
+    """One working-set pair update + f-cache refresh, in place on ``st``.
+
+    selection="first": maximal violating pair (the paper's GPU solver).
+    selection="second" (WSS2, Fan et al. 2005): i = argmin_{I_up} f,
+    then j maximizes the guaranteed gain (f_j - f_i)^2 / (2 eta_ij) over
+    I_low.
+    """
+    alpha, f = st.alpha, st.f
+    sel_mask = (mask & st.active) if shrink else mask
+    b_up, i_up, b_low, i_low = _selection(f, alpha, y, sel_mask, lo, hi)
+    step_live = b_low > b_up + 2.0 * cfg.tol  # not yet converged
+
+    j = i_up
+    row_j, cache = engine.row(j, st.cache)
+    k_jj = take(row_j, j)
+
+    if cfg.selection == "second":
+        _, in_low, _ = _membership(alpha, y, lo, hi, 1e-6 * (hi - lo))
+        eta_all = torch.clamp_min(diag + k_jj - 2.0 * row_j, 1e-12)
+        df = f - b_up
+        gain = torch.where(sel_mask & in_low & (df > 0.0), df * df / eta_all,
+                           -torch.inf)
+        i = torch.argmax(gain)
+    else:
+        i = i_low
+
+    ij = torch.stack([i, j])
+    y_i, y_j = y[ij].unbind()
+    a_i, a_j = alpha[ij].unbind()
+    f_i, f_j = f[ij].unbind()
+    lo_i, lo_j = lo[ij].unbind()
+    hi_i, hi_j = hi[ij].unbind()
+
+    row_i, cache = engine.row(i, cache)
+    k_ii = take(row_i, i)
+    k_ij = take(row_i, j)
+    a_i_new, a_j_new = _pair_update(a_i, a_j, y_i, y_j, f_i, f_j,
+                                    k_ii, k_jj, k_ij, lo_i, hi_i, lo_j, hi_j)
+
+    d_i = torch.where(step_live, a_i_new - a_i, 0.0)
+    d_j = torch.where(step_live, a_j_new - a_j, 0.0)
+
+    alpha.index_add_(0, i.reshape(1), d_i.reshape(1))
+    alpha.index_add_(0, j.reshape(1), d_j.reshape(1))
+    # the "one thread per sample" stage. The float association
+    # (f + d_i y_i row_i) + d_j y_j row_j, left to right, is the
+    # reference's and is load-bearing (see its NOTE): keep it. XLA
+    # compiles its multiply-adds into FMAs — fma(c_j, row_j, fma(c_i,
+    # row_i, f)), and for the shrinking update fma(c_i, row_i, c_j row_j)
+    # — and addcmul is the same fused multiply-add, so the two packages
+    # round alike and follow the same SMO trajectory.
+    c_i, c_j = d_i * y_i, d_j * y_j
+    if shrink:
+        upd = torch.addcmul(c_j * row_j, row_i, c_i)
+        st.f = torch.where(st.active, f + upd, f)
+    else:
+        st.f = torch.addcmul(torch.addcmul(f, row_i, c_i), row_j, c_j)
+    st.n_iter = st.n_iter + step_live.to(torch.int64)
+    st.b_up, st.b_low, st.cache = b_up, b_low, cache
+
+
+def _resolve_engine(x, kernel, engine) -> KE.KernelEngine:
+    if isinstance(engine, KE.KernelEngine):
+        return engine
+    return KE.make_engine(x, kernel, "dense" if engine is None else engine)
+
+
+def _vec(v, n: int, dev) -> torch.Tensor:
+    return (torch.as_tensor(v, dtype=torch.float32, device=dev)
+            .broadcast_to((n,)).contiguous())
+
+
+def solve_qp(x: torch.Tensor,
+             y: torch.Tensor,
+             p: torch.Tensor,
+             lo: torch.Tensor | float,
+             hi: torch.Tensor | float,
+             mask: Optional[torch.Tensor] = None,
+             *,
+             cfg: SMOConfig = SMOConfig(),
+             kernel: K.KernelParams = K.KernelParams(),
+             engine: Optional[KE.KernelEngine | KE.EngineConfig | str] = None,
+             alpha0: Optional[torch.Tensor] = None) -> SMOResult:
+    """Solve the general box-constrained dual QP with parallel SMO on
+    ``x``'s device (see the module docstring).
+
+    Args:
+      x: (n, d) float training samples.
+      y: (n,) sign vector in {+1, -1} (0 marks padding).
+      p: (n,) linear term of the QP.
+      lo / hi: box bounds, scalar or (n,); 0 must lie inside the box.
+      mask: (n,) bool validity mask — masked entries are never selected
+        and keep alpha = 0.
+      engine: a bound ``KernelEngine``, an ``EngineConfig``, or a backend
+        name; None is the dense backend (the reference's default).
+      alpha0: (n,) warm-start multipliers, clipped to the box and zeroed
+        on masked entries; the f-cache is rebuilt with one matvec. The
+        caller keeps ``sum_i y_i alpha0_i`` ~ 0.
+    """
+    if cfg.selection not in ("first", "second"):
+        raise ValueError(f"unknown selection {cfg.selection!r}; expected "
+                         "'first' or 'second'")
+    dev = x.device
+    n = x.shape[0]
+    x = x.to(torch.float32)
+    y = y.to(device=dev, dtype=torch.float32).contiguous()
+    p = _vec(p, n, dev)
+    lo = _vec(lo, n, dev)
+    hi = _vec(hi, n, dev)
+    # the solver starts at alpha = 0, which must be inside the box
+    if bool(torch.any((lo > 0.0) | (hi < 0.0))):
+        raise ValueError(
+            "solve_qp initializes alpha = 0, which must be feasible: "
+            "need lo <= 0 <= hi elementwise (shift the variables to "
+            "move the box)")
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    mask = (mask.to(dev) & (torch.abs(y) > 0.5)).contiguous()
+
+    eng = _resolve_engine(x, kernel, engine)
+    shrink = cfg.shrink_every > 0
+
+    if alpha0 is None:
+        a0 = torch.zeros((n,), dtype=torch.float32, device=dev)
+        f0 = y * p  # alpha = 0  =>  f_i = y_i p_i (classification: -y_i)
+    else:
+        a0 = torch.minimum(torch.maximum(
+            torch.as_tensor(alpha0, dtype=torch.float32, device=dev), lo),
+            hi) * mask
+        f0 = eng.matvec(a0 * y) + y * p
+    st = _State(alpha=a0.contiguous(), f=f0,
+                n_iter=torch.zeros((), dtype=torch.int64, device=dev),
+                b_up=torch.tensor(-1.0, device=dev),
+                b_low=torch.tensor(1.0, device=dev),
+                active=mask, cache=eng.init_cache())
+    diag = eng.diag() if cfg.selection == "second" else None
+    two_tol = 2.0 * cfg.tol
+
+    done, n_iter, checks = False, 0, 0
+    while not done and n_iter < cfg.max_iter:
+        # paper Fig. 3: `check_every` device iterations between checks
+        for _ in range(cfg.check_every):
+            _smo_iteration(st, y=y, mask=mask, lo=lo, hi=hi, engine=eng,
+                           cfg=cfg, diag=diag, shrink=shrink)
+        conv_active = st.b_low <= st.b_up + two_tol
+        conv, n_iter = torch.stack([conv_active.to(torch.int64),
+                                    st.n_iter]).tolist()  # the one read
+        if not shrink:
+            done = bool(conv)
+            continue
+        checks += 1
+        if conv:
+            # exact gradient for ALL samples, then the un-shrunk KKT
+            # re-check; resume on the full set if it does not survive
+            st.f = eng.matvec(st.alpha * y) + y * p
+            st.b_up, _, st.b_low, _ = _selection(st.f, st.alpha, y, mask,
+                                                 lo, hi)
+            st.active = mask
+            done = bool(st.b_low <= st.b_up + two_tol)
+        elif checks % cfg.shrink_every == 0:
+            st.active = _shrink_active(st.f, st.alpha, y, mask, st.b_up,
+                                       st.b_low, lo, hi, cfg) & st.active
+
+    # final selection for the reported gap / bias, on the UN-shrunk set
+    f_final = eng.matvec(st.alpha * y) + y * p if shrink else st.f
+    b_up, _, b_low, _ = _selection(f_final, st.alpha, y, mask, lo, hi)
+    return SMOResult(alpha=st.alpha * mask, b=-(b_up + b_low) / 2.0,
+                     n_iter=st.n_iter,
+                     converged=b_low <= b_up + two_tol, gap=b_low - b_up,
+                     n_active=torch.sum(st.active & mask))
+
+
+def _classification_spec(y: torch.Tensor, c: float):
+    """(p, lo, hi) of the soft-margin classification dual: p = -1 over
+    the box [0, C]."""
+    n, dev = y.shape[0], y.device
+    return (torch.full((n,), -1.0, device=dev),
+            torch.zeros((n,), device=dev),
+            torch.full((n,), float(c), device=dev))
+
+
+def binary_smo(x: torch.Tensor,
+               y: torch.Tensor,
+               mask: Optional[torch.Tensor] = None,
+               *,
+               cfg: SMOConfig = SMOConfig(),
+               kernel: K.KernelParams = K.KernelParams(),
+               engine: Optional[KE.KernelEngine | KE.EngineConfig | str] = None,
+               alpha0: Optional[torch.Tensor] = None) -> SMOResult:
+    """Solve one binary soft-margin SVM dual with parallel SMO — the
+    classification instance of ``solve_qp``, on ``x``'s device.
+    ``y`` holds labels in {+1, -1}."""
+    y = y.to(device=x.device, dtype=torch.float32)
+    p, lo, hi = _classification_spec(y, cfg.C)
+    return solve_qp(x, y, p, lo, hi, mask, cfg=cfg, kernel=kernel,
+                    engine=engine, alpha0=alpha0)
+
+
+def decision_function(x_train, y_train, alpha, b, x_test, *,
+                      kernel: K.KernelParams = K.KernelParams(),
+                      engine: Optional[KE.KernelEngine | KE.EngineConfig
+                                       | str] = None) -> torch.Tensor:
+    """f(z) = sum_i alpha_i y_i K(x_i, z) + b for each test row z: through
+    ``engine.decide`` when an engine is given (the ``decision`` kernel
+    for ``engine="pallas"``), else the full cross-Gram."""
+    coef = alpha * y_train.to(torch.float32)
+    if engine is not None:
+        if not isinstance(engine, KE.KernelEngine):
+            engine = KE.make_engine(x_train, kernel, engine)
+        return engine.decide(x_test, coef, b)
+    gram_fn = K.make_gram_fn(kernel)
+    return gram_fn(x_test.to(torch.float32),
+                   x_train.to(torch.float32)) @ coef + b
+
+
+def dual_objective(y, alpha, gram) -> torch.Tensor:
+    """W(alpha) = 1'a - 1/2 a' (yy' * K) a — maximized by the dual SVM."""
+    ay = alpha * y
+    return torch.sum(alpha) - 0.5 * ay @ (gram @ ay)
+
+
+def qp_objective(alpha, y, p, gram) -> torch.Tensor:
+    """W(a) = -(1/2 (ya)'K(ya) + p'a) — the maximized dual objective of
+    the general box QP (``dual_objective`` is the p = -1 instance)."""
+    ay = alpha * y
+    return -(0.5 * ay @ (gram @ ay) + p @ alpha)

@@ -1,0 +1,267 @@
+"""Checked entry points of the port's four kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, then:
+
+* for tensors on the CPU, runs the kernel's plain PyTorch version (the
+  only reason it does is that the tensors lie on the CPU);
+* for tensors on the card, launches the hand-written CUDA kernel on
+  the current stream — built at first use by ``kernels._build`` — and
+  raises if the launch reports an error. There is no fallback.
+
+Every wrapper adds one to its entry of ``launches`` where it launches
+its kernel, and nowhere else, so a run can show that its main path went
+through the kernels (``reset_launches`` zeroes the counts).
+
+Unlike ``repro/kernels/ops.py`` nothing is padded to tile multiples:
+the kernels mask their ragged edges themselves.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from repro_torch.core.kernels import COMPUTE_DTYPES, sqnorms
+from repro_torch.kernels import _build
+from repro_torch.kernels import decision as _decision
+from repro_torch.kernels import kkt_select as _kkt
+from repro_torch.kernels import rbf_gram as _gram
+
+# one count per kernel entry point: rbf_gram.cu has a block and a row one
+KERNELS = ("rbf_gram", "rbf_gram_row", "kkt_select", "decision",
+           "multitask_decision")
+launches = {k: 0 for k in KERNELS}
+_count_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for k in KERNELS:
+            launches[k] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launches[name] += 1
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; anything else, or a
+    mix of devices, raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on several devices "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _check_contiguous(name: str, **tensors: torch.Tensor) -> None:
+    bad = [k for k, t in tensors.items() if not t.is_contiguous()]
+    if bad:
+        raise ValueError(f"{name}: non-contiguous operand(s) {bad}")
+
+
+def _raise_on_error(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
+                           f"{code}")
+
+
+def tile_dtype(compute_dtype: str) -> torch.dtype:
+    """Operand dtype the kernels load for an ``EngineConfig.gram_dtype``."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}; "
+                         f"expected one of {COMPUTE_DTYPES}")
+    return torch.bfloat16 if compute_dtype == "bf16" else torch.float32
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _gram.MODES:
+        raise ValueError(f"unknown kernel mode {mode!r}; expected one of "
+                         f"{_gram.MODES}")
+
+
+# --------------------------------------------------------------- rbf_gram
+def rbf_gram(a: torch.Tensor, b: torch.Tensor, *, gamma: float = 1.0,
+             mode: str = "rbf", compute_dtype: str = "fp32",
+             a2: torch.Tensor | None = None,
+             b2: torch.Tensor | None = None) -> torch.Tensor:
+    """K(a, b): (n, m) float32 Gram block (rbf or linear). The operands
+    are rounded to ``compute_dtype``; the squared norms are computed
+    from the rounded values unless the caller passes them (a resident
+    engine keeps the training set's norms)."""
+    _check_mode(mode)
+    dt = tile_dtype(compute_dtype)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"rbf_gram: need (n, d) and (m, d) operands, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    a, b = a.to(dt), b.to(dt)
+    a2 = sqnorms(a) if a2 is None else a2
+    b2 = sqnorms(b) if b2 is None else b2
+    if a2.shape != (a.shape[0],) or b2.shape != (b.shape[0],):
+        raise ValueError("rbf_gram: norm vectors do not match the operands")
+    if not _on_card("rbf_gram", a, b, a2, b2):
+        return _gram.rbf_gram_plain(a, b, a2, b2, gamma=gamma, mode=mode)
+    _check_contiguous("rbf_gram", a=a, b=b, a2=a2, b2=b2)
+    if a2.dtype != torch.float32 or b2.dtype != torch.float32:
+        raise ValueError("rbf_gram: norms must be float32")
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32,
+                      device=a.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    _count("rbf_gram")
+    _raise_on_error("rbf_gram", _gram.launch_block(
+        lib, a, b, a2, b2, out, gamma=gamma, mode=mode))
+    return out
+
+
+def gram_row(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor, *,
+             gamma: float = 1.0, mode: str = "rbf",
+             out: torch.Tensor | None = None,
+             slot: torch.Tensor | None = None,
+             skip: torch.Tensor | None = None) -> torch.Tensor:
+    """The Gram row K(X, x_i), (n,) float32, for the SMO f-cache update.
+
+    ``x`` is already at the compute precision (float32 or bfloat16) and
+    ``x2`` its float32 squared norms; ``i`` is a 0-d int64 tensor on the
+    same device, so the solver never reads it on the host. With
+    ``out`` (a (slots, n) LRU row store), the row is written into
+    ``out[slot]`` unless the 0-d bool ``skip`` is set (a cache hit), and
+    ``out`` is returned."""
+    _check_mode(mode)
+    if x.ndim != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gram_row: x must be (n, d) float32/bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if i.ndim != 0 or i.dtype != torch.int64:
+        raise ValueError("gram_row: i must be a 0-d int64 tensor")
+    n = x.shape[0]
+    if x2.shape != (n,) or x2.dtype != torch.float32:
+        raise ValueError("gram_row: x2 must be (n,) float32")
+    if out is not None and (out.ndim != 2 or out.shape[1] != n
+                            or out.dtype != torch.float32
+                            or slot is None or skip is None):
+        raise ValueError("gram_row: out must be a (slots, n) float32 row "
+                         "store, given with slot and skip")
+    extra = [] if out is None else [out, slot, skip]
+    if not _on_card("gram_row", x, x2, i, *extra):
+        row = _gram.gram_row_plain(x, x2, i, gamma=gamma, mode=mode)
+        if out is None:
+            return row
+        cur = out.index_select(0, slot.reshape(1))[0]
+        out.index_copy_(0, slot.reshape(1), torch.where(skip, cur, row)[None])
+        return out
+    _check_contiguous("gram_row", x=x, x2=x2)
+    if out is None:
+        out = torch.empty((1, n), dtype=torch.float32, device=x.device)
+        result = out[0]
+    else:
+        _check_contiguous("gram_row", out=out)
+        if slot.dtype != torch.int64 or skip.dtype != torch.bool:
+            raise ValueError("gram_row: slot must be int64 and skip bool")
+        result = out
+    lib = _build.library()
+    _count("rbf_gram_row")
+    _raise_on_error("rbf_gram_row", _gram.launch_row(
+        lib, x, x2, i, out, slot, skip, gamma=gamma, mode=mode))
+    return result
+
+
+# ------------------------------------------------------------- kkt_select
+def kkt_select(f: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor,
+               mask: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
+    """Fused masked KKT selection: (b_up, i_up, b_low, i_low) as 0-d
+    tensors on the operands' device (float32 values, int64 indices)."""
+    n = f.shape[0]
+    for name, t in (("f", f), ("alpha", alpha), ("y", y), ("lo", lo),
+                    ("hi", hi)):
+        if t.shape != (n,) or t.dtype != torch.float32:
+            raise ValueError(f"kkt_select: {name} must be ({n},) float32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if mask.shape != (n,) or mask.dtype != torch.bool:
+        raise ValueError(f"kkt_select: mask must be ({n},) bool")
+    if n == 0:
+        raise ValueError("kkt_select: empty input")
+    if not _on_card("kkt_select", f, alpha, y, mask, lo, hi):
+        return _kkt.kkt_select_plain(f, alpha, y, mask, lo, hi)
+    _check_contiguous("kkt_select", f=f, alpha=alpha, y=y, mask=mask, lo=lo,
+                      hi=hi)
+    dev = f.device
+    part = torch.empty(2 * _kkt.n_blocks(n), dtype=torch.int64, device=dev)
+    vals = torch.empty(2, dtype=torch.float32, device=dev)
+    idx = torch.empty(2, dtype=torch.int64, device=dev)
+    lib = _build.library()
+    _count("kkt_select")
+    _raise_on_error("kkt_select", _kkt.launch(lib, f, alpha, y, mask, lo, hi,
+                                              part, vals, idx))
+    return vals[0], idx[0], vals[1], idx[1]
+
+
+# --------------------------------------------------------------- decision
+def _decision_operands(name, z, sv, coef, compute_dtype):
+    dt = tile_dtype(compute_dtype)
+    if z.ndim != 2 or z.shape[1] != sv.shape[-1]:
+        raise ValueError(f"{name}: need (nt, d) test rows matching the "
+                         f"bank's d, got {tuple(z.shape)} and "
+                         f"{tuple(sv.shape)}")
+    if coef.shape != sv.shape[:-1]:
+        raise ValueError(f"{name}: coef shape {tuple(coef.shape)} != bank "
+                         f"shape {tuple(sv.shape[:-1])}")
+    return z.to(dt), sv.to(dt), coef.to(torch.float32)
+
+
+def decision(z: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
+             b: torch.Tensor | float = 0.0, *, gamma: float = 1.0,
+             compute_dtype: str = "fp32") -> torch.Tensor:
+    """f(z) = K(z, X) @ coef + b (RBF) for a batch of test rows."""
+    z, x, coef = _decision_operands("decision", z, x, coef, compute_dtype)
+    if x.ndim != 2:
+        raise ValueError("decision: x must be (n, d)")
+    if not _on_card("decision", z, x, coef):
+        return _decision.decision_plain(z, x, coef, gamma=gamma) + b
+    _check_contiguous("decision", z=z, x=x, coef=coef)
+    if z.shape[0] == 0 or x.shape[0] == 0:
+        return torch.zeros((z.shape[0],), dtype=torch.float32,
+                           device=z.device) + b
+    out = torch.empty((z.shape[0],), dtype=torch.float32, device=z.device)
+    lib = _build.library()
+    _count("decision")
+    _raise_on_error("decision", _decision.launch_decision(
+        lib, z, x, coef, out, gamma=gamma))
+    return out + b
+
+
+def multitask_decision(z: torch.Tensor, sv: torch.Tensor,
+                       coef: torch.Tensor, b: torch.Tensor | None = None, *,
+                       gamma: float = 1.0, mode: str = "rbf",
+                       compute_dtype: str = "fp32") -> torch.Tensor:
+    """f_t(z) = K(z, SV_t) @ coef_t + b_t for a stacked (T, w, d) bank:
+    (T, nt) float32. A width-0 bank (no support vectors anywhere)
+    short-circuits to the broadcast bias."""
+    _check_mode(mode)
+    if sv.ndim != 3:
+        raise ValueError("multitask_decision: sv must be (T, w, d)")
+    z, sv, coef = _decision_operands("multitask_decision", z, sv, coef,
+                                     compute_dtype)
+    n_tasks, w, _ = sv.shape
+    bias = (None if b is None
+            else b.to(torch.float32).reshape(n_tasks, 1))
+    if w == 0 or z.shape[0] == 0:
+        out = torch.zeros((n_tasks, z.shape[0]), dtype=torch.float32,
+                          device=z.device)
+        return out if bias is None else out + bias
+    if not _on_card("multitask_decision", z, sv, coef):
+        out = _decision.multitask_decision_plain(z, sv, coef, gamma=gamma,
+                                                 mode=mode)
+        return out if bias is None else out + bias
+    _check_contiguous("multitask_decision", z=z, sv=sv, coef=coef)
+    out = torch.empty((n_tasks, z.shape[0]), dtype=torch.float32,
+                      device=z.device)
+    lib = _build.library()
+    _count("multitask_decision")
+    _raise_on_error("multitask_decision", _decision.launch_multitask(
+        lib, z, sv, coef, out, gamma=gamma, mode=mode))
+    return out if bias is None else out + bias

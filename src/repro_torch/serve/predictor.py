@@ -1,0 +1,169 @@
+"""Batched serving engine: a device-resident SV bank and one decide
+program per (bank signature, batch bucket).
+
+Mirrors the binary part of ``repro/serve/predictor.py``:
+
+* the packed SV bank is moved to the device once, at construction, and
+  stays resident;
+* a request is cut into slices of at most ``max_batch`` rows, and each
+  slice is zero-padded up to the next power of two (capped at
+  ``max_batch``), so arbitrary request sizes reuse a small warm set of
+  program shapes; padded rows are sliced off before results leave;
+* with ``engine="pallas"`` and an RBF kernel, a slice is one launch of
+  the fused ``multitask_decision`` kernel; the chunked config runs
+  ``KernelEngine.decide`` per task (the plain reference path);
+* ``n_programs`` counts the distinct (bank signature, batch bucket)
+  pairs served so far — the program shapes a captured-graph cache will
+  hold (PyTorch runs eagerly, so nothing is compiled per entry yet).
+
+``decision_values`` is thread-safe: each caller owns its output, and the
+served-row counter and the program ledger are guarded by a lock.
+
+    pred = Predictor(serve.load("model.npz"), engine="pallas")
+    pred.warmup((1, 256)).predict(Z)
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core import kernel_engine as KE
+from repro_torch.kernels import ops
+from repro_torch.serve.artifact import PackedModel
+
+
+def serving_config(engine: str | KE.EngineConfig) -> KE.EngineConfig:
+    """Resolve an engine choice into the serving-side config: serving
+    needs neither the (sv, sv) training Gram nor the row cache, so every
+    backend but an explicit pallas degrades to chunked; ``shard_axis``
+    is stripped (the serving host has no training mesh)."""
+    cfg = (engine if isinstance(engine, KE.EngineConfig)
+           else KE.EngineConfig(backend=engine))
+    backend = "pallas" if cfg.backend == "pallas" else "chunked"
+    return dataclasses.replace(cfg, backend=backend, cache_slots=0,
+                               shard_axis=None)
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (int(n).bit_length() - 1)
+
+
+class Predictor:
+    """Serve a binary ``PackedModel`` on ``device``; see module docstring."""
+
+    # the served-row counter and program ledger are mutated by every
+    # concurrent decision_values caller (enforced by analysis rule R004)
+    _GUARDED_BY = {"n_requests": "_lock", "_program_sigs": "_lock"}
+
+    def __init__(self, model: PackedModel, *,
+                 engine: str | KE.EngineConfig = "auto",
+                 max_batch: int = 1024,
+                 device: str | torch.device = "cuda"):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self.device = resolve_device(device)
+        self.model = model
+        # max_batch is a rung on the pow2 padding ladder: round DOWN so
+        # the cap is on-ladder and never exceeds what the caller asked
+        self.max_batch = _pow2_floor(max_batch)
+        self.engine_cfg = serving_config(engine)
+        # SV banks move to the device once and stay resident; task_ids
+        # stay on the host (they only scatter results into place)
+        self._banks = tuple(
+            (torch.from_numpy(np.asarray(g.sv_x, np.float32)).to(self.device),
+             torch.from_numpy(np.asarray(g.sv_coef, np.float32))
+             .to(self.device),
+             torch.from_numpy(np.asarray(g.b, np.float32)).to(self.device),
+             np.asarray(g.task_ids))
+            for g in model.buckets)
+        self.n_requests = 0  # rows served (warmup excluded)
+        self._program_sigs: set = set()
+        self._lock = threading.Lock()
+
+    # ---------------------------------------------------------- programs
+    def _decide_stack(self, sv_x, sv_coef, b, z):
+        """(T, w, d) stacked bank x (B, d) batch -> (T, B) decisions."""
+        kp = self.model.kernel
+        if self.engine_cfg.backend == "pallas" and kp.name == "rbf":
+            return ops.multitask_decision(
+                z, sv_x, sv_coef, b, gamma=kp.gamma, mode="rbf",
+                compute_dtype=self.engine_cfg.gram_dtype)
+        return torch.stack([
+            KE.make_engine(sv, kp, self.engine_cfg).decide(z, cf, bb)
+            for sv, cf, bb in zip(sv_x, sv_coef, b)])
+
+    @property
+    def n_programs(self) -> int:
+        """Distinct (bank shape/dtype, batch bucket) signatures served."""
+        with self._lock:
+            return len(self._program_sigs)
+
+    def _batch_bucket(self, t: int) -> int:
+        return min(self.max_batch, 1 << (max(t, 1) - 1).bit_length())
+
+    def warmup(self, batch_sizes=(1,)) -> "Predictor":
+        """Run the decide and decode paths once per request size (this
+        also builds the CUDA kernels on first use). Warmup rows do NOT
+        count toward ``n_requests``."""
+        d = self.model.n_features
+        for t in batch_sizes:
+            self.predict(np.zeros((int(t), d), np.float32))
+        # subtract exactly the synthetic rows: real requests served
+        # concurrently during warmup keep their counts
+        with self._lock:
+            self.n_requests -= sum(int(t) for t in batch_sizes)
+        return self
+
+    # ------------------------------------------------------------ serving
+    def decision_values(self, xt: np.ndarray) -> np.ndarray:
+        """(n_tasks, nt) stacked binary decision values."""
+        xt = np.asarray(xt, np.float32)
+        if xt.ndim != 2 or xt.shape[1] != self.model.n_features:
+            raise ValueError(
+                f"expected (n, {self.model.n_features}) request batch, "
+                f"got shape {xt.shape}")
+        nt = xt.shape[0]
+        out = np.empty((self.model.n_tasks, nt), np.float32)
+        sigs = []
+        for start in range(0, nt, self.max_batch):
+            stop = min(start + self.max_batch, nt)
+            bucket = self._batch_bucket(stop - start)
+            zp = np.zeros((bucket, xt.shape[1]), np.float32)
+            zp[:stop - start] = xt[start:stop]
+            z = torch.from_numpy(zp).to(self.device)
+            for sv_x, sv_coef, b, task_ids in self._banks:
+                if sv_x.shape[1] == 0:  # empty-SV bank: constant bias
+                    out[task_ids, start:stop] = b.cpu().numpy()[:, None]
+                    continue
+                df = self._decide_stack(sv_x, sv_coef, b, z)
+                out[task_ids, start:stop] = df.cpu().numpy()[:, :stop - start]
+                sigs.append((tuple(sv_x.shape), str(sv_x.dtype), bucket))
+        with self._lock:
+            self._program_sigs.update(sigs)
+            self.n_requests += nt
+        return out
+
+    def decode(self, df: np.ndarray, op: str = "predict") -> np.ndarray:
+        """Post-process stacked decision values ``df (n_tasks, nt)``:
+        op "values" (unchanged), "decision_function" (margins, sklearn
+        orientation) or "predict" (labels)."""
+        if op == "values":
+            return df
+        if op == "decision_function":
+            return df[0]
+        if op != "predict":
+            raise ValueError(f"unknown decode op {op!r}; expected "
+                             "'predict', 'decision_function' or 'values'")
+        return self.model.classes[(df[0] > 0).astype(np.int64)]
+
+    def decision_function(self, xt: np.ndarray) -> np.ndarray:
+        """(nt,) margins; positive => ``classes[1]``."""
+        return self.decode(self.decision_values(xt), "decision_function")
+
+    def predict(self, xt: np.ndarray) -> np.ndarray:
+        """Class labels."""
+        return self.decode(self.decision_values(xt), "predict")

@@ -1,0 +1,91 @@
+"""The port's boundary: what it imports, where it runs, what it refuses.
+
+* No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
+  jax, jaxlib, ml_dtypes or anything of the reference package ``repro``
+  (the machine with the card has no JAX).
+* Entry points run on the card unless asked for the CPU: ``SVC()`` and
+  ``Predictor(...)`` raise without CUDA unless ``device="cpu"``;
+  functional entry points follow their input tensors' device.
+* Features of later slices raise NotImplementedError naming the slice.
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import serve as tserve
+from repro_torch.core import kernel_engine as TKE
+from repro_torch.core import kernels as TK
+from repro_torch.core import smo as tsmo
+from repro_torch.core.svm import SVC
+from repro_torch.data import load_iris, make_blobs
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_imports_nothing_of_jax_or_the_reference():
+    files = _port_files()
+    assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
+           for p in files for mod, line in _imported_roots(p)
+           if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SVC()
+    x, y = load_iris()
+    keep = y < 2
+    clf = SVC(device="cpu").fit(x[keep], y[keep])
+    packed = tserve.pack(clf)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.Predictor(packed)
+    pred = tserve.Predictor(packed, device="cpu")
+    np.testing.assert_array_equal(pred.predict(x[keep]), clf.predict(x[keep]))
+
+
+def test_functional_entry_points_follow_their_tensors():
+    x, y = make_blobs(20, 2, 3, seed=1)
+    xt = torch.from_numpy(x)
+    yt = torch.from_numpy(np.where(y == 0, 1.0, -1.0).astype(np.float32))
+    r = tsmo.binary_smo(xt, yt, kernel=TK.KernelParams(gamma=0.5))
+    assert r.alpha.device.type == "cpu" and bool(r.converged)
+    eng = TKE.make_engine(xt, TK.KernelParams(gamma=0.5), "pallas")
+    assert eng.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(solver="gd"), "A.7"),
+    (dict(engine="nystrom"), "A.8"),
+    (dict(engine="rff"), "A.8"),
+    (dict(engine=TKE.EngineConfig(backend="sharded")), "A.11"),
+])
+def test_unported_options_raise(kwargs, match):
+    with pytest.raises(NotImplementedError, match=match):
+        SVC(device="cpu", **kwargs)
+
+
+def test_multiclass_fit_raises():
+    x, y = load_iris()
+    with pytest.raises(NotImplementedError, match="A.6"):
+        SVC(device="cpu").fit(x, y)

@@ -1,0 +1,253 @@
+"""The port's ``SVC`` and serving path against the JAX reference.
+
+* ``SVC`` end to end on the paper's pipeline data (iris binary subset,
+  breast-cancer-like, a Pavia-like pair): both fits certify, held-out
+  labels equal; where the SMO trajectories coincide, alphas, b and
+  decision values agree closely. Decision values are never compared
+  bitwise (the packages sum Gram products in other orders; ROADMAP C.1).
+* ``.npz`` artifacts (schema v1) written by either package load and
+  serve in the other, with equal labels.
+* The ``Predictor``: pow2 batch ladder, ``max_batch`` rounding,
+  ``n_programs`` ledger, ``warmup`` accounting, thread safety.
+
+The port runs on the CPU here (``device="cpu"``), so its kernels run
+their plain versions; ``chip_smoke.py`` holds the kernels themselves.
+"""
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from repro import serve as jserve
+from repro.core.svm import SVC as JSVC
+from repro_torch import serve as tserve
+from repro_torch.core import kernels as TK
+from repro_torch.core import smo as tsmo
+from repro_torch.core.svm import SVC as TSVC
+from repro_torch.data import (load_breast_cancer_like, load_iris,
+                              load_pavia_like, normalize, train_test_split)
+
+DF_TOL = dict(rtol=2e-4, atol=1e-4)
+
+
+def _dataset(kind):
+    if kind == "iris":  # the overlapping pair: versicolor vs virginica
+        x, y = load_iris()
+        keep = y > 0
+        x, y = x[keep], y[keep]
+    elif kind == "breast":
+        x, y = load_breast_cancer_like(n_samples=300)
+    else:
+        x, y = load_pavia_like(n_per_class=120, n_classes=2, seed=7)
+    return train_test_split(normalize(x), y, test_frac=0.25, seed=0)
+
+
+def _certificate(x, y, clf):
+    """float64 KKT certificate of a fit, from a gradient recomputed with
+    the port's plain Gram (independent of either solver's bookkeeping)."""
+    yy = np.where(y == clf.classes_[1], 1.0, -1.0)
+    gram = TK.make_gram_fn(TK.KernelParams(gamma=clf.kernel_params.gamma))(
+        torch.from_numpy(x), torch.from_numpy(x)).double().numpy()
+    f = gram @ (clf.alpha_ * yy) - yy
+    return float(tsmo.kkt_violation(clf.alpha_, yy, f, 0.0, 1.0))
+
+
+CASES = [("iris", "dense"), ("breast", "pallas"), ("pavia", "pallas"),
+         ("pavia", "chunked")]
+
+
+def _fit_both(kind, engine):
+    xtr, ytr, xte, yte = _dataset(kind)
+    kw = dict(C=1.0, shrink_every=4 if engine != "dense" else 0)
+    j = JSVC(engine="dense" if engine == "dense" else "chunked", **kw)
+    t = TSVC(engine=engine, device="cpu", **kw)
+    return j.fit(xtr, ytr), t.fit(xtr, ytr), (xtr, ytr, xte, yte)
+
+
+@pytest.mark.parametrize("kind,engine", CASES)
+def test_svc_matches_reference_end_to_end(kind, engine):
+    """Both fits certify at tol and serve the same labels. Each package
+    computes its own Gram and its own "scale" gamma (a float32 variance
+    summed in another order), so the two QPs differ in the last bits;
+    SMO trajectories are chaotic (the NOTE in repro/core/smo.py), and on
+    the overlapping iris pair that gives another pair sequence (n_iter
+    63 vs 62, alphas ~1e-3 apart). Decision values are therefore held
+    to 2 tol, the gap at which both solvers stop."""
+    j, t, (xtr, ytr, xte, yte) = _fit_both(kind, engine)
+    assert j.converged_ and t.converged_
+    assert t.kernel_params.gamma == pytest.approx(j.kernel_params.gamma,
+                                                  rel=1e-6)
+    np.testing.assert_array_equal(t.classes_, j.classes_)
+    for clf in (j, t):
+        assert _certificate(xtr, ytr, clf) <= 1e-3
+    np.testing.assert_array_equal(t.predict(xte), j.predict(xte))
+    np.testing.assert_allclose(t.decision_function(xte),
+                               j.decision_function(xte), rtol=0, atol=2e-3)
+    np.testing.assert_allclose(t._decision_function_engine(xte),
+                               t.decision_function(xte), **DF_TOL)
+    assert t.score(xte, yte) == j.score(xte, yte)
+
+
+@pytest.mark.parametrize("kind,engine", CASES[1:])
+def test_svc_follows_the_reference_trajectory(kind, engine):
+    """On the well-separated problems the last-bit differences do not
+    change the pair sequence: same n_iter, same support set, alphas
+    within 1e-4 C, b within 1e-4, decision values at the kernel bound."""
+    j, t, (_, _, xte, _) = _fit_both(kind, engine)
+    assert t.n_iter_ == j.n_iter_
+    np.testing.assert_array_equal(t.support_, j.support_)
+    np.testing.assert_allclose(t.alpha_, j.alpha_, atol=1e-4)
+    assert t.b_ == pytest.approx(j.b_, abs=1e-4)
+    np.testing.assert_allclose(t.decision_function(xte),
+                               j.decision_function(xte), **DF_TOL)
+
+
+def test_svc_orientation_threshold_and_refit():
+    xtr, ytr, xte, _ = _dataset("breast")
+    t = TSVC(device="cpu", C=1e-9).fit(xtr, ytr)
+    # tiny C: every multiplier is ~C, and the relative threshold keeps
+    # them (an absolute 1e-8 cutoff would collapse to a constant model)
+    assert t.n_support_ > 0
+    clf = TSVC(device="cpu").fit(xtr, ytr)
+    df = clf.decision_function(xte)
+    np.testing.assert_array_equal(
+        clf.predict(xte), np.where(df > 0, clf.classes_[1], clf.classes_[0]))
+    gamma0 = clf.kernel_params.gamma
+    clf.fit(xtr * 3.0, ytr)      # gamma "scale" re-resolved on refit
+    assert clf.kernel_params.gamma == pytest.approx(gamma0 / 9.0, rel=1e-4)
+    with pytest.raises(ValueError, match=">= 2 classes"):
+        TSVC(device="cpu").fit(xtr, np.zeros(len(ytr)))
+
+
+def _jax_fit(kind="breast"):
+    xtr, ytr, xte, _ = _dataset(kind)
+    return JSVC(engine="chunked").fit(xtr, ytr), xte
+
+
+def test_reference_artifact_serves_in_port(tmp_path):
+    j, xte = _jax_fit()
+    path = tmp_path / "ref.npz"
+    jserve.save(path, jserve.pack(j))
+    packed = tserve.load(path)
+    assert packed.n_support == j.n_support_
+    want = jserve.Predictor(jserve.load(path), engine="chunked")
+    for engine in ("pallas", "chunked"):
+        pred = tserve.Predictor(packed, engine=engine, device="cpu")
+        np.testing.assert_array_equal(pred.predict(xte), want.predict(xte))
+        np.testing.assert_allclose(pred.decision_function(xte),
+                                   want.decision_function(xte), **DF_TOL)
+
+
+def test_port_artifact_serves_in_reference(tmp_path):
+    xtr, ytr, xte, _ = _dataset("pavia")
+    t = TSVC(engine="pallas", device="cpu").fit(xtr, ytr)
+    path = tmp_path / "port.npz"
+    tserve.save(path, tserve.pack(t))
+    jpacked = jserve.load(path)
+    assert jpacked.n_support == t.n_support_
+    assert jpacked.kernel.gamma == t.kernel_params.gamma
+    want = tserve.Predictor(tserve.pack(t), engine="pallas", device="cpu")
+    got = jserve.Predictor(jpacked, engine="chunked")
+    np.testing.assert_array_equal(got.predict(xte), want.predict(xte))
+    np.testing.assert_allclose(got.decision_function(xte),
+                               want.decision_function(xte), **DF_TOL)
+    # and back again: the port reads its own file to the same arrays
+    again = tserve.load(path)
+    for a, b in zip(again.buckets[0], tserve.pack(t).buckets[0]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_from_numpy_builds_the_binary_pack():
+    rng = np.random.default_rng(0)
+    sv = rng.normal(size=(5, 3)).astype(np.float32)
+    coef = rng.normal(size=5).astype(np.float32)
+    p = tserve.PackedModel.from_numpy(kernel={"name": "rbf", "gamma": 0.5},
+                                      sv_x=sv, sv_coef=coef, b=0.25,
+                                      classes=np.array([3, 7]))
+    assert (p.n_tasks, p.n_features, p.n_support) == (1, 3, 5)
+    np.testing.assert_array_equal(p.pairs, [[1, 0]])
+    z = rng.normal(size=(4, 3)).astype(np.float32)
+    pred = tserve.Predictor(p, device="cpu")
+    k = np.exp(-0.5 * ((z[:, None] - sv[None]) ** 2).sum(-1))
+    np.testing.assert_allclose(pred.decision_function(z), k @ coef + 0.25,
+                               rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        tserve.PackedModel.from_numpy(kernel={}, sv_x=sv, sv_coef=coef[:3],
+                                      b=0.0, classes=np.array([0, 1]))
+
+
+def test_unported_artifacts_raise(tmp_path):
+    j, _ = _jax_fit()
+    path = tmp_path / "ref.npz"
+    jserve.save(path, jserve.pack(j))
+    with np.load(path) as z:
+        arrays = dict(z)
+    import json
+    for change in ({"version": 2}, {"version": 3}, {"strategy": "ovo"},
+                   {"kind": "svr", "strategy": "svr"}):
+        meta = json.loads(str(arrays["meta"]))
+        meta.update(change)
+        bad = tmp_path / "bad.npz"
+        np.savez(bad, **{**arrays, "meta": np.array(json.dumps(meta))})
+        with pytest.raises(NotImplementedError):
+            tserve.load(bad)
+    meta = json.loads(str(arrays["meta"]))
+    meta["schema"] = "something.else"
+    np.savez(tmp_path / "bad2.npz",
+             **{**arrays, "meta": np.array(json.dumps(meta))})
+    with pytest.raises(ValueError, match="not a repro.svm-pack"):
+        tserve.load(tmp_path / "bad2.npz")
+
+
+@pytest.mark.parametrize("engine", ["pallas", "chunked"])
+def test_predictor_ladder_programs_and_warmup(engine):
+    xtr, ytr, xte, _ = _dataset("breast")
+    t = TSVC(device="cpu").fit(xtr, ytr)
+    packed = tserve.pack(t)
+    pred = tserve.Predictor(packed, engine=engine, max_batch=100,
+                            device="cpu")
+    assert pred.max_batch == 64           # rounded DOWN onto the ladder
+    assert [pred._batch_bucket(n) for n in (1, 2, 3, 37, 64, 65, 500)] == \
+        [1, 2, 4, 64, 64, 64, 64]
+    pred.warmup((1, 37))
+    assert pred.n_requests == 0           # warmup rows are not counted
+    assert pred.n_programs == 2           # buckets 1 and 64
+    full = tserve.Predictor(packed, engine=engine, max_batch=1024,
+                            device="cpu").decision_function(xte)
+    for n in (3, 37, len(xte)):           # sliced + padded requests
+        np.testing.assert_allclose(pred.decision_function(xte[:n]),
+                                   full[:n], rtol=1e-6, atol=1e-6)
+    assert pred.n_requests == 3 + 37 + len(xte)
+    assert len(xte) % 64 == 11            # 75 rows: slices of 64 and 11
+    assert pred.n_programs == 4           # + buckets 4 and 16
+    with pytest.raises(ValueError):
+        tserve.Predictor(packed, max_batch=0, device="cpu")
+    with pytest.raises(ValueError, match="request batch"):
+        pred.predict(xte[:, :3])
+    assert pred.decode(np.array([[0.5, -0.5]]), "values").shape == (1, 2)
+    with pytest.raises(ValueError, match="decode op"):
+        pred.decode(np.zeros((1, 2)), "nope")
+
+
+def test_predictor_counters_under_concurrency():
+    xtr, ytr, xte, _ = _dataset("iris")
+    pred = TSVC(device="cpu").fit(xtr, ytr).predictor()
+    want = pred.decision_function(xte)
+    errors = []
+
+    def worker():
+        try:
+            for n in (1, 5, len(xte)):
+                np.testing.assert_allclose(pred.decision_function(xte[:n]),
+                                           want[:n], rtol=1e-6, atol=1e-6)
+        except AssertionError as e:  # reported below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker) for _ in range(12)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads) and not errors
+    assert pred.n_requests == len(xte) * 13 + 12 * 6
