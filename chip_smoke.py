@@ -15,11 +15,24 @@ then:
 3. packs, saves, loads and serves it with ``Predictor(engine="pallas")``
    in requests of several sizes, labels checked against the plain
    chunked predictor on the same card;
-4. times each kernel, its plain version and one PyTorch library call for
+4. drives the low-rank tier on the same split: ``SVC(engine="rff",
+   rank=1024)`` fit by dual coordinate descent (``rff_features`` and
+   ``dcd_epoch`` kernels), certified by a float64 KKT check of the
+   augmented-bias dual, then packed (schema v2), saved, loaded and
+   served, labels checked against the map's plain transform and ``w``;
+5. drives epsilon-SVR, exact (``engine="pallas"``, SMO over the doubled
+   problem) and low-rank (``engine="rff"``), on a 16,384-row sinc
+   regression problem, each certified, packed, saved, loaded and served;
+6. times each kernel, its plain version and one PyTorch library call for
    the same function, beside the least time the card could take
    (``bound_ms``): ``ms`` / ``plain_ms`` / ``library_ms`` are CUDA-event
    medians of one call as the caller sees it (host enqueue included),
-   ``*device_ms`` the profiler's device time of the same call.
+   ``*device_ms`` the device time of the same call (CUDA events around
+   back-to-back calls queued behind a spin kernel, which hides the
+   host's enqueue).
+
+Each path is driven with the launch counts set to 0 just before it and
+read just after; the ``kernels`` line sums them over the paths.
 
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` summary, the last ``{"ok": true, "device": ...}``. Any
@@ -47,6 +60,11 @@ FP32_FLOP_PER_S = 67e12
 SEED = 7
 GRAM_TOL = dict(rtol=2e-5, atol=2e-6)      # tests/test_kernels_pallas.py
 DECISION_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_kernels_pallas.py
+RFF_TOL = {"fp32": 1e-5, "bf16": 5e-2}     # atol, tests/test_approx.py
+# one dcd_epoch from the same state: the kernel sums each dot product in
+# another order than the plain loop (tests/test_torch_cuda.py)
+DCD_TOL = dict(rtol=1e-4, atol_rel=1e-4, viol_atol=1e-5)
+RANK = 1024
 CSRC = "src/repro_torch/kernels/csrc"
 
 
@@ -79,19 +97,31 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Mean device time of one call: the CUPTI durations of every kernel
-    the call launched (torch.profiler), without the host's share."""
-    from torch.profiler import ProfilerActivity, profile
+# a spin kernel of ~4 ms at the H100's clocks, queued ahead of the timed
+# calls: longer than the host takes to enqueue them
+SPIN_CYCLES = 8_000_000
+
+
+def device_ms(fn, calls: int = 10, reps: int = 3) -> float:
+    """Device time of one call, without the host's share: CUDA events
+    around ``calls`` back-to-back calls, all enqueued behind a spin
+    kernel, so their kernels run back to back once it ends (median of
+    ``reps``). The profiler's per-kernel sums are not used: late in a
+    long run they dropped most launches of the custom kernels."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -220,14 +250,14 @@ def phase_parity(ops, K, G, KS, D, dev, n_train: int, d: int, n_sv: int,
     return errs
 
 
-def warm_fit_profile(SVC, dev, xtr, ytr, n_iter):
+def warm_fit_profile(SVC, dev, xtr, ytr, n_iter, **kw):
     """The same fit again, warm: its wall time, then once more under
     torch.profiler for the device's busy time and kernel launches (the
     profiler's own overhead lowers the busy share it reports)."""
     from torch.profiler import ProfilerActivity, profile
 
     def fit():
-        SVC(engine="pallas", shrink_every=4, device=dev).fit(xtr, ytr)
+        SVC(**kw, device=dev).fit(xtr, ytr)
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -264,7 +294,8 @@ def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches = dict(ops.launches)
-    warm_s, busy = warm_fit_profile(SVC, dev, xtr, ytr, clf.n_iter_)
+    warm_s, busy = warm_fit_profile(SVC, dev, xtr, ytr, clf.n_iter_,
+                                    engine="pallas", shrink_every=4)
     # held-out margins through the engine path (the decision kernel)
     ops.reset_launches()
     xs = torch.from_numpy(clf.support_vectors_).to(dev)
@@ -304,26 +335,33 @@ def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
           "decision kernel")
     main_launches = {k: fit_launches[k] + check_launches[k]
                      for k in fit_launches}
-    return xtr, xte, df_engine, main_launches, fit_s
+    return xtr, xte, df_engine, main_launches, fit_s, (ytr, yte, acc)
+
+
+def serve_rates(pred, xte):
+    """Warm the predictor, then rows/s by request size (1, 37, 256, 1024
+    and all held-out rows, up to 2048 rows each) and the labels of the
+    one all-rows request."""
+    pred.warmup((1, 37, 256, 1024))
+    rates, labels = {}, None
+    for size in (1, 37, 256, 1024, len(xte)):
+        starts = range(0, len(xte), size)[:max(1, 2048 // size)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [pred.predict(xte[s:s + size]) for s in starts]
+        torch.cuda.synchronize()
+        rates[str(size)] = sum(len(g) for g in got) / (time.perf_counter()
+                                                       - t0)
+        if size == len(xte):
+            labels = got[0]
+    return rates, labels
 
 
 def phase_serve(ops, serve_mod, dev, path, xte, df_engine):
     packed = serve_mod.load(path)
     ops.reset_launches()
     pred = serve_mod.Predictor(packed, engine="pallas", device=dev)
-    pred.warmup((1, 37, 256, 1024))
-    sizes = (1, 37, 256, 1024, len(xte))
-    rates, labels = {}, None
-    for size in sizes:
-        starts = range(0, len(xte), size)[:max(1, 2048 // size)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = [pred.predict(xte[s:s + size]) for s in starts]
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        rates[str(size)] = sum(len(g) for g in got) / dt
-        if size == len(xte):
-            labels = got[0]
+    rates, labels = serve_rates(pred, xte)
     dfs = pred.decision_function(xte)
     torch.cuda.synchronize()
     serve_launches = dict(ops.launches)
@@ -344,6 +382,306 @@ def phase_serve(ops, serve_mod, dev, path, xte, df_engine):
     check(serve_launches["multitask_decision"] > 0,
           "serving launched no multitask_decision kernel")
     return serve_launches, packed
+
+
+def certify_lowrank(smo, phi, s, p, alpha, C: float, bias: float) -> float:
+    """float64 KKT violation of the augmented-bias box QP (multiplier
+    pinned at r = 0), from a gradient recomputed from Phi — not from the
+    solver's incremental w: f = PhiBar PhiBar^T (alpha s) + s p."""
+    f64 = torch.float64
+    phib = torch.cat([phi.to(f64), torch.full((phi.shape[0], 1), bias,
+                                              dtype=f64, device=phi.device)],
+                     dim=1)
+    a, s64 = alpha.to(f64), s.to(f64)
+    f = phib @ (phib.T @ (a * s64)) + s64 * p.to(f64)
+    return float(smo.kkt_violation(a, s64, f, 0.0, C, r=0.0))
+
+
+def phase_lowrank_fit(ops, smo, SVC, dev, xtr, ytr, xte, yte, exact_acc):
+    """SVC(engine="rff", rank=1024) on the exact phase's split: the map's
+    transform (rff_features) and one dcd_epoch launch per epoch."""
+    kw = dict(engine="rff", rank=RANK, C=1.0, tol=1e-3)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    clf = SVC(**kw, device=dev).fit(xtr, ytr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(ops.launches)
+    df = clf._decision_function_engine(xte)   # held-out margins: map and w
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    acc = float(np.mean(np.where(df > 0, clf.classes_[1], clf.classes_[0])
+                        == yte))
+    warm_s, busy = warm_fit_profile(SVC, dev, xtr, ytr, clf.n_iter_, **kw)
+    yy = torch.from_numpy(np.where(ytr == clf.classes_[1], 1.0, -1.0)
+                          .astype(np.float32)).to(dev)
+    phi = clf._feature_map.transform(torch.from_numpy(xtr).to(dev))
+    kkt = certify_lowrank(smo, phi, yy, -torch.ones_like(yy),
+                          torch.from_numpy(clf.alpha_).to(dev),
+                          clf.dcd_cfg.C, clf.dcd_cfg.bias)
+    ops.launches.update(launches)   # warm fits and checks are not the path
+    emit(phase="lowrank_fit", n=int(xtr.shape[0]), d=int(xtr.shape[1]),
+         rank=RANK, n_iter=clf.n_iter_, converged=clf.converged_,
+         kkt_f64=kkt, tol=clf.dcd_cfg.tol, n_support=clf.n_support_,
+         fit_s=fit_s, fit_s_warm=warm_s, profile=busy,
+         epoch_s=fit_s / max(clf.n_iter_, 1), launches=fit_launches,
+         heldout_check_launches={k: launches[k] - fit_launches[k]
+                                 for k in launches},
+         heldout_acc=acc, exact_heldout_acc=exact_acc)
+    check(clf.converged_, "low-rank DCD fit did not converge")
+    check(kkt <= clf.dcd_cfg.tol, f"low-rank f64 KKT {kkt} > tol")
+    check(abs(acc - exact_acc) <= 0.01,
+          f"low-rank held-out accuracy {acc} not within 0.01 of the exact "
+          f"SVC's {exact_acc}")
+    for k in ("rff_features", "dcd_epoch"):
+        check(fit_launches[k] > 0, f"low-rank fit launched no {k}")
+    return clf, phi, yy, launches
+
+
+def phase_lowrank_serve(ops, serve_mod, FM, dev, path, clf, xte):
+    """pack -> save (schema v2) -> load -> Predictor, labels against the
+    map's plain transform and w on the same card."""
+    serve_mod.save(path, serve_mod.pack(clf))
+    packed = serve_mod.load(path)
+    check(packed.feature_map is not None and packed.feature_map.kind == "rff",
+          "the low-rank artifact did not load as an RFF pack")
+    ops.reset_launches()
+    pred = serve_mod.Predictor(packed, device=dev)
+    rates, labels = serve_rates(pred, xte)
+    dfs = pred.decision_function(xte)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    om, ph = clf._feature_map.arrays
+    want_df = (FM.rff_features_plain(torch.from_numpy(xte).to(dev), om, ph,
+                                     scale=clf._feature_map.scale)
+               @ torch.from_numpy(clf.w_).to(dev) + clf.b_).cpu().numpy()
+    want_labels = clf.classes_[(want_df > 0).astype(np.int64)]
+    same = bool(np.array_equal(labels, want_labels))
+    close = bool(np.allclose(dfs, want_df, **DECISION_TOL))
+    emit(phase="lowrank_serve", n_test=len(xte), schema_version=2,
+         rows_per_s=rates, n_programs=pred.n_programs, launches=launches,
+         labels_equal_plain=same,
+         max_abs_err_vs_plain=float(np.abs(dfs - want_df).max()))
+    check(same, "low-rank predictor labels differ from the plain path")
+    check(close, "low-rank predictor decisions differ from the plain path")
+    check(launches["rff_features"] > 0, "low-rank serving launched no "
+          "rff_features kernel")
+    return launches
+
+
+def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
+    """epsilon-SVR, exact (SMO over the doubled problem on the Gram
+    kernels) and low-rank (rff_features + dcd_epoch): fit, certify, pack,
+    save, load, serve."""
+    x, y = data.make_synth_regression(16384, 6, kind="sinc", noise=0.1,
+                                      seed=SEED)
+    xtr, ytr, xte, yte = data.train_test_split(x, y, test_frac=0.1,
+                                               seed=SEED)
+    n = len(xtr)
+    eps, C = 0.1, 1.0
+    total = {k: 0 for k in ops.KERNELS}
+    for engine in ("pallas", "rff"):
+        kw = dict(engine=engine, epsilon=eps, C=C, tol=1e-3)
+        if engine == "rff":
+            kw["rank"] = RANK
+        else:
+            # as the exact SVC phase: without shrinking, ~60k float32 f
+            # updates leave the f cache off the exact gradient by more
+            # than tol; the un-shrink re-check recomputes it
+            kw["shrink_every"] = 4
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        reg = SVR(**kw, device=dev).fit(xtr, ytr)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = dict(ops.launches)
+        # certificate of the doubled QP from a recomputed gradient
+        xt = torch.from_numpy(xtr).to(dev)
+        yt = torch.from_numpy(ytr).to(dev)
+        s = torch.cat([torch.ones(n, device=dev), -torch.ones(n, device=dev)])
+        p = torch.cat([eps - yt, eps + yt])
+        a2 = torch.from_numpy(reg.alpha_raw_).to(dev)
+        if engine == "rff":
+            phi = reg._feature_map.transform(xt)
+            kkt = certify_lowrank(smo, torch.cat([phi, phi]), s, p, a2, C,
+                                  reg.dcd_cfg.bias)
+        else:
+            eng = KE.make_engine(torch.cat([xt, xt]), reg.kernel_params,
+                                 "pallas")
+            f = eng.matvec(a2 * s) + s * p
+            kkt = float(smo.kkt_violation(a2, s, f, 0.0, C))
+        ops.launches.update(fit_launches)   # the check is not the path
+        values = reg._predict_engine(xte)
+        path = os.path.join(out_dir, f"chip_smoke_svr_{engine}.npz")
+        serve_mod.save(path, serve_mod.pack(reg))
+        pred = serve_mod.Predictor(serve_mod.load(path), engine=engine,
+                                   device=dev).warmup((1, 1024))
+        served = pred.predict(xte)
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        r2 = 1.0 - float(np.sum((yte - served) ** 2)
+                         / np.sum((yte - yte.mean()) ** 2))
+        ok = bool(np.allclose(served, values, **DECISION_TOL))
+        emit(phase="svr", engine=engine, n_train=n, qp_variables=2 * n,
+             d=int(xtr.shape[1]), rank=kw.get("rank"),
+             n_iter=reg.n_iter_, converged=reg.converged_, kkt_f64=kkt,
+             tol=1e-3, n_support=reg.n_support_, fit_s=fit_s,
+             heldout_r2=r2, launches=launches,
+             max_abs_err_served_vs_engine=float(np.abs(served
+                                                       - values).max()),
+             served_matches_engine=ok)
+        check(reg.converged_, f"SVR({engine}) did not converge")
+        check(kkt <= 1e-3, f"SVR({engine}) f64 KKT {kkt} > tol")
+        check(ok, f"SVR({engine}) served values differ from the engine path")
+        used = (("rbf_gram_row", "kkt_select", "decision",
+                 "multitask_decision") if engine == "pallas"
+                else ("rff_features", "dcd_epoch"))
+        for k in used:
+            check(launches[k] > 0, f"SVR({engine}) launched no {k}")
+        total = {k: total[k] + launches[k] for k in total}
+    return total
+
+
+def phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi_fit, yy_fit):
+    """rff_features against its plain version at the fit's shape (fp32
+    and bf16), and one dcd_epoch against the plain loop from the same
+    state on 4,096 rows of the fit's Phi (the plain loop is Python)."""
+    x = torch.from_numpy(xtr).to(dev)
+    om, ph = clf._feature_map.arrays
+    scale = clf._feature_map.scale
+    errs = {}
+    for dt in ("fp32", "bf16"):
+        tdt = ops.tile_dtype(dt)
+        got = ops.rff_features(x, om, ph, scale=scale, compute_dtype=dt)
+        want = FM.rff_features_plain(x.to(tdt), om.to(tdt), ph, scale=scale)
+        err = max_err(got, want)
+        emit(phase="parity", kernel="rff_features", dtype=dt,
+             shape=[x.shape[0], om.shape[1], x.shape[1]], max_abs_err=err,
+             bound=dict(atol=RFF_TOL[dt]), ok=err <= RFF_TOL[dt])
+        check(err <= RFF_TOL[dt], f"rff_features {dt} disagrees with its "
+              "plain version")
+        if dt == "fp32":
+            errs["rff_features"] = err
+    n = 4096
+    phi = phi_fit[:n].contiguous()
+    yy = yy_fit[:n].contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    worst = 0.0
+    for case, beta0 in (("cold", torch.zeros(n, device=dev)),
+                        ("fitted", torch.from_numpy(clf.alpha_[:n])
+                         .to(dev))):
+        coef = yy * beta0
+        st = dict(phi=phi, y=yy, p=-torch.ones(n, device=dev),
+                  lo=torch.zeros(n, device=dev),
+                  hi=torch.ones(n, device=dev),
+                  q_diag=torch.sum(phi * phi, dim=1) + 1.0,
+                  live=torch.ones(n, dtype=torch.bool, device=dev),
+                  perm=torch.randperm(n, generator=gen, device=dev),
+                  beta=beta0.clone(), w=(phi.T @ coef).contiguous(),
+                  wb=torch.sum(coef).reshape(1))
+        host = {k: v.cpu().clone() for k, v in st.items()}
+        viol = float(ops.dcd_epoch(**st, bias=1.0))
+        want = float(DCD.dcd_epoch_plain(*host.values(), bias=1.0))
+        errs_case, ok = {}, abs(viol - want) <= DCD_TOL["viol_atol"]
+        for name in ("beta", "w", "wb"):
+            got, ref = st[name].cpu(), host[name]
+            tol = DCD_TOL["atol_rel"] * float(ref.abs().max())
+            errs_case[name] = max_err(got, ref)
+            ok = ok and bool(torch.allclose(got, ref, rtol=DCD_TOL["rtol"],
+                                            atol=tol))
+        worst = max(worst, *errs_case.values())
+        emit(phase="parity", kernel="dcd_epoch", case=case, shape=[n, RANK],
+             viol=viol, viol_plain=want, max_abs_err=errs_case,
+             moved=int((st["beta"] != beta0).sum()), bound=DCD_TOL, ok=ok)
+        check(ok, f"dcd_epoch ({case}) disagrees with its plain version")
+    errs["dcd_epoch"] = worst
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_row(ops, name, src, replaces, kern, plain, lib, n_bytes, n_ops,
+             launches, err, plain_on_host=False):
+    """One ``kernels`` entry: the kernel, its plain version and the
+    library call timed at main-path shapes (timing launches do not
+    count)."""
+    saved = dict(ops.launches)
+    ms = median_ms(kern)
+    if plain_on_host:   # a Python loop on the host: wall clock, few reps
+        plain()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            plain()
+            times.append((time.perf_counter() - t0) * 1e3)
+        plain_ms = statistics.median(times)
+    else:
+        plain_ms = median_ms(plain)
+    ms2 = median_ms(kern)                   # kernel, plain, kernel: spread
+    library_ms = median_ms(lib) if lib is not None else None
+    dev = {"device_ms": device_ms(kern),
+           "plain_device_ms": None if plain_on_host else device_ms(plain),
+           "library_device_ms": (device_ms(lib) if lib is not None
+                                 else None)}
+    ops.launches.update(saved)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "ms_repeat": ms2,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, **dev}
+
+
+def phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi_fit, yy, errs,
+                         launches):
+    """rff_features and dcd_epoch at the low-rank fit's shapes."""
+    x = torch.from_numpy(xtr).to(dev)
+    n, d = x.shape
+    om, ph = clf._feature_map.arrays
+    k = om.shape[1]
+    scale = clf._feature_map.scale
+    # dcd_epoch from the fitted state: each timed call is one more epoch
+    # of the converged solve, the work of a fit's last epochs
+    beta = torch.from_numpy(clf.alpha_).to(dev)
+    st = dict(phi=phi_fit, y=yy, p=-torch.ones(n, device=dev),
+              lo=torch.zeros(n, device=dev), hi=torch.ones(n, device=dev),
+              q_diag=torch.sum(phi_fit * phi_fit, dim=1) + 1.0,
+              live=torch.ones(n, dtype=torch.bool, device=dev),
+              perm=torch.randperm(n, device=dev), beta=beta.clone(),
+              w=(phi_fit.T @ (yy * beta)).contiguous(),
+              wb=torch.sum(yy * beta).reshape(1))
+    host = {key: v.cpu().clone() for key, v in st.items()}
+    before = st["beta"].clone()
+    saved = dict(ops.launches)
+    ops.dcd_epoch(**st, bias=1.0)
+    ops.launches.update(saved)
+    moved = int((st["beta"] != before).sum())
+    rows = [
+        time_row(ops, "rff_features", "rff_features.cu",
+                 "src/repro/kernels/feature_map.py:59",
+                 lambda: ops.rff_features(x, om, ph, scale=scale),
+                 lambda: FM.rff_features_plain(x, om, ph, scale=scale),
+                 lambda: scale * torch.cos(torch.addmm(ph, x, om)),
+                 4 * (n * d + d * k + k + n * k), n * k * (2 * d + 3),
+                 launches, errs["rff_features"]),
+        time_row(ops, "dcd_epoch", "dcd_epoch.cu",
+                 "src/repro/core/linear.py:141 (lax.fori_loop; no Pallas "
+                 "kernel)",
+                 lambda: ops.dcd_epoch(**st, bias=1.0),
+                 lambda: DCD.dcd_epoch_plain(*host.values(), bias=1.0),
+                 None,
+                 # Phi once; y, p, lo, hi, q_diag, beta, perm, live read,
+                 # beta written; w and wb read and written
+                 4 * n * k + n * (4 * 7 + 8 + 1) + 8 * (k + 1),
+                 # the dot products, the moved coordinates' updates of w
+                 # and about 20 scalar operations a coordinate
+                 2 * n * k + 2 * k * moved + 20 * n,
+                 launches, errs["dcd_epoch"], plain_on_host=True),
+    ]
+    rows[1]["moved_per_epoch"] = moved
+    return rows
 
 
 def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
@@ -399,26 +737,7 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
          lambda: (lib_rbf(z, sv) @ cf)[None],
          4 * (1024 * d + w * d + w + 1024), 1024 * w * (2 * d + 8)),
     ]
-    out = []
-    for name, src, replaces, kern, plain, lib, n_bytes, n_ops in rows:
-        saved = dict(ops.launches)          # timing launches do not count
-        ms = median_ms(kern)
-        plain_ms = median_ms(plain)
-        ms2 = median_ms(kern)               # kernel, plain, kernel: spread
-        library_ms = median_ms(lib) if lib is not None else None
-        dev = {"device_ms": device_ms(kern),
-               "plain_device_ms": device_ms(plain),
-               "library_device_ms": (device_ms(lib) if lib is not None
-                                     else None)}
-        ops.launches.update(saved)
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        out.append({"name": name, "route": "cuda",
-                    "source": f"{CSRC}/{src}", "replaces": replaces,
-                    "launches": launches[name],
-                    "max_abs_err": errs[name], "ms": ms, "ms_repeat": ms2,
-                    "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": library_ms, **dev})
-    return out
+    return [time_row(ops, *row, launches, errs[row[0]]) for row in rows]
 
 
 def main() -> int:
@@ -430,9 +749,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import data, serve as serve_mod
     from repro_torch.core import kernel_engine as KE, kernels as K, smo
-    from repro_torch.core.svm import SVC
+    from repro_torch.core.svm import SVC, SVR
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import dcd as DCD
     from repro_torch.kernels import decision as D
+    from repro_torch.kernels import feature_map as FM
     from repro_torch.kernels import kkt_select as KS
     from repro_torch.kernels import rbf_gram as G
 
@@ -452,18 +773,35 @@ def main() -> int:
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "chip_smoke_model.npz")
-    xtr, xte, df_engine, fit_launches, _ = phase_fit(
+    xtr, xte, df_engine, fit_launches, _, (ytr, yte, acc) = phase_fit(
         ops, data, smo, KE, serve_mod, SVC, dev, path)
     serve_launches, packed = phase_serve(ops, serve_mod, dev, path, xte,
                                          df_engine)
-    launches = {k: fit_launches[k] + serve_launches[k] for k in ops.KERNELS}
+    exact = {k: fit_launches[k] + serve_launches[k] for k in ops.KERNELS}
+    for k in ("rbf_gram", "rbf_gram_row", "kkt_select", "decision",
+              "multitask_decision"):
+        check(exact[k] > 0, f"main path launched no {k} kernel")
+    clf, phi, yy, lr_fit = phase_lowrank_fit(ops, smo, SVC, dev, xtr, ytr,
+                                             xte, yte, acc)
+    lr_serve = phase_lowrank_serve(
+        ops, serve_mod, FM, dev,
+        os.path.join(out_dir, "chip_smoke_lowrank.npz"), clf, xte)
+    svr = phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir)
+    paths = {"svc_exact": exact,
+             "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
+             "svr": svr}
+    launches = {k: sum(p[k] for p in paths.values()) for k in ops.KERNELS}
+    emit(phase="launches", by_path=paths, total=launches)
     for k, v in launches.items():
-        check(v > 0, f"main path launched no {k} kernel")
+        check(v > 0, f"no main path launched the {k} kernel")
     errs = phase_parity(ops, K, G, KS, D, dev, n_train=xtr.shape[0],
                         d=xtr.shape[1], n_sv=packed.n_support,
                         n_test=len(xte))
+    errs.update(phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi, yy))
     kernels = phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed,
                            packed.kernel.gamma, errs, launches)
+    kernels += phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi, yy,
+                                    errs, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

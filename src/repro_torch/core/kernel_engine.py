@@ -17,10 +17,12 @@ Backends: ``dense`` (precomputed (n, n) Gram), ``chunked`` (rows on the
 fly, O(n d) memory, LRU row cache), ``pallas`` (the chunked layout with
 the RBF / linear Gram, its rows and the decision values on the port's
 hand-written CUDA kernels; the name is the reference's, kept so that a
-config means the same in both packages) and ``auto`` (dense up to
-``dense_limit`` samples, chunked above). The plain backends compute
-with PyTorch ops in full float32 (TF32 stays off, the default of
-``torch.backends.cuda.matmul.allow_tf32``).
+config means the same in both packages), ``auto`` (dense up to
+``dense_limit`` samples, chunked above) and the low-rank ``nystrom`` /
+``rff`` (``approx.LowRankKernelEngine``, K ~ Phi Phi^T over an explicit
+feature map; the RFF map runs on the ``rff_features`` kernel). The
+plain backends compute with PyTorch ops in full float32 (TF32 stays
+off, the default of ``torch.backends.cuda.matmul.allow_tf32``).
 
 Row indices are 0-d int64 tensors on the engine's device, and the row
 cache decides hit or miss on the device, so the SMO loop never waits
@@ -44,9 +46,9 @@ class EngineConfig:
     """Static engine selection/config (same fields and defaults as the
     reference).
 
-    backend:     auto | dense | chunked | pallas. The reference's
-                 sharded and low-rank (nystrom | rff) backends raise
-                 NotImplementedError here until their slice is ported.
+    backend:     auto | dense | chunked | pallas | nystrom | rff. The
+                 reference's sharded backend raises NotImplementedError
+                 here until its slice is ported.
     cache_slots: LRU row-cache capacity (chunked/pallas row mode).
     chunk:       row-block size for matvec()/decide() streaming.
     dense_limit: 'auto' picks dense up to this n, chunked above; also the
@@ -54,7 +56,8 @@ class EngineConfig:
     shard_axis:  the sharded backend's mesh axis (not ported yet).
     gram_dtype:  "fp32" (exact, default) or "bf16" (bf16 operands with
                  f32 accumulation and f32 epilogue).
-    rank / landmarks / seed: low-rank backends only (not ported yet).
+    rank / landmarks / seed: low-rank backends only (nystrom | rff;
+                 ``repro_torch.core.approx``).
     """
 
     backend: str = "auto"
@@ -309,11 +312,13 @@ _BACKENDS = {
     "pallas": PallasKernelEngine,
 }
 
+# low-rank approximation backends resolve lazily
+# (repro_torch.core.approx imports this module for the base class)
+LOWRANK_BACKENDS = ("nystrom", "rff")
+
 # the reference's other backends, and the slice that ports each
 UNPORTED_BACKENDS = {
     "sharded": "data-parallel SMO (ROADMAP A.11)",
-    "nystrom": "the low-rank tier (ROADMAP A.8)",
-    "rff": "the low-rank tier (ROADMAP A.8)",
 }
 
 
@@ -323,10 +328,12 @@ def check_backend(backend: str) -> None:
         raise NotImplementedError(
             f"engine backend {backend!r} is not ported yet; it comes with "
             f"{UNPORTED_BACKENDS[backend]}")
-    if backend != "auto" and backend not in _BACKENDS:
+    if (backend != "auto" and backend not in _BACKENDS
+            and backend not in LOWRANK_BACKENDS):
         raise ValueError(
             f"unknown engine backend {backend!r}; expected one of "
-            f"{sorted([*_BACKENDS, *UNPORTED_BACKENDS])} or 'auto'")
+            f"{sorted([*_BACKENDS, *LOWRANK_BACKENDS, *UNPORTED_BACKENDS])}"
+            " or 'auto'")
 
 
 def make_engine(x: torch.Tensor, kernel: K.KernelParams,
@@ -343,4 +350,7 @@ def make_engine(x: torch.Tensor, kernel: K.KernelParams,
     backend = cfg.backend
     if backend == "auto":
         backend = "dense" if x.shape[0] <= cfg.dense_limit else "chunked"
+    if backend in LOWRANK_BACKENDS:
+        from repro_torch.core.approx import LowRankKernelEngine
+        return LowRankKernelEngine(x, kernel, cfg)
     return _BACKENDS[backend](x, kernel, cfg)

@@ -1,0 +1,186 @@
+"""Linear-path dual coordinate descent — the O(n k) solver behind the
+low-rank tier.
+
+Mirrors ``repro/core/linear.py``. Once a kernel problem has an explicit
+feature map ``Phi (n, k)`` (``repro_torch.core.approx``), the kernel QP
+is a LINEAR SVM in feature space, solved by the LIBLINEAR dual
+coordinate descent of Hsieh et al. (2008): sweep the dual variables in
+a random order, and for each coordinate apply the box-clipped Newton
+step
+
+    beta_i <- clip(beta_i - g_i / Q_ii, lo_i, hi_i),
+    g_i = y_i (phibar_i . w) + p_i,   w = PhiBar^T (y * beta)
+
+keeping the primal image ``w`` up to date incrementally (O(k) per
+coordinate). The bias is the augmented constant feature
+``phibar_i = [phi_i, bias]``, which drops the equality constraint from
+the dual: the no-offset box QP that ``smo.kkt_violation`` certifies
+with the multiplier pinned at ``r = 0``.
+
+Each epoch starts from an exact ``w = Phi^T (y beta)`` (a plain matmul:
+it bounds the float32 drift of the incremental updates to one epoch),
+draws its permutation from a ``torch.Generator`` seeded 0 on the
+solve's device (so a refit is bit-identical on one card; the draws
+cannot match ``jax.random``'s), and runs the whole sweep as one
+``ops.dcd_epoch`` launch on the card — the reference compiles it into a
+device loop, and a Python loop would issue launches per coordinate.
+The host reads the epoch's max projected gradient once per epoch; the
+solve stops at ``viol <= tol / 2`` or after ``max_epochs``, so the
+reported solution certifies at ``kkt_violation(..., r=0) <= tol``.
+
+``linear_svc`` is the hinge-loss dual (p = -1, box [0, C]);
+``linear_svr`` solves the epsilon-insensitive dual as the doubled QP
+over ``[Phi; Phi]`` with signs [+1; -1], as the kernel path does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class DCDConfig:
+    """DCD solver config (same fields and defaults as the reference).
+
+    C:          box constraint (upper bound of every dual variable).
+    tol:        certificate tolerance: the solve stops once the max
+                projected gradient over an epoch is <= tol / 2, which
+                certifies ``kkt_violation(..., r=0) <= tol``.
+    max_epochs: full passes over the n dual coordinates.
+    bias:       augmented constant-feature value (the bias enters the
+                model as ``bias * w_bias``); 0 disables the intercept.
+    """
+
+    C: float = 1.0
+    tol: float = 1e-3
+    max_epochs: int = 1000
+    bias: float = 1.0
+
+
+class DCDResult(NamedTuple):
+    alpha: torch.Tensor      # (n,) dual variables at the box optimum
+    w: torch.Tensor          # (k,) primal weights  Phi^T (y * alpha)
+    b: torch.Tensor          # ()   intercept  bias * w_bias
+    n_iter: torch.Tensor     # ()   epochs run
+    converged: torch.Tensor  # ()   bool: viol <= tol/2 before max_epochs
+    gap: torch.Tensor        # ()   last epoch's max projected gradient
+
+
+def _vec(v, n: int, dev) -> torch.Tensor:
+    return (torch.as_tensor(v, dtype=torch.float32, device=dev)
+            .broadcast_to((n,)).contiguous())
+
+
+def dcd_qp(phi: torch.Tensor, y: torch.Tensor, p, lo, hi,
+           mask: Optional[torch.Tensor] = None, *,
+           cfg: DCDConfig = DCDConfig(),
+           alpha0: Optional[torch.Tensor] = None) -> DCDResult:
+    """Minimize ``1/2 beta^T Qbar beta + p^T beta`` over the box
+    ``lo <= beta <= hi``, ``Qbar_ij = y_i y_j (phi_i . phi_j + bias^2)``,
+    on ``phi``'s device. ``mask=False`` coordinates stay at their initial
+    value (0) and are left out of the stopping rule. ``alpha0`` warm
+    starts the sweep (clipped to the box, zeroed on masked
+    coordinates); the augmented-bias dual has no equality constraint,
+    so any box-feasible start is admissible."""
+    dev = phi.device
+    phi = phi.to(torch.float32).contiguous()
+    n, k = phi.shape
+    y = _vec(y, n, dev)
+    p, lo, hi = _vec(p, n, dev), _vec(lo, n, dev), _vec(hi, n, dev)
+    live = (torch.ones((n,), dtype=torch.bool, device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev).to(torch.bool)
+            .contiguous())
+    bias = float(cfg.bias)
+    stop = 0.5 * cfg.tol
+    # deterministic per-epoch shuffles (cyclic order couples badly with
+    # the correlated columns of a low-rank Phi); a fixed seed keeps
+    # refits bit-identical
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    # per-coordinate curvature Qbar_ii (y_i^2 = 1); the floor guards an
+    # all-zero feature row from a 0/0 Newton step
+    q_diag = torch.clamp_min(torch.sum(phi * phi, dim=1) + bias * bias,
+                             1e-12).contiguous()
+    ys = torch.where(live, y, 0.0)
+
+    def exact_w(beta):
+        coef = ys * beta
+        return phi.T @ coef, torch.sum(coef)
+
+    if alpha0 is None:
+        beta = torch.zeros((n,), dtype=torch.float32, device=dev)
+    else:
+        a0 = torch.as_tensor(alpha0, dtype=torch.float32, device=dev)
+        beta = (torch.minimum(torch.maximum(a0, lo), hi) * live).contiguous()
+    n_ep, viol = 0, float("inf")
+    while viol > stop and n_ep < cfg.max_epochs:
+        w, wsum = exact_w(beta)
+        w, wb = w.contiguous(), wsum.reshape(1).contiguous()
+        perm = torch.randperm(n, generator=gen, device=dev)
+        viol = float(ops.dcd_epoch(phi, y, p, lo, hi, q_diag, live, perm,
+                                   beta, w, wb, bias=bias))  # the one read
+        n_ep += 1
+    w, wsum = exact_w(beta)   # the served / certified state, drift-free
+    return DCDResult(alpha=beta, w=w, b=bias * wsum,
+                     n_iter=torch.tensor(n_ep),
+                     converged=torch.tensor(viol <= stop),
+                     gap=torch.tensor(viol, dtype=torch.float32))
+
+
+def linear_svc(phi: torch.Tensor, y: torch.Tensor, *,
+               cfg: DCDConfig = DCDConfig(),
+               mask: Optional[torch.Tensor] = None,
+               alpha0: Optional[torch.Tensor] = None) -> DCDResult:
+    """Hinge-loss dual on explicit features: p = -1, box [0, C]. ``y``
+    in {-1, +1}; decision f(z) = phi(z) . w + b."""
+    n, dev = phi.shape[0], phi.device
+    return dcd_qp(phi, y, torch.full((n,), -1.0, device=dev),
+                  torch.zeros((n,), device=dev),
+                  torch.full((n,), float(cfg.C), device=dev), mask, cfg=cfg,
+                  alpha0=alpha0)
+
+
+class LinearSVRResult(NamedTuple):
+    beta: torch.Tensor       # (n,) alpha - alpha*
+    w: torch.Tensor          # (k,) Phi^T beta
+    b: torch.Tensor          # ()
+    alpha: torch.Tensor      # (2n,) raw doubled variables [alpha; alpha*]
+    n_iter: torch.Tensor
+    converged: torch.Tensor
+    gap: torch.Tensor
+
+
+def linear_svr(phi: torch.Tensor, y: torch.Tensor, *, epsilon: float,
+               cfg: DCDConfig = DCDConfig(),
+               mask: Optional[torch.Tensor] = None,
+               alpha0: Optional[torch.Tensor] = None) -> LinearSVRResult:
+    """epsilon-insensitive dual as the doubled QP over [Phi; Phi] with
+    signs s = [+1; -1] and p = [eps - y; eps + y]. ``mask`` and
+    ``alpha0`` are per SAMPLE (length n): the mask doubles with the
+    variables; ``alpha0`` is a beta = alpha - alpha* warm start, split
+    into ``[max(beta, 0); max(-beta, 0)]``."""
+    n, dev = phi.shape[0], phi.device
+    y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    phi2 = torch.cat([phi, phi], dim=0)
+    s = torch.cat([torch.ones((n,), device=dev),
+                   -torch.ones((n,), device=dev)])
+    p = torch.cat([epsilon - y, epsilon + y])
+    m2 = None
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=dev)
+        m2 = torch.cat([mask, mask])
+    a2 = None
+    if alpha0 is not None:
+        beta0 = torch.as_tensor(alpha0, dtype=torch.float32, device=dev)
+        a2 = torch.cat([torch.clamp_min(beta0, 0.0),
+                        torch.clamp_min(-beta0, 0.0)])
+    r = dcd_qp(phi2, s, p, torch.zeros((2 * n,), device=dev),
+               torch.full((2 * n,), float(cfg.C), device=dev), m2, cfg=cfg,
+               alpha0=a2)
+    return LinearSVRResult(beta=r.alpha[:n] - r.alpha[n:], w=r.w, b=r.b,
+                           alpha=r.alpha, n_iter=r.n_iter,
+                           converged=r.converged, gap=r.gap)

@@ -8,7 +8,9 @@ box-constrained dual QP
 
 with Q_ij = y_i y_j K(x_i, x_j), working on the optimality vector
 f_i = y_i ((Q a)_i + p_i); ``binary_smo`` is the classification
-instance (p = -1, box [0, C]).
+instance (p = -1, box [0, C]), ``svr_smo`` the epsilon-SVR one over
+the doubled variables [alpha; alpha*] (p = [eps - y; eps + y], per-
+sample signs [+1; -1]).
 
 The reference runs the whole solve on the device (``lax.while_loop``
 around ``fori_loop``). Here the loop is eager PyTorch, built so that it
@@ -365,6 +367,72 @@ def binary_smo(x: torch.Tensor,
     p, lo, hi = _classification_spec(y, cfg.C)
     return solve_qp(x, y, p, lo, hi, mask, cfg=cfg, kernel=kernel,
                     engine=engine, alpha0=alpha0)
+
+
+def _svr_spec(y: torch.Tensor, epsilon: float, c: float):
+    """Doubled-variable epsilon-SVR spec over [x; x]: beta = [alpha;
+    alpha*], signs s = [+1; -1], p = [eps - y; eps + y], box [0, C].
+    The combined regression coefficient is alpha - alpha*."""
+    n, dev = y.shape[0], y.device
+    s = torch.cat([torch.ones((n,), device=dev),
+                   -torch.ones((n,), device=dev)])
+    p = torch.cat([epsilon - y, epsilon + y])
+    return (s, p, torch.zeros((2 * n,), device=dev),
+            torch.full((2 * n,), float(c), device=dev))
+
+
+class SVRResult(NamedTuple):
+    beta: torch.Tensor       # (n,) alpha - alpha*: K(x_i, .) coefficients
+    b: torch.Tensor          # () bias, prediction = sum beta_i K(x_i,.) + b
+    alpha: torch.Tensor      # (2n,) raw doubled multipliers [alpha; alpha*]
+    n_iter: torch.Tensor
+    converged: torch.Tensor
+    gap: torch.Tensor
+    n_active: torch.Tensor
+
+
+def _svr_result(r: SMOResult, n: int) -> SVRResult:
+    return SVRResult(beta=r.alpha[:n] - r.alpha[n:], b=r.b, alpha=r.alpha,
+                     n_iter=r.n_iter, converged=r.converged, gap=r.gap,
+                     n_active=r.n_active)
+
+
+def svr_smo(x: torch.Tensor,
+            y: torch.Tensor,
+            mask: Optional[torch.Tensor] = None,
+            *,
+            epsilon: float = 0.1,
+            cfg: SMOConfig = SMOConfig(),
+            kernel: K.KernelParams = K.KernelParams(),
+            engine: Optional[KE.EngineConfig | str] = None,
+            alpha0: Optional[torch.Tensor] = None) -> SVRResult:
+    """Solve one epsilon-SVR dual with SMO on ``x``'s device: the
+    doubled-variable instance of ``solve_qp`` over [x; x].
+
+    Args:
+      x: (n, d) float training samples.
+      y: (n,) real-valued targets.
+      mask: (n,) bool validity mask, doubled internally.
+      epsilon: half-width of the insensitive tube.
+      engine: an ``EngineConfig`` or backend name; the engine is built on
+        the DOUBLED (2n, d) sample matrix, so a pre-bound (n-row)
+        ``KernelEngine`` is rejected.
+      alpha0: (2n,) raw doubled warm-start multipliers [alpha; alpha*]
+        (the layout of ``SVRResult.alpha``).
+    """
+    if isinstance(engine, KE.KernelEngine):
+        raise ValueError(
+            "svr_smo solves the doubled 2n-variable QP and must build its "
+            "engine on [x; x]; pass an EngineConfig or backend name, not "
+            f"a bound engine ({type(engine).__name__})")
+    n = x.shape[0]
+    x = x.to(torch.float32)
+    y = torch.as_tensor(y, dtype=torch.float32, device=x.device)
+    s, p, lo, hi = _svr_spec(y, epsilon, cfg.C)
+    m2 = None if mask is None else torch.cat([mask, mask])
+    r = solve_qp(torch.cat([x, x], dim=0), s, p, lo, hi, m2, cfg=cfg,
+                 kernel=kernel, engine=engine, alpha0=alpha0)
+    return _svr_result(r, n)
 
 
 def decision_function(x_train, y_train, alpha, b, x_test, *,

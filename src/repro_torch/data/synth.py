@@ -16,6 +16,8 @@ matrix are what matters.
 * ``load_breast_cancer_like`` — 569 samples, 32 features (30 informative
   + id-like noise), 2 classes with partial overlap.
 * ``make_blobs`` — generic Gaussian clusters.
+* ``make_synth_regression`` — the epsilon-SVR fixture (sinc / linear
+  target of a random 1-D projection, plus noise).
 """
 from __future__ import annotations
 
@@ -36,6 +38,33 @@ def make_blobs(n_per_class: int, n_classes: int, n_features: int, *,
     y = np.concatenate(ys, 0)
     perm = rng.permutation(len(y))
     return x[perm], y[perm]
+
+
+def make_synth_regression(n_samples: int, n_features: int = 6, *,
+                          kind: str = "sinc", noise: float = 0.1,
+                          seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Regression fixture for epsilon-SVR: a smooth nonlinear (or
+    exactly linear) function of a random 1-D projection of x, plus
+    Gaussian noise of scale ``noise``.
+
+    * ``kind="sinc"``   — sinc(2t) + 0.5 sin(t) (bounded, smooth,
+      non-monotone).
+    * ``kind="linear"`` — t itself.
+    """
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2.0, 2.0, size=(n_samples, n_features))
+    w = rng.normal(size=(n_features,))
+    w /= np.linalg.norm(w)
+    t = x @ w
+    if kind == "sinc":
+        y = np.sinc(2.0 * t) + 0.5 * np.sin(t)
+    elif kind == "linear":
+        y = t
+    else:
+        raise ValueError(f"unknown regression target {kind!r}; "
+                         "expected 'sinc' or 'linear'")
+    y = y + noise * rng.normal(size=n_samples)
+    return x.astype(np.float32), y.astype(np.float32)
 
 
 def load_pavia_like(n_per_class: int = 800, *, n_classes: int = 9,

@@ -48,13 +48,32 @@ __device__ __forceinline__ void stage(float (*s)[TILE + 1], const T* src,
   }
 }
 
-// acc[i][j] = <A[a0 + ty + 16 i], B[b0 + tx + 16 j]> over all d features,
-// summed in feature order. With `norms`, sm.norm also receives the
-// squared norms of the staged A and B rows (f32 of the rounded
-// operands, as the reference computes them). Ends with a barrier, so
-// the caller may read sm.norm right away; starts with one, so the
-// caller may still be reading sm.norm of the previous tile.
+// Stage columns [col0, col0 + TILE) x features [k0, k0 + DK) of a
+// row-major (d, ncols) matrix — stored feature-major already, like the
+// RFF frequencies Omega — into s[k][c]; neighbouring threads read
+// neighbouring columns, and ragged edges are zero as in `stage`.
 template <typename T>
+__device__ __forceinline__ void stage_kmajor(float (*s)[TILE + 1],
+                                             const T* src, int col0,
+                                             int ncols, int k0, int d) {
+  for (int e = threadIdx.x; e < TILE * DK; e += THREADS) {
+    const int c = e % TILE, r = e / TILE;
+    const int gc = col0 + c, gr = k0 + r;
+    float v = 0.f;
+    if (gc < ncols && gr < d) v = to_f32(src[(size_t)gr * ncols + gc]);
+    s[r][c] = v;
+  }
+}
+
+// acc[i][j] = <A[a0 + ty + 16 i], B[b0 + tx + 16 j]> over all d features,
+// summed in feature order. B is (nb, d) row-major, or with B_KMAJOR a
+// (d, nb) row-major matrix whose columns are the B rows. With `norms`,
+// sm.norm also receives the squared norms of the staged A and B rows
+// (f32 of the rounded operands, as the reference computes them). Ends
+// with a barrier, so the caller may read sm.norm right away; starts
+// with one, so the caller may still be reading sm.norm of the previous
+// tile.
+template <typename T, bool B_KMAJOR = false>
 __device__ __forceinline__ void tile_dot(TileSmem& sm, const T* A, int a0,
                                          int na, const T* B, int b0, int nb,
                                          int d, bool norms,
@@ -68,7 +87,10 @@ __device__ __forceinline__ void tile_dot(TileSmem& sm, const T* A, int a0,
   for (int k0 = 0; k0 < d; k0 += DK) {
     __syncthreads();
     stage(sm.a, A, a0, na, k0, d);
-    stage(sm.b, B, b0, nb, k0, d);
+    if constexpr (B_KMAJOR)
+      stage_kmajor(sm.b, B, b0, nb, k0, d);
+    else
+      stage(sm.b, B, b0, nb, k0, d);
     __syncthreads();
     if (norms && tid < 2 * TILE) {
       float(*s)[TILE + 1] = tid < TILE ? sm.a : sm.b;

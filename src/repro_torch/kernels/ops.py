@@ -1,4 +1,4 @@
-"""Checked entry points of the port's four kernels.
+"""Checked entry points of the port's kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 
@@ -23,13 +23,19 @@ import torch
 
 from repro_torch.core.kernels import COMPUTE_DTYPES, sqnorms
 from repro_torch.kernels import _build
+from repro_torch.kernels import dcd as _dcd
 from repro_torch.kernels import decision as _decision
+from repro_torch.kernels import feature_map as _fmap
 from repro_torch.kernels import kkt_select as _kkt
 from repro_torch.kernels import rbf_gram as _gram
 
 # one count per kernel entry point: rbf_gram.cu has a block and a row one
 KERNELS = ("rbf_gram", "rbf_gram_row", "kkt_select", "decision",
-           "multitask_decision")
+           "multitask_decision", "rff_features", "dcd_epoch")
+
+# the largest rank dcd_epoch takes: w must fit the 232,448 bytes of
+# shared memory a block may opt in to (csrc/dcd_epoch.cu, MAX_RANK)
+DCD_MAX_RANK = (232448 - 64) // 4
 launches = {k: 0 for k in KERNELS}
 _count_lock = threading.Lock()
 
@@ -265,3 +271,76 @@ def multitask_decision(z: torch.Tensor, sv: torch.Tensor,
     _raise_on_error("multitask_decision", _decision.launch_multitask(
         lib, z, sv, coef, out, gamma=gamma, mode=mode))
     return out if bias is None else out + bias
+
+
+# ----------------------------------------------------------- rff_features
+def rff_features(x: torch.Tensor, omega: torch.Tensor, phase: torch.Tensor,
+                 *, scale: float, compute_dtype: str = "fp32") -> torch.Tensor:
+    """``scale * cos(x @ omega + phase)``: (n, k) float32 random Fourier
+    features of x (n, d), with omega (d, k) and phase (k,). x and omega
+    are rounded to ``compute_dtype``; accumulation and the epilogue are
+    float32."""
+    dt = tile_dtype(compute_dtype)
+    if (x.ndim != 2 or omega.ndim != 2 or x.shape[1] != omega.shape[0]
+            or phase.shape != (omega.shape[1],)):
+        raise ValueError(f"rff_features: need x (n, d), omega (d, k) and "
+                         f"phase (k,), got {tuple(x.shape)}, "
+                         f"{tuple(omega.shape)} and {tuple(phase.shape)}")
+    x, omega = x.to(dt), omega.to(dt)
+    phase = phase.to(torch.float32)
+    if not _on_card("rff_features", x, omega, phase):
+        return _fmap.rff_features_plain(x, omega, phase, scale=scale)
+    _check_contiguous("rff_features", x=x, omega=omega, phase=phase)
+    out = torch.empty((x.shape[0], omega.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    _count("rff_features")
+    _raise_on_error("rff_features", _fmap.launch(lib, x, omega, phase, out,
+                                                 scale=scale))
+    return out
+
+
+# -------------------------------------------------------------- dcd_epoch
+def dcd_epoch(phi: torch.Tensor, y: torch.Tensor, p: torch.Tensor,
+              lo: torch.Tensor, hi: torch.Tensor, q_diag: torch.Tensor,
+              live: torch.Tensor, perm: torch.Tensor, beta: torch.Tensor,
+              w: torch.Tensor, wb: torch.Tensor, *,
+              bias: float) -> torch.Tensor:
+    """One epoch of dual coordinate descent over Phi (n, k), visiting the
+    coordinates in the order ``perm`` (n,) int64. Updates ``beta`` (n,),
+    ``w`` (k,) and ``wb`` (1,) in place and returns the epoch's max
+    projected gradient over ``live`` coordinates, a 0-d float32 tensor
+    on the operands' device (the caller decides when to read it)."""
+    if phi.ndim != 2 or phi.dtype != torch.float32:
+        raise ValueError(f"dcd_epoch: phi must be (n, k) float32, got "
+                         f"{tuple(phi.shape)} {phi.dtype}")
+    n, k = phi.shape
+    for name, t, shape in (("y", y, (n,)), ("p", p, (n,)), ("lo", lo, (n,)),
+                           ("hi", hi, (n,)), ("q_diag", q_diag, (n,)),
+                           ("beta", beta, (n,)), ("w", w, (k,)),
+                           ("wb", wb, (1,))):
+        if t.shape != shape or t.dtype != torch.float32:
+            raise ValueError(f"dcd_epoch: {name} must be {shape} float32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if live.shape != (n,) or live.dtype != torch.bool:
+        raise ValueError(f"dcd_epoch: live must be ({n},) bool")
+    if perm.shape != (n,) or perm.dtype != torch.int64:
+        raise ValueError(f"dcd_epoch: perm must be ({n},) int64")
+    tensors = dict(phi=phi, y=y, p=p, lo=lo, hi=hi, q_diag=q_diag, live=live,
+                   perm=perm, beta=beta, w=w, wb=wb)
+    if not _on_card("dcd_epoch", *tensors.values()):
+        return _dcd.dcd_epoch_plain(phi, y, p, lo, hi, q_diag, live, perm,
+                                    beta, w, wb, bias=bias)
+    _check_contiguous("dcd_epoch", **tensors)
+    if not 1 <= k <= DCD_MAX_RANK:
+        raise ValueError(f"dcd_epoch: rank {k} outside [1, {DCD_MAX_RANK}]"
+                         ": w lives in one block's shared memory")
+    viol = torch.empty((1,), dtype=torch.float32, device=phi.device)
+    lib = _build.library()
+    _count("dcd_epoch")
+    _raise_on_error("dcd_epoch", _dcd.launch(
+        lib, phi, y, p, lo, hi, q_diag, live, perm, beta, w, wb, viol,
+        bias=bias))
+    return viol[0]

@@ -1,18 +1,26 @@
 """Packed model artifacts — the immutable, serving-side form of a fit.
 
-Mirrors the binary SV-bank part of ``repro/serve/artifact.py``: a
-``PackedModel`` holds one serving bucket (the stacked, zero-padded SV
-bank ``sv_x`` / ``sv_coef`` / ``b``), the kernel parameters, the class
-table and the vote-routing ``pairs``, all as numpy arrays — the whole
-fitted state of an SVM. ``save`` / ``load`` read and write schema
-version 1 of the reference's versioned ``.npz`` format
-(``repro.svm-pack``), byte for byte the layout the reference writes, so
-an artifact written by either package loads in the other. The v1
-loader needs no bfloat16 support.
+Mirrors the binary-SVC, SVR and low-rank parts of
+``repro/serve/artifact.py``. A ``PackedModel`` holds either
+
+* one serving bucket — the stacked, zero-padded SV bank ``sv_x`` /
+  ``sv_coef`` / ``b`` of a binary SVC (kind "svc") or an SVR (kind
+  "svr", coefficients beta = alpha - alpha*); or
+* for a low-rank fit (``engine="nystrom" | "rff"``), the feature-map
+  arrays (landmarks + proj, or omega + phase, as a ``LowRankMap``) and
+  the stacked linear weights ``linear_w (1, rank)`` / ``linear_b (1,)``
+  — serving is one feature transform and a matmul;
+
+plus the kernel parameters, the class table and the vote-routing
+``pairs``, all as numpy arrays. ``save`` / ``load`` read and write the
+reference's versioned ``.npz`` format (``repro.svm-pack``) byte for
+byte: SV-bank packs write version 1, low-rank packs version 2 (meta
+``feature_map``, arrays ``fm_a`` / ``fm_b`` / ``linear_w`` /
+``linear_b``), so an artifact written by either package loads in the
+other.
 
 Not ported yet, and raising NotImplementedError until their slice:
-multiclass packs (ROADMAP A.6), SVR packs (next slice), low-rank packs
-(schema v2, A.8) and quantized banks (schema v3, A.10).
+multiclass packs (ROADMAP A.6) and quantized banks (schema v3, A.10).
 """
 from __future__ import annotations
 
@@ -26,10 +34,10 @@ import numpy as np
 from repro_torch.core import kernels as K
 
 SCHEMA_NAME = "repro.svm-pack"
+SCHEMA_VERSION = 2                  # current writer for low-rank packs
 SCHEMA_VERSION_CLASSIC = 1          # fp32 SV-bank packs
-SCHEMA_VERSIONS = (1,)              # what this port's load() accepts
-_LATER = {2: "low-rank packs (ROADMAP A.8)",
-          3: "quantized SV banks (ROADMAP A.10)"}
+SCHEMA_VERSIONS = (1, 2)            # what this port's load() accepts
+_LATER = {3: "quantized SV banks (ROADMAP A.10)"}
 
 
 class TaskBucket(NamedTuple):
@@ -43,12 +51,28 @@ class TaskBucket(NamedTuple):
     sv_counts: np.ndarray  # (T,)   int64 real SV count per stacked task
 
 
+class LowRankMap(NamedTuple):
+    """Serialized feature map of a low-rank fit (``core/approx.py``).
+
+    kind "nystrom": ``a`` = landmarks (k, d), ``b`` = proj (k, rank).
+    kind "rff":     ``a`` = omega (d, rank),  ``b`` = phase (rank,).
+    Rebuild with ``approx.map_from_arrays(kind, kernel, a, b)``.
+    """
+
+    kind: str
+    a: np.ndarray
+    b: np.ndarray
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedModel:
-    """Immutable serving artifact of a binary SVC (see module docstring).
+    """Immutable serving artifact of a binary SVC or an SVR (see module
+    docstring).
 
-    pairs: (n_tasks, 2) class-index credit table; binary packs as
-    [[1, 0]] (a positive decision credits ``classes[1]``).
+    kind:     "svc" | "svr".
+    strategy: "binary" (SVC) or "svr".
+    pairs:    (n_tasks, 2) class-index credit table; binary packs as
+              [[1, 0]] (a positive decision credits ``classes[1]``).
     """
 
     kind: str
@@ -60,15 +84,35 @@ class PackedModel:
     decision: str = "vote"
     classes: Optional[np.ndarray] = None
     pairs: Optional[np.ndarray] = None
+    feature_map: Optional[LowRankMap] = None
+    linear_w: Optional[np.ndarray] = None   # (n_tasks, rank)
+    linear_b: Optional[np.ndarray] = None   # (n_tasks,)
 
     def __post_init__(self):
-        if self.kind != "svc" or self.strategy != "binary":
+        if (self.kind, self.strategy) not in (("svc", "binary"),
+                                              ("svr", "svr")):
             raise NotImplementedError(
                 f"{self.kind}/{self.strategy} packs are not ported yet: "
-                "multiclass comes with ROADMAP A.6, SVR with the next "
-                "slice; this slice serves binary SVC")
-        if self.n_tasks != 1 or len(self.buckets) != 1:
-            raise ValueError("a binary pack has exactly one task in one "
+                "multiclass comes with ROADMAP A.6; this port serves "
+                "binary SVC and SVR")
+        if self.n_tasks != 1:
+            raise ValueError("a binary or SVR pack has exactly one task")
+        if self.feature_map is not None:
+            if self.buckets:
+                raise ValueError("a low-rank pack carries linear weights, "
+                                 "not SV buckets; got both")
+            if self.linear_w is None or self.linear_b is None:
+                raise ValueError("a low-rank pack needs linear_w and "
+                                 "linear_b alongside its feature_map")
+            if (self.linear_w.shape[0] != self.n_tasks
+                    or self.linear_b.shape != (self.n_tasks,)):
+                raise ValueError(
+                    f"linear weights must stack all {self.n_tasks} tasks: "
+                    f"linear_w {self.linear_w.shape}, "
+                    f"linear_b {self.linear_b.shape}")
+            return
+        if len(self.buckets) != 1:
+            raise ValueError("an SV-bank pack has its one task in one "
                              "bucket")
         ids = np.sort(np.concatenate([g.task_ids for g in self.buckets]))
         if not np.array_equal(ids, np.arange(self.n_tasks)):
@@ -89,25 +133,70 @@ class PackedModel:
         two classes (``classes[1]`` on a positive margin)."""
         if isinstance(kernel, dict):
             kernel = K.KernelParams(**kernel)
-        sv_x = np.asarray(sv_x, np.float32)
-        sv_coef = np.asarray(sv_coef, np.float32)
-        if sv_x.ndim != 2 or sv_coef.shape != (sv_x.shape[0],):
-            raise ValueError(f"need (n_sv, d) sv_x and (n_sv,) sv_coef, got "
-                             f"{sv_x.shape} and {sv_coef.shape}")
-        bucket = TaskBucket(task_ids=np.array([0], np.int64),
-                            sv_x=sv_x[None], sv_coef=sv_coef[None],
-                            b=np.array([b], np.float32),
-                            sv_counts=np.array([sv_x.shape[0]], np.int64))
-        return cls(kind="svc", kernel=kernel, n_features=sv_x.shape[1],
+        bucket = _single_task_bucket(sv_x, sv_coef, b)
+        return cls(kind="svc", kernel=kernel, n_features=bucket.sv_x.shape[2],
                    n_tasks=1, buckets=(bucket,), strategy="binary",
                    classes=np.asarray(classes),
                    pairs=np.array([[1, 0]], np.int64))
 
 
+def _single_task_bucket(sv_x, sv_coef, b: float) -> TaskBucket:
+    """The one serving bucket of a binary SVC or an SVR pack."""
+    sv_x = np.asarray(sv_x, np.float32)
+    sv_coef = np.asarray(sv_coef, np.float32)
+    if sv_x.ndim != 2 or sv_coef.shape != (sv_x.shape[0],):
+        raise ValueError(f"need (n_sv, d) sv_x and (n_sv,) sv_coef, got "
+                         f"{sv_x.shape} and {sv_coef.shape}")
+    return TaskBucket(task_ids=np.array([0], np.int64), sv_x=sv_x[None],
+                      sv_coef=sv_coef[None], b=np.array([b], np.float32),
+                      sv_counts=np.array([sv_x.shape[0]], np.int64))
+
+
+def _numpy(a) -> np.ndarray:
+    """float32 numpy copy of a tensor (on any device) or an array."""
+    if hasattr(a, "detach"):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _pack_svr(reg) -> PackedModel:
+    bucket = _single_task_bucket(reg.support_vectors_, reg.dual_coef_,
+                                 reg.b_)
+    return PackedModel(kind="svr", kernel=reg.kernel_params,
+                       n_features=bucket.sv_x.shape[2], n_tasks=1,
+                       buckets=(bucket,), strategy="svr")
+
+
+def _pack_lowrank(model) -> PackedModel:
+    """Low-rank (Nystrom / RFF) fits: feature-map arrays + linear
+    weights instead of an SV bank; the artifact is O(rank), whatever
+    the training-set size."""
+    fmap = model._feature_map
+    a, b = fmap.arrays
+    fm = LowRankMap(kind=fmap.kind, a=_numpy(a), b=_numpy(b))
+    if hasattr(model, "beta_"):
+        kind, strategy, classes, pairs = "svr", "svr", None, None
+    else:
+        kind, strategy = "svc", "binary"
+        classes = np.asarray(model.classes_)
+        pairs = np.array([[1, 0]], np.int64)
+    return PackedModel(
+        kind=kind, kernel=model.kernel_params, n_features=fmap.n_features,
+        n_tasks=1, buckets=(), strategy=strategy, classes=classes,
+        pairs=pairs, feature_map=fm,
+        linear_w=np.asarray(model.w_, np.float32)[None],
+        linear_b=np.array([model.b_], np.float32))
+
+
 def pack(model) -> PackedModel:
-    """Compact a fitted binary ``SVC`` into an immutable PackedModel."""
+    """Compact a fitted binary ``SVC`` or ``SVR`` into an immutable
+    PackedModel (duck-typed on the fitted attributes)."""
     if not getattr(model, "_fitted", False):
         raise ValueError("pack() needs a fitted model (call .fit first)")
+    if getattr(model, "_feature_map", None) is not None:
+        return _pack_lowrank(model)
+    if hasattr(model, "beta_"):
+        return _pack_svr(model)
     return PackedModel.from_numpy(kernel=model.kernel_params,
                                   sv_x=model.support_vectors_,
                                   sv_coef=model.dual_coef_, b=model.b_,
@@ -115,22 +204,31 @@ def pack(model) -> PackedModel:
 
 
 def save(path, model: PackedModel) -> None:
-    """Write the schema-v1 .npz artifact (path or open file object). The
-    path is written verbatim (no ".npz" appended)."""
+    """Write the .npz artifact (path or open file object): version 1 for
+    an SV-bank pack, 2 for a low-rank one. The path is written verbatim
+    (no ".npz" appended)."""
+    lowrank = model.feature_map is not None
     meta = {
         "schema": SCHEMA_NAME,
-        "version": SCHEMA_VERSION_CLASSIC,
+        "version": SCHEMA_VERSION if lowrank else SCHEMA_VERSION_CLASSIC,
         "kind": model.kind, "strategy": model.strategy,
         "decision": model.decision,
         "kernel": dataclasses.asdict(model.kernel),
         "n_features": model.n_features, "n_tasks": model.n_tasks,
         "n_buckets": len(model.buckets),
     }
+    if lowrank:
+        meta["feature_map"] = model.feature_map.kind
     arrays = {"meta": np.array(json.dumps(meta, sort_keys=True))}
     if model.classes is not None:
         arrays["classes"] = model.classes
     if model.pairs is not None:
         arrays["pairs"] = model.pairs
+    if lowrank:
+        arrays["fm_a"] = model.feature_map.a
+        arrays["fm_b"] = model.feature_map.b
+        arrays["linear_w"] = model.linear_w
+        arrays["linear_b"] = model.linear_b
     for i, g in enumerate(model.buckets):
         for field, value in g._asdict().items():
             arrays[f"b{i}_{field}"] = value
@@ -142,8 +240,8 @@ def save(path, model: PackedModel) -> None:
 
 
 def load(path) -> PackedModel:
-    """Read a schema-v1 artifact written by either package; strict about
-    the schema."""
+    """Read a schema-v1 or v2 artifact written by either package; strict
+    about the schema."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         if meta.get("schema") != SCHEMA_NAME:
@@ -161,6 +259,13 @@ def load(path) -> PackedModel:
         buckets = tuple(
             TaskBucket(**{f: z[f"b{i}_{f}"] for f in TaskBucket._fields})
             for i in range(meta["n_buckets"]))
+        fm = w = lb = None
+        if "feature_map" in meta:
+            fm = LowRankMap(kind=meta["feature_map"],
+                            a=np.asarray(z["fm_a"], np.float32),
+                            b=np.asarray(z["fm_b"], np.float32))
+            w = np.asarray(z["linear_w"], np.float32)
+            lb = np.asarray(z["linear_b"], np.float32)
         return PackedModel(
             kind=meta["kind"], kernel=K.KernelParams(**meta["kernel"]),
             n_features=meta["n_features"], n_tasks=meta["n_tasks"],
@@ -168,4 +273,4 @@ def load(path) -> PackedModel:
             decision=meta["decision"],
             classes=z["classes"] if "classes" in z else None,
             pairs=np.asarray(z["pairs"], np.int64) if "pairs" in z
-            else None)
+            else None, feature_map=fm, linear_w=w, linear_b=lb)

@@ -14,7 +14,14 @@ Mirrors the binary part of ``repro/serve/predictor.py``:
   ``KernelEngine.decide`` per task (the plain reference path);
 * ``n_programs`` counts the distinct (bank signature, batch bucket)
   pairs served so far — the program shapes a captured-graph cache will
-  hold (PyTorch runs eagerly, so nothing is compiled per entry yet).
+  hold (PyTorch runs eagerly, so nothing is compiled per entry yet);
+* a low-rank pack (``PackedModel.feature_map``) keeps the feature map
+  and the linear weights resident instead of an SV bank; a slice is
+  one feature transform (the ``rff_features`` kernel for an RFF map on
+  the card) and a (rank, n_tasks) matmul, on the same ladder, in the
+  ledger under ``("lowrank", bucket)``;
+* an SVR pack decodes to its decision values (``predict`` returns
+  them).
 
 ``decision_values`` is thread-safe: each caller owns its output, and the
 served-row counter and the program ledger are guarded by a lock.
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core import approx
 from repro_torch.core import kernel_engine as KE
 from repro_torch.kernels import ops
 from repro_torch.serve.artifact import PackedModel
@@ -53,7 +61,8 @@ def _pow2_floor(n: int) -> int:
 
 
 class Predictor:
-    """Serve a binary ``PackedModel`` on ``device``; see module docstring."""
+    """Serve a binary-SVC or SVR ``PackedModel`` on ``device``; see
+    module docstring."""
 
     # the served-row counter and program ledger are mutated by every
     # concurrent decision_values caller (enforced by analysis rule R004)
@@ -80,6 +89,14 @@ class Predictor:
              torch.from_numpy(np.asarray(g.b, np.float32)).to(self.device),
              np.asarray(g.task_ids))
             for g in model.buckets)
+        if model.feature_map is not None:
+            fm = model.feature_map
+            self._fmap = approx.map_from_arrays(
+                fm.kind, model.kernel, fm.a, fm.b,
+                gram_dtype=self.engine_cfg.gram_dtype, device=self.device)
+            self._linear = tuple(
+                torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
+                for a in (model.linear_w, model.linear_b))
         self.n_requests = 0  # rows served (warmup excluded)
         self._program_sigs: set = set()
         self._lock = threading.Lock()
@@ -135,6 +152,12 @@ class Predictor:
             zp = np.zeros((bucket, xt.shape[1]), np.float32)
             zp[:stop - start] = xt[start:stop]
             z = torch.from_numpy(zp).to(self.device)
+            if self.model.feature_map is not None:
+                w, lb = self._linear
+                df = (self._fmap.transform(z) @ w.T).T + lb[:, None]
+                out[:, start:stop] = df.cpu().numpy()[:, :stop - start]
+                sigs.append(("lowrank", bucket))
+                continue
             for sv_x, sv_coef, b, task_ids in self._banks:
                 if sv_x.shape[1] == 0:  # empty-SV bank: constant bias
                     out[task_ids, start:stop] = b.cpu().numpy()[:, None]
@@ -150,7 +173,7 @@ class Predictor:
     def decode(self, df: np.ndarray, op: str = "predict") -> np.ndarray:
         """Post-process stacked decision values ``df (n_tasks, nt)``:
         op "values" (unchanged), "decision_function" (margins, sklearn
-        orientation) or "predict" (labels)."""
+        orientation) or "predict" (labels; SVR values)."""
         if op == "values":
             return df
         if op == "decision_function":
@@ -158,6 +181,8 @@ class Predictor:
         if op != "predict":
             raise ValueError(f"unknown decode op {op!r}; expected "
                              "'predict', 'decision_function' or 'values'")
+        if self.model.kind == "svr":
+            return df[0]
         return self.model.classes[(df[0] > 0).astype(np.int64)]
 
     def decision_function(self, xt: np.ndarray) -> np.ndarray:
@@ -165,5 +190,5 @@ class Predictor:
         return self.decode(self.decision_values(xt), "decision_function")
 
     def predict(self, xt: np.ndarray) -> np.ndarray:
-        """Class labels."""
+        """Class labels (SVR: the predicted values)."""
         return self.decode(self.decision_values(xt), "predict")

@@ -3,8 +3,9 @@
 * No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   jax, jaxlib, ml_dtypes or anything of the reference package ``repro``
   (the machine with the card has no JAX).
-* Entry points run on the card unless asked for the CPU: ``SVC()`` and
-  ``Predictor(...)`` raise without CUDA unless ``device="cpu"``;
+* Entry points run on the card unless asked for the CPU: ``SVC()``,
+  ``SVR()`` (exact or low-rank) and ``Predictor(...)`` raise without
+  CUDA unless ``device="cpu"``;
   functional entry points follow their input tensors' device.
 * Features of later slices raise NotImplementedError naming the slice.
 """
@@ -19,7 +20,7 @@ from repro_torch import serve as tserve
 from repro_torch.core import kernel_engine as TKE
 from repro_torch.core import kernels as TK
 from repro_torch.core import smo as tsmo
-from repro_torch.core.svm import SVC
+from repro_torch.core.svm import SVC, SVR
 from repro_torch.data import load_iris, make_blobs
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -52,8 +53,10 @@ def test_port_imports_nothing_of_jax_or_the_reference():
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        SVC()
+    for make in (SVC, SVR, lambda: SVC(engine="rff"),
+                 lambda: SVR(engine="rff"), lambda: SVR(engine="pallas")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
     x, y = load_iris()
     keep = y < 2
     clf = SVC(device="cpu").fit(x[keep], y[keep])
@@ -74,18 +77,19 @@ def test_functional_entry_points_follow_their_tensors():
     assert eng.device.type == "cpu"
 
 
+@pytest.mark.parametrize("cls", [SVC, SVR])
 @pytest.mark.parametrize("kwargs,match", [
     (dict(solver="gd"), "A.7"),
-    (dict(engine="nystrom"), "A.8"),
-    (dict(engine="rff"), "A.8"),
+    (dict(engine="sharded"), "A.11"),
     (dict(engine=TKE.EngineConfig(backend="sharded")), "A.11"),
 ])
-def test_unported_options_raise(kwargs, match):
+def test_unported_options_raise(kwargs, match, cls):
     with pytest.raises(NotImplementedError, match=match):
-        SVC(device="cpu", **kwargs)
+        cls(device="cpu", **kwargs)
 
 
-def test_multiclass_fit_raises():
+@pytest.mark.parametrize("engine", ["auto", "rff", "nystrom"])
+def test_multiclass_fit_raises(engine):
     x, y = load_iris()
     with pytest.raises(NotImplementedError, match="A.6"):
-        SVC(device="cpu").fit(x, y)
+        SVC(device="cpu", engine=engine, rank=16).fit(x, y)

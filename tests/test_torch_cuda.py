@@ -8,7 +8,12 @@ the machine with the card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Bounds are the reference's (tests/test_kernels_pallas.py): Gram rtol
-2e-5 / atol 2e-6, decisions rtol 2e-4 / atol 2e-5, kkt_select exact.
+2e-5 / atol 2e-6, decisions rtol 2e-4 / atol 2e-5, kkt_select exact;
+rff_features atol 1e-5 in float32 and 5e-2 in bfloat16
+(tests/test_approx.py). ``dcd_epoch`` reduces each dot product in
+another order than its plain version, so one epoch from the same state
+agrees to rtol 1e-4 (atol 1e-4 of the largest entry) in w and beta and
+to 1e-5 in the epoch's max projected gradient.
 """
 import numpy as np
 import pytest
@@ -16,11 +21,14 @@ import torch
 
 from repro_torch import serve
 from repro_torch.core import kernels as K
-from repro_torch.core import smo
-from repro_torch.core.svm import SVC
+from repro_torch.core import linear, smo
+from repro_torch.core.svm import SVC, SVR
 from repro_torch.data import (load_breast_cancer_like, load_pavia_like,
-                              normalize, train_test_split)
+                              make_synth_regression, normalize,
+                              train_test_split)
+from repro_torch.kernels import dcd as DCD
 from repro_torch.kernels import decision as D
+from repro_torch.kernels import feature_map as FM
 from repro_torch.kernels import kkt_select as KS
 from repro_torch.kernels import ops
 from repro_torch.kernels import rbf_gram as G
@@ -28,6 +36,7 @@ from torch_helpers import cuda, tt  # noqa: F401  (cuda: fixture)
 
 GRAM_TOL = dict(rtol=2e-5, atol=2e-6)
 DECISION_TOL = dict(rtol=2e-4, atol=2e-5)
+RFF_TOL = {"fp32": dict(rtol=0, atol=1e-5), "bf16": dict(rtol=0, atol=5e-2)}
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -145,3 +154,134 @@ def test_svc_and_predictor_on_card_match_cpu(cuda, tmp_path):  # noqa: F811
                                c.decision_function(xte), rtol=0, atol=2e-3)
     np.testing.assert_allclose(pred.decision_function(xte),
                                g.decision_function(xte), **DECISION_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_rff_features_kernel_matches_plain(cuda, dtype):  # noqa: F811
+    rng = np.random.default_rng(17)
+    dt = ops.tile_dtype(dtype)
+    for n, k, d in [(300, 257, 102), (128, 128, 128), (5, 300, 13),
+                    (1, 1, 1)]:
+        x = tt(rng.normal(size=(n, d)), device=cuda)
+        om = tt(rng.normal(scale=0.3, size=(d, k)), device=cuda)
+        ph = tt(rng.uniform(0, 2 * np.pi, size=k), device=cuda)
+        scale = float(np.sqrt(2.0 / k))
+        got = ops.rff_features(x, om, ph, scale=scale, compute_dtype=dtype)
+        want = FM.rff_features_plain(x.to(dt), om.to(dt), ph, scale=scale)
+        torch.testing.assert_close(got, want, **RFF_TOL[dtype])
+        if dtype == "bf16":   # against the float32 map, the bf16 bound
+            torch.testing.assert_close(got, FM.rff_features_plain(
+                x, om, ph, scale=scale), **RFF_TOL["bf16"])
+
+
+def _dcd_state(rng, n, k, device):
+    phi = tt(rng.normal(scale=1 / np.sqrt(k), size=(n, k)), device=device)
+    y = tt(np.where(rng.random(n) < 0.5, 1.0, -1.0), device=device)
+    beta = np.where(rng.random(n) < 0.3, 0.0, rng.uniform(0, 1, n))
+    beta[rng.random(n) < 0.2] = 1.0
+    live = rng.random(n) < 0.9
+    beta[~live] = 0.0
+    state = dict(
+        phi=phi, y=y, p=-torch.ones(n, device=device),
+        lo=torch.zeros(n, device=device), hi=torch.ones(n, device=device),
+        q_diag=torch.sum(phi * phi, dim=1) + 1.0,
+        live=tt(live, torch.bool, device),
+        perm=torch.from_numpy(rng.permutation(n)).to(device),
+        beta=tt(beta, device=device))
+    coef = state["y"] * state["beta"] * state["live"]
+    state["w"] = (phi.T @ coef).contiguous()
+    state["wb"] = torch.sum(coef).reshape(1)
+    return state
+
+
+@pytest.mark.parametrize("n,k", [(500, 1024), (300, 37), (64, 9000),
+                                 (1, 1)])
+def test_dcd_epoch_kernel_matches_plain(cuda, n, k):  # noqa: F811
+    """One epoch from the same state and permutation; k = 9000 takes the
+    kernel's path that reads phi_i from memory instead of registers."""
+    st = _dcd_state(np.random.default_rng(n + k), n, k, cuda)
+    host = {name: t.cpu().clone() for name, t in st.items()}
+    viol = ops.dcd_epoch(**st, bias=1.0)
+    want = DCD.dcd_epoch_plain(*host.values(), bias=1.0)
+    for name in ("beta", "w", "wb"):
+        got, ref = st[name].cpu(), host[name]
+        torch.testing.assert_close(
+            got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()) + 1e-7)
+    assert float(viol) == pytest.approx(float(want), abs=1e-5)
+
+
+def test_dcd_epoch_refuses_ranks_past_shared_memory(cuda):  # noqa: F811
+    st = _dcd_state(np.random.default_rng(0), 4, ops.DCD_MAX_RANK + 1, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.dcd_epoch(**st, bias=1.0)
+
+
+def _lowrank_certificate(phi, yy, alpha, C, bias=1.0):
+    """float64 KKT of the augmented-bias box QP, r pinned at 0."""
+    phib = torch.cat([phi.double().cpu(),
+                      torch.full((phi.shape[0], 1), bias,
+                                 dtype=torch.float64)], dim=1)
+    a = torch.as_tensor(alpha).double()
+    y = torch.as_tensor(yy).double()
+    f = phib @ (phib.T @ (a * y)) - y
+    return float(smo.kkt_violation(a, y, f, 0.0, C, r=0.0))
+
+
+def test_lowrank_fit_and_serve_on_card(cuda, tmp_path):  # noqa: F811
+    x, y = load_pavia_like(n_per_class=300, n_classes=2, seed=7)
+    xtr, ytr, xte, _ = train_test_split(normalize(x), y, test_frac=0.25)
+    ops.reset_launches()
+    clf = SVC(engine="rff", rank=256, device=cuda).fit(xtr, ytr)
+    assert ops.launches["rff_features"] > 0 and ops.launches["dcd_epoch"] > 0
+    assert clf.converged_
+    yy = np.where(ytr == clf.classes_[1], 1.0, -1.0).astype(np.float32)
+    phi = clf._feature_map.transform(tt(xtr, device=cuda))
+    assert _lowrank_certificate(phi, yy, clf.alpha_, 1.0) <= 1e-3
+    serve.save(tmp_path / "m.npz", serve.pack(clf))
+    pred = serve.Predictor(serve.load(tmp_path / "m.npz"), device=cuda)
+    om, ph = clf._feature_map.arrays
+    plain = (FM.rff_features_plain(tt(xte, device=cuda), om, ph,
+                                   scale=clf._feature_map.scale)
+             @ tt(clf.w_, device=cuda) + clf.b_).cpu().numpy()
+    np.testing.assert_array_equal(
+        pred.predict(xte), clf.classes_[(plain > 0).astype(np.int64)])
+    np.testing.assert_allclose(pred.decision_function(xte), plain,
+                               rtol=0, atol=1e-5)
+
+
+def test_linear_svc_on_card_matches_cpu(cuda):  # noqa: F811
+    """The same Phi on the card and on the CPU: the permutations come
+    from different generators, so the solves meet at the optimum, not
+    step by step: both certify, w within 10 tol, labels equal."""
+    rng = np.random.default_rng(4)
+    phi = rng.normal(size=(400, 64)).astype(np.float32) / 8
+    yy = np.sign(phi @ rng.normal(size=64) + 0.1).astype(np.float32)
+    cfg = linear.DCDConfig(C=1.0, tol=1e-3)
+    rg = linear.linear_svc(tt(phi, device=cuda), tt(yy, device=cuda),
+                           cfg=cfg)
+    rc = linear.linear_svc(tt(phi), tt(yy), cfg=cfg)
+    assert bool(rg.converged) and bool(rc.converged)
+    for r in (rg, rc):
+        assert _lowrank_certificate(tt(phi), yy, r.alpha.cpu(), 1.0) <= 1e-3
+    np.testing.assert_allclose(rg.w.cpu().numpy(), rc.w.numpy(), atol=1e-2)
+    dg = phi @ rg.w.cpu().numpy() + float(rg.b)
+    dc = phi @ rc.w.numpy() + float(rc.b)
+    away = np.abs(dc) > 1e-2
+    np.testing.assert_array_equal(np.sign(dg[away]), np.sign(dc[away]))
+
+
+@pytest.mark.parametrize("engine", ["pallas", "rff"])
+def test_svr_fit_and_serve_on_card(cuda, engine, tmp_path):  # noqa: F811
+    x, y = make_synth_regression(600, 6, kind="sinc", noise=0.1, seed=7)
+    ops.reset_launches()
+    reg = SVR(engine=engine, rank=256, epsilon=0.1, device=cuda).fit(
+        x[:500], y[:500])
+    assert reg.converged_ and reg.score(x[500:], y[500:]) > 0.5
+    used = (("rbf_gram_row", "kkt_select") if engine == "pallas"
+            else ("rff_features", "dcd_epoch"))
+    assert all(ops.launches[k] > 0 for k in used), ops.launches
+    serve.save(tmp_path / "r.npz", serve.pack(reg))
+    pred = serve.Predictor(serve.load(tmp_path / "r.npz"), engine=engine,
+                           device=cuda)
+    np.testing.assert_allclose(pred.predict(x[500:]),
+                               reg._predict_engine(x[500:]), **DECISION_TOL)

@@ -184,8 +184,8 @@ def test_unported_artifacts_raise(tmp_path):
     with np.load(path) as z:
         arrays = dict(z)
     import json
-    for change in ({"version": 2}, {"version": 3}, {"strategy": "ovo"},
-                   {"kind": "svr", "strategy": "svr"}):
+    for change in ({"version": 3}, {"strategy": "ovo"},
+                   {"version": 2, "strategy": "ovr"}):
         meta = json.loads(str(arrays["meta"]))
         meta.update(change)
         bad = tmp_path / "bad.npz"
@@ -251,3 +251,127 @@ def test_predictor_counters_under_concurrency():
         th.join(timeout=60)
     assert not any(th.is_alive() for th in threads) and not errors
     assert pred.n_requests == len(xte) * 13 + 12 * 6
+
+
+# ------------------------------------- SVR and low-rank (schema v2) packs
+DECISION_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_kernels_pallas.py
+
+
+def _regression():
+    from repro_torch.data import make_synth_regression
+    x, y = make_synth_regression(260, 4, kind="sinc", noise=0.05, seed=8)
+    return x[:200], y[:200], x[200:]
+
+
+def _fit_pair(kind, engine):
+    """(reference model, port model, held-out rows) of one kind."""
+    from repro.core.svm import SVR as JSVR
+    from repro_torch.core.svm import SVR as TSVR
+    kw = dict(engine=engine, rank=48) if engine in ("rff", "nystrom") \
+        else dict(engine=engine)
+    if kind == "svr":
+        xtr, ytr, xte = _regression()
+        j = JSVR(epsilon=0.1, **kw).fit(xtr, ytr)
+        t = TSVR(epsilon=0.1, device="cpu", **kw).fit(xtr, ytr)
+    else:
+        xtr, ytr, xte, _ = _dataset("pavia")
+        j = JSVC(**kw).fit(xtr, ytr)
+        t = TSVC(device="cpu", **kw).fit(xtr, ytr)
+    return j, t, xte
+
+
+PACKS = [("svc", "rff"), ("svc", "nystrom"), ("svr", "dense"),
+         ("svr", "rff"), ("svr", "nystrom")]
+
+
+@pytest.mark.parametrize("kind,engine", PACKS)
+def test_reference_svr_and_lowrank_artifacts_serve_in_port(tmp_path, kind,
+                                                           engine):
+    j, _, xte = _fit_pair(kind, engine)
+    path = tmp_path / "ref.npz"
+    jserve.save(path, jserve.pack(j))
+    packed = tserve.load(path)
+    assert packed.kind == kind
+    assert (packed.feature_map is not None) == (engine != "dense")
+    want = jserve.Predictor(jserve.load(path))
+    got = tserve.Predictor(packed, device="cpu")
+    np.testing.assert_allclose(got.decision_function(xte),
+                               want.decision_function(xte), **DECISION_TOL)
+    if kind == "svc":
+        np.testing.assert_array_equal(got.predict(xte), want.predict(xte))
+    else:   # an SVR's predict is its decision values
+        np.testing.assert_array_equal(got.predict(xte),
+                                      got.decision_function(xte))
+
+
+@pytest.mark.parametrize("kind,engine", PACKS)
+def test_port_svr_and_lowrank_artifacts_serve_in_reference(tmp_path, kind,
+                                                           engine):
+    import json
+    _, t, xte = _fit_pair(kind, engine)
+    path = tmp_path / "port.npz"
+    tserve.save(path, tserve.pack(t))
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta"]))
+    lowrank = engine != "dense"
+    assert meta["version"] == (2 if lowrank else 1)
+    assert meta.get("feature_map") == (engine if lowrank else None)
+    jpacked = jserve.load(path)
+    want = tserve.Predictor(tserve.pack(t), device="cpu")
+    got = jserve.Predictor(jpacked)
+    np.testing.assert_allclose(got.decision_function(xte),
+                               want.decision_function(xte), **DECISION_TOL)
+    np.testing.assert_allclose(want.decision_function(xte),
+                               (t._predict_engine(xte) if kind == "svr"
+                                else t._decision_function_engine(xte)),
+                               **DECISION_TOL)
+    if kind == "svc":
+        np.testing.assert_array_equal(got.predict(xte), want.predict(xte))
+    again = tserve.load(path)
+    if lowrank:
+        np.testing.assert_array_equal(again.linear_w, t.w_[None])
+        np.testing.assert_array_equal(
+            again.feature_map.a, t._feature_map.arrays[0].cpu().numpy())
+    else:
+        np.testing.assert_array_equal(again.buckets[0].sv_coef[0],
+                                      t.dual_coef_)
+
+
+def test_lowrank_predictor_ladder_and_ledger():
+    xtr, ytr, xte, _ = _dataset("breast")
+    t = TSVC(engine="rff", rank=32, device="cpu").fit(xtr, ytr)
+    pred = tserve.Predictor(tserve.pack(t), max_batch=100, device="cpu")
+    assert pred.max_batch == 64
+    pred.warmup((1, 37))
+    assert pred.n_requests == 0 and pred.n_programs == 2
+    full = t._decision_function_engine(xte)
+    for n in (3, 37, len(xte)):
+        np.testing.assert_allclose(pred.decision_function(xte[:n]),
+                                   full[:n], rtol=1e-5, atol=1e-5)
+    assert pred.n_programs == 4           # buckets 1, 64, 4, 16
+    assert ("lowrank", 64) in pred._program_sigs
+
+
+def test_lowrank_pack_validation():
+    kp = TK.KernelParams(gamma=0.5)
+    fm = tserve.LowRankMap(kind="rff", a=np.zeros((3, 4), np.float32),
+                           b=np.zeros((4,), np.float32))
+    with pytest.raises(ValueError, match="linear_w"):
+        tserve.PackedModel(kind="svc", kernel=kp, n_features=3, n_tasks=1,
+                           buckets=(), feature_map=fm)
+    with pytest.raises(ValueError, match="stack all"):
+        tserve.PackedModel(kind="svr", kernel=kp, n_features=3, n_tasks=1,
+                           buckets=(), strategy="svr", feature_map=fm,
+                           linear_w=np.zeros((2, 4), np.float32),
+                           linear_b=np.zeros((1,), np.float32))
+    with pytest.raises(NotImplementedError, match="A.6"):
+        tserve.PackedModel(kind="svc", kernel=kp, n_features=3, n_tasks=3,
+                           buckets=(), strategy="ovo", feature_map=fm)
+    ok = tserve.PackedModel(kind="svr", kernel=kp, n_features=3, n_tasks=1,
+                            buckets=(), strategy="svr", feature_map=fm,
+                            linear_w=np.ones((1, 4), np.float32),
+                            linear_b=np.array([0.5], np.float32))
+    pred = tserve.Predictor(ok, device="cpu")
+    # phase 0, omega 0: every feature is sqrt(2/4) cos(0)
+    np.testing.assert_allclose(pred.predict(np.zeros((2, 3), np.float32)),
+                               [4 * np.sqrt(0.5) + 0.5] * 2, rtol=1e-6)

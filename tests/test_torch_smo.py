@@ -121,9 +121,12 @@ def test_engine_resolution_and_guards():
         dense_limit=10)), TKE.ChunkedKernelEngine)
     with pytest.raises(ValueError):
         TKE.make_engine(tt(x), kp, "no_such_backend")
-    for backend in ("sharded", "nystrom", "rff"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TKE.make_engine(tt(x), kp, backend)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TKE.make_engine(tt(x), kp, "sharded")
+    for backend in TKE.LOWRANK_BACKENDS:   # ported with the low-rank tier
+        eng = TKE.make_engine(tt(x), kp, TKE.EngineConfig(backend=backend,
+                                                          rank=8))
+        assert eng.backend == "lowrank" and eng.phi.shape == (len(x), 8)
     for cls in (TKE.ChunkedKernelEngine, TKE.PallasKernelEngine):
         eng = cls(tt(x), kp, TKE.EngineConfig(dense_limit=10))
         with pytest.raises(RuntimeError, match="refusing to materialize"):
