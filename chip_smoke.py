@@ -7,7 +7,9 @@ with nvcc (into ``src/repro_torch/kernels/_build/``, at first use),
 then:
 
 1. holds every kernel against its plain PyTorch version on the card,
-   in float32 and bfloat16, at the shapes the main path gives it;
+   in float32 and bfloat16, at the shapes the main path gives it
+   (``dcd_epoch`` over the whole of each low-rank fit's Phi, the
+   SVR's doubled one included);
 2. drives the main path through the entry points a user calls: a binary
    RBF ``SVC(engine="pallas")`` fit by SMO on a Pavia-shaped problem
    (~29.5k x 102), certified by a float64 KKT check of a recomputed
@@ -23,6 +25,8 @@ then:
 5. drives epsilon-SVR, exact (``engine="pallas"``, SMO over the doubled
    problem) and low-rank (``engine="rff"``), on a 16,384-row sinc
    regression problem, each certified, packed, saved, loaded and served;
+   the exact fit once more in its default configuration (no shrinking),
+   whose certificate is recorded, not required (ROADMAP C);
 6. times each kernel, its plain version and one PyTorch library call for
    the same function, beside the least time the card could take
    (``bound_ms``): ``ms`` / ``plain_ms`` / ``library_ms`` are CUDA-event
@@ -60,7 +64,11 @@ FP32_FLOP_PER_S = 67e12
 SEED = 7
 GRAM_TOL = dict(rtol=2e-5, atol=2e-6)      # tests/test_kernels_pallas.py
 DECISION_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_kernels_pallas.py
-RFF_TOL = {"fp32": 1e-5, "bf16": 5e-2}     # atol, tests/test_approx.py
+# rff_features against its plain version on the same operands (bf16
+# operands rounded before both, float32 accumulation in both); the
+# bf16 map against the float32 one: atol, tests/test_approx.py
+RFF_TOL = 1e-5
+RFF_BF16_VS_FP32_TOL = 5e-2
 # one dcd_epoch from the same state: the kernel sums each dot product in
 # another order than the plain loop (tests/test_torch_cuda.py)
 DCD_TOL = dict(rtol=1e-4, atol_rel=1e-4, viol_atol=1e-5)
@@ -480,6 +488,20 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
                                                seed=SEED)
     n = len(xtr)
     eps, C = 0.1, 1.0
+    xt = torch.from_numpy(xtr).to(dev)
+    yt = torch.from_numpy(ytr).to(dev)
+    s = torch.cat([torch.ones(n, device=dev), -torch.ones(n, device=dev)])
+    p = torch.cat([eps - yt, eps + yt])
+
+    def exact_kkt(reg):
+        """the f64 certificate of the doubled QP from a recomputed
+        gradient"""
+        a2 = torch.from_numpy(reg.alpha_raw_).to(dev)
+        eng = KE.make_engine(torch.cat([xt, xt]), reg.kernel_params,
+                             "pallas")
+        f = eng.matvec(a2 * s) + s * p
+        return float(smo.kkt_violation(a2, s, f, 0.0, C))
+
     total = {k: 0 for k in ops.KERNELS}
     for engine in ("pallas", "rff"):
         kw = dict(engine=engine, epsilon=eps, C=C, tol=1e-3)
@@ -497,21 +519,14 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         fit_launches = dict(ops.launches)
-        # certificate of the doubled QP from a recomputed gradient
-        xt = torch.from_numpy(xtr).to(dev)
-        yt = torch.from_numpy(ytr).to(dev)
-        s = torch.cat([torch.ones(n, device=dev), -torch.ones(n, device=dev)])
-        p = torch.cat([eps - yt, eps + yt])
-        a2 = torch.from_numpy(reg.alpha_raw_).to(dev)
         if engine == "rff":
             phi = reg._feature_map.transform(xt)
-            kkt = certify_lowrank(smo, torch.cat([phi, phi]), s, p, a2, C,
+            a2 = torch.from_numpy(reg.alpha_raw_).to(dev)
+            lowrank = dict(phi=torch.cat([phi, phi]), s=s, p=p, beta=a2)
+            kkt = certify_lowrank(smo, lowrank["phi"], s, p, a2, C,
                                   reg.dcd_cfg.bias)
         else:
-            eng = KE.make_engine(torch.cat([xt, xt]), reg.kernel_params,
-                                 "pallas")
-            f = eng.matvec(a2 * s) + s * p
-            kkt = float(smo.kkt_violation(a2, s, f, 0.0, C))
+            kkt = exact_kkt(reg)
         ops.launches.update(fit_launches)   # the check is not the path
         values = reg._predict_engine(xte)
         path = os.path.join(out_dir, f"chip_smoke_svr_{engine}.npz")
@@ -541,13 +556,64 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
         for k in used:
             check(launches[k] > 0, f"SVR({engine}) launched no {k}")
         total = {k: total[k] + launches[k] for k in total}
-    return total
+
+    # the exact fit as a user gets it by default (no shrinking): its
+    # float32 f cache is never recomputed, so the certificate is read,
+    # not required (ROADMAP C); launches here are not the path's
+    saved = dict(ops.launches)
+    t0 = time.perf_counter()
+    reg = SVR(engine="pallas", epsilon=eps, C=C, tol=1e-3,
+              device=dev).fit(xtr, ytr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    kkt = exact_kkt(reg)
+    ops.launches.update(saved)
+    emit(phase="svr_default_config", engine="pallas", shrink_every=0,
+         qp_variables=2 * n, n_iter=reg.n_iter_, converged=reg.converged_,
+         kkt_f64=kkt, tol=1e-3, certified=kkt <= 1e-3, fit_s=fit_s)
+    check(reg.converged_, "SVR(pallas), default configuration, did not "
+          "converge")
+    check(bool(np.isfinite(kkt)), "SVR(pallas) default-configuration "
+          "certificate is not finite")
+    return total, lowrank
 
 
-def phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi_fit, yy_fit):
+def dcd_parity(ops, DCD, dev, gen, problem, case, phi, s, p, beta0):
+    """One dcd_epoch against the plain loop from the same state (box
+    [0, 1], bias 1, all coordinates live); the largest error."""
+    n = phi.shape[0]
+    coef = s * beta0
+    st = dict(phi=phi, y=s, p=p, lo=torch.zeros(n, device=dev),
+              hi=torch.ones(n, device=dev),
+              q_diag=torch.sum(phi * phi, dim=1) + 1.0,
+              live=torch.ones(n, dtype=torch.bool, device=dev),
+              perm=torch.randperm(n, generator=gen, device=dev),
+              beta=beta0.clone(), w=(phi.T @ coef).contiguous(),
+              wb=torch.sum(coef).reshape(1))
+    host = {k: v.cpu().clone() for k, v in st.items()}
+    viol = float(ops.dcd_epoch(**st, bias=1.0))
+    want = float(DCD.dcd_epoch_plain(*host.values(), bias=1.0))
+    errs, ok = {}, abs(viol - want) <= DCD_TOL["viol_atol"]
+    for name in ("beta", "w", "wb"):
+        got, ref = st[name].cpu(), host[name]
+        tol = DCD_TOL["atol_rel"] * float(ref.abs().max())
+        errs[name] = max_err(got, ref)
+        ok = ok and bool(torch.allclose(got, ref, rtol=DCD_TOL["rtol"],
+                                        atol=tol))
+    emit(phase="parity", kernel="dcd_epoch", problem=problem, case=case,
+         shape=list(phi.shape), viol=viol, viol_plain=want, max_abs_err=errs,
+         moved=int((st["beta"] != beta0).sum()), bound=DCD_TOL, ok=ok)
+    check(ok, f"dcd_epoch ({problem}, {case}) disagrees with its plain "
+              "version")
+    return max(errs.values())
+
+
+def phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi_fit, yy_fit,
+                         svr_state):
     """rff_features against its plain version at the fit's shape (fp32
     and bf16), and one dcd_epoch against the plain loop from the same
-    state on 4,096 rows of the fit's Phi (the plain loop is Python)."""
+    state, cold and fitted, over the whole Phi of the low-rank SVC fit
+    and of the SVR's doubled problem [Phi; Phi]."""
     x = torch.from_numpy(xtr).to(dev)
     om, ph = clf._feature_map.arrays
     scale = clf._feature_map.scale
@@ -557,47 +623,35 @@ def phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi_fit, yy_fit):
         got = ops.rff_features(x, om, ph, scale=scale, compute_dtype=dt)
         want = FM.rff_features_plain(x.to(tdt), om.to(tdt), ph, scale=scale)
         err = max_err(got, want)
+        ok = err <= RFF_TOL
+        extra = {}
+        if dt == "bf16":   # the bf16 map against the float32 one
+            err32 = max_err(got, FM.rff_features_plain(x, om, ph,
+                                                       scale=scale))
+            extra = dict(max_abs_err_vs_fp32_map=err32,
+                         bound_vs_fp32_map=dict(atol=RFF_BF16_VS_FP32_TOL),
+                         scale=scale)
+            ok = ok and err32 <= RFF_BF16_VS_FP32_TOL
         emit(phase="parity", kernel="rff_features", dtype=dt,
              shape=[x.shape[0], om.shape[1], x.shape[1]], max_abs_err=err,
-             bound=dict(atol=RFF_TOL[dt]), ok=err <= RFF_TOL[dt])
-        check(err <= RFF_TOL[dt], f"rff_features {dt} disagrees with its "
-              "plain version")
+             bound=dict(atol=RFF_TOL), ok=ok, **extra)
+        check(ok, f"rff_features {dt} disagrees with its plain version")
         if dt == "fp32":
             errs["rff_features"] = err
-    n = 4096
-    phi = phi_fit[:n].contiguous()
-    yy = yy_fit[:n].contiguous()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    worst = 0.0
-    for case, beta0 in (("cold", torch.zeros(n, device=dev)),
-                        ("fitted", torch.from_numpy(clf.alpha_[:n])
-                         .to(dev))):
-        coef = yy * beta0
-        st = dict(phi=phi, y=yy, p=-torch.ones(n, device=dev),
-                  lo=torch.zeros(n, device=dev),
-                  hi=torch.ones(n, device=dev),
-                  q_diag=torch.sum(phi * phi, dim=1) + 1.0,
-                  live=torch.ones(n, dtype=torch.bool, device=dev),
-                  perm=torch.randperm(n, generator=gen, device=dev),
-                  beta=beta0.clone(), w=(phi.T @ coef).contiguous(),
-                  wb=torch.sum(coef).reshape(1))
-        host = {k: v.cpu().clone() for k, v in st.items()}
-        viol = float(ops.dcd_epoch(**st, bias=1.0))
-        want = float(DCD.dcd_epoch_plain(*host.values(), bias=1.0))
-        errs_case, ok = {}, abs(viol - want) <= DCD_TOL["viol_atol"]
-        for name in ("beta", "w", "wb"):
-            got, ref = st[name].cpu(), host[name]
-            tol = DCD_TOL["atol_rel"] * float(ref.abs().max())
-            errs_case[name] = max_err(got, ref)
-            ok = ok and bool(torch.allclose(got, ref, rtol=DCD_TOL["rtol"],
-                                            atol=tol))
-        worst = max(worst, *errs_case.values())
-        emit(phase="parity", kernel="dcd_epoch", case=case, shape=[n, RANK],
-             viol=viol, viol_plain=want, max_abs_err=errs_case,
-             moved=int((st["beta"] != beta0).sum()), bound=DCD_TOL, ok=ok)
-        check(ok, f"dcd_epoch ({case}) disagrees with its plain version")
-    errs["dcd_epoch"] = worst
+    n = phi_fit.shape[0]
+    m = svr_state["phi"].shape[0]
+    cases = [("svc", "cold", phi_fit, yy_fit, -torch.ones(n, device=dev),
+              torch.zeros(n, device=dev)),
+             ("svc", "fitted", phi_fit, yy_fit, -torch.ones(n, device=dev),
+              torch.from_numpy(clf.alpha_).to(dev)),
+             ("svr_doubled", "cold", svr_state["phi"], svr_state["s"],
+              svr_state["p"], torch.zeros(m, device=dev)),
+             ("svr_doubled", "fitted", svr_state["phi"], svr_state["s"],
+              svr_state["p"], svr_state["beta"])]
+    errs["dcd_epoch"] = max(dcd_parity(ops, DCD, dev, gen, *c)
+                            for c in cases)
     torch.cuda.synchronize()
     return errs
 
@@ -786,7 +840,8 @@ def main() -> int:
     lr_serve = phase_lowrank_serve(
         ops, serve_mod, FM, dev,
         os.path.join(out_dir, "chip_smoke_lowrank.npz"), clf, xte)
-    svr = phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir)
+    svr, svr_state = phase_svr(ops, data, smo, KE, serve_mod, SVR, dev,
+                               out_dir)
     paths = {"svc_exact": exact,
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
              "svr": svr}
@@ -797,7 +852,8 @@ def main() -> int:
     errs = phase_parity(ops, K, G, KS, D, dev, n_train=xtr.shape[0],
                         d=xtr.shape[1], n_sv=packed.n_support,
                         n_test=len(xte))
-    errs.update(phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi, yy))
+    errs.update(phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi, yy,
+                                     svr_state))
     kernels = phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed,
                            packed.kernel.gamma, errs, launches)
     kernels += phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi, yy,

@@ -19,11 +19,13 @@
 // the real floor: n steps of (block-wide reduction + one barrier +
 // scalar Newton step). Design: ONE thread block of 256 threads on one
 // SM. w lives in shared memory, and thread t owns the slots j = t + 256 r
-// (it alone reads and writes them, so w needs no barrier). For k <= 8192
-// the row phi_i is held in registers, R per thread, and the next
-// coordinate's row and scalars are loaded while the current one reduces
-// (perm is on the device, so the next index is known a step ahead);
-// larger k reads the row from memory (L1/L2) each time. The dot product
+// (it alone reads and writes them, so w needs no barrier). For k <= 1024
+// (the tier's ranks) the row phi_i is held in registers, four per
+// thread, and the next coordinate's row and scalars are loaded while the
+// current one reduces (perm is on the device, so the next index is known
+// a step ahead); larger k reads the row from memory (L1/L2) each time.
+// One register width suffices: the step is bound by the latency of the
+// next row's load, not by where the current row sits. The dot product
 // is a per-thread partial, a warp shuffle tree, and the eight warp
 // partials summed in one fixed order by every thread, through a
 // double-buffered shared slot, so each coordinate costs one
@@ -195,18 +197,11 @@ int svm_dcd_epoch(const float* phi, const float* y, const float* p,
   if (k < 1 || k > MAX_RANK)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per_thread = (k + DCD_THREADS - 1) / DCD_THREADS;
-#define SVM_DCD_LAUNCH(R)                                                   \
-  return launch<R>(phi, y, p, lo, hi, qd, live, perm, beta, w, wb, viol, n, \
-                   k, bias, s)
-  if (per_thread <= 1) SVM_DCD_LAUNCH(1);
-  if (per_thread <= 2) SVM_DCD_LAUNCH(2);
-  if (per_thread <= 4) SVM_DCD_LAUNCH(4);
-  if (per_thread <= 8) SVM_DCD_LAUNCH(8);
-  if (per_thread <= 16) SVM_DCD_LAUNCH(16);
-  if (per_thread <= 32) SVM_DCD_LAUNCH(32);
-  SVM_DCD_LAUNCH(0);
-#undef SVM_DCD_LAUNCH
+  if (k <= 4 * DCD_THREADS)
+    return launch<4>(phi, y, p, lo, hi, qd, live, perm, beta, w, wb, viol, n,
+                     k, bias, s);
+  return launch<0>(phi, y, p, lo, hi, qd, live, perm, beta, w, wb, viol, n,
+                   k, bias, s);
 }
 
 }  // extern "C"
