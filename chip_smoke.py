@@ -27,13 +27,34 @@ then:
    regression problem, each certified, packed, saved, loaded and served;
    the exact fit once more in its default configuration (no shrinking),
    whose certificate is recorded, not required (ROADMAP C);
-6. times each kernel, its plain version and one PyTorch library call for
+6. drives multiclass C-SVC at the size of Pavia University (9 classes,
+   102 bands, 36,864 samples, split 90/10), with separable and with
+   overlapping classes: ``SVC(strategy="ovo" | "ovr",
+   engine="pallas")`` — one batched SMO per schedule bucket on the
+   task-axis row and selection kernels — each task certified by a
+   float64 KKT check, two OvO tasks solved again alone (T = 1 launches)
+   and compared bit for bit, then packed, saved, loaded and served
+   (``multitask_decision`` over T > 1 banks, each bank also held against
+   its plain version), labels checked against the per-task engine path;
+   then, on the overlapping classes, ``SVC(strategy="ovo",
+   engine="rff", rank=1024)`` over one shared feature map, certified per
+   task, within 0.01 of the exact accuracy, served through a schema-v2
+   pack;
+7. drives the LM-substrate kernels through ``ops.flash_attention`` at
+   phi4_mini_3p8b's attention (B = 1, S = 4,096, 24 heads over 8 kv
+   heads, D = 128, causal) and a ragged non-causal S = 300 case, and
+   ``ops.ssd_diag`` at mamba2_780m's chunk (Q = 256, N = 128, P = 64,
+   48 heads, 16 chunks), each against its plain version;
+8. holds the task-axis row and selection kernels against their plain
+   versions at the OvO and OvR bucket shapes (ragged widths masked), and
+   ``multitask_decision`` at the largest OvO serving bank;
+9. times each kernel, its plain version and one PyTorch library call for
    the same function, beside the least time the card could take
    (``bound_ms``): ``ms`` / ``plain_ms`` / ``library_ms`` are CUDA-event
    medians of one call as the caller sees it (host enqueue included),
    ``*device_ms`` the device time of the same call (CUDA events around
    back-to-back calls queued behind a spin kernel, which hides the
-   host's enqueue).
+   host's enqueue); the task-axis entries on a ``task_axis`` line.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -74,6 +95,22 @@ RFF_BF16_VS_FP32_TOL = 5e-2
 DCD_TOL = dict(rtol=1e-4, atol_rel=1e-4, viol_atol=1e-5)
 RANK = 1024
 CSRC = "src/repro_torch/kernels/csrc"
+# flash_attention / ssd_diag against their plain versions
+# (tests/test_kernels_pallas.py); bf16 operands are rounded before both
+LM_TOL = dict(rtol=2e-4, atol=2e-5)
+# the shapes the LM substrate gives the two kernels (the reference's
+# src/repro/configs/phi4_mini_3p8b.py and mamba2_780m.py; one 4,096-token
+# sequence each)
+PHI4_ATTN = dict(config="phi4_mini_3p8b", b=1, s=4096, h=24, hkv=8, d=128)
+MAMBA2_SSD = dict(config="mamba2_780m", bc=16, h=48, q=256, n=128, p=64)
+# Pavia University: 42,776 labelled pixels in 9 classes, 102 bands
+PAVIA_PER_CLASS = 4096
+# the multiclass configurations, by load_pavia_like's band noise: its
+# default (every class separable, a few support vectors a task) and one
+# at which the classes overlap as Pavia's do (held-out accuracy below 1,
+# hundreds of support vectors a task); the low-rank fit runs on the
+# second, where its accuracy check can fail
+PAVIA_NOISE = {"separable": 0.15, "overlapping": 5.0}
 
 
 class SmokeFailure(RuntimeError):
@@ -738,6 +775,514 @@ def phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi_fit, yy, errs,
     return rows
 
 
+def task_certificates(ops, smo, KE, clf, dev) -> list[float]:
+    """float64 KKT violation of each task of a multiclass exact fit, from
+    a gradient recomputed by one matvec over the task's own rows."""
+    saved = dict(ops.launches)
+    out = []
+    for t, task in enumerate(clf._taskset.tasks):
+        k = task.size
+        xt = torch.from_numpy(task.x).to(dev)
+        yt = torch.from_numpy(task.y).to(dev)
+        alpha = torch.from_numpy(clf._fit.alpha[t, :k]).to(dev)
+        eng = KE.make_engine(xt, clf.kernel_params, "pallas")
+        f = eng.matvec(alpha * yt) - yt
+        out.append(float(smo.kkt_violation(alpha, yt, f, 0.0,
+                                           clf.smo_cfg.C)))
+    ops.launches.update(saved)   # the check is not the path
+    return out
+
+
+def decoded(MC, clf, df):
+    """Class labels of stacked decision values ``df`` (n_tasks, nt)."""
+    idx = MC.decide_from_pairs(torch.from_numpy(df), clf._taskset.pairs,
+                               len(clf.classes_), clf.strategy.name,
+                               clf.decision)
+    return clf.classes_[idx.numpy()]
+
+
+def batching_check(ops, smo, KE, dist, clf, dev) -> dict:
+    """The first and the last task of the OvO bucket solved again alone,
+    with T = 1 launches of the same kernels: alphas, b and n_iter equal
+    the bucket's bit for bit (each task's arithmetic is the same)."""
+    saved = dict(ops.launches)
+    bucket = clf._schedule.buckets[0]
+    xt, yt, mk, _ = dist._bucket_arrays(clf._taskset, bucket)
+    ids = bucket.task_ids.reshape(-1)
+    cfg = KE.EngineConfig(backend="pallas", cache_slots=0)
+    res = {}
+    for s in (0, len(ids) - 1):
+        t = int(ids[s])
+        k = clf._taskset.tasks[t].size
+        r = smo.binary_smo(torch.from_numpy(xt[s]).to(dev),
+                           torch.from_numpy(yt[s]).to(dev),
+                           torch.from_numpy(mk[s]).to(dev),
+                           cfg=clf.smo_cfg, kernel=clf.kernel_params,
+                           engine=cfg)
+        alpha = r.alpha.cpu().numpy()
+        res[f"task_{t}"] = dict(
+            n_iter_alone=int(r.n_iter), n_iter_bucket=int(clf._fit.n_iter[t]),
+            b_alone=float(r.b), b_bucket=float(clf._fit.b[t]),
+            alpha_max_abs_diff=float(np.abs(alpha[:k]
+                                            - clf._fit.alpha[t, :k]).max()),
+            equal=bool(np.array_equal(alpha[:k], clf._fit.alpha[t, :k])
+                       and not alpha[k:].any()
+                       and float(r.b) == float(clf._fit.b[t])
+                       and int(r.n_iter) == int(clf._fit.n_iter[t])))
+    ops.launches.update(saved)
+    return res
+
+
+def decision_f64(z, sv, coef, gamma):
+    """(T, nt) decisions of a stacked RBF bank in float64, and the sum of
+    the magnitudes of their terms, sum_i |coef_i| K(sv_i, z)."""
+    z, sv, coef = z.double(), sv.double(), coef.double()
+    d2 = (torch.sum(z * z, dim=1)[None, :, None]
+          + torch.sum(sv * sv, dim=2)[:, None, :]
+          - 2.0 * torch.einsum("nd,twd->tnw", z, sv))
+    k = torch.exp(-gamma * torch.clamp_min(d2, 0.0))
+    return ((k @ coef[:, :, None])[..., 0],
+            (k @ coef.abs()[:, :, None])[..., 0])
+
+
+def bank_parity(ops, D, packed, xte, dev) -> list[dict]:
+    """multitask_decision on every serving bank of a loaded multiclass
+    pack, over all held-out rows, against its plain version on the same
+    card tensors at DECISION_TOL, and both against a float64 evaluation:
+    the kernel must be no further from it than twice the plain version
+    is, plus 2e-6 (these launches are not the path's). A decision sums w
+    terms coef_i K_i that cancel; the sum of their magnitudes S is
+    reported beside the errors."""
+    saved = dict(ops.launches)
+    z = torch.from_numpy(xte).to(dev)
+    gamma = packed.kernel.gamma
+    out = []
+    for g in packed.buckets:
+        sv = torch.from_numpy(g.sv_x).to(dev)
+        cf = torch.from_numpy(g.sv_coef).to(dev)
+        got = ops.multitask_decision(z, sv, cf, gamma=gamma)
+        want = D.multitask_decision_plain(z, sv, cf, gamma=gamma)
+        ref, mag = decision_f64(z, sv, cf, gamma)
+        err64 = float((got.double() - ref).abs().max())
+        plain64 = float((want.double() - ref).abs().max())
+        out.append(dict(
+            shape=[int(sv.shape[0]), int(z.shape[0]), int(sv.shape[1]),
+                   int(sv.shape[2])],
+            max_abs_err=max_err(got, want), term_magnitude_max=float(mag.max()),
+            max_abs_err_vs_f64=err64, plain_max_abs_err_vs_f64=plain64,
+            ok=(bool(torch.allclose(got, want, **DECISION_TOL))
+                and err64 <= 2.0 * plain64 + 2e-6)))
+    ops.launches.update(saved)
+    return out
+
+
+def phase_multiclass(ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev,
+                     out_dir, config, noise):
+    """Exact multiclass C-SVC at Pavia University's size, OvO then OvR:
+    fit (one batched SMO per bucket), per-task certificates, the OvO
+    batching check, pack -> save -> load -> Predictor, and each serving
+    bank's multitask_decision against its plain version."""
+    x, y = data.load_pavia_like(n_per_class=PAVIA_PER_CLASS, n_classes=9,
+                                n_bands=102, seed=SEED, noise=noise)
+    x = data.normalize(x)
+    xtr, ytr, xte, yte = data.train_test_split(x, y, test_frac=0.1,
+                                               seed=SEED)
+    kw = dict(decision="vote", engine="pallas", C=1.0, tol=1e-3)
+    paths, fits = {}, {}
+    for strategy in ("ovo", "ovr"):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        clf = SVC(strategy=strategy, **kw, device=dev).fit(xtr, ytr)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = dict(ops.launches)
+        t0 = time.perf_counter()
+        SVC(strategy=strategy, **kw, device=dev).fit(xtr, ytr)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        ops.launches.update(fit_launches)   # the warm fit is not the path
+        kkt = task_certificates(ops, smo, KE, clf, dev)
+        df_engine = clf._decision_function_engine(xte)   # decision kernel
+        torch.cuda.synchronize()
+        check_launches = {k: ops.launches[k] - fit_launches[k]
+                          for k in ops.KERNELS}
+        engine_labels = decoded(MC, clf, df_engine)
+        acc = float(np.mean(engine_labels == yte))
+        batching = (batching_check(ops, smo, KE, dist, clf, dev)
+                    if strategy == "ovo" else None)
+        path = os.path.join(out_dir, f"chip_smoke_{strategy}_{config}.npz")
+        serve_mod.save(path, serve_mod.pack(clf))
+        packed = serve_mod.load(path)
+        banks = bank_parity(ops, D, packed, xte, dev)
+        launches_before = dict(ops.launches)
+        pred = serve_mod.Predictor(packed, engine="pallas", device=dev)
+        rates, labels = serve_rates(pred, xte)
+        dfs = pred.decision_function(xte)
+        torch.cuda.synchronize()
+        serve_launches = {k: ops.launches[k] - launches_before[k]
+                          for k in ops.KERNELS}
+        same = bool(np.array_equal(labels, engine_labels))
+        close = bool(np.allclose(dfs, df_engine, **DECISION_TOL))
+        iters = clf._fit.n_iter
+        sched = MC.schedule_stats(clf._taskset.sizes, clf._schedule)
+        emit(phase="multiclass", config=config, noise=noise,
+             strategy=strategy, decision="vote",
+             n_train=int(xtr.shape[0]), n_test=int(xte.shape[0]),
+             d=int(xtr.shape[1]), n_classes=int(len(clf.classes_)),
+             n_tasks=int(clf._taskset.n_tasks),
+             task_sizes=[int(v) for v in clf._taskset.sizes],
+             buckets=[[int(b.width), int(b.n_slots)]
+                      for b in clf._schedule.buckets],
+             padded_flop_fraction=sched["padded_flop_fraction"],
+             n_iter_max=int(iters.max()), n_iter=[int(v) for v in iters],
+             converged=clf.converged_, kkt_f64_max=max(kkt),
+             kkt_f64=kkt, tol=1e-3,
+             n_support=[int(v) for v in clf.n_support_],
+             serving_banks=[list(g.sv_x.shape) for g in packed.buckets],
+             bank_parity=banks, bank_parity_bound=dict(
+                 **DECISION_TOL, vs_f64="kernel <= 2 x plain + 2e-6"),
+             fit_s=fit_s, fit_s_warm=warm_s,
+             launches=fit_launches,
+             launches_per_iter={k: v / max(int(iters.max()), 1)
+                                for k, v in fit_launches.items() if v},
+             heldout_check_launches=check_launches, heldout_acc=acc,
+             batching_check=batching, rows_per_s=rates,
+             n_programs=pred.n_programs, serve_launches=serve_launches,
+             labels_equal_engine=same,
+             max_abs_err_vs_engine=float(np.abs(dfs - df_engine).max()))
+        check(clf.converged_, f"multiclass {strategy} fit did not converge")
+        check(max(kkt) <= 1e-3, f"multiclass {strategy}: a task's f64 KKT "
+              f"{max(kkt)} > tol")
+        for k in ("rbf_gram_row", "kkt_select"):
+            check(fit_launches[k] > 0, f"multiclass {strategy} fit "
+                  f"launched no {k}")
+        # one batched launch per iteration for the whole bucket, not T
+        n_blocks_max = -(-int(iters.max()) // 32) + 1
+        check(fit_launches["kkt_select"] <= 32 * n_blocks_max
+              * len(clf._schedule.buckets) + len(clf._schedule.buckets),
+              f"multiclass {strategy}: {fit_launches['kkt_select']} "
+              "selection launches — more than one per bucket iteration")
+        check(same, f"multiclass {strategy}: served labels differ from the "
+              "engine path")
+        check(close, f"multiclass {strategy}: served decisions differ from "
+              "the engine path")
+        check(serve_launches["multitask_decision"] > 0,
+              f"multiclass {strategy} serving launched no "
+              "multitask_decision kernel")
+        check(max(b.sv_x.shape[0] for b in packed.buckets) > 1,
+              f"multiclass {strategy}: no serving bank stacks T > 1 tasks")
+        check(all(v["ok"] for v in banks), f"multiclass {strategy}: "
+              f"multitask_decision disagrees with its plain version on a "
+              f"serving bank {banks}")
+        if batching is not None:
+            check(all(v["equal"] for v in batching.values()),
+                  f"batching check: a lone solve differs from the bucket "
+                  f"{batching}")
+        paths[f"svc_{strategy}_{config}"] = {
+            k: fit_launches[k] + check_launches[k] + serve_launches[k]
+            for k in ops.KERNELS}
+        fits[strategy] = (clf, acc, packed)
+    return (xtr, ytr, xte, yte), fits, paths
+
+
+def phase_multiclass_lowrank(ops, smo, MC, FM, serve_mod, SVC, dev, split,
+                             exact_acc, out_dir, config):
+    """SVC(strategy="ovo", engine="rff", rank=1024) on the exact phases'
+    split: one shared map, one DCD fit per task; per-task certificates
+    of the augmented-bias dual; served through a schema-v2 pack."""
+    xtr, ytr, xte, yte = split
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    clf = SVC(strategy="ovo", engine="rff", rank=RANK, C=1.0, tol=1e-3,
+              device=dev).fit(xtr, ytr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(ops.launches)
+    df_engine = clf._decision_function_engine(xte)   # map and task_w
+    engine_labels = decoded(MC, clf, df_engine)
+    acc = float(np.mean(engine_labels == yte))
+    torch.cuda.synchronize()
+    check_launches = {k: ops.launches[k] - fit_launches[k]
+                      for k in ops.KERNELS}
+    saved = dict(ops.launches)
+    phi = clf._feature_map.transform(torch.from_numpy(xtr).to(dev))
+    kkt = []
+    for t, task in enumerate(clf._taskset.tasks):
+        idx = torch.from_numpy(task.indices).to(dev)
+        yt = torch.from_numpy(task.y).to(dev)
+        kkt.append(certify_lowrank(
+            smo, phi.index_select(0, idx), yt, -torch.ones_like(yt),
+            torch.from_numpy(clf._task_alpha[t]).to(dev), clf.dcd_cfg.C,
+            clf.dcd_cfg.bias))
+    ops.launches.update(saved)   # the certificates are not the path
+    path = os.path.join(out_dir, "chip_smoke_ovo_lowrank.npz")
+    serve_mod.save(path, serve_mod.pack(clf))
+    packed = serve_mod.load(path)
+    pred = serve_mod.Predictor(packed, device=dev)
+    rates, labels = serve_rates(pred, xte)
+    dfs = pred.decision_function(xte)
+    torch.cuda.synchronize()
+    serve_launches = {k: ops.launches[k] - saved[k] for k in ops.KERNELS}
+    om, ph = clf._feature_map.arrays
+    plain = (FM.rff_features_plain(torch.from_numpy(xte).to(dev), om, ph,
+                                   scale=clf._feature_map.scale)
+             @ torch.from_numpy(clf.task_w_).to(dev).T).T.cpu().numpy() \
+        + clf.task_b_[:, None]
+    plain_labels = decoded(MC, clf, plain)
+    same = bool(np.array_equal(labels, plain_labels))
+    close = bool(np.allclose(dfs, plain, **DECISION_TOL))
+    emit(phase="multiclass_lowrank", config=config,
+         noise=PAVIA_NOISE[config], strategy="ovo", rank=RANK,
+         n_train=int(xtr.shape[0]), n_tasks=int(clf._taskset.n_tasks),
+         epochs=[int(v) for v in clf.task_n_iter_],
+         epochs_total=int(clf.task_n_iter_.sum()), converged=clf.converged_,
+         kkt_f64_max=max(kkt), kkt_f64=kkt, tol=1e-3,
+         n_support=[int(v) for v in clf.n_support_], fit_s=fit_s,
+         epoch_s=fit_s / max(int(clf.task_n_iter_.sum()), 1),
+         launches=fit_launches, heldout_check_launches=check_launches,
+         heldout_acc=acc, exact_heldout_acc=exact_acc,
+         schema_version=2,
+         rows_per_s=rates, n_programs=pred.n_programs,
+         serve_launches=serve_launches, labels_equal_plain=same,
+         max_abs_err_vs_plain=float(np.abs(dfs - plain).max()))
+    check(packed.feature_map is not None, "the multiclass low-rank "
+          "artifact did not load as a low-rank (v2) pack")
+    check(clf.converged_, "multiclass low-rank fit did not converge")
+    check(max(kkt) <= 1e-3, f"multiclass low-rank: a task's f64 KKT "
+          f"{max(kkt)} > tol")
+    check(abs(acc - exact_acc) <= 0.01,
+          f"multiclass low-rank accuracy {acc} not within 0.01 of the exact "
+          f"OvO fit's {exact_acc}")
+    for k in ("rff_features", "dcd_epoch"):
+        check(fit_launches[k] > 0, f"multiclass low-rank fit launched no {k}")
+    check(same, "multiclass low-rank: served labels differ from the plain "
+          "transform and task_w")
+    check(close, "multiclass low-rank: served decisions differ from the "
+          "plain path")
+    return {k: fit_launches[k] + check_launches[k] + serve_launches[k]
+            for k in ops.KERNELS}
+
+
+def lm_inputs(dev):
+    """Seeded inputs of the two LM-substrate kernels at their model
+    shapes: (q, k, v) for phi4_mini_3p8b's attention, a ragged
+    non-causal (q, k, v) of 300 positions, and (C, B, x, dt, cs) for
+    mamba2_780m's chunk (dt ~ U(1e-3, 0.1), A ~ -U(1, 8), cs the
+    in-chunk cumsum of dt A, as tests/test_kernels_pallas.py draws
+    them)."""
+    rng = np.random.default_rng(SEED)
+
+    def t(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev)
+
+    a = PHI4_ATTN
+    attn = (t((a["b"], a["s"], a["h"], a["d"])),
+            t((a["b"], a["s"], a["hkv"], a["d"])),
+            t((a["b"], a["s"], a["hkv"], a["d"])))
+    ragged = (t((2, 300, a["h"], a["d"])), t((2, 300, a["hkv"], a["d"])),
+              t((2, 300, a["hkv"], a["d"])))
+    m = MAMBA2_SSD
+    bc, h, q, n, p = m["bc"], m["h"], m["q"], m["n"], m["p"]
+    dt = rng.uniform(0.001, 0.1, size=(bc, h, q)).astype(np.float32)
+    a_log = -rng.uniform(1, 8, size=(h,)).astype(np.float32)
+    cs = np.cumsum(dt * a_log[None, :, None], axis=2).astype(np.float32)
+    ssd = (t((bc, q, n)), t((bc, q, n)), t((bc, h, q, p)),
+           torch.from_numpy(dt).to(dev), torch.from_numpy(cs).to(dev))
+    return attn, ragged, ssd
+
+
+def phase_lm(ops, FA, SD, dev):
+    """The two LM-substrate kernels through their entry points at model
+    shapes (the launch counts of this run are the path's), then each
+    against its plain version: float32 operands, and bfloat16 operands
+    rounded before both (the kernel's float32 output at the float32
+    bound; its bfloat16 output equal to that, rounded once)."""
+    attn, ragged, ssd = lm_inputs(dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = ops.flash_attention(*attn, causal=True)
+    out_r = ops.flash_attention(*ragged, causal=False)
+    y = ops.ssd_diag(*ssd)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    check(bool(torch.isfinite(out).all() and torch.isfinite(out_r).all()
+               and torch.isfinite(y).all()), "LM kernels gave non-finite "
+          "values")
+    errs = {}
+    for name, args, causal in (("phi4_causal", attn, True),
+                               ("ragged_300_noncausal", ragged, False)):
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = [v.to(dt) for v in args]
+            got = ops.flash_attention(*qkv, causal=causal,
+                                      out_dtype=torch.float32)
+            want = FA.flash_attention_plain(*qkv, causal=causal,
+                                            out_dtype=torch.float32)
+            ok = bool(torch.allclose(got, want, **LM_TOL))
+            rounded = bool(torch.equal(ops.flash_attention(
+                *qkv, causal=causal), got.to(dt)))
+            emit(phase="parity", kernel="flash_attention", case=name,
+                 dtype=str(dt).split(".")[1], shape=list(qkv[0].shape),
+                 kv_heads=int(qkv[1].shape[2]), causal=causal,
+                 max_abs_err=max_err(got, want), bound=LM_TOL, ok=ok,
+                 out_in_operand_dtype_equals_rounded_fp32=rounded)
+            check(ok and rounded, f"flash_attention {name} {dt} disagrees "
+                  "with its plain version")
+            if dt == torch.float32 and causal:
+                errs["flash_attention"] = max_err(got, want)
+    want = SD.ssd_diag_plain(*ssd)
+    ok = bool(torch.allclose(y, want, **LM_TOL))
+    emit(phase="parity", kernel="ssd_diag", shape=list(ssd[2].shape),
+         n_state=int(ssd[0].shape[2]), max_abs_err=max_err(y, want),
+         bound=LM_TOL, ok=ok)
+    check(ok, "ssd_diag disagrees with its plain version")
+    errs["ssd_diag"] = max_err(y, want)
+    ops.launches.update(launches)
+    return launches, errs
+
+
+def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma):
+    """The task-axis row and selection kernels at the OvO and OvR bucket
+    shapes of the multiclass fits (ragged tasks zero-padded and masked,
+    as the solver stacks them) against their plain versions, and their
+    times beside their bounds; then multitask_decision on the largest
+    OvO serving bank over one full serving slice of held-out rows."""
+    saved = dict(ops.launches)
+    rows = []
+    for strategy in ("ovo", "ovr"):
+        clf = fits[strategy][0]
+        bucket = clf._schedule.buckets[0]
+        xt, yt, mk, _ = dist._bucket_arrays(clf._taskset, bucket)
+        x = torch.from_numpy(xt).to(dev)
+        y = torch.from_numpy(yt).to(dev)
+        mask = torch.from_numpy(mk).to(dev)
+        n_tasks, w, d = x.shape
+        x2 = K.sqnorms(x)
+        sizes = mask.sum(dim=1)
+        i = (sizes // 3).to(torch.int64)
+        got = ops.gram_row(x, x2, i, gamma=gamma)
+        want = G.gram_row_plain(x, x2, i, gamma=gamma)
+        ok_row = bool(torch.allclose(got, want, **GRAM_TOL))
+        rng = np.random.default_rng(SEED)
+        f = torch.from_numpy(rng.normal(size=(n_tasks, w)).astype(
+            np.float32)).to(dev)
+        alpha = torch.from_numpy(np.where(
+            rng.random((n_tasks, w)) < 0.4, 0.0,
+            rng.uniform(0, 1, (n_tasks, w))).astype(np.float32)).to(dev)
+        lo, hi = torch.zeros_like(f), torch.ones_like(f)
+        sel = ops.kkt_select(f, alpha, y, mask, lo, hi)
+        sel_plain = KS.kkt_select_plain(f, alpha, y, mask, lo, hi)
+        ok_sel = all(bool(torch.equal(a, b)) for a, b in zip(sel, sel_plain))
+        emit(phase="parity", kernel="task_axis", strategy=strategy,
+             shape=[n_tasks, w, d], ragged_sizes=[int(sizes.min()),
+                                                  int(sizes.max())],
+             rbf_gram_row_max_abs_err=max_err(got, want), bound=GRAM_TOL,
+             kkt_select_equal=ok_sel, ok=ok_row and ok_sel)
+        check(ok_row, f"task-axis rbf_gram_row ({strategy} bucket) "
+              "disagrees with its plain version")
+        check(ok_sel, f"task-axis kkt_select ({strategy} bucket) "
+              "disagrees with its plain version")
+        z = torch.stack([x[t].index_select(0, i[t:t + 1])[0]
+                         for t in range(n_tasks)])
+        entries = [
+            ("rbf_gram_row", lambda: ops.gram_row(x, x2, i, gamma=gamma),
+             lambda: G.gram_row_plain(x, x2, i, gamma=gamma),
+             lambda: torch.exp(-gamma * torch.cdist(
+                 x, z[:, None, :]).square()),
+             4 * (n_tasks * w * d + 2 * n_tasks * w) + 8 * n_tasks,
+             n_tasks * w * (2 * d + 6), max_err(got, want)),
+            ("kkt_select", lambda: ops.kkt_select(f, alpha, y, mask, lo, hi),
+             lambda: KS.kkt_select_plain(f, alpha, y, mask, lo, hi), None,
+             21 * n_tasks * w + 24 * n_tasks, 12 * n_tasks * w, 0.0),
+        ]
+        for name, kern, plain, lib, n_bytes, n_ops, err in entries:
+            ms = median_ms(kern)
+            plain_ms = median_ms(plain)
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            rows.append({
+                "name": name, "task_axis": strategy, "shape": [n_tasks, w, d],
+                "launches_on_path": fits[strategy][3][name],
+                "max_abs_err": err, "ms": ms, "device_ms": device_ms(kern),
+                "plain_ms": plain_ms, "plain_device_ms": device_ms(plain),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": median_ms(lib) if lib is not None else None,
+                "library_device_ms": (device_ms(lib) if lib is not None
+                                      else None)})
+    packed = fits["ovo"][2]
+    g = max(packed.buckets, key=lambda g: g.sv_x.shape[0] * g.sv_x.shape[1])
+    sv = torch.from_numpy(g.sv_x).to(dev)
+    cf = torch.from_numpy(g.sv_coef).to(dev)
+    n_tasks, w, d = sv.shape
+    z = torch.from_numpy(xte[:1024]).to(dev)   # one max_batch slice
+    nt = z.shape[0]
+    got = ops.multitask_decision(z, sv, cf, gamma=gamma)
+    want = D.multitask_decision_plain(z, sv, cf, gamma=gamma)
+    b_ms, b_by = bound_ms(4 * (nt * d + n_tasks * w * d + n_tasks * w
+                               + n_tasks * nt),
+                          n_tasks * nt * w * (2 * d + 8))
+
+    def kern():
+        return ops.multitask_decision(z, sv, cf, gamma=gamma)
+
+    def plain():
+        return D.multitask_decision_plain(z, sv, cf, gamma=gamma)
+
+    def lib():
+        k = torch.exp(-gamma * torch.cdist(z.expand(n_tasks, -1, -1),
+                                           sv).square())
+        return (k @ cf[:, :, None])[..., 0]
+
+    rows.append({
+        "name": "multitask_decision", "task_axis": "ovo",
+        "shape": [n_tasks, nt, w, d],
+        "launches_on_path": fits["ovo"][3]["multitask_decision"],
+        "max_abs_err": max_err(got, want),
+        "ok": bool(torch.allclose(got, want, **DECISION_TOL)),
+        "ms": median_ms(kern), "device_ms": device_ms(kern),
+        "plain_ms": median_ms(plain), "plain_device_ms": device_ms(plain),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": median_ms(lib),
+        "library_device_ms": device_ms(lib)})
+    check(rows[-1]["ok"], "multitask_decision disagrees with its plain "
+          "version on the largest OvO serving bank")
+    ops.launches.update(saved)
+    emit(phase="task_axis", kernels=rows)
+
+
+def phase_timing_lm(ops, FA, SD, dev, errs, launches):
+    """flash_attention and ssd_diag at their model shapes, float32."""
+    attn, _, ssd = lm_inputs(dev)
+    q, k, v = attn
+    a, m = PHI4_ATTN, MAMBA2_SSD
+    b, s_len, h, hkv, d = a["b"], a["s"], a["h"], a["hkv"], a["d"]
+    bc, hs, qs, n, p = m["bc"], m["h"], m["q"], m["n"], m["p"]
+    tri = qs * (qs + 1) // 2   # (key, query) pairs under the causal mask
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in attn)
+    return [
+        time_row(ops, "flash_attention", "flash_attn.cu",
+                 "src/repro/kernels/flash_attn.py:83",
+                 lambda: ops.flash_attention(q, k, v, causal=True),
+                 lambda: FA.flash_attention_plain(q, k, v, causal=True,
+                                                  out_dtype=torch.float32),
+                 lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                 4 * (2 * b * s_len * h * d + 2 * b * s_len * hkv * d),
+                 2 * b * h * s_len * s_len * d, launches,
+                 errs["flash_attention"]),
+        time_row(ops, "ssd_diag", "ssd_diag.cu",
+                 "src/repro/kernels/ssd_diag.py:51",
+                 lambda: ops.ssd_diag(*ssd),
+                 lambda: SD.ssd_diag_plain(*ssd), None,
+                 # C and B once; x, dt, cs read and y written once
+                 4 * (2 * bc * qs * n + 2 * bc * hs * qs * (p + 1)),
+                 # scores once per chunk (shared by the heads); per head
+                 # the decay exp and two products, then the weighted sum
+                 bc * tri * 2 * n + bc * hs * tri * (3 + 2 * p),
+                 launches, errs["ssd_diag"]),
+    ]
+
+
 def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
                  launches):
     """Kernel, plain version and one library call, at main-path shapes."""
@@ -802,14 +1347,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import data, serve as serve_mod
-    from repro_torch.core import kernel_engine as KE, kernels as K, smo
+    from repro_torch.core import dist, kernel_engine as KE, kernels as K, smo
+    from repro_torch.core import multiclass as MC
     from repro_torch.core.svm import SVC, SVR
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import dcd as DCD
     from repro_torch.kernels import decision as D
     from repro_torch.kernels import feature_map as FM
+    from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import kkt_select as KS
     from repro_torch.kernels import rbf_gram as G
+    from repro_torch.kernels import ssd_diag as SD
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -842,22 +1390,41 @@ def main() -> int:
         os.path.join(out_dir, "chip_smoke_lowrank.npz"), clf, xte)
     svr, svr_state = phase_svr(ops, data, smo, KE, serve_mod, SVR, dev,
                                out_dir)
+    mc_paths = {}
+    for config, noise in PAVIA_NOISE.items():
+        split, fits, by_path = phase_multiclass(
+            ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev, out_dir,
+            config, noise)
+        mc_paths.update(by_path)
+    # the low-rank fit on the last (overlapping) configuration's split
+    mc_lowrank = phase_multiclass_lowrank(ops, smo, MC, FM, serve_mod, SVC,
+                                          dev, split, fits["ovo"][1],
+                                          out_dir, config)
+    lm, lm_errs = phase_lm(ops, FA, SD, dev)
     paths = {"svc_exact": exact,
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
-             "svr": svr}
+             "svr": svr, **mc_paths, "svc_ovo_lowrank": mc_lowrank,
+             "lm_kernels": lm}
     launches = {k: sum(p[k] for p in paths.values()) for k in ops.KERNELS}
     emit(phase="launches", by_path=paths, total=launches)
     for k, v in launches.items():
         check(v > 0, f"no main path launched the {k} kernel")
+    for strategy in fits:   # each fit's launches, for the task-axis line
+        fits[strategy] = (*fits[strategy],
+                          mc_paths[f"svc_{strategy}_{config}"])
+    phase_task_axis(ops, K, G, KS, D, dist, dev, fits, split[2],
+                    fits["ovo"][0].kernel_params.gamma)
     errs = phase_parity(ops, K, G, KS, D, dev, n_train=xtr.shape[0],
                         d=xtr.shape[1], n_sv=packed.n_support,
                         n_test=len(xte))
     errs.update(phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi, yy,
                                      svr_state))
+    errs.update(lm_errs)
     kernels = phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed,
                            packed.kernel.gamma, errs, launches)
     kernels += phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi, yy,
                                     errs, launches)
+    kernels += phase_timing_lm(ops, FA, SD, dev, errs, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,11 @@ training matrix it is given::
     engine.decide(z, coef,b) # (t,)  K(z, X) @ coef + b
     engine.init_cache()      # LRU row-cache state (None if unused)
 
+``TaskKernelEngine`` is the same interface over a multiclass bucket of
+T tasks stacked as (T, w, d): ``row`` takes one index per task and
+returns the (T, w) rows — one launch of the task-axis ``rbf_gram`` row
+kernel under ``pallas`` — and ``diag`` / ``matvec`` work per task.
+
 Backends: ``dense`` (precomputed (n, n) Gram), ``chunked`` (rows on the
 fly, O(n d) memory, LRU row cache), ``pallas`` (the chunked layout with
 the RBF / linear Gram, its rows and the decision values on the port's
@@ -311,6 +316,87 @@ _BACKENDS = {
     "chunked": ChunkedKernelEngine,
     "pallas": PallasKernelEngine,
 }
+
+
+class TaskKernelEngine:
+    """The kernel engine of a multiclass bucket: T binary tasks stacked
+    as x (T, w, d), zero-padded, solved together by
+    ``smo.solve_qp_tasks`` — the counterpart of the reference's engine
+    under ``vmap`` (``repro/core/dist.py::_batched_engine``).
+
+    It keeps one single-task engine per task (views of ``x``, no row
+    cache: a batched lookup would compute every row anyway), so
+    ``diag`` and ``matvec`` are those engines' own, value for value.
+    ``row(i)`` takes the (T,) indices and returns the (T, w) rows:
+    gathered from the stacked Gram (dense), one launch of the task-axis
+    row kernel (pallas, RBF / linear), or the tasks' own row functions
+    (chunked). Each task's row equals its engine's. ``auto`` picks dense
+    up to ``dense_limit`` columns, chunked above, per bucket width. A
+    given (T, w, w) ``gram`` forces dense over those Grams (the
+    reference's shim for precomputed Grams).
+    """
+
+    def __init__(self, x: torch.Tensor, kernel: K.KernelParams,
+                 cfg: EngineConfig | str = EngineConfig(), *,
+                 gram: Optional[torch.Tensor] = None):
+        if isinstance(cfg, str):
+            cfg = EngineConfig(backend=cfg)
+        if gram is not None:
+            cfg = dataclasses.replace(cfg, backend="dense")
+        check_backend(cfg.backend)
+        if cfg.backend in LOWRANK_BACKENDS:
+            raise ValueError(
+                f"engine {cfg.backend!r} has no task-batched form: a "
+                "low-rank multiclass fit shares one feature map over the "
+                "tasks (SVC with engine='nystrom' | 'rff')")
+        if x.ndim != 3:
+            raise ValueError(f"TaskKernelEngine: x must be (T, w, d), got "
+                             f"{tuple(x.shape)}")
+        self.x = x.to(torch.float32).contiguous()
+        self.n_tasks, self.n = self.x.shape[:2]
+        self.device = self.x.device
+        self.kernel = kernel
+        backend = cfg.backend
+        if backend == "auto":
+            backend = "dense" if self.n <= cfg.dense_limit else "chunked"
+        self.backend = backend
+        self.cfg = dataclasses.replace(cfg, backend=backend, cache_slots=0)
+        self._gram = self._xk = None
+        if backend == "dense":
+            # one stacked Gram; the task engines hold views of it
+            if gram is None:
+                fn = K.make_gram_fn(kernel, compute_dtype=cfg.gram_dtype)
+                gram = torch.stack([fn(xt, xt) for xt in self.x])
+            self._gram = gram.to(device=self.device, dtype=torch.float32)
+            self.tasks = [DenseKernelEngine(xt, kernel, self.cfg, gram=g)
+                          for xt, g in zip(self.x, self._gram)]
+            return
+        self.tasks = [_BACKENDS[backend](xt, kernel, self.cfg)
+                      for xt in self.x]
+        if backend == "pallas" and self.tasks[0]._mode is not None:
+            self._xk = self.x.to(ops.tile_dtype(cfg.gram_dtype)).contiguous()
+            self._x2 = torch.stack([e._x2 for e in self.tasks])
+
+    def init_cache(self) -> None:
+        return None
+
+    def row(self, i: torch.Tensor, cache=None):
+        """((T, w) rows K(X_t, x_t[i_t]), None) for the (T,) indices."""
+        if self._gram is not None:
+            tasks = torch.arange(self.n_tasks, device=self.device)
+            return self._gram[tasks, i], cache
+        if self._xk is not None:
+            return ops.gram_row(self._xk, self._x2, i,
+                                gamma=self.kernel.gamma,
+                                mode=self.tasks[0]._mode), cache
+        return torch.stack([e._compute_row(it)
+                            for e, it in zip(self.tasks, i)]), cache
+
+    def diag(self) -> torch.Tensor:
+        return torch.stack([e.diag() for e in self.tasks])
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.stack([e.matvec(vt) for e, vt in zip(self.tasks, v)])
 
 # low-rank approximation backends resolve lazily
 # (repro_torch.core.approx imports this module for the base class)

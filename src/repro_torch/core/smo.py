@@ -26,6 +26,12 @@ per block. On the card, selection is the ``kkt_select`` kernel and the
 two kernel rows per iteration come from the ``rbf_gram`` row kernel
 (``engine="pallas"``).
 
+``solve_qp_tasks`` / ``binary_smo_tasks`` solve the T problems of a
+multiclass bucket at once (x (T, w, d)): the same iteration over (T, w)
+state, one launch of each task-axis kernel per step for the whole
+bucket, each task frozen once its own gap closes — so each ends where
+it would alone, as under the reference's vmap.
+
 ``kkt_violation`` is the solver-independent optimality certificate,
 computed in float64.
 """
@@ -38,7 +44,6 @@ import torch
 
 from repro_torch.core import kernel_engine as KE
 from repro_torch.core import kernels as K
-from repro_torch.core.kernel_engine import take
 from repro_torch.kernels import ops
 
 
@@ -79,12 +84,20 @@ class _State:
 
 
 def _selection(f, alpha, y, mask, lo, hi):
-    """Working-set selection: (b_up, i_up, b_low, i_low), 0-d tensors.
+    """Working-set selection: (b_up, i_up, b_low, i_low), 0-d tensors
+    ((T,) tensors for a bucket of T tasks).
 
     The reduction stage — the CUDA block-reduce of the paper. On the
-    card it is one ``kkt_select`` kernel launch; membership epsilon is
-    relative to the box width, 1e-6 (hi - lo) (see the reference)."""
+    card it is one ``kkt_select`` kernel launch, for a whole bucket too;
+    membership epsilon is relative to the box width, 1e-6 (hi - lo)
+    (see the reference)."""
     return ops.kkt_select(f, alpha, y, mask, lo, hi)
+
+
+def _gather(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``t[..., i]`` on the device: one entry of a (n,) vector for a 0-d
+    index, or of each row of a (T, n) bucket for (T,) indices."""
+    return t.gather(-1, i.unsqueeze(-1)).squeeze(-1)
 
 
 def _pair_update(a_i, a_j, y_i, y_j, f_i, f_j, k_ii, k_jj, k_ij,
@@ -169,52 +182,62 @@ def kkt_violation(alpha, y, f, lo, hi, tol: float = 0.0, mask=None,
     return torch.maximum(zero, torch.maximum(r - b_up, b_low - r))
 
 
-def _smo_iteration(st: _State, *, y, mask, lo, hi, engine: KE.KernelEngine,
-                   cfg: SMOConfig, diag=None, shrink: bool = False) -> None:
+def _smo_iteration(st: _State, *, y, mask, lo, hi, engine, cfg: SMOConfig,
+                   diag=None, shrink: bool = False, live=None) -> None:
     """One working-set pair update + f-cache refresh, in place on ``st``.
 
     selection="first": maximal violating pair (the paper's GPU solver).
     selection="second" (WSS2, Fan et al. 2005): i = argmin_{I_up} f,
     then j maximizes the guaranteed gain (f_j - f_i)^2 / (2 eta_ij) over
     I_low.
+
+    The same code steps one problem ((n,) state, 0-d pair) or a bucket
+    of T problems ((T, n) state, (T,) pairs, ``engine`` a
+    ``TaskKernelEngine``): every stage is elementwise or gathers along
+    the last axis, so each task steps exactly as it would alone.
+    ``live`` (T,) freezes finished tasks, as a vmapped while loop keeps
+    a finished lane.
     """
     alpha, f = st.alpha, st.f
     sel_mask = (mask & st.active) if shrink else mask
     b_up, i_up, b_low, i_low = _selection(f, alpha, y, sel_mask, lo, hi)
     step_live = b_low > b_up + 2.0 * cfg.tol  # not yet converged
+    if live is not None:
+        step_live = step_live & live
 
     j = i_up
     row_j, cache = engine.row(j, st.cache)
-    k_jj = take(row_j, j)
+    k_jj = _gather(row_j, j)
 
     if cfg.selection == "second":
         _, in_low, _ = _membership(alpha, y, lo, hi, 1e-6 * (hi - lo))
-        eta_all = torch.clamp_min(diag + k_jj - 2.0 * row_j, 1e-12)
-        df = f - b_up
+        eta_all = torch.clamp_min(diag + k_jj.unsqueeze(-1) - 2.0 * row_j,
+                                  1e-12)
+        df = f - b_up.unsqueeze(-1)
         gain = torch.where(sel_mask & in_low & (df > 0.0), df * df / eta_all,
                            -torch.inf)
-        i = torch.argmax(gain)
+        i = torch.argmax(gain, dim=-1)
     else:
         i = i_low
 
-    ij = torch.stack([i, j])
-    y_i, y_j = y[ij].unbind()
-    a_i, a_j = alpha[ij].unbind()
-    f_i, f_j = f[ij].unbind()
-    lo_i, lo_j = lo[ij].unbind()
-    hi_i, hi_j = hi[ij].unbind()
+    ij = torch.stack([i, j], dim=-1)
+    y_i, y_j = y.gather(-1, ij).unbind(-1)
+    a_i, a_j = alpha.gather(-1, ij).unbind(-1)
+    f_i, f_j = f.gather(-1, ij).unbind(-1)
+    lo_i, lo_j = lo.gather(-1, ij).unbind(-1)
+    hi_i, hi_j = hi.gather(-1, ij).unbind(-1)
 
     row_i, cache = engine.row(i, cache)
-    k_ii = take(row_i, i)
-    k_ij = take(row_i, j)
+    k_ii = _gather(row_i, i)
+    k_ij = _gather(row_i, j)
     a_i_new, a_j_new = _pair_update(a_i, a_j, y_i, y_j, f_i, f_j,
                                     k_ii, k_jj, k_ij, lo_i, hi_i, lo_j, hi_j)
 
     d_i = torch.where(step_live, a_i_new - a_i, 0.0)
     d_j = torch.where(step_live, a_j_new - a_j, 0.0)
 
-    alpha.index_add_(0, i.reshape(1), d_i.reshape(1))
-    alpha.index_add_(0, j.reshape(1), d_j.reshape(1))
+    alpha.scatter_add_(-1, i.unsqueeze(-1), d_i.unsqueeze(-1))
+    alpha.scatter_add_(-1, j.unsqueeze(-1), d_j.unsqueeze(-1))
     # the "one thread per sample" stage. The float association
     # (f + d_i y_i row_i) + d_j y_j row_j, left to right, is the
     # reference's and is load-bearing (see its NOTE): keep it. XLA
@@ -222,7 +245,7 @@ def _smo_iteration(st: _State, *, y, mask, lo, hi, engine: KE.KernelEngine,
     # row_i, f)), and for the shrinking update fma(c_i, row_i, c_j row_j)
     # — and addcmul is the same fused multiply-add, so the two packages
     # round alike and follow the same SMO trajectory.
-    c_i, c_j = d_i * y_i, d_j * y_j
+    c_i, c_j = (d_i * y_i).unsqueeze(-1), (d_j * y_j).unsqueeze(-1)
     if shrink:
         upd = torch.addcmul(c_j * row_j, row_i, c_i)
         st.f = torch.where(st.active, f + upd, f)
@@ -367,6 +390,109 @@ def binary_smo(x: torch.Tensor,
     p, lo, hi = _classification_spec(y, cfg.C)
     return solve_qp(x, y, p, lo, hi, mask, cfg=cfg, kernel=kernel,
                     engine=engine, alpha0=alpha0)
+
+
+def solve_qp_tasks(x: torch.Tensor,
+                   y: torch.Tensor,
+                   p: torch.Tensor | float,
+                   lo: torch.Tensor | float,
+                   hi: torch.Tensor | float,
+                   mask: Optional[torch.Tensor] = None,
+                   *,
+                   cfg: SMOConfig = SMOConfig(),
+                   kernel: K.KernelParams = K.KernelParams(),
+                   engine: Optional[KE.TaskKernelEngine | KE.EngineConfig
+                                    | str] = None,
+                   alpha0: Optional[torch.Tensor] = None) -> SMOResult:
+    """Solve the T box QPs of one multiclass bucket together: one
+    batched SMO, where the reference vmaps ``solve_qp`` over the bucket
+    (``repro/core/dist.py``).
+
+    ``x`` is (T, w, d); ``y``, ``p``, ``lo``, ``hi``, ``mask`` and
+    ``alpha0`` are (T, w) (or broadcast to it). Every iteration is one
+    selection launch and two row launches for the whole bucket (the
+    task-axis ``kkt_select`` and ``rbf_gram`` row kernels under
+    ``engine="pallas"``), and the host reads one flag per block of
+    ``check_every`` iterations. Each task freezes once its own gap
+    closes or its ``n_iter`` reaches ``max_iter`` at a check, as a
+    vmapped while loop keeps a finished lane, so its alphas, b and
+    n_iter are those of the same task solved alone by ``solve_qp``.
+    Shrinking is forced off (the reference forces it off under vmap).
+    Returns an ``SMOResult`` of (T, w) / (T,) tensors.
+    """
+    if cfg.selection not in ("first", "second"):
+        raise ValueError(f"unknown selection {cfg.selection!r}; expected "
+                         "'first' or 'second'")
+    if x.ndim != 3:
+        raise ValueError(f"solve_qp_tasks: x must be (T, w, d), got "
+                         f"{tuple(x.shape)}")
+    cfg = dataclasses.replace(cfg, shrink_every=0)
+    dev = x.device
+    shape = x.shape[:2]
+    x = x.to(torch.float32)
+
+    def vec(v):
+        return (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                .broadcast_to(shape).contiguous())
+
+    y, p, lo, hi = vec(y), vec(p), vec(lo), vec(hi)
+    if bool(torch.any((lo > 0.0) | (hi < 0.0))):
+        raise ValueError(
+            "solve_qp_tasks initializes alpha = 0, which must be feasible: "
+            "need lo <= 0 <= hi elementwise")
+    if mask is None:
+        mask = torch.ones(shape, dtype=torch.bool, device=dev)
+    mask = (mask.to(dev) & (torch.abs(y) > 0.5)).contiguous()
+    eng = (engine if isinstance(engine, KE.TaskKernelEngine)
+           else KE.TaskKernelEngine(x, kernel,
+                                    "dense" if engine is None else engine))
+
+    if alpha0 is None:
+        a0 = torch.zeros(shape, dtype=torch.float32, device=dev)
+        f0 = y * p
+    else:
+        a0 = torch.minimum(torch.maximum(vec(alpha0), lo), hi) * mask
+        f0 = eng.matvec(a0 * y) + y * p
+    n_tasks = shape[0]
+    st = _State(alpha=a0.contiguous(), f=f0,
+                n_iter=torch.zeros((n_tasks,), dtype=torch.int64, device=dev),
+                b_up=torch.full((n_tasks,), -1.0, device=dev),
+                b_low=torch.full((n_tasks,), 1.0, device=dev),
+                active=mask, cache=None)
+    diag = eng.diag() if cfg.selection == "second" else None
+    two_tol = 2.0 * cfg.tol
+
+    frozen = st.n_iter >= cfg.max_iter
+    while not bool(frozen.all()):   # the one host read per block
+        live = ~frozen
+        for _ in range(cfg.check_every):
+            _smo_iteration(st, y=y, mask=mask, lo=lo, hi=hi, engine=eng,
+                           cfg=cfg, diag=diag, live=live)
+        frozen = (frozen | (st.b_low <= st.b_up + two_tol)
+                  | (st.n_iter >= cfg.max_iter))
+
+    b_up, _, b_low, _ = _selection(st.f, st.alpha, y, mask, lo, hi)
+    return SMOResult(alpha=st.alpha * mask, b=-(b_up + b_low) / 2.0,
+                     n_iter=st.n_iter,
+                     converged=b_low <= b_up + two_tol, gap=b_low - b_up,
+                     n_active=torch.sum(mask, dim=-1))
+
+
+def binary_smo_tasks(x: torch.Tensor,
+                     y: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None,
+                     *,
+                     cfg: SMOConfig = SMOConfig(),
+                     kernel: K.KernelParams = K.KernelParams(),
+                     engine: Optional[KE.TaskKernelEngine | KE.EngineConfig
+                                      | str] = None,
+                     alpha0: Optional[torch.Tensor] = None) -> SMOResult:
+    """T binary soft-margin duals (x (T, w, d), labels y (T, w) in
+    {+1, -1}, 0 on padding) solved together by ``solve_qp_tasks``:
+    p = -1 over the box [0, C]."""
+    y = y.to(device=x.device, dtype=torch.float32)
+    return solve_qp_tasks(x, y, -1.0, 0.0, float(cfg.C), mask, cfg=cfg,
+                          kernel=kernel, engine=engine, alpha0=alpha0)
 
 
 def _svr_spec(y: torch.Tensor, epsilon: float, c: float):

@@ -1,18 +1,22 @@
-"""Public SVM API of the port — binary ``SVC`` and epsilon-``SVR``.
+"""Public SVM API of the port — ``SVC`` (binary and multiclass) and
+epsilon-``SVR``.
 
     clf = SVC(kernel="rbf", C=1.0)                    # paper's CUDA path
     clf = SVC(engine="pallas", shrink_every=4)        # hand-written kernels
     clf = SVC(engine="rff", rank=1024)                # low-rank tier
-    clf.fit(X, y); clf.predict(Xt); clf.score(Xt, yt)
+    clf = SVC(strategy="ovr")                         # one-vs-rest
+    clf = SVC(decision="margin")                      # OvO summed margins
+    clf.fit(X, y); clf.predict(Xt); clf.score(Xt, yt)  # binary or multiclass
     reg = SVR(epsilon=0.1, engine="pallas").fit(X, y); reg.score(Xt, yt)
 
-Mirrors the binary SMO, low-rank and SVR paths of ``repro/core/svm.py``.
-``fit`` runs on ``device`` ("cuda" by default; "cpu" must be asked for)
-and keeps the reference's conventions: ``classes_[1]`` maps to +1, so a
-positive margin predicts ``classes_[1]`` (sklearn orientation); a
-multiplier counts as a support vector above ``1e-8 * C`` (``|beta|``
-for SVR); a gamma <= 0 ("scale") is re-resolved from the data on every
-fit; single-class input raises.
+Mirrors the SMO, low-rank, multiclass and SVR paths of
+``repro/core/svm.py``. ``fit`` runs on ``device`` ("cuda" by default;
+"cpu" must be asked for) and keeps the reference's conventions:
+``classes_[1]`` maps to +1 in a binary fit, so a positive margin
+predicts ``classes_[1]`` (sklearn orientation); a multiplier counts as
+a support vector above ``1e-8 * C`` (``|beta|`` for SVR); a gamma <= 0
+("scale") is re-resolved from the data on every fit; single-class input
+raises.
 
 Exact engines train by SMO (``core/smo.py``); the low-rank engines
 (``engine="nystrom" | "rff"`` with ``rank`` / ``landmarks`` / ``seed``)
@@ -23,9 +27,20 @@ the epochs. After ``fit`` the model keeps only its serving state, and
 ``serve.Predictor`` over ``serve.pack(self)`` — the same artifact
 ``serve.save`` writes.
 
-Not ported yet, and raising NotImplementedError until their slice:
-multiclass fits (ROADMAP A.6), the GD solver (A.7), the cascade (A.9)
-and the sharded solver (A.11).
+Multiclass fits go through the strategy layer (``core/multiclass.py``):
+``strategy`` picks the decomposition ("ovo" pairwise, "ovr"
+one-vs-rest), ``decision`` the OvO aggregation ("vote" majority,
+"margin" summed tanh margins; OvR always argmaxes). Exact engines solve
+one batched SMO per schedule bucket (``dist.fit_taskset``), each bucket
+at its own pow2 width (``schedule="bucketed"``) or every task at the
+widest (``schedule="padded"``); the support vectors are then compacted
+into pow2 SV-width serving buckets. Low-rank engines draw one feature
+map over all of X, transform it once and fit each task by DCD on its
+rows of it, so serving is one transform and a (n_tasks, rank) product.
+
+Not ported yet, and raising NotImplementedError until their slice: the
+GD solver (ROADMAP A.7), the cascade (A.9) and the sharded solver
+(A.11).
 """
 from __future__ import annotations
 
@@ -33,10 +48,11 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core import approx
+from repro_torch.core import approx, dist
 from repro_torch.core import kernel_engine as KE
 from repro_torch.core import kernels as K
 from repro_torch.core import linear
+from repro_torch.core import multiclass as MC
 from repro_torch.core import smo
 from repro_torch import serve
 
@@ -81,20 +97,38 @@ def _engine_values(model, xt: np.ndarray) -> np.ndarray:
     """Pre-predictor path of a fit: the feature transform and ``w`` for
     a low-rank fit, else a ``KernelEngine`` over the support vectors
     and ``engine.decide`` (the ``decision`` kernel under
-    ``engine="pallas"``)."""
+    ``engine="pallas"``). A multiclass fit gives the (n_tasks, nt)
+    stacked decisions: one transform and the stacked ``task_w_``, or one
+    engine per task of each serving bucket."""
     if not model._fitted:
         raise ValueError(f"{type(model).__name__} is not fitted yet (call "
                          ".fit first)")
-    z = torch.from_numpy(np.asarray(xt, np.float32)).to(model.device)
+    dev = model.device
+    z = torch.from_numpy(np.asarray(xt, np.float32)).to(dev)
+    multiclass = not getattr(model, "_binary", True)
     if model._feature_map is not None:
-        w = torch.from_numpy(model.w_).to(model.device)
-        return (model._feature_map.transform(z) @ w + model.b_).cpu().numpy()
+        phi = model._feature_map.transform(z)
+        if multiclass:
+            w = torch.from_numpy(model.task_w_).to(dev)
+            b = torch.from_numpy(model.task_b_).to(dev)
+            return ((phi @ w.T).T + b[:, None]).cpu().numpy()
+        w = torch.from_numpy(model.w_).to(dev)
+        return (phi @ w + model.b_).cpu().numpy()
+    scfg = serve.serving_config(model.engine_cfg)
+    if multiclass:
+        df = np.zeros((model._taskset.n_tasks, z.shape[0]), np.float32)
+        for g in model._serving_buckets:
+            for t, sv, coef, b in zip(g.task_ids, g.sv_x, g.sv_coef, g.b):
+                eng = KE.make_engine(torch.from_numpy(sv).to(dev),
+                                     model.kernel_params, scfg)
+                df[t] = eng.decide(z, torch.from_numpy(coef).to(dev),
+                                   float(b)).cpu().numpy()
+        return df
     if model.n_support_ == 0:  # degenerate fit: constant decision
         return np.full(z.shape[0], model.b_, np.float32)
-    eng = KE.make_engine(
-        torch.from_numpy(model.support_vectors_).to(model.device),
-        model.kernel_params, serve.serving_config(model.engine_cfg))
-    coef = torch.from_numpy(model.dual_coef_).to(model.device)
+    eng = KE.make_engine(torch.from_numpy(model.support_vectors_).to(dev),
+                         model.kernel_params, scfg)
+    coef = torch.from_numpy(model.dual_coef_).to(dev)
     return eng.decide(z, coef, model.b_).cpu().numpy()
 
 
@@ -122,6 +156,9 @@ class SVC:
                  rank: int = 256, landmarks: str = "uniform",
                  seed: int = 0,
                  shrink_every: int = 0,
+                 strategy: str | MC.MulticlassStrategy = "ovo",
+                 decision: str = "vote",
+                 schedule: str = "bucketed",
                  device: str | torch.device = "cuda"):
         _check_solver(solver)
         self.device = resolve_device(device)
@@ -136,6 +173,15 @@ class SVC:
         # max_iter bounds both solvers: SMO pair updates and (as epochs)
         # the low-rank DCD sweeps
         self.dcd_cfg = linear.DCDConfig(C=C, tol=tol, max_epochs=max_iter)
+        self.strategy = MC.get_strategy(strategy)
+        if decision not in ("vote", "margin"):
+            raise ValueError(f"unknown OvO decision {decision!r}; "
+                             "expected 'vote' or 'margin'")
+        self.decision = decision
+        if schedule not in ("bucketed", "padded"):
+            raise ValueError(f"unknown schedule {schedule!r}; "
+                             "expected 'bucketed' or 'padded'")
+        self.schedule = schedule
         self._fitted = False
 
     # ------------------------------------------------------------------ fit
@@ -148,17 +194,22 @@ class SVC:
                 f"SVC.fit needs >= 2 classes in y, got {len(classes)} "
                 f"({classes.tolist()}); a single-class problem has no "
                 f"decision boundary to learn")
-        if len(classes) > 2:
-            raise NotImplementedError(
-                f"SVC.fit got {len(classes)} classes; multiclass (OvO/OvR) "
-                "is not ported yet and comes with ROADMAP A.6")
         self.classes_ = classes
         self._predictors: dict = {}
         self._feature_map = None
+        self._binary = len(classes) == 2
+        lowrank = self.engine_cfg.backend in KE.LOWRANK_BACKENDS
+        if not self._binary:
+            if lowrank:
+                self._fit_multiclass_lowrank(x, xt, y)
+            else:
+                self._fit_multiclass(x, y)
+            self._fitted = True
+            return self
         # sklearn orientation: classes_[1] maps to +1
         yy = np.where(y == classes[1], 1.0, -1.0).astype(np.float32)
         yt = torch.from_numpy(yy).to(self.device)
-        if self.engine_cfg.backend in KE.LOWRANK_BACKENDS:
+        if lowrank:
             self._fit_binary_lowrank(xt, yt)
         else:
             r = smo.binary_smo(xt, yt, cfg=self.smo_cfg,
@@ -191,17 +242,107 @@ class SVC:
         self.n_iter_ = int(r.n_iter)
         self.converged_ = bool(r.converged)
 
+    def _fit_multiclass(self, x: np.ndarray, y: np.ndarray) -> None:
+        """Every binary task of the strategy's TaskSet, one batched SMO
+        per schedule bucket (``dist.fit_taskset``), then the pow2
+        SV-width serving compaction."""
+        taskset = self.strategy.build_taskset(x, y)
+        bucket_by = "pow2" if self.schedule == "bucketed" else "none"
+        sched = MC.build_schedule(taskset.sizes,
+                                  MC.ScheduleConfig(bucket_by=bucket_by))
+        fit = dist.fit_taskset(taskset, sched, smo_cfg=self.smo_cfg,
+                               kernel=self.kernel_params,
+                               engine=self.engine_cfg, device=self.device)
+        self._taskset = taskset
+        self._schedule = sched
+        self._fit = fit
+        self.n_iter_ = int(np.max(fit.n_iter))
+        self.converged_ = bool(np.all(fit.converged))
+        self._compact_tasks()
+
+    def _compact_tasks(self) -> None:
+        """Keep each task's alpha > threshold rows only, grouped into pow2
+        SV-width serving buckets (``min_width=8``), each stacked as wide
+        as the largest SV count inside it: the ``serve.TaskBucket``s the
+        pack carries."""
+        taskset, fit = self._taskset, self._fit
+        thr = _sv_threshold(self.smo_cfg.C)
+        sv_idx = [np.flatnonzero(fit.alpha[t, :task.size] > thr)
+                  for t, task in enumerate(taskset.tasks)]
+        sv_counts = np.array([len(i) for i in sv_idx], np.int64)
+        self.n_support_ = sv_counts
+        sched = MC.build_schedule(
+            np.maximum(sv_counts, 1),
+            MC.ScheduleConfig(bucket_by="pow2", min_width=8, n_workers=1))
+        d = taskset.tasks[0].x.shape[1]
+        groups = []
+        for bucket in sched.buckets:
+            ids = bucket.task_ids.reshape(-1)
+            ids = ids[ids >= 0]
+            width = max(1, int(sv_counts[ids].max()))
+            sv_x = np.zeros((len(ids), width, d), np.float32)
+            sv_coef = np.zeros((len(ids), width), np.float32)
+            for s, t in enumerate(ids):
+                idx, task = sv_idx[t], taskset.tasks[t]
+                sv_x[s, :len(idx)] = task.x[idx]
+                sv_coef[s, :len(idx)] = (fit.alpha[t, idx]
+                                         * task.y[idx]).astype(np.float32)
+            groups.append(serve.TaskBucket(
+                task_ids=ids.astype(np.int64), sv_x=sv_x, sv_coef=sv_coef,
+                b=fit.b[ids], sv_counts=sv_counts[ids]))
+        self._serving_buckets = groups
+
+    def _fit_multiclass_lowrank(self, x: np.ndarray, xt: torch.Tensor,
+                                y: np.ndarray) -> None:
+        """One feature map over all of X, transformed once; each task is a
+        DCD fit on its rows of that Phi (gathered by ``task.indices``), so
+        serving is one transform and a (n_tasks, rank) product."""
+        taskset = self.strategy.build_taskset(x, y)
+        fmap = approx.make_feature_map(xt, self.kernel_params,
+                                       self.engine_cfg)
+        phi = fmap.transform(xt)
+        n_tasks, dev = taskset.n_tasks, self.device
+        task_w = np.zeros((n_tasks, fmap.rank), np.float32)
+        task_b = np.zeros((n_tasks,), np.float32)
+        n_support = np.zeros(n_tasks, np.int64)
+        n_iter = np.zeros(n_tasks, np.int64)
+        converged = np.ones(n_tasks, bool)
+        alphas = []
+        thr = _sv_threshold(self.smo_cfg.C)
+        for t, task in enumerate(taskset.tasks):
+            phi_t = phi.index_select(0, torch.from_numpy(task.indices).to(dev))
+            r = linear.linear_svc(phi_t, torch.from_numpy(task.y).to(dev),
+                                  cfg=self.dcd_cfg)
+            a = r.alpha.cpu().numpy()
+            alphas.append(a)
+            task_w[t] = r.w.cpu().numpy()
+            task_b[t] = float(r.b)
+            n_support[t] = int((a > thr).sum())
+            n_iter[t] = int(r.n_iter)
+            converged[t] = bool(r.converged)
+        self._feature_map = fmap
+        self._taskset = taskset
+        self._task_alpha = alphas
+        self.task_w_ = task_w
+        self.task_b_ = task_b
+        self.n_support_ = n_support
+        self.task_n_iter_ = n_iter
+        self.n_iter_ = int(n_iter.max())
+        self.converged_ = bool(converged.all())
+
     # ------------------------------------------------------------- predict
     def predictor(self):
         """The cached serving engine for this fit (see ``_predictor``)."""
         return _predictor(self)
 
     def decision_function(self, xt: np.ndarray) -> np.ndarray:
-        """(n_test,) margins; positive => ``classes_[1]``."""
+        """(n_test,) margins for a binary fit (positive =>
+        ``classes_[1]``); (n_tasks, n_test) stacked binary decisions for
+        a multiclass one (OvO: m(m-1)/2 rows, OvR: m rows)."""
         return self.predictor().decision_function(xt)
 
     def _decision_function_engine(self, xt: np.ndarray) -> np.ndarray:
-        """Margins by the pre-predictor path (``_engine_values``)."""
+        """Decision values by the pre-predictor path (``_engine_values``)."""
         return _engine_values(self, xt)
 
     def predict(self, xt: np.ndarray) -> np.ndarray:

@@ -34,14 +34,18 @@ _F = ctypes.c_float
 # every exported function returns cudaGetLastError() as an int
 SIGNATURES = {
     "svm_rbf_gram_block": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-    "svm_rbf_gram_row": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    "svm_kkt_select": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
+    "svm_rbf_gram_row": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                         _P],
+    "svm_kkt_select": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P],
     "svm_decision": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "svm_multitask_decision": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                                _P],
     "svm_rff_features": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "svm_dcd_epoch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _F, _P],
+    "svm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _I, _I, _P],
+    "svm_ssd_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -13,10 +13,15 @@
 // the float32 FMA rate sets it (2 nt w d / 67 TFLOP/s) once nt and w
 // reach a few hundred. Design: a block holds a 64-row tile of test rows
 // and loops over 64-row tiles of support vectors (common.cuh), fuses
-// the RBF epilogue and the contraction with coef in registers, reduces
-// each test row's partial across the 16 threads that share it with
-// shuffles, and accumulates in float32 across SV tiles in a fixed
-// order. Ragged nt, w and d are masked, not padded. One device function
+// the RBF epilogue and the contraction with coef in registers, and
+// keeps in each thread a compensated (Kahan) float32 sum of its
+// partials across SV tiles, in a fixed order; the 16 threads that share
+// a test row add their sums with shuffles once, at the end. A task's
+// terms cancel (coef = alpha y of both signs, often one class's rows
+// first), so a running total reduced tile by tile rounds at the size of
+// the sum of their magnitudes, hundreds of times the decision; per
+// thread and compensated, it rounds at the size of one tile's partial.
+// Ragged nt, w and d are masked, not padded. One device function
 // serves both entry points, so a T = 1 multitask call is the
 // single-task kernel bit for bit; the task axis is grid.y.
 #include "common.cuh"
@@ -35,6 +40,7 @@ __device__ __forceinline__ void decide_tile(const T* __restrict__ z, int nt,
   const int t0 = blockIdx.x * TILE;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float total[4] = {0.f, 0.f, 0.f, 0.f};
+  float comp[4] = {0.f, 0.f, 0.f, 0.f};  // the rounding total[] lost
   for (int s0 = 0; s0 < w; s0 += TILE) {
     float dot[4][4];
     tile_dot(sm, z, t0, nt, sv, s0, w, d, /*norms=*/rbf != 0, dot);
@@ -55,19 +61,20 @@ __device__ __forceinline__ void decide_tile(const T* __restrict__ z, int nt,
                 : dot[i][j];
         part = fmaf(k, cf[j], part);
       }
-      // the 16 threads of one test row are 16 consecutive lanes
-#pragma unroll
-      for (int s = 8; s > 0; s >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, s);
-      total[i] += part;
+      const float y = __fsub_rn(part, comp[i]);
+      const float sum = __fadd_rn(total[i], y);
+      comp[i] = __fsub_rn(__fsub_rn(sum, total[i]), y);
+      total[i] = sum;
     }
   }
-  if (tx == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = t0 + ty + 16 * i;
-      if (r < nt) out[r] = total[i];
-    }
+  for (int i = 0; i < 4; ++i) {
+    float v = __fsub_rn(total[i], comp[i]);
+    // the 16 threads of one test row are 16 consecutive lanes
+#pragma unroll
+    for (int s = 8; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+    const int r = t0 + ty + 16 * i;
+    if (tx == 0 && r < nt) out[r] = v;
   }
 }
 

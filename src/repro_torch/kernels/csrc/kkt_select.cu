@@ -24,6 +24,12 @@
 // shared memory); pass 2, one block, reduces the per-block keys and
 // writes (b_up, b_low) and (i_up, i_low) to device memory — the solver
 // never reads them on the host.
+//
+// Task axis: a multiclass bucket of T binary tasks passes (T, n) inputs;
+// task t is blockIdx.y of pass 1 and blockIdx.x of pass 2, its keys live
+// in its own slice of the scratch, and it writes vals[t] = b_up,
+// vals[T + t] = b_low (idx likewise). Each task's selection is the one
+// a T = 1 launch makes; T = 1 is that launch.
 #include "common.cuh"
 
 namespace {
@@ -75,6 +81,8 @@ kkt_partial_kernel(const float* __restrict__ f, const float* __restrict__ alpha,
                    const float* __restrict__ y, const float* __restrict__ lo,
                    const float* __restrict__ hi, const bool* __restrict__ mask,
                    int n, uint64_t* __restrict__ part) {
+  const int64_t task = blockIdx.y, off = task * n;
+  f += off; alpha += off; y += off; lo += off; hi += off; mask += off;
   uint64_t k_up = ~0ull, k_low = ~0ull;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
@@ -91,27 +99,32 @@ kkt_partial_kernel(const float* __restrict__ f, const float* __restrict__ alpha,
     k_low = umin64(k_low, make_key(low ? -fi : inf_f32(), i));
   }
   block_min2(k_up, k_low);
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = k_up;
-    part[gridDim.x + blockIdx.x] = k_low;
+  if (threadIdx.x == 0) {  // up keys of every task, then the low keys
+    const int64_t b = task * gridDim.x + blockIdx.x;
+    part[b] = k_up;
+    part[(int64_t)gridDim.x * gridDim.y + b] = k_low;
   }
 }
 
 __global__ void __launch_bounds__(KKT_THREADS)
 kkt_finish_kernel(const uint64_t* __restrict__ part, int nblocks,
                   float* __restrict__ vals, int64_t* __restrict__ idx) {
+  const int task = blockIdx.x, n_tasks = gridDim.x;
+  const uint64_t* up = part + (int64_t)task * nblocks;
+  const uint64_t* low = up + (int64_t)n_tasks * nblocks;
   uint64_t k_up = ~0ull, k_low = ~0ull;
   for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
-    k_up = umin64(k_up, part[b]);
-    k_low = umin64(k_low, part[nblocks + b]);
+    k_up = umin64(k_up, up[b]);
+    k_low = umin64(k_low, low[b]);
   }
   block_min2(k_up, k_low);
   if (threadIdx.x == 0) {
-    vals[0] = unordered(static_cast<uint32_t>(k_up >> 32));
+    vals[task] = unordered(static_cast<uint32_t>(k_up >> 32));
     // 0 - x, not -x: a zero f keys as +0 and comes back as +0
-    vals[1] = __fsub_rn(0.f, unordered(static_cast<uint32_t>(k_low >> 32)));
-    idx[0] = static_cast<int64_t>(k_up & 0xffffffffu);
-    idx[1] = static_cast<int64_t>(k_low & 0xffffffffu);
+    vals[n_tasks + task] =
+        __fsub_rn(0.f, unordered(static_cast<uint32_t>(k_low >> 32)));
+    idx[task] = static_cast<int64_t>(k_up & 0xffffffffu);
+    idx[n_tasks + task] = static_cast<int64_t>(k_low & 0xffffffffu);
   }
 }
 
@@ -119,17 +132,19 @@ kkt_finish_kernel(const uint64_t* __restrict__ part, int nblocks,
 
 extern "C" {
 
-// part: 2 * nblocks uint64 scratch; vals: (b_up, b_low); idx: (i_up, i_low)
+// inputs (n_tasks, n); part: 2 * n_tasks * nblocks uint64 scratch;
+// vals: (b_up of each task, then b_low of each); idx: (i_up..., i_low...)
 int svm_kkt_select(const float* f, const float* alpha, const float* y,
-                   const float* lo, const float* hi, const bool* mask, int n,
-                   uint64_t* part, int nblocks, float* vals, int64_t* idx,
-                   void* stream) {
+                   const float* lo, const float* hi, const bool* mask,
+                   int n_tasks, int n, uint64_t* part, int nblocks,
+                   float* vals, int64_t* idx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kkt_partial_kernel<<<nblocks, KKT_THREADS, 0, s>>>(f, alpha, y, lo, hi,
-                                                     mask, n, part);
+  kkt_partial_kernel<<<dim3(nblocks, n_tasks), KKT_THREADS, 0, s>>>(
+      f, alpha, y, lo, hi, mask, n, part);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  kkt_finish_kernel<<<1, KKT_THREADS, 0, s>>>(part, nblocks, vals, idx);
+  kkt_finish_kernel<<<n_tasks, KKT_THREADS, 0, s>>>(part, nblocks, vals,
+                                                    idx);
   return static_cast<int>(cudaGetLastError());
 }
 

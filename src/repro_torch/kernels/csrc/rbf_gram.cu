@@ -22,6 +22,12 @@
 //   the LRU-cache slot and hit flag, are read from device memory, so the
 //   solver never syncs with the host for them: on a cache hit the
 //   kernel exits at once, on a miss it writes straight into the slot.
+//   Task axis: a multiclass bucket of T binary tasks stacks X as
+//   (T, n, d) with norms (T, n) and one index per task; task t is
+//   blockIdx.y and writes row t of a (T, n) output, so one launch
+//   serves the whole bucket (the reference vmaps its row call over the
+//   bucket). Each task's row is the arithmetic of the T = 1 launch,
+//   value for value; T = 1 is that launch.
 #include "common.cuh"
 
 namespace {
@@ -64,8 +70,11 @@ rbf_gram_row_kernel(const T* __restrict__ x, const float* __restrict__ x2,
                     int rbf) {
   if (skip != nullptr && *skip) return;  // LRU hit: the row is cached
   extern __shared__ float z[];
-  const int64_t i = *idx;
-  float* o = out + (slot != nullptr ? *slot : 0) * (int64_t)n;
+  const int64_t task = blockIdx.y;
+  x += task * n * (int64_t)d;
+  x2 += task * n;
+  const int64_t i = idx[task];
+  float* o = out + (slot != nullptr ? *slot : task) * (int64_t)n;
   for (int k = threadIdx.x; k < d; k += blockDim.x)
     z[k] = to_f32(x[i * d + k]);
   __syncthreads();
@@ -104,20 +113,27 @@ int svm_rbf_gram_block(const void* a, const void* b, const float* a2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (n_tasks, n, d), x2 (n_tasks, n), idx (n_tasks,), out (n_tasks, n);
+// slot / skip (the LRU row store of one task) only with n_tasks = 1
 int svm_rbf_gram_row(const void* x, const float* x2, const int64_t* idx,
-                     float* out, const int64_t* slot, const bool* skip, int n,
-                     int d, float gamma, int rbf, int bf16, void* stream) {
+                     float* out, const int64_t* slot, const bool* skip,
+                     int n_tasks, int n, int d, float gamma, int rbf,
+                     int bf16, void* stream) {
   const int warps = ROW_THREADS / 32;
+  // about 132 x 16 blocks in all; warps then loop over rows
+  int cap = 132 * 16 / n_tasks;
+  if (cap < 1) cap = 1;
   int blocks = (n + warps - 1) / warps;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // warps then loop over rows
+  if (blocks > cap) blocks = cap;
+  const dim3 grid(blocks, n_tasks);
   const size_t smem = sizeof(float) * (size_t)d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    rbf_gram_row_kernel<<<blocks, ROW_THREADS, smem, s>>>(
+    rbf_gram_row_kernel<<<grid, ROW_THREADS, smem, s>>>(
         static_cast<const __nv_bfloat16*>(x), x2, idx, out, slot, skip, n, d,
         gamma, rbf);
   else
-    rbf_gram_row_kernel<<<blocks, ROW_THREADS, smem, s>>>(
+    rbf_gram_row_kernel<<<grid, ROW_THREADS, smem, s>>>(
         static_cast<const float*>(x), x2, idx, out, slot, skip, n, d, gamma,
         rbf);
   return static_cast<int>(cudaGetLastError());

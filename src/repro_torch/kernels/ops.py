@@ -26,12 +26,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import dcd as _dcd
 from repro_torch.kernels import decision as _decision
 from repro_torch.kernels import feature_map as _fmap
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import kkt_select as _kkt
 from repro_torch.kernels import rbf_gram as _gram
+from repro_torch.kernels import ssd_diag as _ssd
 
-# one count per kernel entry point: rbf_gram.cu has a block and a row one
+# one count per kernel entry point: rbf_gram.cu has a block and a row one;
+# a launch with the task axis (a multiclass bucket) counts once, whatever T
 KERNELS = ("rbf_gram", "rbf_gram_row", "kkt_select", "decision",
-           "multitask_decision", "rff_features", "dcd_epoch")
+           "multitask_decision", "rff_features", "dcd_epoch",
+           "flash_attention", "ssd_diag")
 
 # the largest rank dcd_epoch takes: w must fit the 232,448 bytes of
 # shared memory a block may opt in to (csrc/dcd_epoch.cu, MAX_RANK)
@@ -137,21 +141,31 @@ def gram_row(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor, *,
     same device, so the solver never reads it on the host. With
     ``out`` (a (slots, n) LRU row store), the row is written into
     ``out[slot]`` unless the 0-d bool ``skip`` is set (a cache hit), and
-    ``out`` is returned."""
+    ``out`` is returned.
+
+    Task axis (one launch for a multiclass bucket): x (T, n, d), x2
+    (T, n) and i (T,) give the (T, n) rows K(X_t, x_t[i_t]); the row
+    store is a one-task feature."""
     _check_mode(mode)
-    if x.ndim != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"gram_row: x must be (n, d) float32/bfloat16, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if i.ndim != 0 or i.dtype != torch.int64:
-        raise ValueError("gram_row: i must be a 0-d int64 tensor")
-    n = x.shape[0]
-    if x2.shape != (n,) or x2.dtype != torch.float32:
-        raise ValueError("gram_row: x2 must be (n,) float32")
-    if out is not None and (out.ndim != 2 or out.shape[1] != n
+    batched = x.ndim == 3
+    if x.ndim not in (2, 3) or x.dtype not in (torch.float32,
+                                               torch.bfloat16):
+        raise ValueError(f"gram_row: x must be (n, d) or (T, n, d) "
+                         f"float32/bfloat16, got {tuple(x.shape)} {x.dtype}")
+    lead = x.shape[:-2]
+    if i.shape != lead or i.dtype != torch.int64:
+        raise ValueError(f"gram_row: i must be int64 of shape {tuple(lead)}"
+                         f" (one index per task), got {tuple(i.shape)} "
+                         f"{i.dtype}")
+    n = x.shape[-2]
+    if x2.shape != x.shape[:-1] or x2.dtype != torch.float32:
+        raise ValueError(f"gram_row: x2 must be {tuple(x.shape[:-1])} "
+                         "float32")
+    if out is not None and (batched or out.ndim != 2 or out.shape[1] != n
                             or out.dtype != torch.float32
                             or slot is None or skip is None):
         raise ValueError("gram_row: out must be a (slots, n) float32 row "
-                         "store, given with slot and skip")
+                         "store of one task, given with slot and skip")
     extra = [] if out is None else [out, slot, skip]
     if not _on_card("gram_row", x, x2, i, *extra):
         row = _gram.gram_row_plain(x, x2, i, gamma=gamma, mode=mode)
@@ -160,10 +174,11 @@ def gram_row(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor, *,
         cur = out.index_select(0, slot.reshape(1))[0]
         out.index_copy_(0, slot.reshape(1), torch.where(skip, cur, row)[None])
         return out
-    _check_contiguous("gram_row", x=x, x2=x2)
+    _check_contiguous("gram_row", x=x, x2=x2, i=i)
     if out is None:
-        out = torch.empty((1, n), dtype=torch.float32, device=x.device)
-        result = out[0]
+        out = torch.empty(x.shape[:-1] if batched else (1, n),
+                          dtype=torch.float32, device=x.device)
+        result = out if batched else out[0]
     else:
         _check_contiguous("gram_row", out=out)
         if slot.dtype != torch.int64 or skip.dtype != torch.bool:
@@ -179,26 +194,31 @@ def gram_row(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor, *,
 # ------------------------------------------------------------- kkt_select
 def kkt_select(f: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor,
                mask: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
-    """Fused masked KKT selection: (b_up, i_up, b_low, i_low) as 0-d
-    tensors on the operands' device (float32 values, int64 indices)."""
-    n = f.shape[0]
+    """Fused masked KKT selection: (b_up, i_up, b_low, i_low) on the
+    operands' device (float32 values, int64 indices) — 0-d tensors for
+    (n,) inputs; with the task axis, (T, n) inputs give four (T,)
+    tensors from one launch, each task selected on its own."""
+    shape = f.shape
+    if f.ndim not in (1, 2) or shape[-1] == 0:
+        raise ValueError(f"kkt_select: need non-empty (n,) or (T, n) "
+                         f"inputs, got {tuple(shape)}")
     for name, t in (("f", f), ("alpha", alpha), ("y", y), ("lo", lo),
                     ("hi", hi)):
-        if t.shape != (n,) or t.dtype != torch.float32:
-            raise ValueError(f"kkt_select: {name} must be ({n},) float32, "
-                             f"got {tuple(t.shape)} {t.dtype}")
-    if mask.shape != (n,) or mask.dtype != torch.bool:
-        raise ValueError(f"kkt_select: mask must be ({n},) bool")
-    if n == 0:
-        raise ValueError("kkt_select: empty input")
+        if t.shape != shape or t.dtype != torch.float32:
+            raise ValueError(f"kkt_select: {name} must be {tuple(shape)} "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    if mask.shape != shape or mask.dtype != torch.bool:
+        raise ValueError(f"kkt_select: mask must be {tuple(shape)} bool")
     if not _on_card("kkt_select", f, alpha, y, mask, lo, hi):
         return _kkt.kkt_select_plain(f, alpha, y, mask, lo, hi)
     _check_contiguous("kkt_select", f=f, alpha=alpha, y=y, mask=mask, lo=lo,
                       hi=hi)
     dev = f.device
-    part = torch.empty(2 * _kkt.n_blocks(n), dtype=torch.int64, device=dev)
-    vals = torch.empty(2, dtype=torch.float32, device=dev)
-    idx = torch.empty(2, dtype=torch.int64, device=dev)
+    n_tasks = shape[0] if f.ndim == 2 else 1
+    part = torch.empty(2 * n_tasks * _kkt.n_blocks(shape[-1]),
+                       dtype=torch.int64, device=dev)
+    vals = torch.empty((2,) + shape[:-1], dtype=torch.float32, device=dev)
+    idx = torch.empty((2,) + shape[:-1], dtype=torch.int64, device=dev)
     lib = _build.library()
     _count("kkt_select")
     _raise_on_error("kkt_select", _kkt.launch(lib, f, alpha, y, mask, lo, hi,
@@ -344,3 +364,93 @@ def dcd_epoch(phi: torch.Tensor, y: torch.Tensor, p: torch.Tensor,
         lib, phi, y, p, lo, hi, q_diag, live, perm, beta, w, wb, viol,
         bias=bias))
     return viol[0]
+
+
+# -------------------------------------------------------- flash_attention
+FLASH_MAX_D = 128   # csrc/common.cuh LM_MAX_D: outputs held in registers
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Softmax attention over (B, S, H, D) tensors with grouped-query
+    heads (k, v (B, Sk, Hkv, D), H a multiple of Hkv), scale D^-0.5, the
+    causal mask by global position. The result is (B, Sq, H, D) in
+    q's dtype, or float32 if ``out_dtype`` asks for it, computed in
+    float32 from operands of q's dtype (float32 or bfloat16). Nothing is padded: the
+    kernel masks its ragged edges."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: need q (B, S, H, D) and k, v "
+                         f"(B, Sk, Hkv, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if (k.shape[0] != b or k.shape[3] != d or k.shape[1] == 0
+            or h % k.shape[2]):
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"fit q {tuple(q.shape)} (same B and D, H a "
+                         "multiple of Hkv, Sk >= 1)")
+    if q.dtype not in _ATTN_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q, k, v must share a dtype of "
+                         f"{_ATTN_DTYPES}, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"flash_attention: out_dtype must be q's dtype "
+                         f"{q.dtype} or torch.float32, got {out_dtype}")
+    if not _on_card("flash_attention", q, k, v):
+        return _flash.flash_attention_plain(q, k, v, causal=causal,
+                                            out_dtype=out_dtype)
+    _check_contiguous("flash_attention", q=q, k=k, v=v)
+    if d > FLASH_MAX_D:
+        raise ValueError(f"flash_attention: head dim {d} > {FLASH_MAX_D}, "
+                         "which the kernel holds in registers")
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    _count("flash_attention")
+    _raise_on_error("flash_attention", _flash.launch(lib, q, k, v, out,
+                                                     causal=causal))
+    return out
+
+
+# --------------------------------------------------------------- ssd_diag
+SSD_MAX_N = 256     # C and B tiles share the block's shared memory
+
+
+def ssd_diag(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
+             dt: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
+    """Intra-chunk SSD term (BC, H, Q, P) float32 of C, B (BC, Q, N),
+    x (BC, H, Q, P), dt and cs (BC, H, Q): per (chunk, head)
+    ``Y = ((C B^T) * L * dt_k) x`` with ``L[q, k] = exp(cs_q - cs_k)``
+    for k <= q, else 0. Operands are taken as float32, as the
+    reference's kernel casts them."""
+    cmat, bmat, x, dt, cs = (t.to(torch.float32)
+                             for t in (cmat, bmat, x, dt, cs))
+    if cmat.ndim != 3 or bmat.shape != cmat.shape or x.ndim != 4:
+        raise ValueError(f"ssd_diag: need C, B (BC, Q, N) and x "
+                         f"(BC, H, Q, P), got {tuple(cmat.shape)}, "
+                         f"{tuple(bmat.shape)} and {tuple(x.shape)}")
+    bc, q, n = cmat.shape
+    if x.shape[0] != bc or x.shape[2] != q:
+        raise ValueError(f"ssd_diag: x {tuple(x.shape)} does not fit C "
+                         f"{tuple(cmat.shape)}")
+    for name, t in (("dt", dt), ("cs", cs)):
+        if t.shape != x.shape[:3]:
+            raise ValueError(f"ssd_diag: {name} must be "
+                             f"{tuple(x.shape[:3])}, got {tuple(t.shape)}")
+    if not _on_card("ssd_diag", cmat, bmat, x, dt, cs):
+        return _ssd.ssd_diag_plain(cmat, bmat, x, dt, cs)
+    _check_contiguous("ssd_diag", cmat=cmat, bmat=bmat, x=x, dt=dt, cs=cs)
+    if n > SSD_MAX_N:
+        raise ValueError(f"ssd_diag: state dim {n} > {SSD_MAX_N}, which "
+                         "the kernel's shared memory holds")
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    _count("ssd_diag")
+    _raise_on_error("ssd_diag", _ssd.launch(lib, cmat, bmat, x, dt, cs, out))
+    return out

@@ -34,7 +34,13 @@ def rbf_gram_plain(a: torch.Tensor, b: torch.Tensor, a2: torch.Tensor,
 
 def gram_row_plain(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor, *,
                    gamma: float, mode: str = "rbf") -> torch.Tensor:
-    """(n,) float32 row K(X, x_i); ``i`` is a 0-d int64 tensor."""
+    """(n,) float32 row K(X, x_i); ``i`` is a 0-d int64 tensor. With the
+    task axis — x (T, n, d), x2 (T, n), i (T,) — the (T, n) rows, each
+    task's row computed as a lone call computes it."""
+    if x.ndim == 3:
+        return torch.stack([gram_row_plain(xt, x2t, it, gamma=gamma,
+                                           mode=mode)
+                            for xt, x2t, it in zip(x, x2, i)])
     xf = x.to(torch.float32)
     z = xf.index_select(0, i.reshape(1))[0]
     return _epilogue(xf @ z, x2, x2.index_select(0, i.reshape(1))[0],
@@ -56,9 +62,12 @@ def launch_block(lib, a, b, a2, b2, out, *, gamma: float, mode: str) -> int:
 
 def launch_row(lib, x, x2, i, out, slot, skip, *, gamma: float,
                mode: str) -> int:
-    n, d = x.shape
+    """x (n, d), or (T, n, d) with the task axis."""
+    n, d = x.shape[-2:]
+    n_tasks = x.shape[0] if x.ndim == 3 else 1
     return lib.svm_rbf_gram_row(
         x.data_ptr(), x2.data_ptr(), i.data_ptr(), out.data_ptr(),
         None if slot is None else slot.data_ptr(),
-        None if skip is None else skip.data_ptr(), n, d, float(gamma),
-        int(mode == "rbf"), int(x.dtype == torch.bfloat16), _stream())
+        None if skip is None else skip.data_ptr(), n_tasks, n, d,
+        float(gamma), int(mode == "rbf"), int(x.dtype == torch.bfloat16),
+        _stream())

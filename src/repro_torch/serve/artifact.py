@@ -1,26 +1,29 @@
 """Packed model artifacts — the immutable, serving-side form of a fit.
 
-Mirrors the binary-SVC, SVR and low-rank parts of
-``repro/serve/artifact.py``. A ``PackedModel`` holds either
+Mirrors the fp32 parts of ``repro/serve/artifact.py``. A
+``PackedModel`` holds either
 
-* one serving bucket — the stacked, zero-padded SV bank ``sv_x`` /
-  ``sv_coef`` / ``b`` of a binary SVC (kind "svc") or an SVR (kind
-  "svr", coefficients beta = alpha - alpha*); or
+* serving buckets — stacked, zero-padded SV banks ``sv_x`` /
+  ``sv_coef`` / ``b``: one bucket for a binary SVC (kind "svc") or an
+  SVR (kind "svr", coefficients beta = alpha - alpha*), and for a
+  multiclass SVC (strategy "ovo" | "ovr") the pow2 SV-width buckets of
+  its compaction, each a (T, w, d) bank; or
 * for a low-rank fit (``engine="nystrom" | "rff"``), the feature-map
   arrays (landmarks + proj, or omega + phase, as a ``LowRankMap``) and
-  the stacked linear weights ``linear_w (1, rank)`` / ``linear_b (1,)``
-  — serving is one feature transform and a matmul;
+  the stacked linear weights ``linear_w (n_tasks, rank)`` /
+  ``linear_b (n_tasks,)`` — serving is one feature transform and a
+  matmul;
 
-plus the kernel parameters, the class table and the vote-routing
-``pairs``, all as numpy arrays. ``save`` / ``load`` read and write the
-reference's versioned ``.npz`` format (``repro.svm-pack``) byte for
-byte: SV-bank packs write version 1, low-rank packs version 2 (meta
-``feature_map``, arrays ``fm_a`` / ``fm_b`` / ``linear_w`` /
-``linear_b``), so an artifact written by either package loads in the
-other.
+plus the kernel parameters, the class table, the vote-routing ``pairs``
+and the OvO ``decision``, all as numpy arrays. ``save`` / ``load`` read
+and write the reference's versioned ``.npz`` format
+(``repro.svm-pack``) byte for byte: SV-bank packs write version 1,
+low-rank packs version 2 (meta ``feature_map``, arrays ``fm_a`` /
+``fm_b`` / ``linear_w`` / ``linear_b``), so an artifact written by
+either package loads in the other.
 
-Not ported yet, and raising NotImplementedError until their slice:
-multiclass packs (ROADMAP A.6) and quantized banks (schema v3, A.10).
+Not ported yet, and raising NotImplementedError until its slice:
+quantized banks (schema v3, ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -64,15 +67,21 @@ class LowRankMap(NamedTuple):
     b: np.ndarray
 
 
+# (kind, strategy) pairs a pack may carry
+_KINDS = (("svc", "binary"), ("svc", "ovo"), ("svc", "ovr"), ("svr", "svr"))
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedModel:
-    """Immutable serving artifact of a binary SVC or an SVR (see module
+    """Immutable serving artifact of an SVC or an SVR (see module
     docstring).
 
     kind:     "svc" | "svr".
-    strategy: "binary" (SVC) or "svr".
-    pairs:    (n_tasks, 2) class-index credit table; binary packs as
-              [[1, 0]] (a positive decision credits ``classes[1]``).
+    strategy: "binary" | "ovo" | "ovr" (SVC) or "svr".
+    pairs:    (n_tasks, 2) class-index credit table — column 0 credited
+              on decision > 0, column 1 on decision < 0 (-1 = no
+              credit); binary packs as [[1, 0]] (a positive decision
+              credits ``classes[1]``).
     """
 
     kind: str
@@ -89,14 +98,17 @@ class PackedModel:
     linear_b: Optional[np.ndarray] = None   # (n_tasks,)
 
     def __post_init__(self):
-        if (self.kind, self.strategy) not in (("svc", "binary"),
-                                              ("svr", "svr")):
-            raise NotImplementedError(
-                f"{self.kind}/{self.strategy} packs are not ported yet: "
-                "multiclass comes with ROADMAP A.6; this port serves "
-                "binary SVC and SVR")
-        if self.n_tasks != 1:
+        if (self.kind, self.strategy) not in _KINDS:
+            raise ValueError(f"unknown pack kind/strategy "
+                             f"{self.kind}/{self.strategy}; expected one of "
+                             f"{['/'.join(k) for k in _KINDS]}")
+        multiclass = self.strategy in ("ovo", "ovr")
+        if not multiclass and self.n_tasks != 1:
             raise ValueError("a binary or SVR pack has exactly one task")
+        if multiclass and (self.classes is None or self.pairs is None
+                           or self.pairs.shape != (self.n_tasks, 2)):
+            raise ValueError(f"a {self.strategy} pack needs its classes and "
+                             f"a ({self.n_tasks}, 2) pairs table")
         if self.feature_map is not None:
             if self.buckets:
                 raise ValueError("a low-rank pack carries linear weights, "
@@ -111,9 +123,6 @@ class PackedModel:
                     f"linear_w {self.linear_w.shape}, "
                     f"linear_b {self.linear_b.shape}")
             return
-        if len(self.buckets) != 1:
-            raise ValueError("an SV-bank pack has its one task in one "
-                             "bucket")
         ids = np.sort(np.concatenate([g.task_ids for g in self.buckets]))
         if not np.array_equal(ids, np.arange(self.n_tasks)):
             raise ValueError(
@@ -167,36 +176,56 @@ def _pack_svr(reg) -> PackedModel:
                        buckets=(bucket,), strategy="svr")
 
 
+def _pack_multiclass_svc(clf) -> PackedModel:
+    """A multiclass SVC: its pow2 SV-width serving buckets as they are."""
+    taskset = clf._taskset
+    return PackedModel(
+        kind="svc", kernel=clf.kernel_params,
+        n_features=taskset.tasks[0].x.shape[1], n_tasks=taskset.n_tasks,
+        buckets=tuple(clf._serving_buckets), strategy=taskset.strategy,
+        decision=clf.decision,
+        classes=np.asarray(clf.classes_),
+        pairs=np.asarray(taskset.pairs, np.int64))
+
+
 def _pack_lowrank(model) -> PackedModel:
-    """Low-rank (Nystrom / RFF) fits: feature-map arrays + linear
-    weights instead of an SV bank; the artifact is O(rank), whatever
+    """Low-rank (Nystrom / RFF) fits: feature-map arrays + stacked
+    linear weights instead of SV banks; the artifact is O(rank), whatever
     the training-set size."""
     fmap = model._feature_map
     a, b = fmap.arrays
     fm = LowRankMap(kind=fmap.kind, a=_numpy(a), b=_numpy(b))
-    if hasattr(model, "beta_"):
-        kind, strategy, classes, pairs = "svr", "svr", None, None
-    else:
-        kind, strategy = "svc", "binary"
+    kind, strategy, decision, classes, pairs = "svr", "svr", "vote", None, None
+    if not hasattr(model, "beta_"):
+        kind, decision = "svc", model.decision
         classes = np.asarray(model.classes_)
-        pairs = np.array([[1, 0]], np.int64)
+        strategy = "binary" if model._binary else model._taskset.strategy
+        pairs = (np.array([[1, 0]], np.int64) if model._binary
+                 else np.asarray(model._taskset.pairs, np.int64))
+    if strategy in ("ovo", "ovr"):
+        w = np.asarray(model.task_w_, np.float32)
+        bias = np.asarray(model.task_b_, np.float32)
+    else:
+        w = np.asarray(model.w_, np.float32)[None]
+        bias = np.array([model.b_], np.float32)
     return PackedModel(
         kind=kind, kernel=model.kernel_params, n_features=fmap.n_features,
-        n_tasks=1, buckets=(), strategy=strategy, classes=classes,
-        pairs=pairs, feature_map=fm,
-        linear_w=np.asarray(model.w_, np.float32)[None],
-        linear_b=np.array([model.b_], np.float32))
+        n_tasks=w.shape[0], buckets=(), strategy=strategy,
+        decision=decision, classes=classes, pairs=pairs, feature_map=fm,
+        linear_w=w, linear_b=bias)
 
 
 def pack(model) -> PackedModel:
-    """Compact a fitted binary ``SVC`` or ``SVR`` into an immutable
-    PackedModel (duck-typed on the fitted attributes)."""
+    """Compact a fitted ``SVC`` (binary or multiclass) or ``SVR`` into an
+    immutable PackedModel (duck-typed on the fitted attributes)."""
     if not getattr(model, "_fitted", False):
         raise ValueError("pack() needs a fitted model (call .fit first)")
     if getattr(model, "_feature_map", None) is not None:
         return _pack_lowrank(model)
     if hasattr(model, "beta_"):
         return _pack_svr(model)
+    if not model._binary:
+        return _pack_multiclass_svc(model)
     return PackedModel.from_numpy(kernel=model.kernel_params,
                                   sv_x=model.support_vectors_,
                                   sv_coef=model.dual_coef_, b=model.b_,

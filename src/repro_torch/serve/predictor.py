@@ -1,7 +1,7 @@
-"""Batched serving engine: a device-resident SV bank and one decide
+"""Batched serving engine: device-resident SV banks and one decide
 program per (bank signature, batch bucket).
 
-Mirrors the binary part of ``repro/serve/predictor.py``:
+Mirrors ``repro/serve/predictor.py`` (fp32 banks):
 
 * the packed SV bank is moved to the device once, at construction, and
   stays resident;
@@ -10,7 +10,9 @@ Mirrors the binary part of ``repro/serve/predictor.py``:
   ``max_batch``), so arbitrary request sizes reuse a small warm set of
   program shapes; padded rows are sliced off before results leave;
 * with ``engine="pallas"`` and an RBF kernel, a slice is one launch of
-  the fused ``multitask_decision`` kernel; the chunked config runs
+  the fused ``multitask_decision`` kernel per serving bucket — a
+  multiclass bucket stacks T tasks (T, w, d) and gets its (T, B)
+  decisions from that one launch; the chunked config runs
   ``KernelEngine.decide`` per task (the plain reference path);
 * ``n_programs`` counts the distinct (bank signature, batch bucket)
   pairs served so far — the program shapes a captured-graph cache will
@@ -21,7 +23,9 @@ Mirrors the binary part of ``repro/serve/predictor.py``:
   the card) and a (rank, n_tasks) matmul, on the same ladder, in the
   ledger under ``("lowrank", bucket)``;
 * an SVR pack decodes to its decision values (``predict`` returns
-  them).
+  them); a multiclass pack decodes its (n_tasks, nt) decisions by vote,
+  margin or OvR argmax (``multiclass.decide_from_pairs``) on the
+  host, where the decisions already are.
 
 ``decision_values`` is thread-safe: each caller owns its output, and the
 served-row counter and the program ledger are guarded by a lock.
@@ -40,6 +44,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core import approx
 from repro_torch.core import kernel_engine as KE
+from repro_torch.core import multiclass as MC
 from repro_torch.kernels import ops
 from repro_torch.serve.artifact import PackedModel
 
@@ -61,8 +66,8 @@ def _pow2_floor(n: int) -> int:
 
 
 class Predictor:
-    """Serve a binary-SVC or SVR ``PackedModel`` on ``device``; see
-    module docstring."""
+    """Serve an SVC (binary or multiclass) or SVR ``PackedModel`` on
+    ``device``; see module docstring."""
 
     # the served-row counter and program ledger are mutated by every
     # concurrent decision_values caller (enforced by analysis rule R004)
@@ -174,19 +179,28 @@ class Predictor:
         """Post-process stacked decision values ``df (n_tasks, nt)``:
         op "values" (unchanged), "decision_function" (margins, sklearn
         orientation) or "predict" (labels; SVR values)."""
+        m = self.model
         if op == "values":
             return df
         if op == "decision_function":
-            return df[0]
+            return df[0] if m.strategy in ("binary", "svr") else df
         if op != "predict":
             raise ValueError(f"unknown decode op {op!r}; expected "
                              "'predict', 'decision_function' or 'values'")
-        if self.model.kind == "svr":
+        if m.kind == "svr":
             return df[0]
-        return self.model.classes[(df[0] > 0).astype(np.int64)]
+        if m.strategy == "binary":
+            return m.classes[(df[0] > 0).astype(np.int64)]
+        # df is on the host already, and decoding is per column
+        idx = MC.decide_from_pairs(
+            torch.from_numpy(np.ascontiguousarray(df, np.float32)),
+            m.pairs, len(m.classes), m.strategy, m.decision)
+        return m.classes[idx.numpy()]
 
     def decision_function(self, xt: np.ndarray) -> np.ndarray:
-        """(nt,) margins; positive => ``classes[1]``."""
+        """Margins in the training-side convention: (nt,) for a binary
+        SVC or an SVR (positive => ``classes[1]``), (n_tasks, nt) for a
+        multiclass SVC."""
         return self.decode(self.decision_values(xt), "decision_function")
 
     def predict(self, xt: np.ndarray) -> np.ndarray:

@@ -7,7 +7,9 @@
   ``SVR()`` (exact or low-rank) and ``Predictor(...)`` raise without
   CUDA unless ``device="cpu"``;
   functional entry points follow their input tensors' device.
-* Features of later slices raise NotImplementedError naming the slice.
+* Features of later slices raise NotImplementedError naming the slice
+  (multiclass fits run; the task layer's mesh, cascade
+  and GD options still raise).
 """
 import ast
 import pathlib
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch import serve as tserve
+from repro_torch.core import dist as tdist
 from repro_torch.core import kernel_engine as TKE
 from repro_torch.core import kernels as TK
 from repro_torch.core import smo as tsmo
@@ -90,6 +93,15 @@ def test_unported_options_raise(kwargs, match, cls):
 
 @pytest.mark.parametrize("engine", ["auto", "rff", "nystrom"])
 def test_multiclass_fit_raises(engine):
+    """Multiclass fits run now, exact and low-rank; what the multiclass
+    task layer still refuses raises naming its ROADMAP item."""
     x, y = load_iris()
-    with pytest.raises(NotImplementedError, match="A.6"):
-        SVC(device="cpu", engine=engine, rank=16).fit(x, y)
+    clf = SVC(device="cpu", engine=engine, rank=16).fit(x, y)
+    assert clf.predict(x).shape == y.shape and not clf._binary
+    for kwargs, match in ((dict(solver="gd"), "A.7"),
+                          (dict(shard="cascade"), "A.9"),
+                          (dict(shard="data"), "A.11"),
+                          (dict(mesh=object()), "A.11")):
+        with pytest.raises(NotImplementedError, match=match):
+            tdist.fit_taskset(clf._taskset, engine=engine, device="cpu",
+                              **kwargs)

@@ -16,6 +16,14 @@ float32), and 5e-2 for the bfloat16 map against the float32 one
 another order than its plain version, so one epoch from the same state
 agrees to rtol 1e-4 (atol 1e-4 of the largest entry) in w and beta and
 to 1e-5 in the epoch's max projected gradient.
+
+The task axis (one launch for a multiclass bucket) of the row and
+selection kernels gives each task exactly what a T = 1 launch gives it,
+so a bucket's batched SMO equals each task's lone solve bit for bit.
+``flash_attention`` and ``ssd_diag`` hold rtol 2e-4 / atol 2e-5 against
+their plain versions on the same operands (bfloat16 ones rounded before
+both; the kernel's float32 output for that check, its bfloat16 output
+equal to that float32 output rounded once).
 """
 import numpy as np
 import pytest
@@ -23,7 +31,8 @@ import torch
 
 from repro_torch import serve
 from repro_torch.core import kernels as K
-from repro_torch.core import linear, smo
+from repro_torch.core import dist, linear, smo
+from repro_torch.core import multiclass as MC
 from repro_torch.core.svm import SVC, SVR
 from repro_torch.data import (load_breast_cancer_like, load_pavia_like,
                               make_synth_regression, normalize,
@@ -31,15 +40,18 @@ from repro_torch.data import (load_breast_cancer_like, load_pavia_like,
 from repro_torch.kernels import dcd as DCD
 from repro_torch.kernels import decision as D
 from repro_torch.kernels import feature_map as FM
+from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import kkt_select as KS
 from repro_torch.kernels import ops
 from repro_torch.kernels import rbf_gram as G
+from repro_torch.kernels import ssd_diag as SD
 from torch_helpers import cuda, tt  # noqa: F401  (cuda: fixture)
 
 GRAM_TOL = dict(rtol=2e-5, atol=2e-6)
 DECISION_TOL = dict(rtol=2e-4, atol=2e-5)
 RFF_TOL = dict(rtol=0, atol=1e-5)
 RFF_BF16_VS_FP32_TOL = dict(rtol=0, atol=5e-2)
+LM_TOL = dict(rtol=2e-4, atol=2e-5)        # tests/test_kernels_pallas.py
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -111,6 +123,31 @@ def test_decision_kernels_match_plain(cuda, dtype):  # noqa: F811
         assert torch.equal(one[0], single)        # one device function
         torch.testing.assert_close(single, D.decision_plain(
             z.to(dt), sv[0].to(dt), cf[0], gamma=0.01), **DECISION_TOL)
+
+
+def test_decision_kernel_sums_cancelling_terms(cuda):  # noqa: F811
+    """A wide bank whose coefficients are +1 for one class's rows, then -1
+    for the other's (as a compacted OvO task stores them): the terms sum
+    to ~700 in magnitude and cancel to decisions of size ~1. The kernel
+    is held to DECISION_TOL against its plain version and must be no
+    further from a float64 evaluation than twice the plain version is."""
+    rng = np.random.default_rng(9)
+    nt, w, d, gamma = 512, 1500, 102, 0.005
+    z = tt(rng.normal(size=(nt, d)), device=cuda)
+    sv = tt(rng.normal(size=(2, w, d)), device=cuda)
+    cf = tt(np.repeat([[1.0] * (w // 2) + [-1.0] * (w - w // 2)], 2, 0),
+            device=cuda)
+    got = ops.multitask_decision(z, sv, cf, gamma=gamma)
+    want = D.multitask_decision_plain(z, sv, cf, gamma=gamma)
+    torch.testing.assert_close(got, want, **DECISION_TOL)
+    z64, sv64 = z.double(), sv.double()
+    d2 = (torch.sum(z64 * z64, 1)[None, :, None]
+          + torch.sum(sv64 * sv64, 2)[:, None, :]
+          - 2.0 * torch.einsum("nd,twd->tnw", z64, sv64))
+    ref = (torch.exp(-gamma * d2) @ cf.double()[:, :, None])[..., 0]
+    err = float((got.double() - ref).abs().max())
+    plain_err = float((want.double() - ref).abs().max())
+    assert err <= 2.0 * plain_err + 2e-6, (err, plain_err)
 
 
 def test_launch_counts_and_no_cpu_fallback(cuda):  # noqa: F811
@@ -288,3 +325,143 @@ def test_svr_fit_and_serve_on_card(cuda, engine, tmp_path):  # noqa: F811
                            device=cuda)
     np.testing.assert_allclose(pred.predict(x[500:]),
                                reg._predict_engine(x[500:]), **DECISION_TOL)
+
+
+def _ragged_bucket(rng, widths, w, d, device):
+    """A bucket of len(widths) tasks zero-padded to width w, as
+    dist._bucket_arrays stacks them."""
+    t = len(widths)
+    x = np.zeros((t, w, d), np.float32)
+    y = np.zeros((t, w), np.float32)
+    mask = np.zeros((t, w), bool)
+    for s, k in enumerate(widths):
+        x[s, :k] = rng.normal(size=(k, d))
+        y[s, :k] = np.where(rng.random(k) < 0.5, 1.0, -1.0)
+        mask[s, :k] = True
+    return (tt(x, device=device), tt(y, device=device),
+            tt(mask, torch.bool, device))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_task_axis_kernels_equal_lone_launches(cuda, dtype):  # noqa: F811
+    """One task-axis launch of the row and the selection kernel gives each
+    task of a ragged bucket what its own T = 1 launch gives, bit for
+    bit, and matches the plain versions."""
+    rng = np.random.default_rng(23)
+    for widths, w, d in [((300, 17, 256), 300, 102), ((5,), 5, 3),
+                         ((4000, 3999, 1, 2500), 4000, 7)]:
+        x, y, mask = _ragged_bucket(rng, widths, w, d, cuda)
+        xk = x.to(ops.tile_dtype(dtype))
+        x2 = K.sqnorms(xk)
+        i = torch.tensor([k // 2 for k in widths], device=cuda)
+        rows = ops.gram_row(xk, x2, i, gamma=0.01)
+        torch.testing.assert_close(rows, G.gram_row_plain(
+            xk, x2, i, gamma=0.01), **GRAM_TOL)
+        n = len(widths)
+        f = tt(rng.normal(size=(n, w)), device=cuda)
+        alpha = tt(np.where(rng.random((n, w)) < 0.4, 0.0,
+                            rng.uniform(0, 1, (n, w))), device=cuda)
+        lo, hi = torch.zeros_like(f), torch.ones_like(f)
+        got = ops.kkt_select(f, alpha, y, mask, lo, hi)
+        want = KS.kkt_select_plain(f, alpha, y, mask, lo, hi)
+        for g, wv in zip(got, want):
+            assert torch.equal(g, wv)
+        for t in range(n):
+            assert torch.equal(rows[t], ops.gram_row(xk[t], x2[t], i[t],
+                                                     gamma=0.01))
+            lone = ops.kkt_select(f[t], alpha[t], y[t], mask[t], lo[t],
+                                  hi[t])
+            assert [float(v[t]) for v in got] == [float(v) for v in lone]
+
+
+def test_bucket_smo_equals_lone_solves(cuda):  # noqa: F811
+    """A multiclass bucket solved by one batched SMO on the card: each
+    task's alphas, b and n_iter equal its lone solve (T = 1 launches)."""
+    x, y = load_pavia_like(n_per_class=120, n_classes=4, seed=7)
+    taskset = MC.get_strategy("ovo").build_taskset(normalize(x), y)
+    bucket = MC.build_schedule(taskset.sizes).buckets[0]
+    xt, yt, mk, _ = dist._bucket_arrays(taskset, bucket)
+    kw = dict(cfg=smo.SMOConfig(C=1.0), kernel=K.KernelParams(gamma=0.05),
+              engine="pallas")
+    ops.reset_launches()
+    r = smo.binary_smo_tasks(tt(xt, device=cuda), tt(yt, device=cuda),
+                             tt(mk, torch.bool, cuda), **kw)
+    iters = int(r.n_iter.max())
+    assert ops.launches["kkt_select"] <= iters + 32 + 1   # one per step
+    assert bool(r.converged.all())
+    for s in range(xt.shape[0]):
+        lone = smo.binary_smo(tt(xt[s], device=cuda), tt(yt[s], device=cuda),
+                              tt(mk[s], torch.bool, cuda), **kw)
+        assert torch.equal(lone.alpha, r.alpha[s])
+        assert float(lone.b) == float(r.b[s])
+        assert int(lone.n_iter) == int(r.n_iter[s])
+
+
+@pytest.mark.parametrize("strategy", ["ovo", "ovr"])
+def test_multiclass_fit_and_serve_on_card(cuda, strategy,  # noqa: F811
+                                          tmp_path):
+    x, y = load_pavia_like(n_per_class=80, n_classes=5, seed=7)
+    xtr, ytr, xte, yte = train_test_split(normalize(x), y, test_frac=0.25)
+    ops.reset_launches()
+    clf = SVC(strategy=strategy, engine="pallas", device=cuda).fit(xtr, ytr)
+    assert clf.converged_
+    assert ops.launches["rbf_gram_row"] > 0 and ops.launches["kkt_select"] > 0
+    serve.save(tmp_path / "m.npz", serve.pack(clf))
+    pred = serve.Predictor(serve.load(tmp_path / "m.npz"), engine="pallas",
+                           device=cuda).warmup((1, 37))
+    df = clf._decision_function_engine(xte)
+    np.testing.assert_allclose(pred.decision_function(xte), df,
+                               **DECISION_TOL)
+    labels = clf.classes_[MC.decide_from_pairs(
+        torch.from_numpy(df), clf._taskset.pairs, len(clf.classes_),
+        strategy).numpy()]
+    np.testing.assert_array_equal(pred.predict(xte), labels)
+    assert ops.launches["multitask_decision"] > 0
+    cpu = SVC(strategy=strategy, engine="pallas", device="cpu").fit(xtr, ytr)
+    np.testing.assert_array_equal(cpu.predict(xte), pred.predict(xte))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (2, 256, 4, 4, 64), (1, 512, 4, 2, 64), (2, 300, 2, 2, 32),
+    (1, 128, 8, 1, 16), (1, 77, 3, 1, 128), (1, 1, 2, 2, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h,  # noqa: F811
+                                              hkv, d, causal):
+    rng = np.random.default_rng(s + d)
+    q, k, v = (tt(rng.normal(size=shape), device=cuda).to(dtype)
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal,
+                              out_dtype=torch.float32)
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, **LM_TOL)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert out.dtype == dtype
+    assert torch.equal(out, got.to(dtype))   # rounded once, at the end
+    assert ops.launches["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("bc,h,q,n,p", [
+    (2, 3, 32, 16, 8), (1, 4, 64, 32, 16), (3, 2, 128, 16, 32),
+    (2, 2, 256, 128, 64), (1, 1, 100, 24, 130)])
+def test_ssd_diag_kernel_matches_plain(cuda, bc, h, q, n, p):  # noqa: F811
+    rng = np.random.default_rng(q + n)
+    cmat, bmat = (tt(rng.normal(size=(bc, q, n)), device=cuda)
+                  for _ in range(2))
+    x = tt(rng.normal(size=(bc, h, q, p)), device=cuda)
+    dt_np = rng.uniform(0.001, 0.1, size=(bc, h, q))
+    a = -rng.uniform(1, 8, size=(h,))
+    dt = tt(dt_np, device=cuda)
+    cs = tt(np.cumsum(dt_np * a[None, :, None], axis=2), device=cuda)
+    got = ops.ssd_diag(cmat, bmat, x, dt, cs)
+    torch.testing.assert_close(got, SD.ssd_diag_plain(cmat, bmat, x, dt, cs),
+                               **LM_TOL)
+    # decays steep enough that exp above the diagonal overflows: the
+    # kernel never takes it, so nothing turns to NaN
+    steep = cs * 40.0
+    got = ops.ssd_diag(cmat, bmat, x, dt, steep)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, SD.ssd_diag_plain(cmat, bmat, x, dt,
+                                                      steep), **LM_TOL)

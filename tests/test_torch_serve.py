@@ -5,8 +5,11 @@
   labels equal; where the SMO trajectories coincide, alphas, b and
   decision values agree closely. Decision values are never compared
   bitwise (the packages sum Gram products in other orders; ROADMAP C.1).
-* ``.npz`` artifacts (schema v1) written by either package load and
-  serve in the other, with equal labels.
+* ``.npz`` artifacts (schema v1, and v2 for low-rank fits) written by
+  either package load and serve in the other, with equal labels —
+  binary, SVR and multiclass (``svc/ovo``, ``svc/ovr``, vote and margin
+  decode, multiclass low-rank) packs; a reference artifact read and
+  written again by the port is array for array the same.
 * The ``Predictor``: pow2 batch ladder, ``max_batch`` rounding,
   ``n_programs`` ledger, ``warmup`` accounting, thread safety.
 
@@ -184,13 +187,18 @@ def test_unported_artifacts_raise(tmp_path):
     with np.load(path) as z:
         arrays = dict(z)
     import json
-    for change in ({"version": 3}, {"strategy": "ovo"},
-                   {"version": 2, "strategy": "ovr"}):
+    # quantized banks (schema v3) are the one unported artifact kind
+    for change, err in (({"version": 3}, NotImplementedError),
+                        ({"version": 3, "sv_dtype": "bf16"},
+                         NotImplementedError),
+                        ({"strategy": "cascade"}, ValueError),
+                        ({"kind": "svr", "strategy": "ovo"}, ValueError)):
         meta = json.loads(str(arrays["meta"]))
         meta.update(change)
         bad = tmp_path / "bad.npz"
         np.savez(bad, **{**arrays, "meta": np.array(json.dumps(meta))})
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(err, match="A.10" if err is NotImplementedError
+                           else "unknown pack kind/strategy"):
             tserve.load(bad)
     meta = json.loads(str(arrays["meta"]))
     meta["schema"] = "something.else"
@@ -364,7 +372,7 @@ def test_lowrank_pack_validation():
                            buckets=(), strategy="svr", feature_map=fm,
                            linear_w=np.zeros((2, 4), np.float32),
                            linear_b=np.zeros((1,), np.float32))
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(ValueError, match="classes"):
         tserve.PackedModel(kind="svc", kernel=kp, n_features=3, n_tasks=3,
                            buckets=(), strategy="ovo", feature_map=fm)
     ok = tserve.PackedModel(kind="svr", kernel=kp, n_features=3, n_tasks=1,
@@ -375,3 +383,105 @@ def test_lowrank_pack_validation():
     # phase 0, omega 0: every feature is sqrt(2/4) cos(0)
     np.testing.assert_allclose(pred.predict(np.zeros((2, 3), np.float32)),
                                [4 * np.sqrt(0.5) + 0.5] * 2, rtol=1e-6)
+
+
+# ------------------------------------------------------ multiclass packs
+MC_PACKS = [("ovo", "vote", "chunked"), ("ovo", "margin", "pallas"),
+            ("ovr", "vote", "pallas"), ("ovo", "vote", "rff"),
+            ("ovr", "vote", "nystrom")]
+
+
+def _multiclass_pair(strategy, decision, engine):
+    """(reference model, port model, held-out rows): Pavia-like 9-class
+    for the exact engines, iris for the low-rank ones."""
+    lowrank = engine in ("rff", "nystrom")
+    if lowrank:
+        x, y = load_iris()
+    else:
+        x, y = load_pavia_like(n_per_class=30, n_classes=9, seed=7)
+    xtr, ytr, xte, _ = train_test_split(normalize(x), y, test_frac=0.25,
+                                        seed=0)
+    kw = dict(strategy=strategy, decision=decision, rank=24)
+    j = JSVC(engine="chunked" if engine == "pallas" else engine,
+             **kw).fit(xtr, ytr)
+    t = TSVC(engine=engine, device="cpu", **kw).fit(xtr, ytr)
+    return j, t, xte
+
+
+@pytest.mark.parametrize("strategy,decision,engine", MC_PACKS)
+def test_reference_multiclass_artifacts_serve_in_port(tmp_path, strategy,
+                                                      decision, engine):
+    import json
+    j, _, xte = _multiclass_pair(strategy, decision, engine)
+    path = tmp_path / "ref.npz"
+    jserve.save(path, jserve.pack(j))
+    packed = tserve.load(path)
+    assert (packed.strategy, packed.decision) == (strategy, decision)
+    assert packed.n_tasks == j._taskset.n_tasks
+    want = jserve.Predictor(jserve.load(path))
+    got = tserve.Predictor(packed, engine="pallas" if engine == "pallas"
+                           else "auto", device="cpu")
+    np.testing.assert_array_equal(got.predict(xte), want.predict(xte))
+    np.testing.assert_allclose(got.decision_function(xte),
+                               want.decision_function(xte), **DECISION_TOL)
+    # read and written again by the port: the same arrays and meta
+    again = tmp_path / "again.npz"
+    tserve.save(again, packed)
+    with np.load(path) as a, np.load(again) as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert json.loads(str(a["meta"])) == json.loads(str(b["meta"]))
+        for name in a.files:
+            np.testing.assert_array_equal(a[name], b[name])
+
+
+@pytest.mark.parametrize("strategy,decision,engine", MC_PACKS)
+def test_port_multiclass_artifacts_serve_in_reference(tmp_path, strategy,
+                                                      decision, engine):
+    import json
+    _, t, xte = _multiclass_pair(strategy, decision, engine)
+    path = tmp_path / "port.npz"
+    tserve.save(path, tserve.pack(t))
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta"]))
+    lowrank = engine in ("rff", "nystrom")
+    assert meta["version"] == (2 if lowrank else 1)
+    assert (meta["strategy"], meta["decision"]) == (strategy, decision)
+    jpacked = jserve.load(path)
+    assert jpacked.n_tasks == t._taskset.n_tasks
+    if lowrank:
+        np.testing.assert_array_equal(jpacked.linear_w, t.task_w_)
+    else:
+        assert len(jpacked.buckets) == len(t._serving_buckets)
+    want = tserve.Predictor(tserve.pack(t), device="cpu")
+    got = jserve.Predictor(jpacked)
+    np.testing.assert_array_equal(got.predict(xte), want.predict(xte))
+    np.testing.assert_array_equal(want.predict(xte), t.predict(xte))
+    np.testing.assert_allclose(got.decision_function(xte),
+                               want.decision_function(xte), **DECISION_TOL)
+    np.testing.assert_allclose(want.decision_function(xte),
+                               t._decision_function_engine(xte),
+                               **DECISION_TOL)
+
+
+def test_multiclass_predictor_ladder_and_decode():
+    xtr, ytr, xte, _ = train_test_split(
+        normalize(load_pavia_like(n_per_class=30, n_classes=9, seed=7)[0]),
+        load_pavia_like(n_per_class=30, n_classes=9, seed=7)[1],
+        test_frac=0.25, seed=0)
+    t = TSVC(engine="pallas", device="cpu").fit(xtr, ytr)
+    packed = tserve.pack(t)
+    assert packed.strategy == "ovo" and packed.n_tasks == 36
+    assert sum(len(g.task_ids) for g in packed.buckets) == 36
+    assert max(g.sv_x.shape[0] for g in packed.buckets) > 1   # T > 1 banks
+    pred = tserve.Predictor(packed, engine="pallas", max_batch=32,
+                            device="cpu").warmup((1, 5))
+    assert pred.n_requests == 0
+    full = pred.predict(xte)
+    for n in (1, 3, 17, 33):
+        np.testing.assert_array_equal(pred.predict(xte[:n]), full[:n])
+    df = pred.decision_values(xte[:7])
+    np.testing.assert_array_equal(pred.decode(df, "values"), df)
+    assert pred.decode(df, "decision_function").shape == (36, 7)
+    np.testing.assert_array_equal(pred.decode(df), full[:7])
+    with pytest.raises(ValueError, match="unknown decode op"):
+        pred.decode(df, "proba")
