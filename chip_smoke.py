@@ -16,7 +16,8 @@ then:
    gradient;
 3. packs, saves, loads and serves it with ``Predictor(engine="pallas")``
    in requests of several sizes, labels checked against the plain
-   chunked predictor on the same card;
+   chunked predictor on the same card, and rows served alone checked
+   bit for bit against the same rows in one 1,024-row request;
 4. drives the low-rank tier on the same split: ``SVC(engine="rff",
    rank=1024)`` fit by dual coordinate descent (``rff_features`` and
    ``dcd_epoch`` kernels), certified by a float64 KKT check of the
@@ -35,7 +36,8 @@ then:
    float64 KKT check, two OvO tasks solved again alone (T = 1 launches)
    and compared bit for bit, then packed, saved, loaded and served
    (``multitask_decision`` over T > 1 banks, each bank also held against
-   its plain version), labels checked against the per-task engine path;
+   its plain version), labels checked against the per-task engine path
+   and rows served alone against the same rows in one request;
    then, on the overlapping classes, ``SVC(strategy="ovo",
    engine="rff", rank=1024)`` over one shared feature map, certified per
    task, within 0.01 of the exact accuracy, served through a schema-v2
@@ -47,14 +49,19 @@ then:
    48 heads, 16 chunks), each against its plain version;
 8. holds the task-axis row and selection kernels against their plain
    versions at the OvO and OvR bucket shapes (ragged widths masked), and
-   ``multitask_decision`` at the largest OvO serving bank;
+   ``multitask_decision`` at the largest OvO and OvR serving banks;
 9. times each kernel, its plain version and one PyTorch library call for
    the same function, beside the least time the card could take
    (``bound_ms``): ``ms`` / ``plain_ms`` / ``library_ms`` are CUDA-event
    medians of one call as the caller sees it (host enqueue included),
    ``*device_ms`` the device time of the same call (CUDA events around
    back-to-back calls queued behind a spin kernel, which hides the
-   host's enqueue); the task-axis entries on a ``task_axis`` line.
+   host's enqueue); the task-axis entries on a ``task_axis`` line,
+   ``rff_features`` over one serving batch on a ``serving_shapes`` line.
+   The rows of the two redesigned kernels (``rff_features``,
+   ``decision`` / ``multitask_decision``) also carry the launch plan
+   (tile, SV-axis splits, feature chunk, shared memory) and what ptxas
+   reported for the instantiation they run (registers, spills).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -177,6 +184,26 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max())
+
+
+def redesign_info(kernel: str, shape) -> dict:
+    """The launch plan of a redesigned kernel (``rff_features`` at an
+    (n, k, d) shape, ``decision`` at an (nt, T, w, d) one) on this card,
+    and what ptxas reported for the float32 instantiation it runs:
+    registers, static shared memory, spills."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decision as D
+    from repro_torch.kernels import feature_map as FM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if kernel == "rff_features":
+        plan = FM.rff_plan(*shape, sms=sms)
+        name = f"rff_features_kernelIfLi{plan.rows // 64}E"
+    else:
+        plan = D.decision_plan(*shape, sms=sms)
+        name = f"decision_kernelIfLi{plan.rows // 16}E"
+    found = _build.ptxas_report(name)
+    check(len(found) == 1, f"ptxas log: {len(found)} kernels named {name}")
+    return {"plan": plan._asdict(), "ptxas": found[0]}
 
 
 # ------------------------------------------------------------- phases
@@ -327,11 +354,37 @@ def warm_fit_profile(SVC, dev, xtr, ytr, n_iter, **kw):
     return warm_s, busy
 
 
-def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
+def binary_split(data):
+    """(xtr, ytr, xte, yte) of the exact binary SVC: 32,768 Pavia-like
+    rows of 102 bands, a tenth held out."""
     x, y = data.load_pavia_like(n_per_class=16384, n_classes=2, seed=SEED)
-    x = data.normalize(x)
-    xtr, ytr, xte, yte = data.train_test_split(x, y, test_frac=0.1,
-                                               seed=SEED)
+    return data.train_test_split(data.normalize(x), y, test_frac=0.1,
+                                 seed=SEED)
+
+
+def pavia_split(data, noise: float):
+    """(xtr, ytr, xte, yte) of the multiclass fits: Pavia University's
+    size, 9 classes of PAVIA_PER_CLASS rows of 102 bands at one band
+    noise, a tenth held out."""
+    x, y = data.load_pavia_like(n_per_class=PAVIA_PER_CLASS, n_classes=9,
+                                n_bands=102, seed=SEED, noise=noise)
+    return data.train_test_split(data.normalize(x), y, test_frac=0.1,
+                                 seed=SEED)
+
+
+def alone_equal_batch(pred, xte) -> bool:
+    """Rows served one at a time give the bits they get in one request
+    of 1,024 rows (the decision kernel folds a row's sum in an order
+    fixed by the bank, whatever the batch and the launch's plan)."""
+    z = xte[:1024]
+    df = pred.decision_function(z)
+    return all(np.array_equal(pred.decision_function(z[i:i + 1]),
+                              df[..., i:i + 1])   # (rows,) or (T, rows)
+               for i in (0, 1, len(z) // 2, len(z) - 1))
+
+
+def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
+    xtr, ytr, xte, yte = binary_split(data)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -408,6 +461,7 @@ def phase_serve(ops, serve_mod, dev, path, xte, df_engine):
     pred = serve_mod.Predictor(packed, engine="pallas", device=dev)
     rates, labels = serve_rates(pred, xte)
     dfs = pred.decision_function(xte)
+    alone = alone_equal_batch(pred, xte)
     torch.cuda.synchronize()
     serve_launches = dict(ops.launches)
     plain = serve_mod.Predictor(packed, engine="chunked", device=dev)
@@ -417,10 +471,12 @@ def phase_serve(ops, serve_mod, dev, path, xte, df_engine):
     close = bool(np.allclose(dfs, want_df, **DECISION_TOL))
     emit(phase="serve", n_test=len(xte), rows_per_s=rates,
          n_programs=pred.n_programs, launches=serve_launches,
-         labels_equal_chunked=same,
+         labels_equal_chunked=same, rows_alone_equal_batch=alone,
          max_abs_err_vs_chunked=float(np.abs(dfs - want_df).max()),
          max_abs_err_vs_engine_path=float(np.abs(dfs - df_engine).max()))
     check(same, "pallas predictor labels differ from the chunked predictor")
+    check(alone, "a row served alone differs from the same row in a "
+          "1,024-row request")
     check(close, "pallas predictor decisions differ from the chunked one")
     check(bool(np.allclose(dfs, df_engine, **DECISION_TOL)),
           "predictor decisions differ from the engine decision path")
@@ -772,6 +828,26 @@ def phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi_fit, yy, errs,
                  launches, errs["dcd_epoch"], plain_on_host=True),
     ]
     rows[1]["moved_per_epoch"] = moved
+    rows[0].update(redesign_info("rff_features", (n, k, d)))
+    # the same map over one serving batch (Predictor max_batch rows)
+    xs = x[:1024].contiguous()
+    saved = dict(ops.launches)
+    err = max_err(ops.rff_features(xs, om, ph, scale=scale),
+                  FM.rff_features_plain(xs, om, ph, scale=scale))
+    ops.launches.update(saved)
+    check(err <= RFF_TOL, "rff_features disagrees with its plain version "
+          "at the serving shape")
+    serving = time_row(
+        ops, "rff_features", "rff_features.cu",
+        "src/repro/kernels/feature_map.py:59",
+        lambda: ops.rff_features(xs, om, ph, scale=scale),
+        lambda: FM.rff_features_plain(xs, om, ph, scale=scale),
+        lambda: scale * torch.cos(torch.addmm(ph, xs, om)),
+        4 * (1024 * d + d * k + k + 1024 * k), 1024 * k * (2 * d + 3),
+        launches, err)
+    serving.update(shape=[1024, k, d],
+                   **redesign_info("rff_features", (1024, k, d)))
+    emit(phase="serving_shapes", kernels=[serving])
     return rows
 
 
@@ -882,11 +958,7 @@ def phase_multiclass(ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev,
     fit (one batched SMO per bucket), per-task certificates, the OvO
     batching check, pack -> save -> load -> Predictor, and each serving
     bank's multitask_decision against its plain version."""
-    x, y = data.load_pavia_like(n_per_class=PAVIA_PER_CLASS, n_classes=9,
-                                n_bands=102, seed=SEED, noise=noise)
-    x = data.normalize(x)
-    xtr, ytr, xte, yte = data.train_test_split(x, y, test_frac=0.1,
-                                               seed=SEED)
+    xtr, ytr, xte, yte = pavia_split(data, noise)
     kw = dict(decision="vote", engine="pallas", C=1.0, tol=1e-3)
     paths, fits = {}, {}
     for strategy in ("ovo", "ovr"):
@@ -919,6 +991,7 @@ def phase_multiclass(ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev,
         pred = serve_mod.Predictor(packed, engine="pallas", device=dev)
         rates, labels = serve_rates(pred, xte)
         dfs = pred.decision_function(xte)
+        alone = alone_equal_batch(pred, xte)
         torch.cuda.synchronize()
         serve_launches = {k: ops.launches[k] - launches_before[k]
                           for k in ops.KERNELS}
@@ -949,7 +1022,7 @@ def phase_multiclass(ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev,
              heldout_check_launches=check_launches, heldout_acc=acc,
              batching_check=batching, rows_per_s=rates,
              n_programs=pred.n_programs, serve_launches=serve_launches,
-             labels_equal_engine=same,
+             labels_equal_engine=same, rows_alone_equal_batch=alone,
              max_abs_err_vs_engine=float(np.abs(dfs - df_engine).max()))
         check(clf.converged_, f"multiclass {strategy} fit did not converge")
         check(max(kkt) <= 1e-3, f"multiclass {strategy}: a task's f64 KKT "
@@ -967,6 +1040,8 @@ def phase_multiclass(ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev,
               "engine path")
         check(close, f"multiclass {strategy}: served decisions differ from "
               "the engine path")
+        check(alone, f"multiclass {strategy}: a row served alone differs "
+              "from the same row in a 1,024-row request")
         check(serve_launches["multitask_decision"] > 0,
               f"multiclass {strategy} serving launched no "
               "multitask_decision kernel")
@@ -1148,7 +1223,8 @@ def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma):
     shapes of the multiclass fits (ragged tasks zero-padded and masked,
     as the solver stacks them) against their plain versions, and their
     times beside their bounds; then multitask_decision on the largest
-    OvO serving bank over one full serving slice of held-out rows."""
+    OvO and OvR serving banks over one full serving slice of held-out
+    rows."""
     saved = dict(ops.launches)
     rows = []
     for strategy in ("ovo", "ovr"):
@@ -1210,12 +1286,51 @@ def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma):
                 "library_ms": median_ms(lib) if lib is not None else None,
                 "library_device_ms": (device_ms(lib) if lib is not None
                                       else None)})
-    packed = fits["ovo"][2]
-    g = max(packed.buckets, key=lambda g: g.sv_x.shape[0] * g.sv_x.shape[1])
-    sv = torch.from_numpy(g.sv_x).to(dev)
-    cf = torch.from_numpy(g.sv_coef).to(dev)
+    for strategy, whole in (("ovo", False), ("ovr", False), ("ovr", True)):
+        rows.append(bank_row(ops, D, dev, fits[strategy], strategy, xte,
+                             gamma, whole))
+    ops.launches.update(saved)
+    emit(phase="task_axis", kernels=rows)
+
+
+def serving_bank(packed, whole: bool = False):
+    """(sv, coef) numpy arrays of a multiclass pack's largest serving
+    bank or, with ``whole``, of all its tasks stacked into one bank
+    padded to the widest (coef 0 past each task's SVs)."""
+    banks = packed.buckets
+    if not whole:
+        g = max(banks, key=lambda g: g.sv_x.shape[0] * g.sv_x.shape[1])
+        return g.sv_x, g.sv_coef
+    w = max(g.sv_x.shape[1] for g in banks)
+
+    def stack(key):
+        return np.ascontiguousarray(np.concatenate([np.pad(
+            getattr(g, key), [(0, 0), (0, w - g.sv_x.shape[1])]
+            + [(0, 0)] * (getattr(g, key).ndim - 2)) for g in banks]))
+
+    return stack("sv_x"), stack("sv_coef")
+
+
+def library_decision(z, sv, cf, gamma):
+    """(T, nt) RBF decisions by batched cdist, exp and bmm: the library
+    calls that compute what multitask_decision does."""
+    k = torch.exp(-gamma * torch.cdist(z.expand(sv.shape[0], -1, -1),
+                                       sv).square())
+    return (k @ cf[:, :, None])[..., 0]
+
+
+def bank_row(ops, D, dev, fit, strategy, xte, gamma,
+             whole: bool = False) -> dict:
+    """multitask_decision on the largest serving bank of a multiclass
+    pack — with ``whole``, on all its tasks as one bank
+    (``serving_bank``) — over one serving slice of held-out rows
+    (Predictor max_batch): against its plain version, timed beside
+    batched cdist, exp and bmm and beside its bound."""
+    sv_np, cf_np = serving_bank(fit[2], whole)
+    sv = torch.from_numpy(np.ascontiguousarray(sv_np)).to(dev)
+    cf = torch.from_numpy(np.ascontiguousarray(cf_np)).to(dev)
     n_tasks, w, d = sv.shape
-    z = torch.from_numpy(xte[:1024]).to(dev)   # one max_batch slice
+    z = torch.from_numpy(xte[:1024]).to(dev)
     nt = z.shape[0]
     got = ops.multitask_decision(z, sv, cf, gamma=gamma)
     want = D.multitask_decision_plain(z, sv, cf, gamma=gamma)
@@ -1230,24 +1345,23 @@ def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma):
         return D.multitask_decision_plain(z, sv, cf, gamma=gamma)
 
     def lib():
-        k = torch.exp(-gamma * torch.cdist(z.expand(n_tasks, -1, -1),
-                                           sv).square())
-        return (k @ cf[:, :, None])[..., 0]
+        return library_decision(z, sv, cf, gamma)
 
-    rows.append({
-        "name": "multitask_decision", "task_axis": "ovo",
+    row = {
+        "name": "multitask_decision", "task_axis": strategy,
+        "bank": "all tasks, padded" if whole else "largest served",
         "shape": [n_tasks, nt, w, d],
-        "launches_on_path": fits["ovo"][3]["multitask_decision"],
+        "launches_on_path": fit[3]["multitask_decision"],
         "max_abs_err": max_err(got, want),
         "ok": bool(torch.allclose(got, want, **DECISION_TOL)),
         "ms": median_ms(kern), "device_ms": device_ms(kern),
         "plain_ms": median_ms(plain), "plain_device_ms": device_ms(plain),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": median_ms(lib),
-        "library_device_ms": device_ms(lib)})
-    check(rows[-1]["ok"], "multitask_decision disagrees with its plain "
-          "version on the largest OvO serving bank")
-    ops.launches.update(saved)
-    emit(phase="task_axis", kernels=rows)
+        "library_device_ms": device_ms(lib),
+        **redesign_info("decision", (nt, n_tasks, w, d))}
+    check(row["ok"], f"multitask_decision disagrees with its plain version "
+          f"on the largest {strategy} serving bank")
+    return row
 
 
 def phase_timing_lm(ops, FA, SD, dev, errs, launches):
@@ -1336,7 +1450,10 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
          lambda: (lib_rbf(z, sv) @ cf)[None],
          4 * (1024 * d + w * d + w + 1024), 1024 * w * (2 * d + 8)),
     ]
-    return [time_row(ops, *row, launches, errs[row[0]]) for row in rows]
+    out = [time_row(ops, *row, launches, errs[row[0]]) for row in rows]
+    out[3].update(redesign_info("decision", (nte, 1, w, d)))
+    out[4].update(redesign_info("decision", (1024, 1, w, d)))
+    return out
 
 
 def main() -> int:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,10 +38,12 @@ SIGNATURES = {
     "svm_rbf_gram_row": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
                          _P],
     "svm_kkt_select": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P],
-    "svm_decision": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "svm_decision": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                     _P, _P, _P],
     "svm_multitask_decision": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                               _P],
-    "svm_rff_features": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+                               _I, _I, _I, _I, _I, _P, _P, _P],
+    "svm_rff_features": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
+                         _P],
     "svm_dcd_epoch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _F, _P],
     "svm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -105,6 +108,33 @@ def _compile(out: Path) -> None:
                                + link.stderr)
         out.with_suffix(".ptxas.log").write_text(logs)
         os.replace(lib, out)  # atomic: a concurrent loader sees all or none
+
+
+def ptxas_report(kernel: str) -> list[dict]:
+    """Registers, static shared memory and spills of every compiled
+    instantiation of the kernels whose mangled names hold ``kernel``, as
+    ptxas reported them when the loaded library was built."""
+    log = BUILD_DIR / f"libsvm_kernels_{_digest()}.ptxas.log"
+    out, cur = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)} if kernel in m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def library() -> ctypes.CDLL:

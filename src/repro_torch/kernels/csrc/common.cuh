@@ -1,9 +1,9 @@
 // Shared pieces of the port's SVM kernels for Hopper (sm_90a).
 //
-// The Gram-shaped kernels (rbf_gram block mode, decision, multitask
-// decision) all contract a tile of A rows against a tile of B rows over
-// the feature axis. SVM features are narrow (d = 4..102), so the
-// product is short and the tile machinery stays plain: a 64 x 64 output
+// The rbf_gram block kernel contracts a tile of A rows against a tile
+// of B rows over the feature axis (rff_features and decision, which did
+// too, now use tile_f32.cuh). SVM features are narrow (d = 4..102), so
+// the product is short and the tile machinery stays plain: a 64 x 64 output
 // tile per 256-thread block, features staged through shared memory in
 // chunks of 32, 4 x 4 outputs per thread, IEEE float32 FMAs (no TF32:
 // the parity bounds against the float32 reference do not allow it).
@@ -48,32 +48,14 @@ __device__ __forceinline__ void stage(float (*s)[TILE + 1], const T* src,
   }
 }
 
-// Stage columns [col0, col0 + TILE) x features [k0, k0 + DK) of a
-// row-major (d, ncols) matrix — stored feature-major already, like the
-// RFF frequencies Omega — into s[k][c]; neighbouring threads read
-// neighbouring columns, and ragged edges are zero as in `stage`.
-template <typename T>
-__device__ __forceinline__ void stage_kmajor(float (*s)[TILE + 1],
-                                             const T* src, int col0,
-                                             int ncols, int k0, int d) {
-  for (int e = threadIdx.x; e < TILE * DK; e += THREADS) {
-    const int c = e % TILE, r = e / TILE;
-    const int gc = col0 + c, gr = k0 + r;
-    float v = 0.f;
-    if (gc < ncols && gr < d) v = to_f32(src[(size_t)gr * ncols + gc]);
-    s[r][c] = v;
-  }
-}
-
 // acc[i][j] = <A[a0 + ty + 16 i], B[b0 + tx + 16 j]> over all d features,
-// summed in feature order. B is (nb, d) row-major, or with B_KMAJOR a
-// (d, nb) row-major matrix whose columns are the B rows. With `norms`,
+// summed in feature order, A (na, d) and B (nb, d) row-major. With `norms`,
 // sm.norm also receives the squared norms of the staged A and B rows
 // (f32 of the rounded operands, as the reference computes them). Ends
 // with a barrier, so the caller may read sm.norm right away; starts
 // with one, so the caller may still be reading sm.norm of the previous
 // tile.
-template <typename T, bool B_KMAJOR = false>
+template <typename T>
 __device__ __forceinline__ void tile_dot(TileSmem& sm, const T* A, int a0,
                                          int na, const T* B, int b0, int nb,
                                          int d, bool norms,
@@ -87,10 +69,7 @@ __device__ __forceinline__ void tile_dot(TileSmem& sm, const T* A, int a0,
   for (int k0 = 0; k0 < d; k0 += DK) {
     __syncthreads();
     stage(sm.a, A, a0, na, k0, d);
-    if constexpr (B_KMAJOR)
-      stage_kmajor(sm.b, B, b0, nb, k0, d);
-    else
-      stage(sm.b, B, b0, nb, k0, d);
+    stage(sm.b, B, b0, nb, k0, d);
     __syncthreads();
     if (norms && tid < 2 * TILE) {
       float(*s)[TILE + 1] = tid < TILE ? sm.a : sm.b;

@@ -1,0 +1,183 @@
+// Tile machinery of the redesigned Gram-shaped kernels (rff_features.cu,
+// decision.cu) for Hopper (sm_90a).
+//
+// common.cuh's tile_dot stages 32 features at a time, element by element,
+// between two barriers, and reads one float a thread per operand and
+// feature: 8 shared-memory loads for 16 FMAs, which caps it at half the
+// card's float32 FMA rate (a warp's load costs a wavefront per float a
+// thread, broadcast or not, and an SM serves one wavefront a clock
+// against four warp-wide FMAs). Here:
+//
+// * Operands are staged whole along the feature axis when it is narrow
+//   (d rounded up to a multiple of 4, up to RES_WIDTH features), or in
+//   chunks past that (the host's plan picks the width), by asynchronous
+//   copies (cp.async, 16, 8 or 4 bytes a copy, as the rows' alignment
+//   allows) that zero-fill every element past a ragged edge, so a masked
+//   row or feature adds 0.
+// * Shared tiles keep the global layout, rows of features, so a copy
+//   moves contiguous bytes; a thread reads 2 or 4 consecutive features
+//   of a row as one float2 or float4. Rows are `ld` floats apart with
+//   ld / 4 odd, so 8 threads reading 8 different rows at one feature
+//   offset hit 32 different banks.
+// * bfloat16 operands are widened to float32 as they land (ordinary
+//   loads: a copy cannot convert), so products of bf16 values are exact
+//   and accumulate in float32.
+//
+// All products are IEEE float32 fmaf (no TF32: the parity bounds against
+// the float32 reference do not allow it).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace svm {
+namespace f32tile {
+
+constexpr int RES_WIDTH = 128;   // widest feature axis staged whole
+constexpr int MAX_DEVICES = 64;
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+// Row stride of a staged tile of `width` features: a multiple of 4 (rows
+// stay 16-byte aligned) whose quarter is odd (conflict-free float4 reads
+// of 8 rows at one offset).
+__host__ __device__ constexpr int row_stride(int width) {
+  return (round4(width) / 4) % 2 ? round4(width) : round4(width) + 4;
+}
+
+// Widest copy (in floats: 4, 2 or 1) that keeps every row of a
+// row-major float32 matrix with rows of `len` elements aligned, from a
+// base pointer `p`.
+inline int copy_width(const void* p, int len) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (a % 16 == 0 && len % 4 == 0) return 4;
+  if (a % 8 == 0 && len % 2 == 0) return 2;
+  return 1;
+}
+
+// Lets `kern` take all the dynamic shared memory a block may opt in to
+// on the current device (the opt-in limit less its static shared
+// memory), once per device: `done` is the kernel's own flag a device.
+// The limit does not change occupancy, and a one-row serving call then
+// pays no attribute call. Returns a cudaError_t.
+template <typename Kernel>
+inline int allow_max_smem(Kernel kern,
+                          std::atomic<bool> (&done)[MAX_DEVICES]) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < MAX_DEVICES && done[dev].load()) return 0;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kern);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(fa.sharedSizeBytes));
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true);
+  return static_cast<int>(e);
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? BYTES : 0;   // 0 source bytes: zero-fill
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(src), "n"(BYTES), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <int NT, int VEC>
+__device__ __forceinline__ void stage_copy(float* s, int ld, const float* g,
+                                           int len, int row0, int nrows,
+                                           int col0, int rows, int width) {
+  const int per = width / VEC;
+  for (int e = threadIdx.x; e < rows * per; e += NT) {
+    const int r = e / per, c = (e - r * per) * VEC;
+    const int gr = row0 + r, gc = col0 + c;
+    const bool valid = gr < nrows && gc < len;  // VEC divides len and gc
+    cp_async<4 * VEC>(s + r * ld + c,
+                      valid ? g + (size_t)gr * len + gc : g, valid);
+  }
+}
+
+// Stage rows [row0, row0 + rows) x columns [col0, col0 + width) of a
+// row-major (nrows, len) matrix into s[r * ld + c]; entries past either
+// edge are 0. float32 goes by asynchronous copies of `vec` floats
+// (copy_width of the matrix; the caller commits and waits), bfloat16 by
+// loads widened to float32. `width` is a multiple of 4; the block has NT
+// threads.
+template <int NT>
+__device__ __forceinline__ void stage(float* s, int ld, const float* g,
+                                      int len, int row0, int nrows, int col0,
+                                      int rows, int width, int vec) {
+  if (vec == 4)
+    stage_copy<NT, 4>(s, ld, g, len, row0, nrows, col0, rows, width);
+  else if (vec == 2)
+    stage_copy<NT, 2>(s, ld, g, len, row0, nrows, col0, rows, width);
+  else
+    stage_copy<NT, 1>(s, ld, g, len, row0, nrows, col0, rows, width);
+}
+
+template <int NT>
+__device__ __forceinline__ void stage(float* s, int ld,
+                                      const __nv_bfloat16* g, int len,
+                                      int row0, int nrows, int col0, int rows,
+                                      int width, int /*vec*/) {
+  for (int e = threadIdx.x; e < rows * width; e += NT) {
+    const int r = e / width, c = e - r * width;
+    const int gr = row0 + r, gc = col0 + c;
+    s[r * ld + c] = gr < nrows && gc < len
+                        ? __bfloat162float(g[(size_t)gr * len + gc])
+                        : 0.f;
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Exact sum of two floats as a (hi, lo) pair (Knuth's TwoSum); every
+// step rounded on its own.
+__device__ __forceinline__ void two_sum(float a, float b, float& s,
+                                        float& e) {
+  s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+}
+
+// (h, l) += (h2, l2) for values kept as unevaluated sums hi + lo. The
+// result does not depend on the order of the two operands, so both
+// lanes of a butterfly shuffle hold the same pair.
+__device__ __forceinline__ void add_pair(float& h, float& l, float h2,
+                                         float l2) {
+  float s, e;
+  two_sum(h, h2, s, e);
+  l = __fadd_rn(__fadd_rn(l, l2), e);
+  h = s;
+}
+
+}  // namespace f32tile
+}  // namespace svm

@@ -7,11 +7,40 @@ low-rank tier, with the cosine epilogue fused before the single store.
 Operands come at the compute precision (float32, or bfloat16 for the
 mixed-precision path); accumulation and epilogue are float32.
 ``ops.rff_features`` is the checked entry point; the functions here
-assume checked inputs.
+assume checked inputs. ``rff_plan`` picks the kernel's tile from the
+shape and stages the feature axis as ``tile_f32`` lays it out.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
+
+from repro_torch.kernels.tile_f32 import H100_SMS, current_stream, \
+    feature_chunk, row_stride
+
+COLS = 128          # columns of Phi a block computes (csrc/rff_features.cu)
+
+
+class RffPlan(NamedTuple):
+    rows: int        # rows of X (and of Phi) a block computes: 64 or 128
+    chunk: int       # features a ring stage holds
+    smem_bytes: int  # dynamic shared memory a block takes
+    blocks: int      # grid size
+
+
+@functools.lru_cache(maxsize=4096)
+def rff_plan(n: int, k: int, d: int, sms: int = H100_SMS) -> RffPlan:
+    """Tile of ``rff_features`` for an (n, d) x (d, k) map: 128-row
+    tiles, unless their grid would not give each of the card's ``sms``
+    SMs a block (serving batches), then 64-row ones."""
+    cols = -(-k // COLS)
+    rows = 128 if -(-n // 128) * cols >= sms else 64
+    chunk = feature_chunk(d)
+    stages = 1 if -(-d // 4) * 4 <= chunk else 2
+    smem = stages * (rows * row_stride(chunk) + chunk * COLS) * 4
+    return RffPlan(rows, chunk, smem, -(-n // rows) * cols)
 
 
 def rff_features_plain(x: torch.Tensor, omega: torch.Tensor,
@@ -22,13 +51,10 @@ def rff_features_plain(x: torch.Tensor, omega: torch.Tensor,
     return scale * torch.cos(dot + phase)
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def launch(lib, x, omega, phase, out, *, scale: float) -> int:
+def launch(lib, x, omega, phase, out, *, scale: float,
+           plan: RffPlan) -> int:
     n, d = x.shape
     return lib.svm_rff_features(
         x.data_ptr(), omega.data_ptr(), phase.data_ptr(), out.data_ptr(), n,
         omega.shape[1], d, float(scale), int(x.dtype == torch.bfloat16),
-        _stream())
+        plan.rows, plan.chunk, plan.smem_bytes, current_stream())

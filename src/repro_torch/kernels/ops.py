@@ -30,6 +30,7 @@ from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import kkt_select as _kkt
 from repro_torch.kernels import rbf_gram as _gram
 from repro_torch.kernels import ssd_diag as _ssd
+from repro_torch.kernels.tile_f32 import current_stream
 
 # one count per kernel entry point: rbf_gram.cu has a block and a row one;
 # a launch with the task axis (a multiclass bucket) counts once, whatever T
@@ -78,6 +79,18 @@ def _raise_on_error(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
                            f"{code}")
+
+
+_sms: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a card (the kernels' plans size their
+    grids by it)."""
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
 
 
 def tile_dtype(compute_dtype: str) -> torch.dtype:
@@ -253,10 +266,16 @@ def decision(z: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
         return torch.zeros((z.shape[0],), dtype=torch.float32,
                            device=z.device) + b
     out = torch.empty((z.shape[0],), dtype=torch.float32, device=z.device)
+    plan = _decision.decision_plan(z.shape[0], 1, x.shape[0], z.shape[1],
+                                   _sm_count(z.device))
+    stream = current_stream()
+    partial, ticket = _decision.scratch(plan, 1, z.shape[0], z.device,
+                                        stream)
     lib = _build.library()
     _count("decision")
     _raise_on_error("decision", _decision.launch_decision(
-        lib, z, x, coef, out, gamma=gamma))
+        lib, z, x, coef, out, gamma=gamma, plan=plan, partial=partial,
+        ticket=ticket, stream=stream))
     return out + b
 
 
@@ -286,10 +305,16 @@ def multitask_decision(z: torch.Tensor, sv: torch.Tensor,
     _check_contiguous("multitask_decision", z=z, sv=sv, coef=coef)
     out = torch.empty((n_tasks, z.shape[0]), dtype=torch.float32,
                       device=z.device)
+    plan = _decision.decision_plan(z.shape[0], n_tasks, w, z.shape[1],
+                                   _sm_count(z.device))
+    stream = current_stream()
+    partial, ticket = _decision.scratch(plan, n_tasks, z.shape[0], z.device,
+                                        stream)
     lib = _build.library()
     _count("multitask_decision")
     _raise_on_error("multitask_decision", _decision.launch_multitask(
-        lib, z, sv, coef, out, gamma=gamma, mode=mode))
+        lib, z, sv, coef, out, gamma=gamma, mode=mode, plan=plan,
+        partial=partial, ticket=ticket, stream=stream))
     return out if bias is None else out + bias
 
 
@@ -315,10 +340,12 @@ def rff_features(x: torch.Tensor, omega: torch.Tensor, phase: torch.Tensor,
                       device=x.device)
     if out.numel() == 0:
         return out
+    plan = _fmap.rff_plan(x.shape[0], omega.shape[1], x.shape[1],
+                          _sm_count(x.device))
     lib = _build.library()
     _count("rff_features")
     _raise_on_error("rff_features", _fmap.launch(lib, x, omega, phase, out,
-                                                 scale=scale))
+                                                 scale=scale, plan=plan))
     return out
 
 

@@ -37,6 +37,7 @@ from repro_torch.core.svm import SVC, SVR
 from repro_torch.data import (load_breast_cancer_like, load_pavia_like,
                               make_synth_regression, normalize,
                               train_test_split)
+from repro_torch.kernels import _build
 from repro_torch.kernels import dcd as DCD
 from repro_torch.kernels import decision as D
 from repro_torch.kernels import feature_map as FM
@@ -45,6 +46,7 @@ from repro_torch.kernels import kkt_select as KS
 from repro_torch.kernels import ops
 from repro_torch.kernels import rbf_gram as G
 from repro_torch.kernels import ssd_diag as SD
+from repro_torch.kernels.tile_f32 import current_stream
 from torch_helpers import cuda, tt  # noqa: F401  (cuda: fixture)
 
 GRAM_TOL = dict(rtol=2e-5, atol=2e-6)
@@ -125,14 +127,13 @@ def test_decision_kernels_match_plain(cuda, dtype):  # noqa: F811
             z.to(dt), sv[0].to(dt), cf[0], gamma=0.01), **DECISION_TOL)
 
 
-def test_decision_kernel_sums_cancelling_terms(cuda):  # noqa: F811
-    """A wide bank whose coefficients are +1 for one class's rows, then -1
-    for the other's (as a compacted OvO task stores them): the terms sum
-    to ~700 in magnitude and cancel to decisions of size ~1. The kernel
-    is held to DECISION_TOL against its plain version and must be no
-    further from a float64 evaluation than twice the plain version is."""
+def _cancelling_bank(cuda, nt, w, d, gamma):  # noqa: F811
+    """Decisions over 2 banks of w SVs whose coefficients are +1 for one
+    class's rows, then -1 for the other's (as a compacted OvO task
+    stores them): the kernel within DECISION_TOL of its plain version,
+    and no further from a float64 evaluation than twice the plain
+    version is."""
     rng = np.random.default_rng(9)
-    nt, w, d, gamma = 512, 1500, 102, 0.005
     z = tt(rng.normal(size=(nt, d)), device=cuda)
     sv = tt(rng.normal(size=(2, w, d)), device=cuda)
     cf = tt(np.repeat([[1.0] * (w // 2) + [-1.0] * (w - w // 2)], 2, 0),
@@ -148,6 +149,114 @@ def test_decision_kernel_sums_cancelling_terms(cuda):  # noqa: F811
     err = float((got.double() - ref).abs().max())
     plain_err = float((want.double() - ref).abs().max())
     assert err <= 2.0 * plain_err + 2e-6, (err, plain_err)
+
+
+def test_decision_kernel_sums_cancelling_terms(cuda):  # noqa: F811
+    """The terms sum to ~700 in magnitude and cancel to decisions of
+    size ~1 (a 1,500-SV bank over 512 rows)."""
+    _cancelling_bank(cuda, 512, 1500, 102, 0.005)
+
+
+def test_decision_kernel_sums_cancelling_terms_ovr_bank(cuda):  # noqa: F811
+    """The same at the width of the largest overlapping OvR bank (3,792
+    SVs), with the SV axis split over blocks: one split holds only +1
+    terms, another only -1 ones, and the partials still cancel."""
+    assert D.decision_plan(512, 2, 3792, 102).splits > 1
+    _cancelling_bank(cuda, 512, 3792, 102, 0.005)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("nt,tasks,w,d", [   # test_torch_kernel_plan.py
+    (8448, 1, 17, 102),     # 132 row tiles: no split
+    (3277, 1, 300, 102),    # 52 row tiles x 5 SV tiles
+    (1024, 6, 986, 102),    # the overlapping OvO bank, 128-row tiles
+    (1, 9, 3792, 102),      # one row against the OvR bank
+    (65, 3, 700, 129),      # features in chunks of 64, 64 and 4
+    (200, 2, 257, 300),     # five chunks
+    (37, 4, 70, 3)])
+def test_decision_split_and_unsplit_plans(cuda, dtype, nt, tasks, w, d):  # noqa: F811
+    """Whatever the plan: two calls give equal bits (the split partials
+    are added in segment order, not in the order blocks finish), T = 1 is
+    ops.decision bit for bit, and both modes hold DECISION_TOL."""
+    plan = D.decision_plan(nt, tasks, w, d)
+    rng = np.random.default_rng(nt + w + d)
+    dt = ops.tile_dtype(dtype)
+    z = tt(rng.normal(size=(nt, d)), device=cuda)
+    sv = tt(rng.normal(size=(tasks, w, d)), device=cuda)
+    cf = tt(rng.normal(size=(tasks, w)), device=cuda)
+    gamma = 1.0 / d
+    for mode in ("rbf", "linear"):
+        got = ops.multitask_decision(z, sv, cf, gamma=gamma, mode=mode,
+                                     compute_dtype=dtype)
+        again = ops.multitask_decision(z, sv, cf, gamma=gamma, mode=mode,
+                                       compute_dtype=dtype)
+        assert torch.equal(got, again), plan
+        want = D.multitask_decision_plain(z.to(dt), sv.to(dt), cf,
+                                          gamma=gamma, mode=mode)
+        tol = (DECISION_TOL if mode == "rbf" else dict(
+            rtol=2e-4, atol=2e-5 * float(want.abs().max())))
+        torch.testing.assert_close(got, want, **tol)
+    one = ops.multitask_decision(z, sv[:1], cf[:1], gamma=gamma,
+                                 compute_dtype=dtype)
+    assert torch.equal(one[0], ops.decision(z, sv[0], cf[0], gamma=gamma,
+                                            compute_dtype=dtype))
+
+
+@pytest.mark.parametrize("tasks,w,d", [
+    (6, 986, 102),     # the overlapping OvO bank: one tile a segment
+    (2, 3792, 102),    # the OvR bank's width
+    (3, 700, 129),     # features in chunks
+    (1, 5000, 17)])    # 79 SV tiles: two tiles a segment
+def test_decision_bits_do_not_depend_on_plan_or_batch(cuda, tasks, w, d):  # noqa: F811
+    """A row's sum is folded in an order fixed by the bank's width: the
+    same bits whether the row comes alone or inside a 1,024-row batch,
+    and whatever row tile and split the launch takes."""
+    rng = np.random.default_rng(w + d)
+    z = tt(rng.normal(size=(1024, d)), device=cuda)
+    sv = tt(rng.normal(size=(tasks, w, d)), device=cuda)
+    cf = tt(rng.normal(size=(tasks, w)), device=cuda)
+    gamma = 1.0 / d
+    batch = ops.multitask_decision(z, sv, cf, gamma=gamma)
+    one, full = (D.decision_plan(n, tasks, w, d) for n in (1, 1024))
+    assert (one.rows, one.splits) != (full.rows, full.splits)
+    for i in (0, 1, 517, 1023):
+        alone = ops.multitask_decision(z[i:i + 1], sv, cf, gamma=gamma)
+        assert torch.equal(alone[:, 0], batch[:, i]), i
+    lib = _build.library()
+    for rows in (64, 128):
+        for splits in sorted({1, 2, 3, full.segments}):
+            plan = D.plan_with(1024, tasks, w, d, rows, splits)
+            part, tick = D.scratch(plan, tasks, 1024, z.device,
+                                   current_stream())
+            out = torch.full_like(batch, float("nan"))
+            assert D.launch_multitask(lib, z, sv, cf, out, gamma=gamma,
+                                      mode="rbf", plan=plan, partial=part,
+                                      ticket=tick) == 0
+            assert torch.equal(out, batch), plan
+
+
+def test_served_rows_alone_equal_the_batch(cuda, tmp_path):  # noqa: F811
+    """Through the Predictor: rows served one at a time give the bits
+    and labels they get inside a 1,024-row request (each padded to its
+    own pow2 bucket, each launch with its own plan)."""
+    x, y = load_pavia_like(n_per_class=600, n_classes=5, seed=7, noise=5.0)
+    xtr, ytr, xte, _ = train_test_split(normalize(x), y, test_frac=0.25)
+    clf = SVC(strategy="ovr", engine="pallas", device=cuda).fit(xtr, ytr)
+    serve.save(tmp_path / "m.npz", serve.pack(clf))
+    packed = serve.load(tmp_path / "m.npz")
+    d = xte.shape[1]
+    # a bank of several SV tiles, whose plans differ with the rows
+    assert any(D.decision_plan(1, t, w, d)[:2] != D.decision_plan(
+        1024, t, w, d)[:2] for t, w, _ in (g.sv_x.shape
+                                           for g in packed.buckets))
+    pred = serve.Predictor(packed, engine="pallas", device=cuda)
+    z = np.resize(xte, (1024, d))
+    df, labels = pred.decision_function(z), pred.predict(z)
+    for i in (0, 5, 500, 1023):
+        np.testing.assert_array_equal(pred.decision_function(z[i:i + 1]),
+                                      df[..., i:i + 1])   # (T, rows)
+        np.testing.assert_array_equal(pred.predict(z[i:i + 1]),
+                                      labels[i:i + 1])
 
 
 def test_launch_counts_and_no_cpu_fallback(cuda):  # noqa: F811
@@ -212,6 +321,45 @@ def test_rff_features_kernel_matches_plain(cuda, dtype):  # noqa: F811
         if dtype == "bf16":   # against the float32 map, the bf16 bound
             torch.testing.assert_close(got, FM.rff_features_plain(
                 x, om, ph, scale=scale), **RFF_BF16_VS_FP32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("d", [4, 102, 128, 129, 300])
+@pytest.mark.parametrize("n,k", [(1025, 1023), (2177, 1023)])
+def test_rff_features_tiles_and_feature_chunks(cuda, dtype, d, n, k):  # noqa: F811
+    """Both tiles (64 rows for 1,025 x 1,023, 128 for 2,177 x 1,023),
+    the feature axis staged whole (d <= 128) and in chunks (129, 300),
+    ragged n and k, against the plain version at RFF_TOL."""
+    assert FM.rff_plan(n, k, d).rows == (64 if n == 1025 else 128)
+    rng = np.random.default_rng(n + d)
+    dt = ops.tile_dtype(dtype)
+    x = tt(rng.normal(size=(n, d)), device=cuda)
+    om = tt(rng.normal(scale=float(np.sqrt(2.0 / d)), size=(d, k)),
+            device=cuda)
+    ph = tt(rng.uniform(0, 2 * np.pi, size=k), device=cuda)
+    scale = float(np.sqrt(2.0 / k))
+    got = ops.rff_features(x, om, ph, scale=scale, compute_dtype=dtype)
+    torch.testing.assert_close(got, FM.rff_features_plain(
+        x.to(dt), om.to(dt), ph, scale=scale), **RFF_TOL)
+
+
+def test_rff_features_unaligned_rows(cuda):  # noqa: F811
+    """Operands whose rows are 4-byte aligned only (a view one float into
+    its storage; d odd) take the 4-byte copies."""
+    rng = np.random.default_rng(3)
+    buf = tt(rng.normal(size=300 * 101 + 1), device=cuda)
+    x = buf[1:].view(300, 101)
+    om = tt(rng.normal(scale=0.1, size=(101, 257)), device=cuda)
+    ph = tt(rng.uniform(0, 2 * np.pi, size=257), device=cuda)
+    got = ops.rff_features(x, om, ph, scale=0.1)
+    torch.testing.assert_close(got, FM.rff_features_plain(
+        x, om, ph, scale=0.1), **RFF_TOL)
+    z = buf[1:1 + 70 * 101].view(70, 101)
+    sv = x[:200].reshape(2, 100, 101)
+    cf = tt(rng.normal(size=(2, 100)), device=cuda)
+    torch.testing.assert_close(
+        ops.multitask_decision(z, sv, cf, gamma=0.01),
+        D.multitask_decision_plain(z, sv, cf, gamma=0.01), **DECISION_TOL)
 
 
 def _dcd_state(rng, n, k, device):

@@ -1,0 +1,154 @@
+"""The launch plans of the port's redesigned Gram-shaped kernels:
+``feature_map.rff_plan`` (tile of ``rff_features``) and
+``decision.decision_plan`` (tile and SV-axis split of ``decision`` /
+``multitask_decision``). Plain Python, so they are held here, on the
+CPU; the kernels they configure run in tests/test_torch_cuda.py, which
+refuse a plan whose shared memory differs from their own count."""
+import math
+
+import pytest
+
+from repro_torch.kernels import decision as D
+from repro_torch.kernels import feature_map as FM
+from repro_torch.kernels import tile_f32
+
+SMS = tile_f32.H100_SMS
+MAX_SMEM = 232448   # bytes of shared memory an H100 block may opt in to
+
+
+@pytest.mark.parametrize("n,k,rows", [
+    (29491, 1024, 128),   # the low-rank fit: 231 x 8 = 1,848 blocks
+    (2177, 1023, 128),    # 18 x 8 = 144 128-row tiles: one wave
+    (1024, 1024, 64),     # a serving batch: 8 x 8 = 64 128-row tiles
+    (1025, 1023, 64),     # 9 x 8 = 72
+    (1, 1, 64)])
+def test_rff_tile_is_chosen_by_grid_size(n, k, rows):
+    plan = FM.rff_plan(n, k, 102)
+    assert plan.rows == rows
+    assert (math.ceil(n / 128) * math.ceil(k / FM.COLS) >= SMS) == (
+        rows == 128)
+    assert plan.blocks == math.ceil(n / rows) * math.ceil(k / FM.COLS)
+
+
+@pytest.mark.parametrize("d,chunk,stages", [
+    (1, 4, 1), (4, 4, 1), (102, 104, 1), (128, 128, 1), (129, 64, 2),
+    (300, 64, 2), (4096, 64, 2)])
+def test_rff_features_resident_up_to_128_then_chunked(d, chunk, stages):
+    """Whole feature axis staged once up to RES_WIDTH, a two-stage ring
+    of 64-feature chunks past it; the shared memory always fits."""
+    for rows_n in (29491, 1):
+        plan = FM.rff_plan(rows_n, 1024, d)
+        assert plan.chunk == chunk
+        assert plan.smem_bytes == stages * 4 * (
+            plan.rows * tile_f32.row_stride(chunk) + chunk * FM.COLS)
+        assert plan.smem_bytes <= MAX_SMEM
+
+
+def test_rff_features_two_blocks_an_sm_at_svm_width():
+    """At the paper's 102 bands a 128 x 128 block takes ~106 KB: two fit
+    the SM's 228 KB (1 KB of it reserved per block)."""
+    plan = FM.rff_plan(29491, 1024, 102)
+    assert 2 * (plan.smem_bytes + 1024) <= 233472
+
+
+@pytest.mark.parametrize("width", [1, 4, 17, 64, 102, 128, 300])
+def test_row_stride_keeps_float4_rows_conflict_free(width):
+    ld = tile_f32.row_stride(width)
+    assert ld % 4 == 0 and (ld // 4) % 2 == 1 and width <= ld <= width + 7
+    # 8 threads reading a float4 each from 8 consecutive rows at one
+    # offset touch 32 different banks
+    banks = {(r * ld + c) % 32 for r in range(8) for c in range(4)}
+    assert len(banks) == 32
+
+
+@pytest.mark.parametrize("nt,tasks,w", [
+    (29491, 1, 1000), (3686, 6, 986), (8448, 1, 17), (4096, 9, 3792)])
+def test_no_split_when_the_grid_fills_the_card(nt, tasks, w):
+    plan = D.decision_plan(nt, tasks, w, 102)
+    assert math.ceil(nt / plan.rows) * tasks >= SMS
+    assert plan.splits == 1
+
+
+@pytest.mark.parametrize("nt,tasks,w", [
+    (1024, 6, 986), (1024, 9, 3792), (1, 9, 3792), (1, 36, 1413),
+    (512, 2, 1500), (512, 2, 3792), (37, 1, 3277)])
+def test_split_when_the_grid_leaves_sms_idle(nt, tasks, w):
+    plan = D.decision_plan(nt, tasks, w, 102)
+    blocks = math.ceil(nt / plan.rows) * tasks
+    assert blocks < SMS and plan.splits > 1
+    assert plan.blocks == blocks * plan.splits
+
+
+@pytest.mark.parametrize("nt", [1, 37, 64, 65, 1024, 3277])
+@pytest.mark.parametrize("tasks", [1, 3, 36])
+@pytest.mark.parametrize("w", [1, 17, 64, 65, 986, 3792])
+def test_splits_never_exceed_the_sv_tiles(nt, tasks, w):
+    plan = D.decision_plan(nt, tasks, w, 102)
+    assert 1 <= plan.splits <= plan.segments <= math.ceil(w / D.SV_TILE)
+    assert plan.rows in (64, 128)
+    assert plan.rows == 64 or nt > 64      # one-row serving: 64-row tile
+
+
+def test_split_is_the_cheapest_under_the_cost_model():
+    """The OvO bank (6 x 986 SVs over 1,024 rows, 48 row-tile blocks):
+    no other split is cheaper, and the chosen grid has more blocks than
+    SMs, so none idles for want of work."""
+    plan = D.decision_plan(1024, 6, 986, 102)
+    tiles = math.ceil(986 / D.SV_TILE)
+    assert (plan.seg, plan.segments) == (1, tiles)
+    costs = [D._split_cost(48, s, tiles, 1, SMS) for s in range(1, tiles + 1)]
+    assert D._split_cost(48, plan.splits, tiles, 1, SMS) == min(costs)
+    assert plan.blocks >= SMS
+
+
+@pytest.mark.parametrize("d,chunk", [(3, 4), (102, 104), (128, 128),
+                                     (129, 64), (300, 64)])
+def test_decision_shared_memory_fits(d, chunk):
+    for nt in (1, 1024, 29491):
+        plan = D.decision_plan(nt, 6, 986, d)
+        assert plan.chunk == chunk
+        assert plan.smem_bytes <= MAX_SMEM
+
+
+def test_decision_plans_cover_split_and_unsplit():
+    """The shapes test_torch_cuda.py runs the decision kernel at take
+    both tiles, split and unsplit grids and the chunked feature path."""
+    plans = [D.decision_plan(*s) for s in [
+        (8448, 1, 17, 102), (3277, 1, 300, 102), (1024, 6, 986, 102),
+        (1, 9, 3792, 102), (65, 3, 700, 129), (200, 2, 257, 300),
+        (37, 4, 70, 3)]]
+    assert {p.rows for p in plans} == {64, 128}
+    assert min(p.splits for p in plans) == 1
+    assert max(p.splits for p in plans) > 1
+    assert {p.chunk for p in plans} >= {64, 104}
+
+
+@pytest.mark.parametrize("w", [1, 64, 65, 986, 3792, 4096, 4097, 29491,
+                               100000])
+def test_segments_depend_on_the_bank_width_alone(w):
+    """The kernel adds a row's SV tiles within a segment, then the
+    segments, in order, and splits take whole segments: the segments
+    must not move with the rows, the tasks or the card, or a row's bits
+    would depend on its batch. At most MAX_SEGMENTS of them, each as
+    short as that allows (one tile up to 4,096 SVs)."""
+    tiles = math.ceil(w / D.SV_TILE)
+    plans = [D.decision_plan(nt, tasks, w, d, sms)
+             for nt in (1, 37, 1024, 29491) for tasks in (1, 9)
+             for d in (17, 300) for sms in (SMS, 16)]
+    assert len({(p.seg, p.segments) for p in plans}) == 1
+    seg, segments = plans[0].seg, plans[0].segments
+    assert segments <= D.MAX_SEGMENTS
+    assert seg * (segments - 1) < tiles <= seg * segments
+    assert seg == 1 or math.ceil(tiles / (seg - 1)) > D.MAX_SEGMENTS
+    if tiles > 1:   # both kinds of launch
+        assert {p.splits for p in plans} != {1}
+
+
+def test_plan_with_refuses_what_the_kernel_cannot_run():
+    """A sweep's or a test's own plan: 64 or 128 rows, 1 to the bank's
+    segments splits, the same layout as the chosen plan's."""
+    assert D.plan_with(1024, 6, 986, 102, 128, 8) == D.decision_plan(
+        1024, 6, 986, 102)
+    for rows, splits in ((32, 1), (64, 0), (64, 17)):
+        with pytest.raises(ValueError):
+            D.plan_with(1024, 6, 986, 102, rows, splits)
