@@ -9,7 +9,10 @@ then:
 1. holds every kernel against its plain PyTorch version on the card,
    in float32 and bfloat16, at the shapes the main path gives it
    (``dcd_epoch`` over the whole of each low-rank fit's Phi, the
-   SVR's doubled one included);
+   SVR's doubled one included, and once with a visiting order whose
+   indices repeat within a window, across windows and past the ring's
+   depth; the task axis of ``dcd_epoch`` over every task of each
+   multiclass low-rank fit, equal bit for bit to one-task launches);
 2. drives the main path through the entry points a user calls: a binary
    RBF ``SVC(engine="pallas")`` fit by SMO on a Pavia-shaped problem
    (~29.5k x 102), certified by a float64 KKT check of a recomputed
@@ -38,10 +41,11 @@ then:
    (``multitask_decision`` over T > 1 banks, each bank also held against
    its plain version), labels checked against the per-task engine path
    and rows served alone against the same rows in one request;
-   then, on the overlapping classes, ``SVC(strategy="ovo",
-   engine="rff", rank=1024)`` over one shared feature map, certified per
-   task, within 0.01 of the exact accuracy, served through a schema-v2
-   pack;
+   then, on the overlapping classes, ``SVC(strategy="ovo" | "ovr",
+   engine="rff", rank=1024)`` over one shared feature map, all tasks in
+   one batched DCD solve (one task-axis ``dcd_epoch`` launch an epoch),
+   certified per task, within 0.01 of the exact accuracy, served
+   through a schema-v2 pack;
 7. drives the LM-substrate kernels through ``ops.flash_attention`` at
    phi4_mini_3p8b's attention (B = 1, S = 4,096, 24 heads over 8 kv
    heads, D = 128, causal) and a ragged non-causal S = 300 case, and
@@ -57,7 +61,12 @@ then:
    ``*device_ms`` the device time of the same call (CUDA events around
    back-to-back calls queued behind a spin kernel, which hides the
    host's enqueue); the task-axis entries on a ``task_axis`` line,
-   ``rff_features`` over one serving batch on a ``serving_shapes`` line.
+   ``rff_features`` over one serving batch on a ``serving_shapes`` line,
+   ``dcd_epoch`` at the SVR's doubled shape and with the task axis at
+   the OvO and OvR low-rank shapes on a ``dcd_shapes`` line (each with
+   ns a coordinate, its launch plan and ptxas's report). The low-rank
+   fit lines carry the warm fit's wall time and the device's busy
+   share under the profiler.
    The rows of the two redesigned kernels (``rff_features``,
    ``decision`` / ``multitask_decision``) also carry the launch plan
    (tile, SV-axis splits, feature chunk, shared memory) and what ptxas
@@ -326,10 +335,18 @@ def warm_fit_profile(SVC, dev, xtr, ytr, n_iter, **kw):
     """The same fit again, warm: its wall time, then once more under
     torch.profiler for the device's busy time and kernel launches (the
     profiler's own overhead lowers the busy share it reports)."""
+    return warm_profile(lambda: SVC(**kw, device=dev).fit(xtr, ytr), n_iter)
+
+
+def warm_profile(fit_once, n_iter):
+    """``fit_once()`` again, warm: its wall time, then once more under
+    torch.profiler: device busy time and share, kernels launched (per
+    solver iteration or epoch), the eight kernels with most device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     def fit():
-        SVC(**kw, device=dev).fit(xtr, ytr)
+        fit_once()
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -612,7 +629,12 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         fit_launches = dict(ops.launches)
-        if engine == "rff":
+        warm = {}
+        if engine == "rff":   # the low-rank fit's wall time warm, busy share
+            warm_s, busy = warm_profile(
+                lambda: SVR(**kw, device=dev).fit(xtr, ytr), reg.n_iter_)
+            warm = dict(fit_s_warm=warm_s, profile=busy)
+            ops.launches.update(fit_launches)
             phi = reg._feature_map.transform(xt)
             a2 = torch.from_numpy(reg.alpha_raw_).to(dev)
             lowrank = dict(phi=torch.cat([phi, phi]), s=s, p=p, beta=a2)
@@ -635,7 +657,7 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
         emit(phase="svr", engine=engine, n_train=n, qp_variables=2 * n,
              d=int(xtr.shape[1]), rank=kw.get("rank"),
              n_iter=reg.n_iter_, converged=reg.converged_, kkt_f64=kkt,
-             tol=1e-3, n_support=reg.n_support_, fit_s=fit_s,
+             tol=1e-3, n_support=reg.n_support_, fit_s=fit_s, **warm,
              heldout_r2=r2, launches=launches,
              max_abs_err_served_vs_engine=float(np.abs(served
                                                        - values).max()),
@@ -671,18 +693,38 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
     return total, lowrank
 
 
-def dcd_parity(ops, DCD, dev, gen, problem, case, phi, s, p, beta0):
-    """One dcd_epoch against the plain loop from the same state (box
-    [0, 1], bias 1, all coordinates live); the largest error."""
-    n = phi.shape[0]
+def dcd_state(phi, s, p, beta0, perm):
+    """The operands of one dcd_epoch from ``beta0`` (box [0, 1], all
+    coordinates live), with the exact w and wb of that state."""
+    n, dev = phi.shape[0], phi.device
     coef = s * beta0
-    st = dict(phi=phi, y=s, p=p, lo=torch.zeros(n, device=dev),
-              hi=torch.ones(n, device=dev),
-              q_diag=torch.sum(phi * phi, dim=1) + 1.0,
-              live=torch.ones(n, dtype=torch.bool, device=dev),
-              perm=torch.randperm(n, generator=gen, device=dev),
-              beta=beta0.clone(), w=(phi.T @ coef).contiguous(),
-              wb=torch.sum(coef).reshape(1))
+    return dict(phi=phi, y=s, p=p, lo=torch.zeros(n, device=dev),
+                hi=torch.ones(n, device=dev),
+                q_diag=torch.sum(phi * phi, dim=1) + 1.0,
+                live=torch.ones(n, dtype=torch.bool, device=dev),
+                perm=perm, beta=beta0.clone(),
+                w=(phi.T @ coef).contiguous(),
+                wb=torch.sum(coef).reshape(1))
+
+
+def repeats_perm(n: int, gen) -> torch.Tensor:
+    """A visiting order whose indices repeat at distances 1 and 3 (in one
+    window), 20 (across windows, within the ring's depth) and 60 (past
+    it): a permutation with some positions overwritten."""
+    perm = torch.randperm(n, generator=gen, device=gen.device).cpu()
+    for period, dist in ((7, 1), (11, 3), (37, 20), (101, 60)):
+        for t in range(dist + period - 1, n, period):
+            perm[t] = perm[t - dist]
+    return perm.to(gen.device)
+
+
+def dcd_parity(ops, DCD, dev, gen, problem, case, phi, s, p, beta0,
+               perm=None):
+    """One dcd_epoch against the plain loop from the same state; the
+    largest error."""
+    if perm is None:
+        perm = torch.randperm(phi.shape[0], generator=gen, device=dev)
+    st = dcd_state(phi, s, p, beta0, perm)
     host = {k: v.cpu().clone() for k, v in st.items()}
     viol = float(ops.dcd_epoch(**st, bias=1.0))
     want = float(DCD.dcd_epoch_plain(*host.values(), bias=1.0))
@@ -693,11 +735,21 @@ def dcd_parity(ops, DCD, dev, gen, problem, case, phi, s, p, beta0):
         errs[name] = max_err(got, ref)
         ok = ok and bool(torch.allclose(got, ref, rtol=DCD_TOL["rtol"],
                                         atol=tol))
+    moved = st["beta"] != beta0
+    repeated = torch.bincount(perm, minlength=phi.shape[0]) > 1
     emit(phase="parity", kernel="dcd_epoch", problem=problem, case=case,
-         shape=list(phi.shape), viol=viol, viol_plain=want, max_abs_err=errs,
-         moved=int((st["beta"] != beta0).sum()), bound=DCD_TOL, ok=ok)
+         shape=list(phi.shape), plan=DCD.dcd_plan(phi.shape[1])._asdict(),
+         distinct_indices=int(torch.unique(perm).numel()), viol=viol,
+         viol_plain=want, max_abs_err=errs, moved=int(moved.sum()),
+         repeated_indices_moved=int((moved & repeated).sum()),
+         bound=DCD_TOL, ok=ok)
     check(ok, f"dcd_epoch ({problem}, {case}) disagrees with its plain "
               "version")
+    if "fitted" not in case:   # from the cold state every index moves
+        check(bool(moved.any()), f"dcd_epoch ({problem}, {case}) moved no "
+              "coordinate")
+        check(not bool(repeated.any()) or bool((moved & repeated).any()),
+              f"dcd_epoch ({problem}, {case}): no repeated index moved")
     return max(errs.values())
 
 
@@ -745,6 +797,24 @@ def phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi_fit, yy_fit,
               svr_state["p"], svr_state["beta"])]
     errs["dcd_epoch"] = max(dcd_parity(ops, DCD, dev, gen, *c)
                             for c in cases)
+    # indices that repeat within a window, across windows inside the
+    # ring's depth and past it, against the plain loop. A repeat's step
+    # reads the beta and w its earlier occurrence wrote, which tests the
+    # kernel only where coordinates move: the SVR's doubled problem from
+    # its cold state moves ~40 % of them across the whole sweep (the
+    # binary problem's cold epoch moves ~60, all early, once w separates
+    # the classes; its fitted epoch ~15)
+    repeat_cases = [
+        ("svr_doubled", "repeated_indices", svr_state["phi"],
+         svr_state["s"], svr_state["p"], torch.zeros(m, device=dev)),
+        ("svc", "repeated_indices", phi_fit, yy_fit,
+         -torch.ones(n, device=dev), torch.zeros(n, device=dev)),
+        ("svc", "repeated_indices_fitted", phi_fit, yy_fit,
+         -torch.ones(n, device=dev), torch.from_numpy(clf.alpha_).to(dev))]
+    for problem, case, phi, s, p, beta0 in repeat_cases:
+        errs["dcd_epoch"] = max(errs["dcd_epoch"], dcd_parity(
+            ops, DCD, dev, gen, problem, case, phi, s, p, beta0,
+            perm=repeats_perm(phi.shape[0], gen)))
     torch.cuda.synchronize()
     return errs
 
@@ -782,29 +852,47 @@ def time_row(ops, name, src, replaces, kern, plain, lib, n_bytes, n_ops,
 
 
 def phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi_fit, yy, errs,
-                         launches):
-    """rff_features and dcd_epoch at the low-rank fit's shapes."""
+                         launches, svr_state, svr_launches, task_rows):
+    """rff_features and dcd_epoch at the low-rank fit's shapes; dcd_epoch
+    also at the SVR's doubled shape, with the SVR path's own launches,
+    and with the task axis (a ``dcd_shapes`` line)."""
     x = torch.from_numpy(xtr).to(dev)
     n, d = x.shape
     om, ph = clf._feature_map.arrays
     k = om.shape[1]
     scale = clf._feature_map.scale
-    # dcd_epoch from the fitted state: each timed call is one more epoch
-    # of the converged solve, the work of a fit's last epochs
-    beta = torch.from_numpy(clf.alpha_).to(dev)
-    st = dict(phi=phi_fit, y=yy, p=-torch.ones(n, device=dev),
-              lo=torch.zeros(n, device=dev), hi=torch.ones(n, device=dev),
-              q_diag=torch.sum(phi_fit * phi_fit, dim=1) + 1.0,
-              live=torch.ones(n, dtype=torch.bool, device=dev),
-              perm=torch.randperm(n, device=dev), beta=beta.clone(),
-              w=(phi_fit.T @ (yy * beta)).contiguous(),
-              wb=torch.sum(yy * beta).reshape(1))
-    host = {key: v.cpu().clone() for key, v in st.items()}
-    before = st["beta"].clone()
-    saved = dict(ops.launches)
-    ops.dcd_epoch(**st, bias=1.0)
-    ops.launches.update(saved)
-    moved = int((st["beta"] != before).sum())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def dcd_row(phi, s, p, beta, err, launches):
+        """dcd_epoch from a fitted state: each timed call is one more
+        epoch of the converged solve, the work of a fit's last epochs."""
+        m = phi.shape[0]
+        st = dcd_state(phi, s, p, beta,
+                       torch.randperm(m, generator=gen, device=dev))
+        host = {key: v.cpu().clone() for key, v in st.items()}
+        before = st["beta"].clone()
+        saved = dict(ops.launches)
+        ops.dcd_epoch(**st, bias=1.0)
+        ops.launches.update(saved)
+        moved = int((st["beta"] != before).sum())
+        row = time_row(
+            ops, "dcd_epoch", "dcd_epoch.cu",
+            "src/repro/core/linear.py:141 (lax.fori_loop; no Pallas kernel)",
+            lambda: ops.dcd_epoch(**st, bias=1.0),
+            lambda: DCD.dcd_epoch_plain(*host.values(), bias=1.0), None,
+            # Phi once; y, p, lo, hi, q_diag, beta, perm, live read, beta
+            # written; w and wb read and written
+            4 * m * k + m * (4 * 7 + 8 + 1) + 8 * (k + 1),
+            # the dot products, the moved coordinates' updates of w and
+            # about 20 scalar operations a coordinate
+            2 * m * k + 2 * k * moved + 20 * m,
+            launches, err, plain_on_host=True)
+        row.update(shape=[m, k], moved_per_epoch=moved,
+                   ns_per_coord=row["device_ms"] * 1e6 / m,
+                   **dcd_info(DCD, k))
+        return row
+
     rows = [
         time_row(ops, "rff_features", "rff_features.cu",
                  "src/repro/kernels/feature_map.py:59",
@@ -813,22 +901,15 @@ def phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi_fit, yy, errs,
                  lambda: scale * torch.cos(torch.addmm(ph, x, om)),
                  4 * (n * d + d * k + k + n * k), n * k * (2 * d + 3),
                  launches, errs["rff_features"]),
-        time_row(ops, "dcd_epoch", "dcd_epoch.cu",
-                 "src/repro/core/linear.py:141 (lax.fori_loop; no Pallas "
-                 "kernel)",
-                 lambda: ops.dcd_epoch(**st, bias=1.0),
-                 lambda: DCD.dcd_epoch_plain(*host.values(), bias=1.0),
-                 None,
-                 # Phi once; y, p, lo, hi, q_diag, beta, perm, live read,
-                 # beta written; w and wb read and written
-                 4 * n * k + n * (4 * 7 + 8 + 1) + 8 * (k + 1),
-                 # the dot products, the moved coordinates' updates of w
-                 # and about 20 scalar operations a coordinate
-                 2 * n * k + 2 * k * moved + 20 * n,
-                 launches, errs["dcd_epoch"], plain_on_host=True),
+        dcd_row(phi_fit, yy, -torch.ones(n, device=dev),
+                torch.from_numpy(clf.alpha_).to(dev), errs["dcd_epoch"],
+                launches),
     ]
-    rows[1]["moved_per_epoch"] = moved
     rows[0].update(redesign_info("rff_features", (n, k, d)))
+    svr_row = dcd_row(svr_state["phi"], svr_state["s"], svr_state["p"],
+                      svr_state["beta"], errs["dcd_epoch"], svr_launches)
+    svr_row["problem"] = "svr_doubled"
+    emit(phase="dcd_shapes", kernels=[svr_row, *task_rows])
     # the same map over one serving batch (Predictor max_batch rows)
     xs = x[:1024].contiguous()
     saved = dict(ops.launches)
@@ -1061,20 +1142,25 @@ def phase_multiclass(ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev,
     return (xtr, ytr, xte, yte), fits, paths
 
 
-def phase_multiclass_lowrank(ops, smo, MC, FM, serve_mod, SVC, dev, split,
-                             exact_acc, out_dir, config):
-    """SVC(strategy="ovo", engine="rff", rank=1024) on the exact phases'
-    split: one shared map, one DCD fit per task; per-task certificates
-    of the augmented-bias dual; served through a schema-v2 pack."""
+def phase_multiclass_lowrank(ops, smo, MC, FM, DCD, serve_mod, SVC, dev,
+                             split, exact_acc, out_dir, config, strategy):
+    """SVC(strategy=..., engine="rff", rank=1024) on the exact phases'
+    split: one shared map, every task's DCD fit in one batched solve
+    (one task-axis dcd_epoch launch an epoch); per-task certificates of
+    the augmented-bias dual; served through a schema-v2 pack. Returns
+    the path's launches and the fit with its map's Phi."""
     xtr, ytr, xte, yte = split
+    kw = dict(strategy=strategy, engine="rff", rank=RANK, C=1.0, tol=1e-3)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    clf = SVC(strategy="ovo", engine="rff", rank=RANK, C=1.0, tol=1e-3,
-              device=dev).fit(xtr, ytr)
+    clf = SVC(**kw, device=dev).fit(xtr, ytr)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches = dict(ops.launches)
+    rounds = fit_launches["dcd_epoch"]
+    warm_s, busy = warm_fit_profile(SVC, dev, xtr, ytr, rounds, **kw)
+    ops.launches.update(fit_launches)   # the warm fits are not the path
     df_engine = clf._decision_function_engine(xte)   # map and task_w
     engine_labels = decoded(MC, clf, df_engine)
     acc = float(np.mean(engine_labels == yte))
@@ -1092,7 +1178,7 @@ def phase_multiclass_lowrank(ops, smo, MC, FM, serve_mod, SVC, dev, split,
             torch.from_numpy(clf._task_alpha[t]).to(dev), clf.dcd_cfg.C,
             clf.dcd_cfg.bias))
     ops.launches.update(saved)   # the certificates are not the path
-    path = os.path.join(out_dir, "chip_smoke_ovo_lowrank.npz")
+    path = os.path.join(out_dir, f"chip_smoke_{strategy}_lowrank.npz")
     serve_mod.save(path, serve_mod.pack(clf))
     packed = serve_mod.load(path)
     pred = serve_mod.Predictor(packed, device=dev)
@@ -1109,13 +1195,16 @@ def phase_multiclass_lowrank(ops, smo, MC, FM, serve_mod, SVC, dev, split,
     same = bool(np.array_equal(labels, plain_labels))
     close = bool(np.allclose(dfs, plain, **DECISION_TOL))
     emit(phase="multiclass_lowrank", config=config,
-         noise=PAVIA_NOISE[config], strategy="ovo", rank=RANK,
+         noise=PAVIA_NOISE[config], strategy=strategy, rank=RANK,
          n_train=int(xtr.shape[0]), n_tasks=int(clf._taskset.n_tasks),
+         task_sizes=[int(t.size) for t in clf._taskset.tasks],
          epochs=[int(v) for v in clf.task_n_iter_],
-         epochs_total=int(clf.task_n_iter_.sum()), converged=clf.converged_,
+         epochs_total=int(clf.task_n_iter_.sum()), epochs_max=clf.n_iter_,
+         task_axis_launches=rounds, converged=clf.converged_,
          kkt_f64_max=max(kkt), kkt_f64=kkt, tol=1e-3,
          n_support=[int(v) for v in clf.n_support_], fit_s=fit_s,
-         epoch_s=fit_s / max(int(clf.task_n_iter_.sum()), 1),
+         fit_s_warm=warm_s, profile=busy,
+         round_s=fit_s / max(rounds, 1),
          launches=fit_launches, heldout_check_launches=check_launches,
          heldout_acc=acc, exact_heldout_acc=exact_acc,
          schema_version=2,
@@ -1129,15 +1218,148 @@ def phase_multiclass_lowrank(ops, smo, MC, FM, serve_mod, SVC, dev, split,
           f"{max(kkt)} > tol")
     check(abs(acc - exact_acc) <= 0.01,
           f"multiclass low-rank accuracy {acc} not within 0.01 of the exact "
-          f"OvO fit's {exact_acc}")
+          f"{strategy} fit's {exact_acc}")
     for k in ("rff_features", "dcd_epoch"):
         check(fit_launches[k] > 0, f"multiclass low-rank fit launched no {k}")
     check(same, "multiclass low-rank: served labels differ from the plain "
           "transform and task_w")
     check(close, "multiclass low-rank: served decisions differ from the "
           "plain path")
-    return {k: fit_launches[k] + check_launches[k] + serve_launches[k]
-            for k in ops.KERNELS}
+    return ({k: fit_launches[k] + check_launches[k] + serve_launches[k]
+             for k in ops.KERNELS}, clf, phi)
+
+
+def task_states(dev, tasks, rows, phi, alphas, gen):
+    """One dcd_epoch state per task (its gathered rows, from ``alphas``)
+    and the same states concatenated for one task-axis launch."""
+    lone = []
+    for r, task, a in zip(rows, tasks, alphas):
+        yt = torch.from_numpy(task.y).to(dev)
+        lone.append(dcd_state(phi.index_select(0, r), yt,
+                              -torch.ones_like(yt), torch.from_numpy(a).to(dev),
+                              torch.randperm(task.size, generator=gen,
+                                             device=dev)))
+    batch = {name: torch.cat([st[name] for st in lone]).contiguous()
+             for name in ("y", "p", "lo", "hi", "q_diag", "live", "perm",
+                          "beta", "wb")}
+    batch["w"] = torch.stack([st["w"] for st in lone]).contiguous()
+    batch["rows"] = torch.cat(rows).contiguous()
+    batch["offsets"] = torch.tensor(
+        np.r_[0, np.cumsum([task.size for task in tasks])],
+        dtype=torch.int64, device=dev)
+    return lone, batch
+
+
+def dcd_task_axis(ops, DCD, dev, strategy, clf, phi, launches):
+    """The task axis of dcd_epoch at a multiclass low-rank fit's shape:
+    one ops.dcd_epoch_tasks launch over every task, from the cold state
+    (every coordinate takes a step) and from the fitted one, which must
+    equal one-task launches on each task's gathered rows bit for bit and
+    hold DCD_TOL against the plain loop for three tasks; then its time
+    beside the lone launches' from the fitted state (each timed call one
+    more epoch of every task). Returns the timing row and the largest
+    error against the plain loop."""
+    saved = dict(ops.launches)
+    tasks = clf._taskset.tasks
+    n_tasks, k = len(tasks), phi.shape[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    rows = [torch.from_numpy(t.indices).to(dev) for t in tasks]
+    sizes = [task.size for task in tasks]
+    ids = torch.arange(n_tasks, device=dev)
+    checked = sorted({0, n_tasks // 2, n_tasks - 1})
+    errs = []
+    for case, alphas in (("cold", [np.zeros(t.size, np.float32)
+                                   for t in tasks]),
+                         ("fitted", clf._task_alpha)):
+        lone, batch = task_states(dev, tasks, rows, phi, alphas, gen)
+        start = [{name: v.cpu().clone() for name, v in st.items()}
+                 for st in lone]
+        before = batch["beta"].clone()
+        viols = ops.dcd_epoch_tasks(phi, **batch, tasks=ids, bias=1.0)
+        moved = int((batch["beta"] != before).sum())
+        lone_viols = [ops.dcd_epoch(**st, bias=1.0) for st in lone]
+        off = batch["offsets"].tolist()
+
+        def task_result(t):
+            return {"beta": batch["beta"][off[t]:off[t + 1]],
+                    "w": batch["w"][t], "wb": batch["wb"][t:t + 1]}
+
+        equal = all(torch.equal(viols[t], lone_viols[t])
+                    and all(torch.equal(v, lone[t][name])
+                            for name, v in task_result(t).items())
+                    for t in range(n_tasks))
+        case_errs, ok = [], True
+        for t in checked:
+            host = start[t]
+            want = float(DCD.dcd_epoch_plain(*host.values(), bias=1.0))
+            ok = ok and abs(float(viols[t]) - want) <= DCD_TOL["viol_atol"]
+            for name, got in task_result(t).items():
+                got, ref = got.cpu(), host[name]
+                case_errs.append(max_err(got, ref))
+                ok = ok and bool(torch.allclose(
+                    got, ref, rtol=DCD_TOL["rtol"],
+                    atol=DCD_TOL["atol_rel"] * float(ref.abs().max())))
+        emit(phase="parity", kernel="dcd_epoch",
+             problem=f"{strategy}_task_axis", case=case, n_tasks=n_tasks,
+             rows_of_phi=int(phi.shape[0]), rank=k,
+             task_sizes=[min(sizes), max(sizes)], moved=moved,
+             equal_to_lone_launches=equal, plain_checked_tasks=checked,
+             max_abs_err_vs_plain=max(case_errs), bound=DCD_TOL, ok=ok)
+        check(equal, f"task-axis dcd_epoch ({strategy}, {case}) differs "
+              "from one-task launches")
+        check(ok, f"task-axis dcd_epoch ({strategy}, {case}) disagrees "
+              "with its plain version")
+        if case == "cold":
+            check(moved > 0, f"task-axis dcd_epoch ({strategy}, cold) "
+                  "moved no coordinate")
+        errs += case_errs
+
+    def kern():
+        return ops.dcd_epoch_tasks(phi, **batch, tasks=ids, bias=1.0)
+
+    def lone_all():
+        return [ops.dcd_epoch(**st, bias=1.0) for st in lone]
+
+    t0 = time.perf_counter()
+    for t in checked:
+        host = {name: v.clone() for name, v in start[t].items()}
+        DCD.dcd_epoch_plain(*host.values(), bias=1.0)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    before = batch["beta"].clone()
+    kern()
+    moved = int((batch["beta"] != before).sum())
+    m = sum(sizes)
+    b_ms, b_by = bound_ms(
+        4 * m * k + m * (4 * 7 + 8 + 8 + 1) + 8 * n_tasks * (k + 1)
+        + 8 * (n_tasks + 1),
+        2 * m * k + 2 * k * moved + 20 * m)
+    dev_ms = device_ms(kern, calls=5)
+    row = {"name": "dcd_epoch", "task_axis": strategy,
+           "shape": [n_tasks, max(sizes), k], "rows_of_phi": int(phi.shape[0]),
+           "coordinates": m, "launches_on_path": launches["dcd_epoch"],
+           "max_abs_err": max(errs), "ms": median_ms(kern, reps=10),
+           "device_ms": dev_ms,
+           "ns_per_coord_longest_task": dev_ms * 1e6 / max(sizes),
+           "lone_launches_ms": median_ms(lone_all, reps=5),
+           "lone_launches_device_ms": device_ms(lone_all, calls=2),
+           "plain_ms": plain_ms, "plain_of_tasks": checked,
+           "moved_per_epoch": moved, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None, **dcd_info(DCD, k)}
+    ops.launches.update(saved)
+    return row, max(errs)
+
+
+def dcd_info(DCD, k: int) -> dict:
+    """dcd_epoch's launch plan at rank k and what ptxas reported for the
+    instantiation it runs (registers, spills, static shared memory)."""
+    from repro_torch.kernels import _build
+    plan = DCD.dcd_plan(k)
+    name = (f"dcd_ring_kernelILi{plan.window}E" if plan.route == "ring"
+            else "dcd_direct_kernel")
+    found = _build.ptxas_report(name)
+    check(len(found) == 1, f"ptxas log: {len(found)} kernels named {name}")
+    return {"plan": plan._asdict(), "ptxas": found[0]}
 
 
 def lm_inputs(dev):
@@ -1513,14 +1735,18 @@ def main() -> int:
             ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev, out_dir,
             config, noise)
         mc_paths.update(by_path)
-    # the low-rank fit on the last (overlapping) configuration's split
-    mc_lowrank = phase_multiclass_lowrank(ops, smo, MC, FM, serve_mod, SVC,
-                                          dev, split, fits["ovo"][1],
-                                          out_dir, config)
+    # the low-rank fits on the last (overlapping) configuration's split
+    lowrank_paths, lowrank_fits = {}, {}
+    for strategy in ("ovo", "ovr"):
+        path_launches, mclf, mphi = phase_multiclass_lowrank(
+            ops, smo, MC, FM, DCD, serve_mod, SVC, dev, split,
+            fits[strategy][1], out_dir, config, strategy)
+        lowrank_paths[f"svc_{strategy}_lowrank"] = path_launches
+        lowrank_fits[strategy] = (mclf, mphi, path_launches)
     lm, lm_errs = phase_lm(ops, FA, SD, dev)
     paths = {"svc_exact": exact,
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
-             "svr": svr, **mc_paths, "svc_ovo_lowrank": mc_lowrank,
+             "svr": svr, **mc_paths, **lowrank_paths,
              "lm_kernels": lm}
     launches = {k: sum(p[k] for p in paths.values()) for k in ops.KERNELS}
     emit(phase="launches", by_path=paths, total=launches)
@@ -1536,11 +1762,19 @@ def main() -> int:
                         n_test=len(xte))
     errs.update(phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi, yy,
                                      svr_state))
+    task_rows = []
+    for strategy, (mclf, mphi, path_launches) in lowrank_fits.items():
+        row, err = dcd_task_axis(ops, DCD, dev, strategy, mclf, mphi,
+                                 path_launches)
+        task_rows.append(row)
+        errs["dcd_epoch"] = max(errs["dcd_epoch"], err)
+    del lowrank_fits
     errs.update(lm_errs)
     kernels = phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed,
                            packed.kernel.gamma, errs, launches)
     kernels += phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi, yy,
-                                    errs, launches)
+                                    errs, launches, svr_state, svr,
+                                    task_rows)
     kernels += phase_timing_lm(ops, FA, SD, dev, errs, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@ NVIDIA GPU, on the models chip_smoke.py fits, for the ``src/`` of any
 checkout of this repository.
 
     python3 kernel_times.py --packs DIR [--src DIR] [--sweep] [--out FILE]
+    python3 kernel_times.py --dcd --packs DIR [--src DIR] [--dcd-sweep]
 
 ``--packs`` holds what chip_smoke.py saves under ``chiprun_out/``: the
 exact binary SVC (``chip_smoke_model.npz``), the OvO and OvR models of
@@ -27,6 +28,21 @@ One JSON line each:
 ``--sweep`` adds every row tile and split of ``multitask_decision`` at
 the multi-task banks (a checkout whose ``decision.py`` has
 ``plan_with``), each checked bit for bit against the planned launch.
+
+``--dcd`` times ``dcd_epoch`` alone (``dcd`` lines, no serving): at the
+binary low-rank fit's shape (the training rows through
+``chip_smoke_lowrank.npz``'s map, 29,491 x 1,024) and the OvO low-rank
+fit's task epoch (36 tasks over the overlapping split's 33,178 rows
+through ``chip_smoke_ovo_lowrank.npz``'s map): one task-axis launch
+where the checkout has ``ops.dcd_epoch_tasks``, else 36 one-task
+launches, and the 36 one-task launches in either case. Each from a cold
+state swept 20 epochs first, then device time a call (each call one
+more epoch). ``--dcd-sweep`` adds, for a checkout with
+``dcd.dcd_plan``, every window and a few ring depths at the binary
+shape, and a build of a copy of ``csrc/dcd_epoch.cu`` with the
+producer's row copies cut out: the time of the chain alone, a
+diagnostic that is never shipped.
+
 Two checkouts compare in one call of the chip tool, each run in its own
 process: parent, change, change, parent, and so on.
 """
@@ -44,6 +60,9 @@ PACKS = {"binary": "chip_smoke_model.npz",
          "ovo": "chip_smoke_ovo_overlapping.npz",
          "ovr": "chip_smoke_ovr_overlapping.npz",
          "lowrank": "chip_smoke_lowrank.npz"}
+DCD_PACKS = {"lowrank": "chip_smoke_lowrank.npz",
+             "ovo_lowrank": "chip_smoke_ovo_lowrank.npz"}
+WARM_EPOCHS = 20
 
 
 def _args():
@@ -52,6 +71,8 @@ def _args():
     p.add_argument("--src", default=os.path.join(HERE, "src"))
     p.add_argument("--sweep", action="store_true")
     p.add_argument("--out", default=None)
+    p.add_argument("--dcd", action="store_true")
+    p.add_argument("--dcd-sweep", action="store_true")
     return p.parse_args()
 
 
@@ -75,10 +96,6 @@ def main() -> int:
         timeout=60).stdout.strip()
     _build.library()
     dev = torch.device("cuda")
-    packs = {k: serve.load(os.path.join(args.packs, f))
-             for k, f in PACKS.items()}
-    xtr_b, _, xte_b, _ = cs.binary_split(data)
-    xte_m = cs.pavia_split(data, cs.PAVIA_NOISE["overlapping"])[2]
 
     def emit(**row):
         line = json.dumps({"src": args.src, "card": card, **row})
@@ -86,6 +103,14 @@ def main() -> int:
         if args.out:
             with open(args.out, "a") as f:
                 f.write(line + "\n")
+
+    if args.dcd:
+        dcd_times(args, cs, data, serve, ops, dev, emit)
+        return 0
+    packs = {k: serve.load(os.path.join(args.packs, f))
+             for k, f in PACKS.items()}
+    xtr_b, _, xte_b, _ = cs.binary_split(data)
+    xte_m = cs.pavia_split(data, cs.PAVIA_NOISE["overlapping"])[2]
 
     def host_us(fn, calls=500):
         fn()
@@ -171,6 +196,142 @@ def main() -> int:
              library_device_ms=cs.device_ms(
                  lambda: scale * torch.cos(torch.addmm(ph, xs, om))))
     return 0
+
+
+def dcd_times(args, cs, data, serve, ops, dev, emit):
+    """The ``--dcd`` lines (see the module's docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import multiclass as MC
+    from repro_torch.kernels import dcd as DCD
+    packs = {k: serve.load(os.path.join(args.packs, f))
+             for k, f in DCD_PACKS.items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+
+    def features(fmap, x):
+        om = torch.from_numpy(fmap.a).to(dev)
+        ph = torch.from_numpy(fmap.b).to(dev)
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return ops.rff_features(xt, om, ph,
+                                scale=float(np.sqrt(2.0 / om.shape[1])))
+
+    def signs(y, positive):
+        return torch.from_numpy(np.where(y == positive, 1.0, -1.0)
+                                .astype(np.float32)).to(dev)
+
+    def cold(phi, yy):
+        n = phi.shape[0]
+        zero = torch.zeros(n, device=dev)
+        return cs.dcd_state(phi, yy, -torch.ones(n, device=dev), zero,
+                            torch.randperm(n, generator=gen, device=dev))
+
+    # the binary low-rank fit's shape
+    xtr, ytr, _, _ = cs.binary_split(data)
+    phi = features(packs["lowrank"].feature_map, xtr)
+    st = cold(phi, signs(ytr, ytr.max()))
+    n, k = phi.shape
+
+    def epoch():
+        return ops.dcd_epoch(**st, bias=1.0)
+
+    for _ in range(WARM_EPOCHS):
+        epoch()
+    ms = cs.device_ms(epoch, calls=5)
+    plan = DCD.dcd_plan(k)._asdict() if hasattr(DCD, "dcd_plan") else None
+    emit(measure="dcd", case="svc", shape=[n, k], plan=plan,
+         warm_epochs=WARM_EPOCHS, device_ms=ms, ns_per_coord=ms * 1e6 / n)
+    if args.dcd_sweep and plan is not None:
+        dcd_sweep(cs, DCD, st, n, k, emit)
+
+    # the OvO low-rank fit's task epoch
+    xtr_m, ytr_m, _, _ = cs.pavia_split(data, cs.PAVIA_NOISE["overlapping"])
+    phi_m = features(packs["ovo_lowrank"].feature_map, xtr_m)
+    taskset = MC.get_strategy("ovo").build_taskset(xtr_m, ytr_m)
+    lone = [cold(phi_m.index_select(0, torch.from_numpy(t.indices).to(dev)),
+                 torch.from_numpy(t.y).to(dev)) for t in taskset.tasks]
+
+    def lone_all():
+        return [ops.dcd_epoch(**s, bias=1.0) for s in lone]
+
+    for _ in range(WARM_EPOCHS):
+        lone_all()
+    sizes = [t.size for t in taskset.tasks]
+    lone_ms = cs.device_ms(lone_all, calls=2)
+    row = dict(measure="dcd", case="ovo_tasks", n_tasks=len(sizes),
+               rows_of_phi=int(phi_m.shape[0]), task_sizes=[min(sizes),
+                                                            max(sizes)],
+               lone_launches_device_ms=lone_ms)
+    if hasattr(ops, "dcd_epoch_tasks"):
+        batch = {name: torch.cat([s[name] for s in lone]).contiguous()
+                 for name in ("y", "p", "lo", "hi", "q_diag", "live",
+                              "perm", "beta", "wb")}
+        batch["w"] = torch.stack([s["w"] for s in lone]).contiguous()
+        batch["rows"] = torch.from_numpy(np.concatenate(
+            [t.indices for t in taskset.tasks])).to(dev)
+        batch["offsets"] = torch.tensor(np.r_[0, np.cumsum(sizes)],
+                                        dtype=torch.int64, device=dev)
+        ids = torch.arange(len(sizes), device=dev)
+
+        def tasks_epoch():
+            return ops.dcd_epoch_tasks(phi_m, **batch, tasks=ids, bias=1.0)
+
+        for _ in range(WARM_EPOCHS):
+            tasks_epoch()
+        row["task_axis_device_ms"] = cs.device_ms(tasks_epoch, calls=5)
+    emit(**row)
+
+
+def dcd_sweep(cs, DCD, st, n, k, emit):
+    """Every window and a few depths at the binary shape, and the build
+    that never copies rows."""
+    import ctypes
+    import re
+    import subprocess
+    import tempfile
+    import torch
+    from repro_torch.kernels import _build
+    viol = torch.empty((1,), device=st["phi"].device)
+    args = [st[name] for name in ("phi", "y", "p", "lo", "hi", "q_diag",
+                                  "live", "perm", "beta", "w", "wb")]
+
+    def timed(lib, plan):
+        def run():
+            return DCD.launch(lib, *args, viol, bias=1.0, plan=plan)
+        code = run()
+        assert code == 0, code
+        return cs.device_ms(run, calls=5)
+
+    lib = _build.library()
+    plans = [DCD.dcd_plan(k, window=w) for w in DCD.WINDOWS]
+    plans += [DCD.dcd_plan(k, depth=d) for d in (16, 32)]
+    for plan in plans:
+        ms = timed(lib, plan)
+        emit(measure="dcd_sweep", shape=[n, k], plan=plan._asdict(),
+             device_ms=ms, ns_per_coord=ms * 1e6 / n)
+    with open(os.path.join(os.path.dirname(DCD.__file__), "csrc",
+                           "dcd_epoch.cu")) as f:
+        text = f.read()
+    # the producer's row copies (TMA or cp.async), cut from a copy of the
+    # source: the stage's full barrier then waits on the producer alone
+    copies = re.compile(r"\n( +)if \(a\.tma\) \{\n.*?"
+                        r"cp_async_arrive\(&full\[st\]\);\n +\}\n", re.S)
+    text, cut = copies.subn(r"\n\1(void)dst;\n\1(void)src;\n", text)
+    assert cut == 1, cut
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        src = os.path.join(tmp, "dcd_no_rows.cu")
+        so = os.path.join(tmp, "dcd_no_rows.so")
+        with open(src, "w") as f:
+            f.write(text)
+        subprocess.run([_build._nvcc(), *_build.FLAGS, "-shared", src, "-o",
+                        so], check=True)
+        diag = ctypes.CDLL(so)
+        diag.svm_dcd_epoch.argtypes = _build.SIGNATURES["svm_dcd_epoch"]
+        diag.svm_dcd_epoch.restype = ctypes.c_int
+        plan = DCD.dcd_plan(k)
+        ms = timed(diag, plan)
+    emit(measure="dcd_no_rows", shape=[n, k], plan=plan._asdict(),
+         device_ms=ms, ns_per_coord=ms * 1e6 / n)
 
 
 if __name__ == "__main__":

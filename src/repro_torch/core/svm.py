@@ -295,13 +295,15 @@ class SVC:
     def _fit_multiclass_lowrank(self, x: np.ndarray, xt: torch.Tensor,
                                 y: np.ndarray) -> None:
         """One feature map over all of X, transformed once; each task is a
-        DCD fit on its rows of that Phi (gathered by ``task.indices``), so
-        serving is one transform and a (n_tasks, rank) product."""
+        DCD fit on its rows of that Phi (``task.indices``), all tasks
+        solved together by ``linear.linear_svc_tasks`` (one launch an
+        epoch, each task as its lone solve), so serving is one transform
+        and a (n_tasks, rank) product."""
         taskset = self.strategy.build_taskset(x, y)
         fmap = approx.make_feature_map(xt, self.kernel_params,
                                        self.engine_cfg)
         phi = fmap.transform(xt)
-        n_tasks, dev = taskset.n_tasks, self.device
+        n_tasks = taskset.n_tasks
         task_w = np.zeros((n_tasks, fmap.rank), np.float32)
         task_b = np.zeros((n_tasks,), np.float32)
         n_support = np.zeros(n_tasks, np.int64)
@@ -309,10 +311,11 @@ class SVC:
         converged = np.ones(n_tasks, bool)
         alphas = []
         thr = _sv_threshold(self.smo_cfg.C)
-        for t, task in enumerate(taskset.tasks):
-            phi_t = phi.index_select(0, torch.from_numpy(task.indices).to(dev))
-            r = linear.linear_svc(phi_t, torch.from_numpy(task.y).to(dev),
-                                  cfg=self.dcd_cfg)
+        fits = linear.linear_svc_tasks(
+            phi, [torch.from_numpy(task.indices) for task in taskset.tasks],
+            [torch.from_numpy(task.y) for task in taskset.tasks],
+            cfg=self.dcd_cfg)
+        for t, r in enumerate(fits):
             a = r.alpha.cpu().numpy()
             alphas.append(a)
             task_w[t] = r.w.cpu().numpy()

@@ -44,8 +44,8 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _P, _P, _P],
     "svm_rff_features": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
                          _P],
-    "svm_dcd_epoch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _F, _P],
+    "svm_dcd_epoch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "svm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _I, _I, _I, _P],
     "svm_ssd_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

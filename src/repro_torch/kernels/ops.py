@@ -33,7 +33,8 @@ from repro_torch.kernels import ssd_diag as _ssd
 from repro_torch.kernels.tile_f32 import current_stream
 
 # one count per kernel entry point: rbf_gram.cu has a block and a row one;
-# a launch with the task axis (a multiclass bucket) counts once, whatever T
+# a launch with the task axis (a multiclass bucket, the tasks of a
+# multiclass low-rank fit) counts once, whatever T
 KERNELS = ("rbf_gram", "rbf_gram_row", "kkt_select", "decision",
            "multitask_decision", "rff_features", "dcd_epoch",
            "flash_attention", "ssd_diag")
@@ -381,16 +382,85 @@ def dcd_epoch(phi: torch.Tensor, y: torch.Tensor, p: torch.Tensor,
         return _dcd.dcd_epoch_plain(phi, y, p, lo, hi, q_diag, live, perm,
                                     beta, w, wb, bias=bias)
     _check_contiguous("dcd_epoch", **tensors)
-    if not 1 <= k <= DCD_MAX_RANK:
-        raise ValueError(f"dcd_epoch: rank {k} outside [1, {DCD_MAX_RANK}]"
-                         ": w lives in one block's shared memory")
+    _check_rank("dcd_epoch", k)
     viol = torch.empty((1,), dtype=torch.float32, device=phi.device)
     lib = _build.library()
     _count("dcd_epoch")
     _raise_on_error("dcd_epoch", _dcd.launch(
         lib, phi, y, p, lo, hi, q_diag, live, perm, beta, w, wb, viol,
-        bias=bias))
+        bias=bias, plan=_dcd.dcd_plan(k)))
     return viol[0]
+
+
+def _check_rank(name: str, k: int) -> None:
+    if not 1 <= k <= DCD_MAX_RANK:
+        raise ValueError(f"{name}: rank {k} outside [1, {DCD_MAX_RANK}]"
+                         ": w lives in one block's shared memory")
+
+
+def dcd_epoch_tasks(phi: torch.Tensor, rows: torch.Tensor,
+                    offsets: torch.Tensor, y: torch.Tensor, p: torch.Tensor,
+                    lo: torch.Tensor, hi: torch.Tensor, q_diag: torch.Tensor,
+                    live: torch.Tensor, perm: torch.Tensor,
+                    beta: torch.Tensor, w: torch.Tensor, wb: torch.Tensor,
+                    tasks: torch.Tensor, *, bias: float) -> torch.Tensor:
+    """One epoch of T dual coordinate descents over one shared Phi (N, k)
+    in one launch, for the tasks listed in ``tasks`` (B,) int64. Task t
+    owns the coordinates ``[offsets[t], offsets[t+1])`` (``offsets``
+    (T+1,) int64, from 0) of the concatenated (m,) vectors ``y``, ``p``,
+    ``lo``, ``hi``, ``q_diag``, ``live``, ``beta``, ``rows`` (int64, the
+    row of Phi of each coordinate) and ``perm`` (int64, each segment a
+    visiting order of its local indices 0 .. n_t - 1), row t of ``w``
+    (T, k) and ``wb[t]`` (T,). Each listed task gets exactly what a
+    one-task launch on its gathered rows gives it; the others are left
+    as they are. Returns the (B,) max projected gradients in the order
+    of ``tasks``. The offsets, rows and permutations are not read on
+    the host: the caller vouches for them."""
+    if phi.ndim != 2 or phi.dtype != torch.float32:
+        raise ValueError(f"dcd_epoch_tasks: phi must be (N, k) float32, got "
+                         f"{tuple(phi.shape)} {phi.dtype}")
+    k = phi.shape[1]
+    if offsets.ndim != 1 or offsets.shape[0] < 2 \
+            or offsets.dtype != torch.int64:
+        raise ValueError("dcd_epoch_tasks: offsets must be (T+1,) int64, "
+                         "T >= 1")
+    n_tasks = offsets.shape[0] - 1
+    m = y.shape[0] if y.ndim == 1 else -1
+    for name, t, shape in (("y", y, (m,)), ("p", p, (m,)), ("lo", lo, (m,)),
+                           ("hi", hi, (m,)), ("q_diag", q_diag, (m,)),
+                           ("beta", beta, (m,)), ("w", w, (n_tasks, k)),
+                           ("wb", wb, (n_tasks,))):
+        if t.shape != shape or t.dtype != torch.float32:
+            raise ValueError(f"dcd_epoch_tasks: {name} must be {shape} "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    if live.shape != (m,) or live.dtype != torch.bool:
+        raise ValueError(f"dcd_epoch_tasks: live must be ({m},) bool")
+    for name, t, shape in (("rows", rows, (m,)), ("perm", perm, (m,))):
+        if t.shape != shape or t.dtype != torch.int64:
+            raise ValueError(f"dcd_epoch_tasks: {name} must be {shape} "
+                             "int64")
+    if tasks.ndim != 1 or tasks.dtype != torch.int64:
+        raise ValueError("dcd_epoch_tasks: tasks must be (B,) int64")
+    tensors = dict(phi=phi, rows=rows, offsets=offsets, y=y, p=p, lo=lo,
+                   hi=hi, q_diag=q_diag, live=live, perm=perm, beta=beta,
+                   w=w, wb=wb, tasks=tasks)
+    if not _on_card("dcd_epoch_tasks", *tensors.values()):
+        return _dcd.dcd_epoch_tasks_plain(
+            phi, rows, offsets, tasks, y, p, lo, hi, q_diag, live, perm,
+            beta, w, wb, bias=bias)
+    _check_contiguous("dcd_epoch_tasks", **tensors)
+    _check_rank("dcd_epoch_tasks", k)
+    viol = torch.empty((tasks.shape[0],), dtype=torch.float32,
+                       device=phi.device)
+    if tasks.shape[0] == 0:
+        return viol
+    lib = _build.library()
+    _count("dcd_epoch")
+    _raise_on_error("dcd_epoch_tasks", _dcd.launch(
+        lib, phi, y, p, lo, hi, q_diag, live, perm, beta, w, wb, viol,
+        bias=bias, plan=_dcd.dcd_plan(k), rows=rows, offsets=offsets,
+        tasks=tasks))
+    return viol
 
 
 # -------------------------------------------------------- flash_attention

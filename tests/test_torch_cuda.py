@@ -404,6 +404,181 @@ def test_dcd_epoch_refuses_ranks_past_shared_memory(cuda):  # noqa: F811
         ops.dcd_epoch(**st, bias=1.0)
 
 
+def _dcd_check(st, host, viol, want):
+    """One epoch's kernel result against the plain loop's, at the bounds
+    of test_dcd_epoch_kernel_matches_plain."""
+    for name in ("beta", "w", "wb"):
+        got, ref = st[name].cpu(), host[name]
+        torch.testing.assert_close(
+            got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()) + 1e-7)
+    assert float(viol) == pytest.approx(float(want), abs=1e-5)
+
+
+def _dcd_with_plan(cuda, st, plan):  # noqa: F811
+    """One launch of the kernel with the given plan (ops.dcd_epoch takes
+    dcd_plan's)."""
+    viol = torch.empty((1,), device=cuda)
+    code = DCD.launch(_build.library(), st["phi"], st["y"], st["p"],
+                      st["lo"], st["hi"], st["q_diag"], st["live"],
+                      st["perm"], st["beta"], st["w"], st["wb"], viol,
+                      bias=1.0, plan=plan)
+    assert code == 0
+    return viol[0]
+
+
+@pytest.mark.parametrize("window", DCD.WINDOWS)
+@pytest.mark.parametrize("n,k", [(700, 1024), (300, 37), (5, 1024)])
+def test_dcd_epoch_every_window_matches_plain(cuda, window, n, k):  # noqa: F811
+    """Each window the kernel instantiates holds the plain loop's bounds
+    (a window past n, ragged last windows, unaligned rows by cp.async)."""
+    plan = DCD.dcd_plan(k, window=window)
+    assert plan.route == "ring" and plan.window == window
+    st = _dcd_state(np.random.default_rng(n + window), n, k, cuda)
+    host = {name: t.cpu().clone() for name, t in st.items()}
+    viol = _dcd_with_plan(cuda, st, plan)
+    _dcd_check(st, host, viol, DCD.dcd_epoch_plain(*host.values(), bias=1.0))
+
+
+@pytest.mark.parametrize("n,k", [(400, 4096), (150, 9000), (1, 1024),
+                                 (3, 1024), (7, 1024), (9, 1024)])
+def test_dcd_epoch_fewer_slots_and_short_sweeps(cuda, n, k):  # noqa: F811
+    """Large ranks leave fewer ring slots and a smaller window; n below a
+    window, n = 1 and one past a window."""
+    plan = DCD.dcd_plan(k)
+    assert plan.route == "ring" and 2 * plan.window <= plan.depth
+    if k > 1024:
+        assert plan.depth < DCD.MAX_DEPTH and plan.window < DCD.WINDOW
+    st = _dcd_state(np.random.default_rng(n * 7 + k), n, k, cuda)
+    host = {name: t.cpu().clone() for name, t in st.items()}
+    viol = ops.dcd_epoch(**st, bias=1.0)
+    _dcd_check(st, host, viol, DCD.dcd_epoch_plain(*host.values(), bias=1.0))
+
+
+def test_dcd_epoch_dead_coordinates_inside_windows(cuda):  # noqa: F811
+    """Dead coordinates scattered through every window, and whole windows
+    of them: no step, no viol, beta untouched."""
+    n, k = 640, 1024
+    st = _dcd_state(np.random.default_rng(5), n, k, cuda)
+    live = np.random.default_rng(6).random(n) < 0.5
+    live[64:96] = False
+    st["live"] = tt(live, torch.bool, cuda)
+    st["beta"] = st["beta"] * st["live"]
+    coef = st["y"] * st["beta"]
+    st["w"] = (st["phi"].T @ coef).contiguous()
+    st["wb"] = torch.sum(coef).reshape(1)
+    host = {name: t.cpu().clone() for name, t in st.items()}
+    viol = ops.dcd_epoch(**st, bias=1.0)
+    _dcd_check(st, host, viol, DCD.dcd_epoch_plain(*host.values(), bias=1.0))
+    assert torch.equal(st["beta"].cpu()[~torch.from_numpy(live)],
+                       host["beta"][~torch.from_numpy(live)])
+
+
+@pytest.mark.parametrize("k", [1024, 37, 9000])
+@pytest.mark.parametrize("gap", [1, 3, 7, 20, 31, 40])
+def test_dcd_epoch_repeated_indices(cuda, gap, k):  # noqa: F811
+    """A perm that repeats indices: each repeat sees the beta its earlier
+    occurrence left, at distances 1 and below a window (same window),
+    below the ring's depth (a later window, not yet written back) and
+    past it."""
+    n = 600 if k < 9000 else 120
+    st = _dcd_state(np.random.default_rng(gap + k), n, k, cuda)
+    perm = np.random.default_rng(gap).permutation(n)
+    for t in range(gap, n, 5):
+        perm[t] = perm[t - gap]
+    st["perm"] = torch.from_numpy(perm).to(cuda)
+    host = {name: t.cpu().clone() for name, t in st.items()}
+    viol = ops.dcd_epoch(**st, bias=1.0)
+    _dcd_check(st, host, viol, DCD.dcd_epoch_plain(*host.values(), bias=1.0))
+
+
+def _dcd_tasks_state(rng, sizes, n_rows, k, device):
+    """Tasks over rows of one shared Phi: concatenated per-coordinate
+    vectors, per-task permutations of local indices, w (T, k), wb (T,)."""
+    phi = tt(rng.normal(scale=1 / np.sqrt(k), size=(n_rows, k)),
+             device=device)
+    parts = [_dcd_state(rng, s, k, "cpu") for s in sizes]
+    rows = [rng.choice(n_rows, size=s, replace=False) for s in sizes]
+    cat = {name: torch.cat([pt[name] for pt in parts]).to(device)
+           for name in ("y", "p", "lo", "hi", "live", "perm", "beta")}
+    cat["rows"] = torch.from_numpy(np.concatenate(rows)).to(device)
+    cat["offsets"] = torch.tensor(np.r_[0, np.cumsum(sizes)],
+                                  dtype=torch.int64, device=device)
+    phi_cpu = phi.cpu()
+    q, w, wb = [], [], []
+    for pt, r in zip(parts, rows):
+        ph = phi_cpu[torch.from_numpy(r)]
+        q.append(torch.sum(ph * ph, dim=1) + 1.0)
+        coef = pt["y"] * pt["beta"] * pt["live"]
+        w.append(ph.T @ coef)
+        wb.append(torch.sum(coef))
+    cat["q_diag"] = torch.cat(q).to(device)
+    cat["w"] = torch.stack(w).contiguous().to(device)
+    cat["wb"] = torch.stack(wb).to(device)
+    return phi, cat
+
+
+def test_dcd_task_axis_equals_lone_launches(cuda):  # noqa: F811
+    """One task-axis launch over ragged tasks (one of one row), some left
+    out (frozen): each launched task equals its one-task launch on its
+    gathered rows bit for bit and the plain loop at the usual bounds;
+    the tasks left out are untouched."""
+    rng = np.random.default_rng(31)
+    sizes, k = [700, 1, 333, 9, 512], 1024
+    phi, st = _dcd_tasks_state(rng, sizes, 900, k, cuda)
+    before = {name: t.clone() for name, t in st.items()}
+    tasks = torch.tensor([0, 1, 3, 4], device=cuda)
+    ops.reset_launches()
+    viols = ops.dcd_epoch_tasks(phi, **st, tasks=tasks, bias=1.0)
+    assert ops.launches["dcd_epoch"] == 1
+    off = st["offsets"].tolist()
+    for b, t in enumerate(tasks.tolist()):
+        seg = slice(off[t], off[t + 1])
+        phi_t = phi.index_select(0, before["rows"][seg])
+        lone = {name: before[name][seg].clone() for name in
+                ("y", "p", "lo", "hi", "q_diag", "live", "perm", "beta")}
+        lone.update(phi=phi_t, w=before["w"][t].clone(),
+                    wb=before["wb"][t:t + 1].clone())
+        order = ("phi", "y", "p", "lo", "hi", "q_diag", "live", "perm",
+                 "beta", "w", "wb")
+        lone = {name: lone[name] for name in order}
+        host = {name: v.cpu().clone() for name, v in lone.items()}
+        viol = ops.dcd_epoch(**lone, bias=1.0)
+        assert torch.equal(st["beta"][seg], lone["beta"])
+        assert torch.equal(st["w"][t], lone["w"])
+        assert torch.equal(st["wb"][t:t + 1], lone["wb"])
+        assert float(viols[b]) == float(viol)
+        res = {"beta": st["beta"][seg], "w": st["w"][t],
+               "wb": st["wb"][t:t + 1]}
+        _dcd_check(res, host, viols[b],
+                   DCD.dcd_epoch_plain(*host.values(), bias=1.0))
+    seg = slice(off[2], off[3])
+    assert torch.equal(st["beta"][seg], before["beta"][seg])
+    assert torch.equal(st["w"][2], before["w"][2])
+
+
+def test_dcd_tasks_solve_on_card_equals_lone(cuda):  # noqa: F811
+    """The batched solve on the card: each task's result does not depend
+    on the tasks it shares the solve with (equal to the same task
+    solved alone by it), and certifies."""
+    rng = np.random.default_rng(12)
+    n_rows, k = 900, 128
+    phi = tt(rng.normal(size=(n_rows, k)) / np.sqrt(k), device=cuda)
+    rows = [np.sort(rng.choice(n_rows, size=s, replace=False))
+            for s in (400, 1, 250, 600)]
+    ys = [np.sign(phi.cpu().numpy()[r] @ rng.normal(size=k) + 0.1)
+          .astype(np.float32) for r in rows]
+    cfg = linear.DCDConfig(C=1.0, tol=1e-3)
+    batch = linear.linear_svc_tasks(phi, rows, ys, cfg=cfg)
+    for t, (r, y) in enumerate(zip(rows, ys)):
+        alone = linear.linear_svc_tasks(phi, [r], [y], cfg=cfg)[0]
+        for name in ("alpha", "w", "b", "n_iter", "converged", "gap"):
+            assert torch.equal(getattr(batch[t], name).cpu(),
+                               getattr(alone, name).cpu()), (t, name)
+        assert bool(batch[t].converged)
+        assert _lowrank_certificate(phi.cpu()[torch.from_numpy(r)], y,
+                                    batch[t].alpha.cpu(), 1.0) <= 1e-3
+
+
 def _lowrank_certificate(phi, yy, alpha, C, bias=1.0):
     """float64 KKT of the augmented-bias box QP, r pinned at 0."""
     phib = torch.cat([phi.double().cpu(),
