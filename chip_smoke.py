@@ -12,7 +12,10 @@ then:
    SVR's doubled one included, and once with a visiting order whose
    indices repeat within a window, across windows and past the ring's
    depth; the task axis of ``dcd_epoch`` over every task of each
-   multiclass low-rank fit, equal bit for bit to one-task launches);
+   multiclass low-rank fit, equal bit for bit to one-task launches;
+   the cached row entry over 200 LRU lookups at 29,491 x 102, its cache
+   state equal to the plain lookup's bit for bit and its rows equal to
+   the uncached and task-axis entries' bits);
 2. drives the main path through the entry points a user calls: a binary
    RBF ``SVC(engine="pallas")`` fit by SMO on a Pavia-shaped problem
    (~29.5k x 102), certified by a float64 KKT check of a recomputed
@@ -30,7 +33,8 @@ then:
    problem) and low-rank (``engine="rff"``), on a 16,384-row sinc
    regression problem, each certified, packed, saved, loaded and served;
    the exact fit once more in its default configuration (no shrinking),
-   whose certificate is recorded, not required (ROADMAP C);
+   whose certificate is required too (the unshrunk solver certifies a
+   recomputed gradient before it stops);
 6. drives multiclass C-SVC at the size of Pavia University (9 classes,
    102 bands, 36,864 samples, split 90/10), with separable and with
    overlapping classes: ``SVC(strategy="ovo" | "ovr",
@@ -70,7 +74,14 @@ then:
    The rows of the two redesigned kernels (``rff_features``,
    ``decision`` / ``multitask_decision``) also carry the launch plan
    (tile, SV-axis splits, feature chunk, shared memory) and what ptxas
-   reported for the instantiation they run (registers, spills).
+   reported for the instantiation they run (registers, spills). The
+   rows of the SMO row entries (uncached, cached: a miss, with the hit's
+   times beside it) and of ``kkt_select``, here and on the
+   ``task_axis`` line, carry the launch floor (an empty kernel's device
+   time), an L2 bound (the same bytes at the L2 read rate measured in
+   this run) beside the HBM one, and the device kernels a call (one
+   each), which the profiler counts at the start of the run (a
+   ``kernel_counts`` line, at the binary and the bucket shapes).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -185,6 +196,117 @@ def device_ms(fn, calls: int = 10, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def launch_floor_ms() -> float:
+    """Device time of an empty kernel launched as the port's kernels are
+    (ctypes, current stream), back to back: the floor that a kernel of a
+    few microseconds is read against."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.tile_f32 import current_stream
+    lib = _build.library()
+    return device_ms(lambda: lib.svm_empty(current_stream()), calls=50)
+
+
+def l2_read_rate(dev) -> float:
+    """Bytes/s that torch.sum reads from L2, measured here: the slope of
+    its device time between a resident 12 MiB and a resident 24 MiB
+    float32 tensor (the launch and the reduction's tail cancel)."""
+    a = torch.rand(3 << 20, device=dev)
+    b = torch.rand(6 << 20, device=dev)
+    ta = device_ms(lambda: a.sum(), calls=50)
+    tb = device_ms(lambda: b.sum(), calls=50)
+    return (b.numel() - a.numel()) * 4 / ((tb - ta) * 1e-3)
+
+
+def kernels_per_call(fn, calls: int = 20, tries: int = 3) -> float:
+    """Device kernels launched per call of ``fn``, counted by
+    torch.profiler over ``calls`` calls between short spin kernels
+    (``torch.cuda._sleep``, not counted), which take the place of the
+    first and last records where the profiler drops them: the most of
+    ``tries`` counts (the profiler can drop a kernel's records, never
+    add one)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                torch.cuda._sleep(100)
+            for _ in range(calls):
+                fn()
+            for _ in range(5):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        counts.append(sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin" not in e.key.lower()) / calls)
+    return max(counts)
+
+
+# the multiclass buckets' (T, w) at the overlapping split (PERF.md §4)
+BUCKETS = {"ovo": (36, 7430), "ovr": (9, 33178)}
+
+
+def phase_kernel_counts(ops, K, dev, n: int, d: int) -> dict:
+    """Device kernels a call of the SMO row entries and of kkt_select,
+    counted by torch.profiler at the start of the run (late in a long
+    run the profiler dropped most launches of the custom kernels; see
+    device_ms): seeded operands at the binary fit's (n, d) and at the
+    multiclass bucket shapes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    x = rand(n, d)
+    x2 = K.sqnorms(x)
+    i = torch.tensor(n // 3, device=dev)
+    hit, miss = fresh_row_cache(n, dev), fresh_row_cache(n, dev)
+    ops.gram_row_cached(x, x2, i, *hit, gamma=0.01)
+    turn = [torch.tensor(v, device=dev) for v in range(0, n, n // 64)][:64]
+    pos = [0]
+
+    def next_row():
+        pos[0] += 1
+        return turn[pos[0] % len(turn)]
+
+    def select(shape):
+        f, alpha = rand(*shape), rand(*shape)
+        y = torch.where(rand(*shape) < 0.5, 1.0, -1.0)
+        mask = torch.ones(shape, dtype=torch.bool, device=dev)
+        lo, hi = torch.zeros(shape, device=dev), torch.ones(shape, device=dev)
+        return lambda: ops.kkt_select(f, alpha, y, mask, lo, hi)
+
+    saved = dict(ops.launches)
+    out = {
+        "rbf_gram_row": kernels_per_call(
+            lambda: ops.gram_row(x, x2, i, gamma=0.01)),
+        "rbf_gram_row_cached": kernels_per_call(
+            lambda: ops.gram_row_cached(x, x2, next_row(), *miss,
+                                        gamma=0.01)),
+        "rbf_gram_row_cached_hit": kernels_per_call(
+            lambda: ops.gram_row_cached(x, x2, i, *hit, gamma=0.01)),
+        "kkt_select": kernels_per_call(select((n,)))}
+    del x, x2, hit, miss
+    for strategy, (tasks, w) in BUCKETS.items():
+        xb = rand(tasks, w, d)
+        xb2 = K.sqnorms(xb)
+        ib = torch.full((tasks,), w // 3, dtype=torch.int64, device=dev)
+        out[f"rbf_gram_row_{strategy}"] = kernels_per_call(
+            lambda: ops.gram_row(xb, xb2, ib, gamma=0.01))
+        out[f"kkt_select_{strategy}"] = kernels_per_call(select((tasks, w)))
+        del xb, xb2
+    ops.launches.update(saved)
+    emit(phase="kernel_counts", kernels_per_call=out,
+         shapes={"binary": [n, d], **{k: [*v, d] for k, v in
+                                      BUCKETS.items()}})
+    check(all(v == 1.0 for v in out.values()),
+          f"an SMO row or selection call is not one kernel: {out}")
+    return out
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_FLOP_PER_S * 1e3
@@ -250,8 +372,10 @@ def phase_parity(ops, K, G, KS, D, dev, n_train: int, d: int, n_sv: int,
              shape=[n_train, d], max_abs_err=max_err(got, want),
              bound=GRAM_TOL, ok=ok)
         check(ok, f"rbf_gram_row {dt} disagrees with its plain version")
+        err = row_cache_parity(ops, G, K, xk, x2, dt)
         if dt == "fp32":
             errs["rbf_gram_row"] = max_err(got, want)
+            errs["rbf_gram_row_cached"] = err
 
     # kkt_select: random state, a tie across blocks, an all-masked input
     n = n_train
@@ -329,6 +453,76 @@ def phase_parity(ops, K, G, KS, D, dev, n_train: int, d: int, n_sv: int,
                     errs["multitask_decision"] = max_err(got, want)
     torch.cuda.synchronize()
     return errs
+
+
+# the cached row entry's lookups: a hot set (60 % of the calls) and
+# enough other rows to evict from 32 slots many times
+ROW_CACHE_SLOTS, ROW_CACHE_CALLS = 32, 200
+
+
+def lookup_sequence(n: int, length: int = ROW_CACHE_CALLS,
+                    seed: int = SEED) -> np.ndarray:
+    """tests/test_torch_row_cache.py's sequence of row indices."""
+    rng = np.random.default_rng(seed)
+    hot = rng.choice(n, 5, replace=False)
+    cold = rng.integers(0, n, length)
+    return np.where(rng.random(length) < 0.6, rng.choice(hot, length), cold)
+
+
+def fresh_row_cache(n: int, dev):
+    """(keys, stamp, rows, clock, hits, misses) of an empty LRU cache, as
+    kernel_engine.ChunkedKernelEngine.init_cache makes it."""
+    def z():
+        return torch.zeros((), dtype=torch.int64, device=dev)
+    return (torch.full((ROW_CACHE_SLOTS,), -1, dtype=torch.int64,
+                       device=dev),
+            torch.zeros(ROW_CACHE_SLOTS, dtype=torch.int64, device=dev),
+            torch.zeros((ROW_CACHE_SLOTS, n), device=dev), z(), z(), z())
+
+
+def row_cache_parity(ops, G, K, xk, x2, dt) -> float:
+    """The cached row entry against the plain LRU lookup on the same
+    sequence of 200 indices at the main path's shape: keys, stamps,
+    clock, hits and misses equal bit for bit after every call, rows
+    within GRAM_TOL of the plain rows, and each row the bits of the
+    uncached entry and of row t of a task-axis launch (the same X
+    stacked three times, this index as task 1's)."""
+    n = xk.shape[0]
+    kern, plain = fresh_row_cache(n, xk.device), fresh_row_cache(n, xk.device)
+    stacked = torch.stack([xk, xk, xk])
+    stacked2 = torch.stack([x2, x2, x2])
+    state_equal = same_bits = close = True
+    err = 0.0
+    for t, i in enumerate(lookup_sequence(n)):
+        it = torch.tensor(int(i), device=xk.device)
+        got = ops.gram_row_cached(xk, x2, it, *kern, gamma=0.01)
+        want = G.lru_row_plain(*plain, it, lambda j: G.gram_row_plain(
+            xk, x2, j, gamma=0.01))
+        err = max(err, max_err(got, want))
+        close &= bool(torch.allclose(got, want, **GRAM_TOL))
+        state_equal &= all(bool(torch.equal(u, v)) for u, v in zip(
+            kern[:2] + kern[3:], plain[:2] + plain[3:]))
+        if t % 20 == 0:
+            three = torch.stack([it, it, it])
+            same_bits &= bool(torch.equal(got, ops.gram_row(
+                xk, x2, it, gamma=0.01))) and bool(torch.equal(
+                    got, ops.gram_row(stacked, stacked2, three,
+                                      gamma=0.01)[1]))
+    stored = max_err(kern[2], plain[2])
+    ok = (state_equal and same_bits and close
+          and bool(torch.allclose(kern[2], plain[2], **GRAM_TOL)))
+    emit(phase="parity", kernel="rbf_gram_row_cached", dtype=dt,
+         shape=[n, xk.shape[1]], slots=ROW_CACHE_SLOTS,
+         calls=ROW_CACHE_CALLS, hits=int(kern[4]), misses=int(kern[5]),
+         lru_state_equal_plain=state_equal,
+         rows_equal_uncached_and_task_axis=same_bits, max_abs_err=err,
+         stored_rows_max_abs_err=stored, bound=GRAM_TOL, ok=ok)
+    check(state_equal, f"rbf_gram_row_cached {dt}: the LRU state differs "
+          "from the plain lookup's")
+    check(same_bits, f"rbf_gram_row_cached {dt}: a row differs from the "
+          "uncached or the task-axis entry's bits")
+    check(ok, f"rbf_gram_row_cached {dt} disagrees with its plain version")
+    return err
 
 
 def warm_fit_profile(SVC, dev, xtr, ytr, n_iter, **kw):
@@ -444,7 +638,7 @@ def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
          heldout_check_launches=check_launches, heldout_acc=acc)
     check(clf.converged_, "SMO fit did not converge")
     check(kkt <= clf.smo_cfg.tol, f"f64 KKT {kkt} > tol {clf.smo_cfg.tol}")
-    for k in ("rbf_gram_row", "kkt_select"):
+    for k in ("rbf_gram_row_cached", "kkt_select"):
         check(fit_launches[k] > 0, f"fit launched no {k}")
     check(check_launches["decision"] > 0, "held-out check launched no "
           "decision kernel")
@@ -665,16 +859,16 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
         check(reg.converged_, f"SVR({engine}) did not converge")
         check(kkt <= 1e-3, f"SVR({engine}) f64 KKT {kkt} > tol")
         check(ok, f"SVR({engine}) served values differ from the engine path")
-        used = (("rbf_gram_row", "kkt_select", "decision",
+        used = (("rbf_gram_row_cached", "kkt_select", "decision",
                  "multitask_decision") if engine == "pallas"
                 else ("rff_features", "dcd_epoch"))
         for k in used:
             check(launches[k] > 0, f"SVR({engine}) launched no {k}")
         total = {k: total[k] + launches[k] for k in total}
 
-    # the exact fit as a user gets it by default (no shrinking): its
-    # float32 f cache is never recomputed, so the certificate is read,
-    # not required (ROADMAP C); launches here are not the path's
+    # the exact fit as a user gets it by default (no shrinking): the
+    # solver certifies a recomputed f before it stops (ROADMAP C, fixed),
+    # so the certificate is required; launches here are not the path's
     saved = dict(ops.launches)
     t0 = time.perf_counter()
     reg = SVR(engine="pallas", epsilon=eps, C=C, tol=1e-3,
@@ -688,8 +882,8 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
          kkt_f64=kkt, tol=1e-3, certified=kkt <= 1e-3, fit_s=fit_s)
     check(reg.converged_, "SVR(pallas), default configuration, did not "
           "converge")
-    check(bool(np.isfinite(kkt)), "SVR(pallas) default-configuration "
-          "certificate is not finite")
+    check(kkt <= 1e-3, f"SVR(pallas), default configuration: f64 KKT "
+          f"{kkt} > tol 1e-3")
     return total, lowrank
 
 
@@ -1440,7 +1634,7 @@ def phase_lm(ops, FA, SD, dev):
     return launches, errs
 
 
-def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma):
+def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma, counts):
     """The task-axis row and selection kernels at the OvO and OvR bucket
     shapes of the multiclass fits (ragged tasks zero-padded and masked,
     as the solver stacks them) against their plain versions, and their
@@ -1449,6 +1643,7 @@ def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma):
     rows."""
     saved = dict(ops.launches)
     rows = []
+    floor, l2 = launch_floor_ms(), l2_read_rate(dev)
     for strategy in ("ovo", "ovr"):
         clf = fits[strategy][0]
         bucket = clf._schedule.buckets[0]
@@ -1505,6 +1700,9 @@ def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma):
                 "max_abs_err": err, "ms": ms, "device_ms": device_ms(kern),
                 "plain_ms": plain_ms, "plain_device_ms": device_ms(plain),
                 "bound_ms": b_ms, "bound_by": b_by,
+                "l2_bound_ms": n_bytes / l2 * 1e3, "l2_read_bytes_per_s": l2,
+                "launch_floor_ms": floor,
+                "kernels_per_call": counts[f"{name}_{strategy}"],
                 "library_ms": median_ms(lib) if lib is not None else None,
                 "library_device_ms": (device_ms(lib) if lib is not None
                                       else None)})
@@ -1620,7 +1818,7 @@ def phase_timing_lm(ops, FA, SD, dev, errs, launches):
 
 
 def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
-                 launches):
+                 launches, counts):
     """Kernel, plain version and one library call, at main-path shapes."""
     x = torch.from_numpy(xtr).to(dev)
     zte = torch.from_numpy(xte).to(dev)
@@ -1643,6 +1841,26 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
     def lib_rbf(a, b):
         return torch.exp(-gamma * torch.cdist(a, b).square())
 
+    # the cached entry: 64 rows in turn through 32 slots miss every time
+    turn = [torch.tensor(v, device=dev) for v in range(0, n, n // 64)][:64]
+    miss_kern = fresh_row_cache(n, dev)
+    miss_plain = fresh_row_cache(n, dev)
+
+    turns = {"kern": 0, "plain": 0}   # each cache's own rotation
+
+    def next_row(which):
+        turns[which] += 1
+        return turn[turns[which] % len(turn)]
+
+    def miss():
+        return ops.gram_row_cached(x, x2, next_row("kern"), *miss_kern,
+                                   gamma=gamma)
+
+    def miss_plain_fn():
+        return G.lru_row_plain(*miss_plain, next_row("plain"),
+                               lambda j: G.gram_row_plain(x, x2, j,
+                                                          gamma=gamma))
+
     rows = [
         ("rbf_gram", "rbf_gram.cu", "src/repro/kernels/rbf_gram.py:91",
          lambda: ops.rbf_gram(blk, x, gamma=gamma, a2=blk2, b2=x2),
@@ -1655,6 +1873,11 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
          lambda: G.gram_row_plain(x, x2, i, gamma=gamma),
          lambda: lib_rbf(x, x[n // 3:n // 3 + 1]),
          4 * (n * d + 2 * n), n * (2 * d + 6)),
+        # a miss: X, both norms, the row into its slot and the output,
+        # keys and stamps read
+        ("rbf_gram_row_cached", "rbf_gram.cu",
+         "src/repro/kernels/rbf_gram.py:91", miss, miss_plain_fn, None,
+         4 * (n * d + 3 * n) + 16 * ROW_CACHE_SLOTS + 32, n * (2 * d + 6)),
         ("kkt_select", "kkt_select.cu", "src/repro/kernels/kkt_select.py:57",
          lambda: ops.kkt_select(f, alpha, yv, mask, lo, hi),
          lambda: KS.kkt_select_plain(f, alpha, yv, mask, lo, hi),
@@ -1673,8 +1896,41 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
          4 * (1024 * d + w * d + w + 1024), 1024 * w * (2 * d + 8)),
     ]
     out = [time_row(ops, *row, launches, errs[row[0]]) for row in rows]
-    out[3].update(redesign_info("decision", (nte, 1, w, d)))
-    out[4].update(redesign_info("decision", (1024, 1, w, d)))
+    out[4].update(redesign_info("decision", (nte, 1, w, d)))
+    out[5].update(redesign_info("decision", (1024, 1, w, d)))
+
+    # the two SMO kernels beside the launch floor and an L2 bound (X
+    # stays in L2 across the SMO loop), with kernels counted a call
+    floor, l2 = launch_floor_ms(), l2_read_rate(dev)
+    hit_cache = fresh_row_cache(n, dev)
+    ops.gram_row_cached(x, x2, i, *hit_cache, gamma=gamma)
+
+    def hit():
+        return ops.gram_row_cached(x, x2, i, *hit_cache, gamma=gamma)
+
+    saved = dict(ops.launches)
+    hit_bytes = 4 * 2 * n + 16 * ROW_CACHE_SLOTS + 32
+    extra = {
+        "rbf_gram_row": {},
+        "rbf_gram_row_cached": dict(
+            hit_ms=median_ms(hit), hit_device_ms=device_ms(hit),
+            hit_bound_ms=hit_bytes / HBM_BYTES_PER_S * 1e3,
+            hit_l2_bound_ms=hit_bytes / l2 * 1e3,
+            hit_kernels_per_call=counts["rbf_gram_row_cached_hit"]),
+        "kkt_select": {},
+    }
+    for row in out:
+        if row["name"] not in extra:
+            continue
+        n_bytes = row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S
+        if row["bound_by"] == "bytes":
+            row["l2_bound_ms"] = n_bytes / l2 * 1e3
+        row.update(launch_floor_ms=floor, l2_read_bytes_per_s=l2,
+                   kernels_per_call=counts[row["name"]],
+                   **extra[row["name"]])
+    cached = next(r for r in out if r["name"] == "rbf_gram_row_cached")
+    cached["hits_misses_of_timing"] = [int(miss_kern[4]), int(miss_kern[5])]
+    ops.launches.update(saved)
     return out
 
 
@@ -1713,13 +1969,14 @@ def main() -> int:
 
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
+    counts = phase_kernel_counts(ops, K, dev, n=29491, d=102)
     path = os.path.join(out_dir, "chip_smoke_model.npz")
     xtr, xte, df_engine, fit_launches, _, (ytr, yte, acc) = phase_fit(
         ops, data, smo, KE, serve_mod, SVC, dev, path)
     serve_launches, packed = phase_serve(ops, serve_mod, dev, path, xte,
                                          df_engine)
     exact = {k: fit_launches[k] + serve_launches[k] for k in ops.KERNELS}
-    for k in ("rbf_gram", "rbf_gram_row", "kkt_select", "decision",
+    for k in ("rbf_gram", "rbf_gram_row_cached", "kkt_select", "decision",
               "multitask_decision"):
         check(exact[k] > 0, f"main path launched no {k} kernel")
     clf, phi, yy, lr_fit = phase_lowrank_fit(ops, smo, SVC, dev, xtr, ytr,
@@ -1756,7 +2013,7 @@ def main() -> int:
         fits[strategy] = (*fits[strategy],
                           mc_paths[f"svc_{strategy}_{config}"])
     phase_task_axis(ops, K, G, KS, D, dist, dev, fits, split[2],
-                    fits["ovo"][0].kernel_params.gamma)
+                    fits["ovo"][0].kernel_params.gamma, counts)
     errs = phase_parity(ops, K, G, KS, D, dev, n_train=xtr.shape[0],
                         d=xtr.shape[1], n_sv=packed.n_support,
                         n_test=len(xte))
@@ -1771,7 +2028,7 @@ def main() -> int:
     del lowrank_fits
     errs.update(lm_errs)
     kernels = phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed,
-                           packed.kernel.gamma, errs, launches)
+                           packed.kernel.gamma, errs, launches, counts)
     kernels += phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi, yy,
                                     errs, launches, svr_state, svr,
                                     task_rows)

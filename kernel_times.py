@@ -4,6 +4,7 @@ checkout of this repository.
 
     python3 kernel_times.py --packs DIR [--src DIR] [--sweep] [--out FILE]
     python3 kernel_times.py --dcd --packs DIR [--src DIR] [--dcd-sweep]
+    python3 kernel_times.py --smo [--src DIR] [--smo-sweep] [--out FILE]
 
 ``--packs`` holds what chip_smoke.py saves under ``chiprun_out/``: the
 exact binary SVC (``chip_smoke_model.npz``), the OvO and OvR models of
@@ -43,16 +44,43 @@ shape, and a build of a copy of ``csrc/dcd_epoch.cu`` with the
 producer's row copies cut out: the time of the chain alone, a
 diagnostic that is never shipped.
 
+``--smo`` times the exact SMO solver's two kernels and fits (``smo``
+lines; no packs: the data are made as chip_smoke.py makes them). At the
+binary fit's shape (29,491 x 102, ``binary_split``): a Gram row through
+the pallas engine's LRU cache (``engine.row(i, cache)``) on a hit and
+on a miss (64 rows in turn through 32 slots), and ``ops.gram_row``
+uncached; ``ops.gram_row`` with the task axis at the OvO and OvR
+buckets of the overlapping multiclass split (``pavia_split``);
+``ops.kkt_select`` at T = 1 and at both buckets. Each with its device
+time (``chip_smoke.device_ms``), the wall time of one call among 500
+back to back (``host_us``) and the device kernels a call (profiler);
+beside them the device time of an empty kernel launched as the kernels
+are (a checkout whose library has ``svm_empty``). Then the exact SVC
+(``SVC(engine="pallas", shrink_every=4)`` on the binary split) and the
+exact OvO fit (overlapping split), each fitted once, then warm: wall
+seconds, and under the profiler device busy share and kernels an
+iteration (``chip_smoke.warm_profile``). ``--smo-sweep`` (this tree)
+adds the cached row call at the binary shape for builds of copies of
+``csrc/rbf_gram.cu`` cut by a regex, diagnostics that are never
+shipped: without the ticket (the lookup warp never writes the cache's
+state), without the row's store into its slot, and with at most 4 row
+warps a block (the shipped kernel takes 8); and ``kkt_select`` at its
+three shapes for a build with blocks of 1,024 threads (the shipped one
+takes 256).
+
 Two checkouts compare in one call of the chip tool, each run in its own
 process: parent, change, change, parent, and so on.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -63,17 +91,23 @@ PACKS = {"binary": "chip_smoke_model.npz",
 DCD_PACKS = {"lowrank": "chip_smoke_lowrank.npz",
              "ovo_lowrank": "chip_smoke_ovo_lowrank.npz"}
 WARM_EPOCHS = 20
+HOST_CALLS = 500   # back-to-back calls a host_us reading averages
 
 
 def _args():
     p = argparse.ArgumentParser()
-    p.add_argument("--packs", required=True)
+    p.add_argument("--packs")
     p.add_argument("--src", default=os.path.join(HERE, "src"))
     p.add_argument("--sweep", action="store_true")
     p.add_argument("--out", default=None)
     p.add_argument("--dcd", action="store_true")
     p.add_argument("--dcd-sweep", action="store_true")
-    return p.parse_args()
+    p.add_argument("--smo", action="store_true")
+    p.add_argument("--smo-sweep", action="store_true")
+    args = p.parse_args()
+    if args.packs is None and not args.smo:
+        p.error("--packs is required, except with --smo")
+    return args
 
 
 def main() -> int:
@@ -107,12 +141,15 @@ def main() -> int:
     if args.dcd:
         dcd_times(args, cs, data, serve, ops, dev, emit)
         return 0
+    if args.smo:
+        smo_times(cs, data, _build, ops, dev, emit, args.smo_sweep)
+        return 0
     packs = {k: serve.load(os.path.join(args.packs, f))
              for k, f in PACKS.items()}
     xtr_b, _, xte_b, _ = cs.binary_split(data)
     xte_m = cs.pavia_split(data, cs.PAVIA_NOISE["overlapping"])[2]
 
-    def host_us(fn, calls=500):
+    def host_us(fn, calls=HOST_CALLS):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -196,6 +233,210 @@ def main() -> int:
              library_device_ms=cs.device_ms(
                  lambda: scale * torch.cos(torch.addmm(ph, xs, om))))
     return 0
+
+
+def smo_times(cs, data, _build, ops, dev, emit, sweep=False):
+    """The ``--smo`` lines (see the module's docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dist, kernel_engine as KE
+    from repro_torch.core import kernels as K
+    from repro_torch.core import multiclass as MC
+    from repro_torch.core.svm import SVC
+    from repro_torch.kernels.tile_f32 import current_stream
+
+    def host_us(fn, calls=HOST_CALLS):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    def timed(fn):
+        # as many calls as the host enqueues in ~2.5 ms, well inside the
+        # spin kernel that device_ms queues them behind
+        us = host_us(fn)
+        calls = max(3, min(50, int(2500 / us)))
+        return dict(device_ms=cs.device_ms(fn, calls=calls), host_us=us,
+                    device_calls=calls,
+                    kernels_per_call=cs.kernels_per_call(fn))
+
+    lib = _build.library()
+    empty = getattr(lib, "svm_empty", None)
+    if empty is not None:
+        empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+        emit(measure="smo", case="empty_kernel",
+             **timed(lambda: empty(current_stream())))
+
+    xtr, ytr, _, _ = cs.binary_split(data)
+    x = torch.from_numpy(xtr).to(dev)
+    n, d = x.shape
+    kp = K.resolve_gamma(K.KernelParams(gamma=-1.0), x)
+    eng = KE.make_engine(x, kp, "pallas")
+    i = torch.tensor(n // 3, device=dev)
+    turn = [torch.tensor(v, device=dev) for v in range(0, n, n // 64)][:64]
+    hit_cache, miss_cache = eng.init_cache(), eng.init_cache()
+    eng.row(i, hit_cache)
+    pos = [0]
+
+    def miss():
+        pos[0] += 1
+        return eng.row(turn[pos[0] % len(turn)], miss_cache)
+
+    for case, fn in (("row_cached_hit", lambda: eng.row(i, hit_cache)),
+                     ("row_cached_miss", miss),
+                     ("row_uncached", lambda: ops.gram_row(
+                         eng._xk, eng._x2, i, gamma=kp.gamma))):
+        emit(measure="smo", case=case, shape=[n, d], **timed(fn))
+    emit(measure="smo", case="row_cache_counts",
+         hit_cache=[int(hit_cache.hits), int(hit_cache.misses)],
+         miss_cache=[int(miss_cache.hits), int(miss_cache.misses)])
+    stack = contextlib.ExitStack()
+    wide = None   # a ticket route of 1,024-thread blocks (--smo-sweep)
+    if sweep:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory(
+            dir=_build.BUILD_DIR))
+        row_sweep(cs, _build, eng, i, turn, emit, tmp)
+        wide = variant_lib(_build, tmp, "kkt_select.cu", "kkt_wide_blocks",
+                           [(r"KKT_THREADS = 256;", "KKT_THREADS = 1024;")],
+                           "svm_kkt_select")
+
+    rng = np.random.default_rng(cs.SEED)
+    from repro_torch.kernels import kkt_select as KS
+
+    def selection(shape, y, mask, case, **tags):
+        f = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            dev)
+        alpha = torch.from_numpy(np.where(
+            rng.random(shape) < 0.4, 0.0, rng.uniform(0, 1, shape)).astype(
+                np.float32)).to(dev)
+        lo, hi = torch.zeros_like(f), torch.ones_like(f)
+        emit(measure="smo", case=case, shape=list(shape), **tags,
+             **timed(lambda: ops.kkt_select(f, alpha, y, mask, lo, hi)))
+        if wide is None:
+            return
+        # the diagnostic build: 1,024-thread blocks, the same bits
+        tasks = shape[0] if len(shape) == 2 else 1
+        vals = torch.empty((2, tasks), device=dev)
+        idx = torch.empty((2, tasks), dtype=torch.int64, device=dev)
+        b_up, i_up, b_low, i_low = (v.reshape(-1) for v in ops.kkt_select(
+            f, alpha, y, mask, lo, hi))
+        blocks = -(-shape[-1] // 4096)
+
+        def run():
+            return KS.launch(wide, f, alpha, y, mask, lo, hi, vals, idx,
+                             blocks=blocks)
+
+        assert run() == 0
+        same = (torch.equal(vals[0], b_up) and torch.equal(vals[1], b_low)
+                and torch.equal(idx[0], i_up) and torch.equal(idx[1], i_low))
+        emit(measure="smo_sweep", build="kkt_1024_thread_blocks", case=case,
+             shape=list(shape), **tags, blocks=blocks,
+             equal_to_entry=bool(same), device_ms=cs.device_ms(run, calls=50))
+
+    yb = torch.from_numpy(np.where(ytr == ytr.max(), 1.0, -1.0).astype(
+        np.float32)).to(dev)
+    selection((n,), yb, torch.ones(n, dtype=torch.bool, device=dev),
+              "kkt_select")
+
+    xm, ym, _, _ = cs.pavia_split(data, cs.PAVIA_NOISE["overlapping"])
+    for strategy in ("ovo", "ovr"):
+        taskset = MC.get_strategy(strategy).build_taskset(xm, ym)
+        bucket = MC.build_schedule(taskset.sizes).buckets[0]
+        xt, yt, mk, _ = dist._bucket_arrays(taskset, bucket)
+        xb = torch.from_numpy(xt).to(dev)
+        x2 = K.sqnorms(xb)
+        mask = torch.from_numpy(mk).to(dev)
+        ib = (mask.sum(dim=1) // 3).to(torch.int64)
+        emit(measure="smo", case="row_task_axis", strategy=strategy,
+             shape=list(xb.shape), **timed(lambda: ops.gram_row(
+                 xb, x2, ib, gamma=kp.gamma)))
+        selection(tuple(mask.shape), torch.from_numpy(yt).to(dev), mask,
+                  "kkt_select_task_axis", strategy=strategy)
+    del xb, x2
+
+    fits = (("svc_exact", xtr, ytr, dict(engine="pallas", shrink_every=4)),
+            ("ovo_exact", xm, ym, dict(strategy="ovo", decision="vote",
+                                       engine="pallas", C=1.0, tol=1e-3)))
+    stack.close()
+    for case, xf, yf, kw in fits:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clf = SVC(**kw, device=dev).fit(xf, yf)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        iters = (int(clf.n_iter_) if "strategy" not in kw
+                 else int(clf._fit.n_iter.max()))
+        warm_s, busy = cs.warm_profile(
+            lambda: SVC(**kw, device=dev).fit(xf, yf), iters)
+        busy.pop("top")
+        emit(measure="smo", case=case, n_iter=iters, fit_s=fit_s,
+             fit_s_warm=warm_s, **busy)
+
+
+def variant_lib(_build, tmp, source, name, subs, export):
+    """A copy of csrc/``source`` with each (regex, replacement) of
+    ``subs`` made once, built alone into ``tmp`` and loaded; ``export``
+    gets the shipped library's signature."""
+    import re
+    csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
+    with open(os.path.join(csrc, source)) as f:
+        src = f.read()
+    for pat, new in subs:
+        src, k = re.subn(pat, new, src)
+        assert k == 1, (name, pat, k)
+    path = os.path.join(tmp, f"{name}.cu")
+    so = os.path.join(tmp, f"{name}.so")
+    with open(path, "w") as f:
+        f.write(src)
+    subprocess.run([_build._nvcc(), *_build.FLAGS, "-I", csrc, "-shared",
+                    path, "-o", so], check=True)
+    lib = ctypes.CDLL(so)
+    fn = getattr(lib, export)
+    fn.argtypes = _build.SIGNATURES[export]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def row_sweep(cs, _build, eng, i, turn, emit, tmp):
+    """The cached row call (hit, miss) at the binary shape for builds of
+    copies of csrc/rbf_gram.cu cut by a regex (see the docstring)."""
+    from repro_torch.kernels import rbf_gram as G
+    cuts = {
+        "shipped": [],
+        "no_ticket": [(r"take_ticket\(c\.ticket\) == gridDim\.x \* "
+                       r"gridDim\.y - 1", "false")],
+        "no_slot_store": [(r"if \(CACHED\) c\.rows\[slot \* n \+ r\] "
+                           r"= v;", "")],
+    }
+    cuts["no_ticket_no_slot_store"] = (cuts["no_ticket"]
+                                       + cuts["no_slot_store"])
+    cuts["four_row_warps"] = [(r"MAX_ROW_WARPS = 8;", "MAX_ROW_WARPS = 4;")]
+    for name, subs in cuts.items():
+        lib = variant_lib(_build, tmp, "rbf_gram.cu", f"row_{name}", subs,
+                          "svm_rbf_gram_row_cached")
+        caches = {"hit": eng.init_cache(), "miss": eng.init_cache()}
+        eng.row(i, caches["hit"])   # the shipped kernel fills the slot
+        pos = [0]
+
+        def call(which):
+            c = caches[which]
+            if which == "miss":
+                pos[0] += 1
+            row = i if which == "hit" else turn[pos[0] % len(turn)]
+            out = eng._x2.new_empty(eng._x2.shape)
+            return G.launch_row_cached(
+                lib, eng._xk, eng._x2, row, out, c.keys, c.stamp,
+                c.rows, c.clock, c.hits, c.misses,
+                gamma=eng.kernel.gamma, mode="rbf")
+
+        for which in ("hit", "miss"):
+            assert call(which) == 0
+            emit(measure="smo_sweep", build=name, case=f"row_cached_"
+                 f"{which}", device_ms=cs.device_ms(lambda: call(which),
+                                                    calls=50))
 
 
 def dcd_times(args, cs, data, serve, ops, dev, emit):

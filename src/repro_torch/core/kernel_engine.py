@@ -31,9 +31,10 @@ off, the default of ``torch.backends.cuda.matmul.allow_tf32``).
 
 Row indices are 0-d int64 tensors on the engine's device, and the row
 cache decides hit or miss on the device, so the SMO loop never waits
-for the host to learn either. The cache is updated in place (the
-reference threads a functional copy through its loop); hit and miss
-counts follow the reference exactly.
+for the host to learn either (under ``pallas`` the lookup, the row and
+the cache's update are one launch of the cached row kernel). The cache
+is updated in place (the reference threads a functional copy through
+its loop); hit and miss counts follow the reference exactly.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ import torch
 
 from repro_torch.core import kernels as K
 from repro_torch.kernels import ops
+from repro_torch.kernels.rbf_gram import lru_row_plain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +88,8 @@ class RowCache:
     clock: torch.Tensor   # () int64 monotone tick
     hits: torch.Tensor    # () int64 lookup statistics
     misses: torch.Tensor  # () int64
+    # every field is updated in place (rbf_gram.lru_row_plain or the
+    # cached row kernel), so one RowCache stays valid for a whole solve
 
 
 def take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -184,14 +188,6 @@ class ChunkedKernelEngine(KernelEngine):
     def _compute_row(self, i: torch.Tensor) -> torch.Tensor:
         return self._gram_fn(self.x, take(self.x, i)[None, :])[:, 0]
 
-    def _fill_slot(self, i, slot, hit, rows) -> None:
-        """Write row i into ``rows[slot]`` unless ``hit``. The plain
-        path computes the row either way and selects on the device."""
-        slot1 = slot.reshape(1)
-        cur = rows.index_select(0, slot1)[0]
-        rows.index_copy_(0, slot1,
-                         torch.where(hit, cur, self._compute_row(i))[None])
-
     def init_cache(self) -> Optional[RowCache]:
         slots = self.cfg.cache_slots
         if slots <= 0:
@@ -211,20 +207,14 @@ class ChunkedKernelEngine(KernelEngine):
     def row(self, i, cache: Optional[RowCache] = None):
         if cache is None:
             return self._compute_row(i), None
-        hit_vec = cache.keys == i
-        hit = hit_vec.any()
-        # hit: the slot holding i; miss: the least recently used slot
-        slot = torch.where(hit, torch.argmax(hit_vec.to(torch.int32)),
-                           torch.argmin(cache.stamp))
-        tick = cache.clock + 1
-        self._fill_slot(i, slot, hit, cache.rows)
-        slot1 = slot.reshape(1)
-        cache.keys.index_copy_(0, slot1, i.reshape(1).to(torch.int64))
-        cache.stamp.index_copy_(0, slot1, tick.reshape(1))
-        cache.clock = tick
-        cache.hits = cache.hits + hit.to(torch.int64)
-        cache.misses = cache.misses + (~hit).to(torch.int64)
-        return cache.rows.index_select(0, slot1)[0], cache
+        return self._cached_row(i, cache), cache
+
+    def _cached_row(self, i, cache: RowCache) -> torch.Tensor:
+        """Row i through the LRU cache, updated in place (the lookup the
+        plain path runs; the pallas engine does it in one launch)."""
+        return lru_row_plain(cache.keys, cache.stamp, cache.rows,
+                             cache.clock, cache.hits, cache.misses, i,
+                             self._compute_row)
 
     def matvec(self, v):
         return torch.cat([self._gram_fn(xb, self.x) @ v
@@ -272,11 +262,13 @@ class PallasKernelEngine(ChunkedKernelEngine):
         return ops.gram_row(self._xk, self._x2, i, gamma=self.kernel.gamma,
                             mode=self._mode)
 
-    def _fill_slot(self, i, slot, hit, rows) -> None:
+    def _cached_row(self, i, cache):
         if self._mode is None:
-            return super()._fill_slot(i, slot, hit, rows)
-        ops.gram_row(self._xk, self._x2, i, gamma=self.kernel.gamma,
-                     mode=self._mode, out=rows, slot=slot, skip=hit)
+            return super()._cached_row(i, cache)
+        return ops.gram_row_cached(
+            self._xk, self._x2, i, cache.keys, cache.stamp, cache.rows,
+            cache.clock, cache.hits, cache.misses, gamma=self.kernel.gamma,
+            mode=self._mode)
 
     def cross(self, z):
         if self._mode is None:

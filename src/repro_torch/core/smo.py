@@ -22,9 +22,14 @@ of ``check_every`` iterations — the paper's "convergence checks on the
 host for every set of iterations on the device". As in the reference,
 a block always runs all its iterations (a step after convergence is a
 no-op), ``n_iter`` counts only live steps, and ``max_iter`` is tested
-per block. On the card, selection is the ``kkt_select`` kernel and the
-two kernel rows per iteration come from the ``rbf_gram`` row kernel
-(``engine="pallas"``).
+per block. Without shrinking, a check whose gap says converged also
+recomputes f once and stops only if the float64 ``kkt_violation`` of
+that f is <= tol (the reference stops on its float32 gap alone, which
+~60k float32 f updates can leave past tol); a certified state is
+returned as the cached f gives it, bit for bit the reference's. On the
+card, selection is the ``kkt_select`` kernel and the two kernel rows per
+iteration come from the ``rbf_gram`` cached row kernel
+(``engine="pallas"``: one launch a row, the LRU lookup included).
 
 ``solve_qp_tasks`` / ``binary_smo_tasks`` solve the T problems of a
 multiclass bucket at once (x (T, w, d)): the same iteration over (T, w)
@@ -255,6 +260,18 @@ def _smo_iteration(st: _State, *, y, mask, lo, hi, engine, cfg: SMOConfig,
     st.b_up, st.b_low, st.cache = b_up, b_low, cache
 
 
+def _certified(eng, alpha, y, p, lo, hi, mask, tol: float):
+    """(certified, f) at a converged check of an unshrunk solve: f
+    recomputed by one matvec, and whether its float64 KKT violation is
+    <= tol. The float32 f cache drifts from the exact gradient over many
+    updates, so the solver stops only on a certified state, and then on
+    its cached f (a state that certifies at once is the reference's bit
+    for bit); else it goes on from the recomputed f. A state whose f was
+    just recomputed and took no step since stops as it is."""
+    f = eng.matvec(alpha * y) + y * p
+    return float(kkt_violation(alpha, y, f, lo, hi, mask=mask)) <= tol, f
+
+
 def _resolve_engine(x, kernel, engine) -> KE.KernelEngine:
     if isinstance(engine, KE.KernelEngine):
         return engine
@@ -333,6 +350,7 @@ def solve_qp(x: torch.Tensor,
     two_tol = 2.0 * cfg.tol
 
     done, n_iter, checks = False, 0, 0
+    exact_at = -1   # n_iter at which st.f was last recomputed
     while not done and n_iter < cfg.max_iter:
         # paper Fig. 3: `check_every` device iterations between checks
         for _ in range(cfg.check_every):
@@ -342,6 +360,11 @@ def solve_qp(x: torch.Tensor,
         conv, n_iter = torch.stack([conv_active.to(torch.int64),
                                     st.n_iter]).tolist()  # the one read
         if not shrink:
+            if conv and n_iter != exact_at:
+                ok, f_exact = _certified(eng, st.alpha, y, p, lo, hi, mask,
+                                         cfg.tol)
+                if not ok:
+                    st.f, exact_at, conv = f_exact, n_iter, False
             done = bool(conv)
             continue
         checks += 1
@@ -414,9 +437,10 @@ def solve_qp_tasks(x: torch.Tensor,
     task-axis ``kkt_select`` and ``rbf_gram`` row kernels under
     ``engine="pallas"``), and the host reads one flag per block of
     ``check_every`` iterations. Each task freezes once its own gap
-    closes or its ``n_iter`` reaches ``max_iter`` at a check, as a
-    vmapped while loop keeps a finished lane, so its alphas, b and
-    n_iter are those of the same task solved alone by ``solve_qp``.
+    closes (and a recomputed f certifies it, as in ``solve_qp``) or its
+    ``n_iter`` reaches ``max_iter`` at a check, as a vmapped while loop
+    keeps a finished lane, so its alphas, b and n_iter are those of the
+    same task solved alone by ``solve_qp``.
     Shrinking is forced off (the reference forces it off under vmap).
     Returns an ``SMOResult`` of (T, w) / (T,) tensors.
     """
@@ -463,13 +487,32 @@ def solve_qp_tasks(x: torch.Tensor,
     two_tol = 2.0 * cfg.tol
 
     frozen = st.n_iter >= cfg.max_iter
-    while not bool(frozen.all()):   # the one host read per block
+    exact_at = torch.full((n_tasks,), -1, dtype=torch.int64, device=dev)
+    all_frozen = bool(frozen.all())
+    while not all_frozen:
         live = ~frozen
         for _ in range(cfg.check_every):
             _smo_iteration(st, y=y, mask=mask, lo=lo, hi=hi, engine=eng,
                            cfg=cfg, diag=diag, live=live)
-        frozen = (frozen | (st.b_low <= st.b_up + two_tol)
-                  | (st.n_iter >= cfg.max_iter))
+        # as solve_qp: a task whose gap closes is certified on a
+        # recomputed f before it freezes, else goes on from that f
+        conv = live & (st.b_low <= st.b_up + two_tol)
+        check = conv & (st.n_iter != exact_at)
+        frozen = frozen | conv | (st.n_iter >= cfg.max_iter)
+        flags = torch.cat([check, frozen.all().reshape(1)]).tolist()
+        all_frozen = bool(flags[-1])   # the one host read per block
+        failed = []
+        for t in (t for t, c in enumerate(flags[:-1]) if c):
+            ok, f_t = _certified(eng.tasks[t], st.alpha[t], y[t], p[t],
+                                 lo[t], hi[t], mask[t], cfg.tol)
+            if not ok:
+                st.f[t] = f_t
+                failed.append(t)
+        if failed:
+            ids = torch.tensor(failed, device=dev)
+            exact_at[ids] = st.n_iter[ids]
+            frozen[ids] = st.n_iter[ids] >= cfg.max_iter
+            all_frozen = bool(frozen.all())
 
     b_up, _, b_low, _ = _selection(st.f, st.alpha, y, mask, lo, hi)
     return SMOResult(alpha=st.alpha * mask, b=-(b_up + b_low) / 2.0,

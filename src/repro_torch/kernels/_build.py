@@ -35,9 +35,11 @@ _F = ctypes.c_float
 # every exported function returns cudaGetLastError() as an int
 SIGNATURES = {
     "svm_rbf_gram_block": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-    "svm_rbf_gram_row": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
-                         _P],
-    "svm_kkt_select": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P],
+    "svm_rbf_gram_row": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "svm_rbf_gram_row_cached": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _P, _I, _I, _F, _I, _I, _P],
+    "svm_kkt_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                       _P],
     "svm_decision": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
                      _P, _P, _P],
     "svm_multitask_decision": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
@@ -49,6 +51,7 @@ SIGNATURES = {
     "svm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _I, _I, _I, _P],
     "svm_ssd_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "svm_empty": [_P],
 }
 
 _lock = threading.Lock()

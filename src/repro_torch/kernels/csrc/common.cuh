@@ -95,6 +95,20 @@ __device__ __forceinline__ void tile_dot(TileSmem& sm, const T* A, int a0,
   __syncthreads();
 }
 
+// Add one to a ticket counter in device memory and return the count
+// before it, with acquire and release at gpu scope: what a block read or
+// wrote before its ticket happens before what the block that takes the
+// last ticket does after it (rbf_gram.cu's cached row entry,
+// kkt_select.cu's ticket route). No __threadfence around it.
+__device__ __forceinline__ unsigned take_ticket(int* t) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(t)
+               : "memory");
+  return old;
+}
+
 // exp(-gamma * max(a2 + b2 - 2 dot, 0)), rounded step by step as the
 // reference writes it (the _rn intrinsics keep nvcc from contracting
 // the epilogue into FMAs the reference does not do).

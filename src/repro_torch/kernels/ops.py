@@ -32,11 +32,11 @@ from repro_torch.kernels import rbf_gram as _gram
 from repro_torch.kernels import ssd_diag as _ssd
 from repro_torch.kernels.tile_f32 import current_stream
 
-# one count per kernel entry point: rbf_gram.cu has a block and a row one;
-# a launch with the task axis (a multiclass bucket, the tasks of a
-# multiclass low-rank fit) counts once, whatever T
-KERNELS = ("rbf_gram", "rbf_gram_row", "kkt_select", "decision",
-           "multitask_decision", "rff_features", "dcd_epoch",
+# one count per kernel entry point: rbf_gram.cu has a block, a row and a
+# cached-row one; a launch with the task axis (a multiclass bucket, the
+# tasks of a multiclass low-rank fit) counts once, whatever T
+KERNELS = ("rbf_gram", "rbf_gram_row", "rbf_gram_row_cached", "kkt_select",
+           "decision", "multitask_decision", "rff_features", "dcd_epoch",
            "flash_attention", "ssd_diag")
 
 # the largest rank dcd_epoch takes: w must fit the 232,448 bytes of
@@ -143,66 +143,84 @@ def rbf_gram(a: torch.Tensor, b: torch.Tensor, *, gamma: float = 1.0,
     return out
 
 
+def _row_operands(name: str, x, x2, i):
+    if x.ndim not in (2, 3) or x.dtype not in (torch.float32,
+                                               torch.bfloat16):
+        raise ValueError(f"{name}: x must be (n, d) or (T, n, d) "
+                         f"float32/bfloat16, got {tuple(x.shape)} {x.dtype}")
+    lead = x.shape[:-2]
+    if i.shape != lead or i.dtype != torch.int64:
+        raise ValueError(f"{name}: i must be int64 of shape {tuple(lead)}"
+                         f" (one index per task), got {tuple(i.shape)} "
+                         f"{i.dtype}")
+    if x2.shape != x.shape[:-1] or x2.dtype != torch.float32:
+        raise ValueError(f"{name}: x2 must be {tuple(x.shape[:-1])} "
+                         "float32")
+
+
 def gram_row(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor, *,
-             gamma: float = 1.0, mode: str = "rbf",
-             out: torch.Tensor | None = None,
-             slot: torch.Tensor | None = None,
-             skip: torch.Tensor | None = None) -> torch.Tensor:
+             gamma: float = 1.0, mode: str = "rbf") -> torch.Tensor:
     """The Gram row K(X, x_i), (n,) float32, for the SMO f-cache update.
 
     ``x`` is already at the compute precision (float32 or bfloat16) and
     ``x2`` its float32 squared norms; ``i`` is a 0-d int64 tensor on the
-    same device, so the solver never reads it on the host. With
-    ``out`` (a (slots, n) LRU row store), the row is written into
-    ``out[slot]`` unless the 0-d bool ``skip`` is set (a cache hit), and
-    ``out`` is returned.
+    same device, so the solver never reads it on the host.
 
     Task axis (one launch for a multiclass bucket): x (T, n, d), x2
-    (T, n) and i (T,) give the (T, n) rows K(X_t, x_t[i_t]); the row
-    store is a one-task feature."""
+    (T, n) and i (T,) give the (T, n) rows K(X_t, x_t[i_t]), each the
+    bits of the same row from a one-task call."""
     _check_mode(mode)
-    batched = x.ndim == 3
-    if x.ndim not in (2, 3) or x.dtype not in (torch.float32,
-                                               torch.bfloat16):
-        raise ValueError(f"gram_row: x must be (n, d) or (T, n, d) "
-                         f"float32/bfloat16, got {tuple(x.shape)} {x.dtype}")
-    lead = x.shape[:-2]
-    if i.shape != lead or i.dtype != torch.int64:
-        raise ValueError(f"gram_row: i must be int64 of shape {tuple(lead)}"
-                         f" (one index per task), got {tuple(i.shape)} "
-                         f"{i.dtype}")
-    n = x.shape[-2]
-    if x2.shape != x.shape[:-1] or x2.dtype != torch.float32:
-        raise ValueError(f"gram_row: x2 must be {tuple(x.shape[:-1])} "
-                         "float32")
-    if out is not None and (batched or out.ndim != 2 or out.shape[1] != n
-                            or out.dtype != torch.float32
-                            or slot is None or skip is None):
-        raise ValueError("gram_row: out must be a (slots, n) float32 row "
-                         "store of one task, given with slot and skip")
-    extra = [] if out is None else [out, slot, skip]
-    if not _on_card("gram_row", x, x2, i, *extra):
-        row = _gram.gram_row_plain(x, x2, i, gamma=gamma, mode=mode)
-        if out is None:
-            return row
-        cur = out.index_select(0, slot.reshape(1))[0]
-        out.index_copy_(0, slot.reshape(1), torch.where(skip, cur, row)[None])
-        return out
+    _row_operands("gram_row", x, x2, i)
+    if not _on_card("gram_row", x, x2, i):
+        return _gram.gram_row_plain(x, x2, i, gamma=gamma, mode=mode)
     _check_contiguous("gram_row", x=x, x2=x2, i=i)
-    if out is None:
-        out = torch.empty(x.shape[:-1] if batched else (1, n),
-                          dtype=torch.float32, device=x.device)
-        result = out if batched else out[0]
-    else:
-        _check_contiguous("gram_row", out=out)
-        if slot.dtype != torch.int64 or skip.dtype != torch.bool:
-            raise ValueError("gram_row: slot must be int64 and skip bool")
-        result = out
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     lib = _build.library()
     _count("rbf_gram_row")
     _raise_on_error("rbf_gram_row", _gram.launch_row(
-        lib, x, x2, i, out, slot, skip, gamma=gamma, mode=mode))
-    return result
+        lib, x, x2, i, out, gamma=gamma, mode=mode))
+    return out
+
+
+def gram_row_cached(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor,
+                    keys: torch.Tensor, stamp: torch.Tensor,
+                    rows: torch.Tensor, clock: torch.Tensor,
+                    hits: torch.Tensor, misses: torch.Tensor, *,
+                    gamma: float = 1.0, mode: str = "rbf") -> torch.Tensor:
+    """``gram_row`` through the solver's LRU row cache (the fields of
+    ``kernel_engine.RowCache``: keys / stamp (slots,) int64, rows
+    (slots, n) float32, clock / hits / misses 0-d int64), in one launch
+    on the card: the lookup, the row on a miss (written into its slot),
+    the state's update in place, and a (n,) copy of the row. The state
+    after any sequence of calls is the one ``rbf_gram.lru_row_plain``
+    leaves, bit for bit; the row is the uncached entry's."""
+    _check_mode(mode)
+    _row_operands("gram_row_cached", x, x2, i)
+    if x.ndim != 2:
+        raise ValueError("gram_row_cached: the row cache is a one-task "
+                         f"feature; x must be (n, d), got {tuple(x.shape)}")
+    n, slots = x.shape[0], keys.shape[0] if keys.ndim == 1 else 0
+    state = dict(keys=keys, stamp=stamp, rows=rows, clock=clock, hits=hits,
+                 misses=misses)
+    want = dict(keys=((slots,), torch.int64), stamp=((slots,), torch.int64),
+                rows=((slots, n), torch.float32), clock=((), torch.int64),
+                hits=((), torch.int64), misses=((), torch.int64))
+    if not slots or any((tuple(t.shape), t.dtype) != want[k]
+                        for k, t in state.items()):
+        raise ValueError(f"gram_row_cached: the row cache's (shape, dtype) "
+                         f"must be {want} with slots >= 1")
+    if not _on_card("gram_row_cached", x, x2, i, *state.values()):
+        return _gram.lru_row_plain(
+            keys, stamp, rows, clock, hits, misses, i,
+            lambda j: _gram.gram_row_plain(x, x2, j, gamma=gamma, mode=mode))
+    _check_contiguous("gram_row_cached", x=x, x2=x2, i=i, **state)
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    _count("rbf_gram_row_cached")
+    _raise_on_error("rbf_gram_row_cached", _gram.launch_row_cached(
+        lib, x, x2, i, out, keys, stamp, rows, clock, hits, misses,
+        gamma=gamma, mode=mode))
+    return out
 
 
 # ------------------------------------------------------------- kkt_select
@@ -229,14 +247,15 @@ def kkt_select(f: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor,
                       hi=hi)
     dev = f.device
     n_tasks = shape[0] if f.ndim == 2 else 1
-    part = torch.empty(2 * n_tasks * _kkt.n_blocks(shape[-1]),
-                       dtype=torch.int64, device=dev)
-    vals = torch.empty((2,) + shape[:-1], dtype=torch.float32, device=dev)
-    idx = torch.empty((2,) + shape[:-1], dtype=torch.int64, device=dev)
+    # one allocation: (i_up, i_low) of each task, then the (b_up, b_low)
+    # float32 pairs in the last n_tasks int64 words
+    out = torch.empty(3 * n_tasks, dtype=torch.int64, device=dev)
+    idx = out[:2 * n_tasks].view((2,) + shape[:-1])
+    vals = out[2 * n_tasks:].view(torch.float32).view((2,) + shape[:-1])
     lib = _build.library()
     _count("kkt_select")
     _raise_on_error("kkt_select", _kkt.launch(lib, f, alpha, y, mask, lo, hi,
-                                              part, vals, idx))
+                                              vals, idx))
     return vals[0], idx[0], vals[1], idx[1]
 
 

@@ -75,16 +75,22 @@ def test_gram_kernels_match_plain(cuda, dtype):  # noqa: F811
         torch.testing.assert_close(ops.gram_row(a, a2, i, gamma=0.01),
                                    G.gram_row_plain(a, a2, i, gamma=0.01),
                                    **GRAM_TOL)
-        rows = torch.zeros((3, n), device=cuda)
-        ops.gram_row(a, a2, i, gamma=0.01, out=rows,
-                     slot=torch.tensor(2, device=cuda),
-                     skip=torch.tensor(True, device=cuda))
-        assert not rows.any()                      # a hit writes nothing
-        ops.gram_row(a, a2, i, gamma=0.01, out=rows,
-                     slot=torch.tensor(2, device=cuda),
-                     skip=torch.tensor(False, device=cuda))
-        torch.testing.assert_close(rows[2], G.gram_row_plain(
+        # the cached entry: a miss fills the victim slot, a hit reads it
+        z64 = torch.zeros((), dtype=torch.int64, device=cuda)
+        state = (torch.tensor([5, -1, 7], device=cuda),
+                 torch.tensor([2, 0, 1], device=cuda),
+                 torch.zeros((3, n), device=cuda), z64 + 2, z64.clone(),
+                 z64.clone())
+        row = ops.gram_row_cached(a, a2, i, *state, gamma=0.01)
+        torch.testing.assert_close(row, G.gram_row_plain(
             a, a2, i, gamma=0.01), **GRAM_TOL)
+        assert torch.equal(state[2][1], row) and not state[2][0].any()
+        state[2][1] = 1.0
+        again = ops.gram_row_cached(a, a2, i, *state, gamma=0.01)
+        assert bool((again == 1.0).all())          # a hit reads the slot
+        assert state[0].tolist() == [5, i.item(), 7]
+        assert state[1].tolist() == [2, 4, 1]
+        assert [int(v) for v in state[3:]] == [4, 1, 1]
 
 
 @pytest.mark.parametrize("n", [1, 255, 4099, 100_000])
@@ -102,6 +108,162 @@ def test_kkt_select_matches_plain_exactly(cuda, n):  # noqa: F811
     assert got == [float(v) for v in KS.kkt_select_plain(*args)]
     none = (*args[:3], torch.zeros_like(mask), *args[4:])
     assert [float(v) for v in ops.kkt_select(*none)] == [np.inf, 0, -np.inf, 0]
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [3, 29491, 70_001])
+def test_kkt_select_on_unaligned_views(cuda, n, shift):  # noqa: F811
+    """Inputs that start off a 16-byte boundary, alike (a scalar head,
+    then float4 groups) or each at its own offset (scalar throughout):
+    the same selection as the plain version, exactly."""
+    rng = np.random.default_rng(n + shift)
+    m = n + 8
+    base = [tt(v, device=cuda) for v in (
+        rng.normal(size=m), rng.uniform(0, 1, m),
+        np.where(rng.random(m) < .5, 1., -1.), np.zeros(m), np.ones(m))]
+    base[1][rng.random(m) < 0.3] = 0.0
+    mask = tt(rng.random(m) < 0.9, torch.bool, cuda)
+    for offs in ([shift] * 6, [shift, 0, 1, 2, 3, shift]):
+        f, alpha, y, lo, hi = (t[o:o + n] for t, o in zip(base, offs))
+        mk = mask[offs[5]:offs[5] + n]
+        got = [float(v) for v in ops.kkt_select(f, alpha, y, mk, lo, hi)]
+        want = [float(v) for v in KS.kkt_select_plain(f, alpha, y, mk, lo,
+                                                      hi)]
+        assert got == want
+
+
+@pytest.mark.parametrize("tasks,n", [(1, 29491), (1, 5), (36, 7430),
+                                     (9, 33178), (3, 1001)])
+def test_kkt_select_any_block_count_equals_plain(cuda, tasks, n):  # noqa: F811
+    """kkt_select's launch with the planned blocks a task, with one, and
+    with threads that take several float4s: the plain version's
+    selection exactly, over back-to-back launches (each leaves its
+    tickets at 0 for the next)."""
+    rng = np.random.default_rng(31 + n)
+    lib = _build.library()
+    shape = (tasks, n)
+    f = tt(rng.normal(size=shape), device=cuda)
+    alpha = tt(np.where(rng.random(shape) < 0.4, 0.0,
+                        rng.uniform(0, 1, shape)), device=cuda)
+    y = tt(np.where(rng.random(shape) < .5, 1., -1.), device=cuda)
+    mask = tt(rng.random(shape) < 0.9, torch.bool, cuda)
+    lo, hi = torch.zeros_like(f), torch.ones_like(f)
+    want = KS.kkt_select_plain(f, alpha, y, mask, lo, hi)
+    vals = torch.empty((2, tasks), device=cuda)
+    idx = torch.empty((2, tasks), dtype=torch.int64, device=cuda)
+    for blocks in (KS.n_blocks(n), 1, 3):
+        for _ in range(3):
+            assert KS.launch(lib, f, alpha, y, mask, lo, hi, vals, idx,
+                             blocks=blocks) == 0
+            assert torch.equal(vals[0], want[0])
+            assert torch.equal(idx[0], want[1])
+            assert torch.equal(vals[1], want[2])
+            assert torch.equal(idx[1], want[3])
+
+
+def test_selection_and_cached_row_are_one_kernel_each(cuda):  # noqa: F811
+    """Under the profiler: one device kernel a kkt_select call and one a
+    cached row call (the lookup folded in), for T = 1 and a bucket."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(9)
+    n, d = 4099, 102
+    x = tt(rng.normal(size=(n, d)), device=cuda)
+    x2 = K.sqnorms(x)
+    cache = _fresh_cache(32, n, cuda)
+    f, alpha = (tt(rng.normal(size=(2, n)), device=cuda),
+                tt(rng.uniform(0, 1, (2, n)), device=cuda))
+    y = torch.ones((2, n), device=cuda)
+    mask = torch.ones((2, n), dtype=torch.bool, device=cuda)
+    lo, hi = torch.zeros_like(f), torch.ones_like(f)
+    idx = [torch.tensor(int(v), device=cuda) for v in rng.integers(0, n, 40)]
+    ops.gram_row_cached(x, x2, idx[0], *cache, gamma=0.01)
+    ops.kkt_select(f, alpha, y, mask, lo, hi)
+    torch.cuda.synchronize()
+    best = {}
+    for _ in range(3):   # the profiler can drop records, never add them
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for it in idx:
+                ops.gram_row_cached(x, x2, it, *cache, gamma=0.01)
+                ops.kkt_select(f[0], alpha[0], y[0], mask[0], lo[0], hi[0])
+                ops.kkt_select(f, alpha, y, mask, lo, hi)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {"all": sum(e.count for e in events),
+                  "row": sum(e.count for e in events if "gram_row" in e.key),
+                  "kkt": sum(e.count for e in events if "kkt_" in e.key)}
+        best = {k: max(v, best.get(k, 0)) for k, v in counts.items()}
+    assert best == {"all": 3 * len(idx), "row": len(idx),
+                    "kkt": 2 * len(idx)}, best
+
+
+def _lookup_sequence(n, length=200, seed=0):
+    """tests/test_torch_row_cache.py: a hot set and evictions."""
+    rng = np.random.default_rng(seed)
+    hot = rng.choice(n, 5, replace=False)
+    cold = rng.integers(0, n, length)
+    return np.where(rng.random(length) < 0.6, rng.choice(hot, length), cold)
+
+
+def _fresh_cache(slots, n, device):
+    def z():
+        return torch.zeros((), dtype=torch.int64, device=device)
+    return (torch.full((slots,), -1, dtype=torch.int64, device=device),
+            torch.zeros(slots, dtype=torch.int64, device=device),
+            torch.zeros((slots, n), device=device), z(), z(), z())
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n,d,slots", [
+    (1000, 102, 8),     # staged chunks, a ragged last one
+    (333, 7, 32),       # odd rows of odd width: ordinary-load tails
+    (129, 1500, 4),     # rows too wide for shared memory: direct reads
+    (5, 3, 40)])        # fewer rows than slots
+def test_cached_row_kernel_follows_the_plain_lru(cuda, dtype, n, d, slots):  # noqa: F811
+    """A seeded sequence of 200 lookups through the kernel leaves keys,
+    stamps, clock, hits and misses equal to the plain lookup's after
+    every call; each row is the uncached entry's bits and within the
+    Gram bound of the plain row; one launch a call. gamma is 1 / d, as
+    gamma "scale" makes it for unit-variance features, so the rounding
+    of |a|^2 + |b|^2 - 2 a.b, which grows with d, reaches K at the size
+    the Gram bound was set for (d <= 102)."""
+    rng = np.random.default_rng(n + d)
+    x = tt(rng.normal(size=(n, d)), device=cuda).to(ops.tile_dtype(dtype))
+    x2 = K.sqnorms(x)
+    gamma = 1.0 / d
+    kern, plain = _fresh_cache(slots, n, cuda), _fresh_cache(slots, n, cuda)
+    ops.reset_launches()
+    for t, i in enumerate(_lookup_sequence(n, seed=d)):
+        it = torch.tensor(int(i), device=cuda)
+        got = ops.gram_row_cached(x, x2, it, *kern, gamma=gamma)
+        want = G.lru_row_plain(*plain, it, lambda j: G.gram_row_plain(
+            x, x2, j, gamma=gamma))
+        torch.testing.assert_close(got, want, **GRAM_TOL)
+        assert torch.equal(got, ops.gram_row(x, x2, it, gamma=gamma))
+        for u, v in zip(kern[:2] + kern[3:], plain[:2] + plain[3:]):
+            assert torch.equal(u, v), t
+    torch.testing.assert_close(kern[2], plain[2], **GRAM_TOL)
+    assert ops.launches["rbf_gram_row_cached"] == 200
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_row_entries_give_the_same_bits(cuda, dtype):  # noqa: F811
+    """A row from the cached entry (miss and hit), the uncached entry and
+    row t of a task-axis launch: the same bits."""
+    rng = np.random.default_rng(5)
+    w, d = 1001, 102
+    x = tt(rng.normal(size=(3, w, d)), device=cuda).to(ops.tile_dtype(dtype))
+    x2 = K.sqnorms(x)
+    i = torch.tensor([17, 1000, 0], device=cuda)
+    batch = ops.gram_row(x, x2, i, gamma=0.05)
+    for t in range(3):
+        lone = ops.gram_row(x[t], x2[t], i[t], gamma=0.05)
+        cache = _fresh_cache(4, w, cuda)
+        miss = ops.gram_row_cached(x[t], x2[t], i[t], *cache, gamma=0.05)
+        hit = ops.gram_row_cached(x[t], x2[t], i[t], *cache, gamma=0.05)
+        assert [int(v) for v in cache[4:]] == [1, 1]
+        for row in (lone, miss, hit):
+            assert torch.equal(row, batch[t])
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -640,7 +802,7 @@ def test_svr_fit_and_serve_on_card(cuda, engine, tmp_path):  # noqa: F811
     reg = SVR(engine=engine, rank=256, epsilon=0.1, device=cuda).fit(
         x[:500], y[:500])
     assert reg.converged_ and reg.score(x[500:], y[500:]) > 0.5
-    used = (("rbf_gram_row", "kkt_select") if engine == "pallas"
+    used = (("rbf_gram_row_cached", "kkt_select") if engine == "pallas"
             else ("rff_features", "dcd_epoch"))
     assert all(ops.launches[k] > 0 for k in used), ops.launches
     serve.save(tmp_path / "r.npz", serve.pack(reg))

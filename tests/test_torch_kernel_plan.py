@@ -152,3 +152,17 @@ def test_plan_with_refuses_what_the_kernel_cannot_run():
     for rows, splits in ((32, 1), (64, 0), (64, 17)):
         with pytest.raises(ValueError):
             D.plan_with(1024, 6, 986, 102, rows, splits)
+
+
+
+@pytest.mark.parametrize("n,blocks", [
+    (29491, 29),        # the binary fit: one float4 a thread of 256
+    (7430, 8),          # an OvO task
+    (33178, 33),        # an OvR task
+    (1024, 1), (1025, 2), (1, 1),
+    (10 ** 6, 128)])    # capped: threads then take several float4s
+def test_kkt_select_blocks(n, blocks):
+    """kkt_select's one launch: blocks a task by one float4 of the inputs
+    a thread, at most MAX_BLOCKS."""
+    from repro_torch.kernels import kkt_select as KS
+    assert KS.n_blocks(n) == blocks

@@ -67,18 +67,30 @@ def test_gram_row_plain_matches_pallas(n, d, dtype):
 
 
 def test_gram_row_cache_store_writes_slot_unless_hit():
+    """The cached row entry (plain path here): a miss writes the row into
+    the LRU victim's slot, a hit returns the slot's row and leaves the
+    slot as is; keys, stamps, clock and counts move as the lookup says."""
     rng = np.random.default_rng(3)
     x = tt(rng.normal(size=(50, 6)))
     x2 = TK.sqnorms(x)
+    keys, stamp = torch.tensor([4, -1, 9]), torch.tensor([3, 0, 5])
     rows = torch.zeros((3, 50))
-    tops.gram_row(x, x2, torch.tensor(7), gamma=0.5, out=rows,
-                  slot=torch.tensor(1), skip=torch.tensor(False))
+    rows[2] = 1.0                             # what slot 2 holds for row 9
+    clock, hits, misses = torch.tensor(5), torch.tensor(0), torch.tensor(0)
+    state = (keys, stamp, rows, clock, hits, misses)
     want = TG.gram_row_plain(x, x2, torch.tensor(7), gamma=0.5)
-    assert torch.equal(rows[1], want)
-    tops.gram_row(x, x2, torch.tensor(9), gamma=0.5, out=rows,
-                  slot=torch.tensor(1), skip=torch.tensor(True))
-    assert torch.equal(rows[1], want)       # a hit leaves the slot as is
-    assert not rows[0].any() and not rows[2].any()
+    got = tops.gram_row_cached(x, x2, torch.tensor(7), *state, gamma=0.5)
+    assert torch.equal(got, want)
+    assert torch.equal(rows[1], want)         # the least stamp's slot
+    assert keys.tolist() == [4, 7, 9] and stamp.tolist() == [3, 6, 5]
+    assert (int(clock), int(hits), int(misses)) == (6, 0, 1)
+    got = tops.gram_row_cached(x, x2, torch.tensor(9), *state, gamma=0.5)
+    assert bool((got == 1.0).all()) and bool((rows[2] == 1.0).all())
+    assert torch.equal(rows[1], want) and not rows[0].any()
+    assert stamp.tolist() == [3, 6, 7]
+    assert (int(clock), int(hits), int(misses)) == (7, 1, 1)
+    got[0] = 5.0                              # a copy, not the slot
+    assert float(rows[2, 0]) == 1.0
 
 
 # ---------------------------------------------------------- kkt_select
