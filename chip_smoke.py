@@ -15,11 +15,16 @@ then:
    multiclass low-rank fit, equal bit for bit to one-task launches;
    the cached row entry over 200 LRU lookups at 29,491 x 102, its cache
    state equal to the plain lookup's bit for bit and its rows equal to
-   the uncached and task-axis entries' bits);
+   the uncached and task-axis entries' bits; the Gram matvec, which
+   never writes K, against a float64 sum at 29,491 x 102 and with the
+   task axis at the OvO and OvR buckets, each bucket task equal bit for
+   bit to its lone call);
 2. drives the main path through the entry points a user calls: a binary
    RBF ``SVC(engine="pallas")`` fit by SMO on a Pavia-shaped problem
    (~29.5k x 102), certified by a float64 KKT check of a recomputed
-   gradient;
+   gradient (the Gram matvec, one launch); then a linear-kernel SVC on
+   the same split, its held-out margins computed from the dual over
+   every training row (the Gram block entry at 2,048 x 29,491);
 3. packs, saves, loads and serves it with ``Predictor(engine="pallas")``
    in requests of several sizes, labels checked against the plain
    chunked predictor on the same card, and rows served alone checked
@@ -71,6 +76,12 @@ then:
    ns a coordinate, its launch plan and ptxas's report). The low-rank
    fit lines carry the warm fit's wall time and the device's busy
    share under the profiler.
+   The rows of the Gram block and matvec entries carry the tensor-core
+   bound (3xTF32 / bf16 dots, float32 epilogue) as ``bound_ms`` beside
+   the CUDA-core one, the bf16 call's device time, the launch plan and
+   ptxas's report; no one PyTorch call computes the matvec, so its
+   ``library_ms`` is null and a chunked ``exp(-gamma cdist^2) @ v``
+   composition is timed under ``library_composition_*`` instead.
    The rows of the two redesigned kernels (``rff_features``,
    ``decision`` / ``multitask_decision``) also carry the launch plan
    (tile, SV-axis splits, feature chunk, shared memory) and what ptxas
@@ -109,6 +120,9 @@ import torch  # noqa: E402
 # non-tensor-core float32 rate the kernels' IEEE FMAs run at
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# dense tensor-core peaks, the same sheet: the Gram block route's dots
+TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 SEED = 7
 GRAM_TOL = dict(rtol=2e-5, atol=2e-6)      # tests/test_kernels_pallas.py
 DECISION_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_kernels_pallas.py
@@ -249,7 +263,8 @@ BUCKETS = {"ovo": (36, 7430), "ovr": (9, 33178)}
 
 
 def phase_kernel_counts(ops, K, dev, n: int, d: int) -> dict:
-    """Device kernels a call of the SMO row entries and of kkt_select,
+    """Device kernels a call of the SMO row entries, the Gram matvec and
+    kkt_select,
     counted by torch.profiler at the start of the run (late in a long
     run the profiler dropped most launches of the custom kernels; see
     device_ms): seeded operands at the binary fit's (n, d) and at the
@@ -260,8 +275,10 @@ def phase_kernel_counts(ops, K, dev, n: int, d: int) -> dict:
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev)
 
+    from repro_torch.kernels.rbf_gram import staged
     x = rand(n, d)
     x2 = K.sqnorms(x)
+    xs, v = staged(x), rand(n)   # the pallas engine's layout of its rows
     i = torch.tensor(n // 3, device=dev)
     hit, miss = fresh_row_cache(n, dev), fresh_row_cache(n, dev)
     ops.gram_row_cached(x, x2, i, *hit, gamma=0.01)
@@ -288,8 +305,10 @@ def phase_kernel_counts(ops, K, dev, n: int, d: int) -> dict:
                                         gamma=0.01)),
         "rbf_gram_row_cached_hit": kernels_per_call(
             lambda: ops.gram_row_cached(x, x2, i, *hit, gamma=0.01)),
-        "kkt_select": kernels_per_call(select((n,)))}
-    del x, x2, hit, miss
+        "kkt_select": kernels_per_call(select((n,))),
+        "rbf_gram_matvec": kernels_per_call(
+            lambda: ops.gram_matvec(xs, x2, v, gamma=0.01))}
+    del x, xs, x2, v, hit, miss
     for strategy, (tasks, w) in BUCKETS.items():
         xb = rand(tasks, w, d)
         xb2 = K.sqnorms(xb)
@@ -297,13 +316,16 @@ def phase_kernel_counts(ops, K, dev, n: int, d: int) -> dict:
         out[f"rbf_gram_row_{strategy}"] = kernels_per_call(
             lambda: ops.gram_row(xb, xb2, ib, gamma=0.01))
         out[f"kkt_select_{strategy}"] = kernels_per_call(select((tasks, w)))
-        del xb, xb2
+        xbs, vb = staged(xb), rand(tasks, w)
+        out[f"rbf_gram_matvec_{strategy}"] = kernels_per_call(
+            lambda: ops.gram_matvec(xbs, xb2, vb, gamma=0.01))
+        del xb, xbs, xb2, vb
     ops.launches.update(saved)
     emit(phase="kernel_counts", kernels_per_call=out,
          shapes={"binary": [n, d], **{k: [*v, d] for k, v in
                                       BUCKETS.items()}})
     check(all(v == 1.0 for v in out.values()),
-          f"an SMO row or selection call is not one kernel: {out}")
+          f"an SMO row, matvec or selection call is not one kernel: {out}")
     return out
 
 
@@ -311,6 +333,29 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gram_bounds(n: int, m: int, d: int, dtype: str, n_bytes: float,
+                matvec: bool = False) -> dict:
+    """Bounds of a Gram block-route call over (n, d) x (m, d). Its dots
+    run on the tensor cores: 3 x 2 n m d operations as 3xTF32 (fp32) at
+    495 TFLOP/s, or 2 n m d in bf16 at 989; its epilogue, 6 operations a
+    pair (8 for the matvec), on the float32 cores at 67. ``bound_ms`` is
+    the largest of those and the bytes' time; ``fp32_core_bound_ms`` the
+    bound as the CUDA-core route counted it, n m (2d + 6) (+ 2) at 67
+    TFLOP/s against the bytes."""
+    extra = 2 if matvec else 0
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    tc = (6.0 * n * m * d / TF32_FLOP_PER_S if dtype == "fp32"
+          else 2.0 * n * m * d / BF16_FLOP_PER_S) * 1e3
+    epilogue = n * m * (6 + extra) / FP32_FLOP_PER_S * 1e3
+    t_ops = max(tc, epilogue)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "tensor_core_ms": tc, "epilogue_ms": epilogue,
+            "bytes_ms": t_bytes,
+            "fp32_core_bound_ms": max(
+                t_bytes, n * m * (2 * d + 6 + extra) / FP32_FLOP_PER_S * 1e3)}
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -458,6 +503,88 @@ def phase_parity(ops, K, G, KS, D, dev, n_train: int, d: int, n_sv: int,
 # the cached row entry's lookups: a hot set (60 % of the calls) and
 # enough other rows to evict from 32 slots many times
 ROW_CACHE_SLOTS, ROW_CACHE_CALLS = 32, 200
+
+
+MATVEC_BOUND = ("|got - Kv| <= 2e-5 sum|K v| + 2e-6 sum|v| a row "
+                "(GRAM_TOL on each term, summed), against float64")
+
+
+def matvec_f64(x, v, gamma, step=2048):
+    """K(X, X) v and sum_c |K_rc v_c| of the RBF Gram in float64 from the
+    rounded operands x (n, d), in row blocks."""
+    xd, vd = x.double(), v.double()
+    x2 = (xd * xd).sum(1)
+    out, mag = [], []
+    for s in range(0, xd.shape[0], step):
+        k = torch.exp(-gamma * torch.clamp_min(
+            x2[s:s + step, None] + x2[None, :] - 2.0 * (xd[s:s + step]
+                                                        @ xd.T), 0.0))
+        out.append(k @ vd)
+        mag.append(k @ vd.abs())   # K >= 0
+    return torch.cat(out), torch.cat(mag)
+
+
+def matvec_errors(got, x, v, gamma) -> tuple[float, float]:
+    """(largest |got - K v|, largest error over its MATVEC_BOUND)."""
+    want, mag = matvec_f64(x, v, gamma)
+    bound = 2e-5 * mag + 2e-6 * float(v.double().abs().sum())
+    err = (got.double() - want).abs()
+    return float(err.max()), float((err / bound).max())
+
+
+def phase_matvec_parity(ops, K, dist, dev, xtr, gamma, fits) -> dict:
+    """The Gram matvec (ops.gram_matvec, K never written) against a
+    float64 sum: at the binary fit's 29,491 x 102 in both compute
+    dtypes, and with the task axis at the OvO and OvR buckets of the
+    overlapping multiclass fits (zero rows past each task, v 0 there),
+    each bucket task also equal bit for bit to its lone call. Seeded
+    normal v (every column weighs in). These launches are not the
+    path's."""
+    saved = dict(ops.launches)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cases, errs = [], {}
+    x = torch.from_numpy(xtr).to(dev)
+    for dt in ("fp32", "bf16"):
+        xk = x.to(ops.tile_dtype(dt))
+        x2 = K.sqnorms(xk)
+        v = torch.randn(x.shape[0], generator=gen, device=dev)
+        err, worst = matvec_errors(ops.gram_matvec(xk, x2, v, gamma=gamma),
+                                   xk, v, gamma)
+        cases.append(dict(case="binary", dtype=dt, shape=[1, *x.shape],
+                          max_abs_err=err, err_over_bound=worst,
+                          ok=worst <= 1.0))
+        if dt == "fp32":
+            errs["rbf_gram_matvec"] = err
+    for strategy in ("ovo", "ovr"):
+        clf = fits[strategy][0]
+        xt, _, mk, _ = dist._bucket_arrays(clf._taskset,
+                                           clf._schedule.buckets[0])
+        xb = torch.from_numpy(xt).to(dev)
+        mask = torch.from_numpy(mk).to(dev)
+        x2 = K.sqnorms(xb)
+        v = torch.randn(mask.shape, generator=gen, device=dev) * mask
+        g = clf.kernel_params.gamma
+        got = ops.gram_matvec(xb, x2, v, gamma=g)
+        per_task = [matvec_errors(got[t], xb[t], v[t], g)
+                    for t in range(xb.shape[0])]
+        lone = all(torch.equal(got[t], ops.gram_matvec(xb[t], x2[t], v[t],
+                                                       gamma=g))
+                   for t in range(xb.shape[0]))
+        worst = max(w for _, w in per_task)
+        cases.append(dict(case=f"{strategy}_bucket", dtype="fp32",
+                          shape=list(xb.shape),
+                          max_abs_err=max(e for e, _ in per_task),
+                          err_over_bound=worst, task_rows_equal_lone=lone,
+                          ok=worst <= 1.0 and lone))
+    torch.cuda.synchronize()
+    ops.launches.update(saved)
+    ok = all(c["ok"] for c in cases)
+    emit(phase="parity", kernel="rbf_gram_matvec", bound=MATVEC_BOUND,
+         cases=cases, ok=ok)
+    check(ok, f"rbf_gram_matvec disagrees with float64 or a bucket task "
+          f"with its lone call: {cases}")
+    return errs
 
 
 def lookup_sequence(n: int, length: int = ROW_CACHE_CALLS,
@@ -645,6 +772,52 @@ def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
     main_launches = {k: fit_launches[k] + check_launches[k]
                      for k in fit_launches}
     return xtr, xte, df_engine, main_launches, fit_s, (ytr, yte, acc)
+
+
+def phase_fit_linear(ops, smo, KE, SVC, dev, xtr, ytr, xte, yte):
+    """A linear-kernel exact SVC on the binary split (the pallas engine's
+    linear mode), and its held-out margins through
+    ``smo.decision_function`` from the solver's dual over every training
+    row: the engine's ``decide`` runs the Gram block entry at 2,048 x
+    29,491 (a linear kernel has no decision kernel), as a user of an
+    ``SMOResult`` gets them. Certified by a float64 KKT check of a
+    gradient recomputed by one matvec (not counted as the path's)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    clf = SVC(kernel="linear", engine="pallas", shrink_every=4,
+              device=dev).fit(xtr, ytr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(ops.launches)
+    ops.reset_launches()
+    x = torch.from_numpy(xtr).to(dev)
+    yy = torch.from_numpy(np.where(ytr == clf.classes_[1], 1.0, -1.0)
+                          .astype(np.float32)).to(dev)
+    alpha = torch.from_numpy(clf.alpha_).to(dev)
+    df = smo.decision_function(
+        x, yy, alpha, clf.b_, torch.from_numpy(xte).to(dev),
+        kernel=clf.kernel_params, engine=clf.engine_cfg).cpu().numpy()
+    torch.cuda.synchronize()
+    check_launches = dict(ops.launches)
+    eng = KE.make_engine(x, clf.kernel_params, "pallas")
+    f = eng.matvec(alpha * yy) - yy
+    kkt = float(smo.kkt_violation(alpha, yy, f, 0.0, clf.smo_cfg.C))
+    acc = float(np.mean(np.where(df > 0, clf.classes_[1],
+                                 clf.classes_[0]) == yte))
+    emit(phase="fit_linear", n=int(xtr.shape[0]), d=int(xtr.shape[1]),
+         n_iter=clf.n_iter_, converged=clf.converged_, kkt_f64=kkt,
+         tol=clf.smo_cfg.tol, n_support=clf.n_support_, fit_s=fit_s,
+         launches=fit_launches, heldout_check_launches=check_launches,
+         heldout_acc=acc)
+    check(clf.converged_, "linear SMO fit did not converge")
+    check(kkt <= clf.smo_cfg.tol, f"linear SVC: f64 KKT {kkt} > tol")
+    check(acc >= 0.99, f"linear SVC: held-out accuracy {acc} < 0.99")
+    for k in ("rbf_gram_row_cached", "kkt_select", "rbf_gram_matvec"):
+        check(fit_launches[k] > 0, f"linear fit launched no {k}")
+    check(check_launches["rbf_gram"] > 0, "linear held-out margins "
+          "launched no rbf_gram block")
+    return {k: fit_launches[k] + check_launches[k] for k in ops.KERNELS}
 
 
 def serve_rates(pred, xte):
@@ -1679,6 +1852,11 @@ def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma, counts):
               "disagrees with its plain version")
         z = torch.stack([x[t].index_select(0, i[t:t + 1])[0]
                          for t in range(n_tasks)])
+        vb = torch.from_numpy(rng.normal(size=(n_tasks, w)).astype(
+            np.float32)).to(dev) * mask
+        xs = G.staged(x)   # the bucket engine's layout of its rows
+        mv = ops.gram_matvec(xs, x2, vb, gamma=gamma)
+        mv_plain = G.gram_matvec_plain(x, x2, vb, gamma=gamma)
         entries = [
             ("rbf_gram_row", lambda: ops.gram_row(x, x2, i, gamma=gamma),
              lambda: G.gram_row_plain(x, x2, i, gamma=gamma),
@@ -1689,16 +1867,27 @@ def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma, counts):
             ("kkt_select", lambda: ops.kkt_select(f, alpha, y, mask, lo, hi),
              lambda: KS.kkt_select_plain(f, alpha, y, mask, lo, hi), None,
              21 * n_tasks * w + 24 * n_tasks, 12 * n_tasks * w, 0.0),
+            # the plain version is T x w / 2,048 Gram blocks and GEMVs
+            # (~0.2 s a call at OvR): timed over fewer calls
+            ("rbf_gram_matvec", lambda: ops.gram_matvec(xs, x2, vb,
+                                                        gamma=gamma),
+             lambda: G.gram_matvec_plain(x, x2, vb, gamma=gamma), None,
+             4 * (n_tasks * w * d + 3 * n_tasks * w),
+             n_tasks * w * w * (2 * d + 8), max_err(mv, mv_plain)),
         ]
         for name, kern, plain, lib, n_bytes, n_ops, err in entries:
+            slow = name == "rbf_gram_matvec"
             ms = median_ms(kern)
-            plain_ms = median_ms(plain)
+            plain_ms = (median_ms(plain, reps=3, warmup=1) if slow
+                        else median_ms(plain))
             b_ms, b_by = bound_ms(n_bytes, n_ops)
             rows.append({
                 "name": name, "task_axis": strategy, "shape": [n_tasks, w, d],
                 "launches_on_path": fits[strategy][3][name],
                 "max_abs_err": err, "ms": ms, "device_ms": device_ms(kern),
-                "plain_ms": plain_ms, "plain_device_ms": device_ms(plain),
+                "plain_ms": plain_ms,
+                "plain_device_ms": (device_ms(plain, calls=2, reps=1) if slow
+                                    else device_ms(plain)),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "l2_bound_ms": n_bytes / l2 * 1e3, "l2_read_bytes_per_s": l2,
                 "launch_floor_ms": floor,
@@ -1706,6 +1895,14 @@ def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma, counts):
                 "library_ms": median_ms(lib) if lib is not None else None,
                 "library_device_ms": (device_ms(lib) if lib is not None
                                       else None)})
+            if slow:
+                rows[-1].update(gram_bounds(n_tasks * w, w, d, "fp32",
+                                            n_bytes, matvec=True),
+                                **gram_info(G, "matvec", (w, w, d)))
+                rows[-1]["plan"] = G.gram_plan(
+                    w, w, d, tasks=n_tasks, entry="matvec",
+                    sms=torch.cuda.get_device_properties(0)
+                    .multi_processor_count)._asdict()
     for strategy, whole in (("ovo", False), ("ovr", False), ("ovr", True)):
         rows.append(bank_row(ops, D, dev, fits[strategy], strategy, xte,
                              gamma, whole))
@@ -1825,7 +2022,8 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
     nte = zte.shape[0]
     n, d = x.shape
     x2 = K.sqnorms(x)
-    blk, blk2 = x[:2048], x2[:2048]
+    xs = G.staged(x)   # the pallas engine's layout of its rows
+    blk, blk2 = xs[:2048], x2[:2048]
     i = torch.tensor(n // 3, device=dev)
     bank = packed.buckets[0]
     sv = torch.from_numpy(bank.sv_x[0]).to(dev)
@@ -1840,6 +2038,14 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
 
     def lib_rbf(a, b):
         return torch.exp(-gamma * torch.cdist(a, b).square())
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    v = torch.randn(n, generator=gen, device=dev)
+
+    def lib_matvec():   # a composition: no one PyTorch call computes it
+        return torch.cat([lib_rbf(x[s:s + 2048], x) @ v
+                          for s in range(0, n, 2048)])
 
     # the cached entry: 64 rows in turn through 32 slots miss every time
     turn = [torch.tensor(v, device=dev) for v in range(0, n, n // 64)][:64]
@@ -1863,11 +2069,15 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
 
     rows = [
         ("rbf_gram", "rbf_gram.cu", "src/repro/kernels/rbf_gram.py:91",
-         lambda: ops.rbf_gram(blk, x, gamma=gamma, a2=blk2, b2=x2),
+         lambda: ops.rbf_gram(blk, xs, gamma=gamma, a2=blk2, b2=x2),
          lambda: G.rbf_gram_plain(blk, x, blk2, x2, gamma=gamma),
          lambda: lib_rbf(blk, x),
          4 * (2048 * d + n * d + 2048 + n + 2048 * n),
          2048 * n * (2 * d + 6)),
+        ("rbf_gram_matvec", "rbf_gram.cu", "src/repro/kernels/rbf_gram.py:91",
+         lambda: ops.gram_matvec(xs, x2, v, gamma=gamma),
+         lambda: G.gram_matvec_plain(x, x2, v, gamma=gamma), lib_matvec,
+         4 * (n * d + 3 * n), n * n * (2 * d + 8)),
         ("rbf_gram_row", "rbf_gram.cu", "src/repro/kernels/rbf_gram.py:91",
          lambda: ops.gram_row(x, x2, i, gamma=gamma),
          lambda: G.gram_row_plain(x, x2, i, gamma=gamma),
@@ -1896,8 +2106,42 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
          4 * (1024 * d + w * d + w + 1024), 1024 * w * (2 * d + 8)),
     ]
     out = [time_row(ops, *row, launches, errs[row[0]]) for row in rows]
-    out[4].update(redesign_info("decision", (nte, 1, w, d)))
-    out[5].update(redesign_info("decision", (1024, 1, w, d)))
+    out[5].update(redesign_info("decision", (nte, 1, w, d)))
+    out[6].update(redesign_info("decision", (1024, 1, w, d)))
+    # the block route: tensor-core bounds beside the CUDA-core one, the
+    # bf16 call's device time, the plan and ptxas's report
+    xb16 = G.staged(x.to(torch.bfloat16))
+    blk16 = xb16[:2048]
+    x2b16 = K.sqnorms(xb16)
+    saved = dict(ops.launches)
+    block, matvec = out[0], out[1]
+    block.update(gram_bounds(2048, n, d, "fp32", 4 * (2048 * d + n * d
+                                                      + 2048 + n
+                                                      + 2048 * n)),
+                 **gram_info(G, "block", (2048, n, d)),
+                 bf16_device_ms=device_ms(lambda: ops.rbf_gram(
+                     blk16, xb16, gamma=gamma, compute_dtype="bf16",
+                     a2=x2b16[:2048], b2=x2b16)),
+                 bf16_bound=gram_bounds(2048, n, d, "bf16", 2 * (
+                     2048 * d + n * d) + 4 * (2048 + n + 2048 * n)),
+                 main_path_shape="the linear SVC's held-out margins: "
+                                 "(1,229 | 2,048) x 29,491 x 102")
+    # no one PyTorch call computes K v: the library yardstick is a
+    # composition, reported under its own keys
+    matvec.update(gram_bounds(n, n, d, "fp32", 4 * (n * d + 3 * n),
+                              matvec=True),
+                  **gram_info(G, "matvec", (n, n, d)),
+                  library_composition="chunked exp(-gamma cdist^2) @ v, "
+                                      "2,048 rows a chunk",
+                  library_composition_ms=matvec["library_ms"],
+                  library_composition_device_ms=matvec["library_device_ms"],
+                  library_ms=None, library_device_ms=None,
+                  bf16_device_ms=device_ms(lambda: ops.gram_matvec(
+                      xb16, x2b16, v, gamma=gamma)),
+                  bf16_bound=gram_bounds(n, n, d, "bf16",
+                                         2 * n * d + 12 * n, matvec=True),
+                  kernels_per_call=counts["rbf_gram_matvec"])
+    ops.launches.update(saved)
 
     # the two SMO kernels beside the launch floor and an L2 bound (X
     # stays in L2 across the SMO loop), with kernels counted a call
@@ -1932,6 +2176,21 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
     cached["hits_misses_of_timing"] = [int(miss_kern[4]), int(miss_kern[5])]
     ops.launches.update(saved)
     return out
+
+
+def gram_info(G, entry: str, shape) -> dict:
+    """The block route's launch plan for an (n, m, d) float32 call on
+    this card, and what ptxas reported for the kernel it runs (the
+    mma.sync mainloop's float32 instantiation, or the matvec's wgmma
+    route): registers, spills."""
+    from repro_torch.kernels import _build
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = G.gram_plan(*shape, entry=entry, sms=sms)
+    name = ("gram_wg_matvec_kernel" if plan.route == "wgmma"
+            else f"gram_tc_kernelIfLb{int(entry == 'matvec')}E")
+    found = _build.ptxas_report(name)
+    check(len(found) == 1, f"ptxas log: {len(found)} kernels named {name}")
+    return {"plan": plan._asdict(), "ptxas": found[0]}
 
 
 def main() -> int:
@@ -1976,9 +2235,10 @@ def main() -> int:
     serve_launches, packed = phase_serve(ops, serve_mod, dev, path, xte,
                                          df_engine)
     exact = {k: fit_launches[k] + serve_launches[k] for k in ops.KERNELS}
-    for k in ("rbf_gram", "rbf_gram_row_cached", "kkt_select", "decision",
-              "multitask_decision"):
+    for k in ("rbf_gram_matvec", "rbf_gram_row_cached", "kkt_select",
+              "decision", "multitask_decision"):
         check(exact[k] > 0, f"main path launched no {k} kernel")
+    linear = phase_fit_linear(ops, smo, KE, SVC, dev, xtr, ytr, xte, yte)
     clf, phi, yy, lr_fit = phase_lowrank_fit(ops, smo, SVC, dev, xtr, ytr,
                                              xte, yte, acc)
     lr_serve = phase_lowrank_serve(
@@ -2001,7 +2261,7 @@ def main() -> int:
         lowrank_paths[f"svc_{strategy}_lowrank"] = path_launches
         lowrank_fits[strategy] = (mclf, mphi, path_launches)
     lm, lm_errs = phase_lm(ops, FA, SD, dev)
-    paths = {"svc_exact": exact,
+    paths = {"svc_exact": exact, "svc_linear": linear,
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
              "svr": svr, **mc_paths, **lowrank_paths,
              "lm_kernels": lm}
@@ -2017,6 +2277,8 @@ def main() -> int:
     errs = phase_parity(ops, K, G, KS, D, dev, n_train=xtr.shape[0],
                         d=xtr.shape[1], n_sv=packed.n_support,
                         n_test=len(xte))
+    errs.update(phase_matvec_parity(ops, K, dist, dev, xtr,
+                                    packed.kernel.gamma, fits))
     errs.update(phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi, yy,
                                      svr_state))
     task_rows = []

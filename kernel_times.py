@@ -5,6 +5,7 @@ checkout of this repository.
     python3 kernel_times.py --packs DIR [--src DIR] [--sweep] [--out FILE]
     python3 kernel_times.py --dcd --packs DIR [--src DIR] [--dcd-sweep]
     python3 kernel_times.py --smo [--src DIR] [--smo-sweep] [--out FILE]
+    python3 kernel_times.py --gram [--src DIR] [--gram-sweep] [--out FILE]
 
 ``--packs`` holds what chip_smoke.py saves under ``chiprun_out/``: the
 exact binary SVC (``chip_smoke_model.npz``), the OvO and OvR models of
@@ -68,6 +69,26 @@ warps a block (the shipped kernel takes 8); and ``kkt_select`` at its
 three shapes for a build with blocks of 1,024 threads (the shipped one
 takes 256).
 
+``--gram`` times the Gram block route (``gram`` lines; no packs): the
+block ``ops.rbf_gram`` at 2,048 x 29,491 x 102 (the binary split's
+training rows) in float32 and bfloat16, and the pallas engine's matvec
+``engine.matvec(v)`` at the binary fit's shape (both dtypes) and
+``TaskKernelEngine.matvec`` at the OvO and OvR buckets of the
+overlapping multiclass split: device time (``chip_smoke.device_ms``
+over as many calls as take ~50 ms) and device kernels a call. Then the
+exact SVC (``shrink_every=4``) and the exact OvR fit, each fitted once
+and again warm with every engine matvec counted by shape: the warm
+fit's wall seconds, its matvecs, and their device time at those
+shapes (``matvec_share``: that time over the fit's). A checkout with
+``rbf_gram.gram_plan`` also gets a sweep of its row tiles (32, 64, 128)
+for the block and the binary matvec (the tiles its route takes), each
+matvec checked bit for bit against the planned launch; ``--gram-sweep``
+(this tree) adds builds of ``csrc/rbf_gram.cu`` cut by a regex
+(``GRAM_CUTS``: the mma.sync mainloop without the exponential, MMAs,
+column copies or two of three TF32 products, timed at the fp32 block and
+the bf16 matvec; the float32 matvec's wgmma route without its split, its
+wgmmas or two of three products), diagnostics that are never shipped.
+
 Two checkouts compare in one call of the chip tool, each run in its own
 process: parent, change, change, parent, and so on.
 """
@@ -104,9 +125,11 @@ def _args():
     p.add_argument("--dcd-sweep", action="store_true")
     p.add_argument("--smo", action="store_true")
     p.add_argument("--smo-sweep", action="store_true")
+    p.add_argument("--gram", action="store_true")
+    p.add_argument("--gram-sweep", action="store_true")
     args = p.parse_args()
-    if args.packs is None and not args.smo:
-        p.error("--packs is required, except with --smo")
+    if args.packs is None and not (args.smo or args.gram):
+        p.error("--packs is required, except with --smo or --gram")
     return args
 
 
@@ -143,6 +166,9 @@ def main() -> int:
         return 0
     if args.smo:
         smo_times(cs, data, _build, ops, dev, emit, args.smo_sweep)
+        return 0
+    if args.gram:
+        gram_times(cs, data, _build, ops, dev, emit, args.gram_sweep)
         return 0
     packs = {k: serve.load(os.path.join(args.packs, f))
              for k, f in PACKS.items()}
@@ -374,6 +400,224 @@ def smo_times(cs, data, _build, ops, dev, emit, sweep=False):
         busy.pop("top")
         emit(measure="smo", case=case, n_iter=iters, fit_s=fit_s,
              fit_s_warm=warm_s, **busy)
+
+
+def gram_times(cs, data, _build, ops, dev, emit, sweep=False):
+    """The ``--gram`` lines (see the module's docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dist, kernel_engine as KE
+    from repro_torch.core import kernels as K
+    from repro_torch.core import multiclass as MC
+    from repro_torch.core.svm import SVC
+    from repro_torch.kernels import rbf_gram as G
+
+    def timed(fn, kernels=True):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        one = (time.perf_counter() - t0) * 1e3
+        calls = max(2, min(50, int(50 / max(one, 1e-3))))
+        out = dict(device_ms=cs.device_ms(fn, calls=calls), device_calls=calls)
+        if kernels:
+            out["kernels_per_call"] = cs.kernels_per_call(
+                fn, calls=min(calls, 20))
+        return out
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    xtr, ytr, _, _ = cs.binary_split(data)
+    x = torch.from_numpy(xtr).to(dev)
+    n, d = x.shape
+    kp = K.resolve_gamma(K.KernelParams(gamma=-1.0), x)
+    v = torch.randn(n, generator=gen, device=dev)
+    engines = {}
+    for dtype in ("fp32", "bf16"):
+        eng = KE.make_engine(x, kp, KE.EngineConfig(backend="pallas",
+                                                    gram_dtype=dtype))
+        engines[dtype] = eng
+        xs = getattr(eng, "_xs", eng._xk)   # the engine's rows, as staged
+        blk, blk2 = xs[:2048], eng._x2[:2048]
+        emit(measure="gram", case="block", dtype=dtype, shape=[2048, n, d],
+             **timed(lambda: ops.rbf_gram(blk, xs, gamma=kp.gamma,
+                                          compute_dtype=dtype, a2=blk2,
+                                          b2=eng._x2)))
+        emit(measure="gram", case="matvec", dtype=dtype, shape=[1, n, d],
+             **timed(lambda: eng.matvec(v)))
+    xm, ym, _, _ = cs.pavia_split(data, cs.PAVIA_NOISE["overlapping"])
+    kpm = K.resolve_gamma(K.KernelParams(gamma=-1.0),
+                          torch.from_numpy(xm).to(dev))
+    for strategy in ("ovo", "ovr"):
+        taskset = MC.get_strategy(strategy).build_taskset(xm, ym)
+        bucket = MC.build_schedule(taskset.sizes).buckets[0]
+        xt, _, mk, _ = dist._bucket_arrays(taskset, bucket)
+        teng = KE.TaskKernelEngine(torch.from_numpy(xt).to(dev), kpm,
+                                   "pallas")
+        mask = torch.from_numpy(mk).to(dev)
+        vb = torch.randn(mask.shape, generator=gen, device=dev) * mask
+        emit(measure="gram", case="matvec_task_axis", strategy=strategy,
+             shape=list(xt.shape), **timed(lambda: teng.matvec(vb)))
+        del teng
+
+    if hasattr(G, "gram_plan"):   # the row-tile sweep of this route
+        lib = _build.library()
+        eng = engines["fp32"]
+        want = eng.matvec(v)
+        out = torch.empty_like(want)
+        blk, blk2 = eng._xs[:2048], eng._x2[:2048]
+        kblk = torch.empty((2048, n), device=dev)
+        mv_rows = getattr(G, "route_rows", lambda *a: G.ROWS)(
+            d, torch.float32, "matvec")
+        for rows in G.ROWS:
+            bplan = G.gram_plan(2048, n, d, rows=rows)
+
+            def bk():
+                return G.launch_block(lib, blk, eng._xs, blk2, eng._x2, kblk,
+                                      gamma=kp.gamma, mode="rbf", plan=bplan)
+
+            assert bk() == 0
+            row = dict(block_plan=bplan._asdict(),
+                       block_device_ms=cs.device_ms(bk, calls=20))
+            if rows in mv_rows:   # the row tiles the matvec's route takes
+                plan = G.gram_plan(n, n, d, entry="matvec", rows=rows)
+
+                def mv():
+                    return G.launch_matvec(lib, eng._xs, eng._x2, v, out,
+                                           gamma=kp.gamma, mode="rbf",
+                                           plan=plan)
+
+                assert mv() == 0
+                row.update(matvec_plan=plan._asdict(),
+                           matvec_equal_to_planned=bool(torch.equal(out, want)),
+                           matvec_device_ms=cs.device_ms(mv, calls=20))
+            emit(measure="gram_sweep", rows=rows, **row)
+        if sweep:
+            gram_cuts(cs, _build, G, engines, v, kp.gamma, emit)
+    del engines
+
+    # the fits' matvecs: every outermost engine matvec counted by shape
+    counts, samples, depth = {}, {}, [0]
+    originals = {cls: cls.matvec for cls in (KE.PallasKernelEngine,
+                                             KE.TaskKernelEngine)}
+
+    def counting(cls):
+        orig = originals[cls]
+
+        def matvec(self, vec):
+            if depth[0] == 0:
+                key = (cls.__name__, tuple(vec.shape))
+                counts[key] = counts.get(key, 0) + 1
+                samples.setdefault(key, (self, vec.clone()))
+            depth[0] += 1
+            try:
+                return orig(self, vec)
+            finally:
+                depth[0] -= 1
+        return matvec
+
+    for cls in originals:
+        cls.matvec = counting(cls)
+    fits = (("svc_exact", xtr, ytr, dict(engine="pallas", shrink_every=4)),
+            ("ovr_exact", xm, ym, dict(strategy="ovr", decision="vote",
+                                       engine="pallas", C=1.0, tol=1e-3)))
+    try:
+        for case, xf, yf, kw in fits:
+            SVC(**kw, device=dev).fit(xf, yf)
+            counts.clear()
+            samples.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clf = SVC(**kw, device=dev).fit(xf, yf)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            iters = (int(clf.n_iter_) if "strategy" not in kw
+                     else int(clf._fit.n_iter.max()))
+            shapes = []
+            for key, calls in counts.items():
+                eng, vec = samples[key]
+                ms = cs.device_ms(lambda: originals[type(eng)](eng, vec),
+                                  calls=2, reps=2)
+                shapes.append(dict(engine=key[0], shape=list(key[1]),
+                                   calls=calls, device_ms=ms))
+            total = sum(r["calls"] * r["device_ms"] for r in shapes)
+            emit(measure="gram_fit", case=case, n_iter=iters,
+                 fit_s_warm=fit_s, matvecs=shapes, matvec_device_ms=total,
+                 matvec_share=total / (fit_s * 1e3))
+            samples.clear()
+    finally:
+        for cls, orig in originals.items():
+            cls.matvec = orig
+
+
+# --gram-sweep: copies of csrc/rbf_gram.cu cut by a regex, diagnostics
+# that are never shipped (each cut must match the source exactly once)
+GRAM_CUTS = {
+    "shipped": [],
+    # the matvec's epilogue without the exponential (the dot times v)
+    "no_exp": [(r"p\.rbf \? ex2\(fminf\(fmaf\(2\.f \* gl, dot,\s*"
+                r"__fadd_rn\(ra\[i\]\[h\], s2\[cl\]\)\),\s*0\.f\)\)\s*: dot",
+                "dot")],
+    # no MMAs: the accumulators stay 0
+    "no_mma": [(r"mma_chunk<T>\(sa", "if (false) mma_chunk<T>(sa")],
+    # the column tiles are never copied (the rows still are)
+    "no_column_copies": [(r"copy_rows\(sb \+ st \* b_words",
+                          "if (false) copy_rows(sb + st * b_words"),
+                         (r"max\(0, min\(GT_COLS, m - j \* GT_COLS\)\) \* bb",
+                          "0")],
+    # the float32 matvec's wgmma route: no high/low split of the stages,
+    # no wgmmas, one wgmma product a step instead of three
+    "wg_no_split": [(r"for \(int q = q0; q < 2 \* nks; q \+= 2\) \{",
+                     "for (int q = q0; q < 0; q += 2) {")],
+    "wg_no_wgmma": [(r"wgmma_tf32\(acc, al\[ks\], dh, ks > 0\);", ""),
+                    (r"wgmma_tf32\(acc, ah\[ks\], dl, 1\);", ""),
+                    (r"wgmma_tf32\(acc, ah\[ks\], dh, 1\);", "")],
+    "wg_one_product": [(r"wgmma_tf32\(acc, al\[ks\], dh, ks > 0\);", ""),
+                       (r"wgmma_tf32\(acc, ah\[ks\], dl, 1\);", "")],
+    # fp32: one TF32 product a step instead of three
+    "one_tf32_product": [(r"mma_tf32\(c, al\[i\], bh\);", ""),
+                         (r"mma_tf32\(c, ah\[i\], bl\);", "")],
+}
+
+
+def gram_cuts(cs, _build, G, engines, v, gamma, emit):
+    """The binary matvec (both dtypes) and the fp32 block for each build
+    of GRAM_CUTS, compiled into a temporary directory under _build/."""
+    import torch
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for name, subs in GRAM_CUTS.items():
+            lib = variant_lib(_build, tmp, "rbf_gram.cu", f"gram_{name}",
+                              subs, "svm_rbf_gram_matvec")
+            fn = lib.svm_rbf_gram_block
+            fn.argtypes = _build.SIGNATURES["svm_rbf_gram_block"]
+            fn.restype = ctypes.c_int
+            row = {}
+            for dtype, eng in engines.items():
+                n, d = eng._xk.shape
+                plan = G.gram_plan(n, n, d, eng._xk.dtype, entry="matvec")
+                out = torch.empty(n, device=eng._xk.device)
+
+                def mv():
+                    return G.launch_matvec(lib, eng._xs, eng._x2, v, out,
+                                           gamma=gamma, mode="rbf",
+                                           plan=plan)
+
+                assert mv() == 0
+                row[f"matvec_{dtype}_device_ms"] = cs.device_ms(mv, calls=10)
+            eng = engines["fp32"]
+            n, d = eng._xk.shape
+            bplan = G.gram_plan(2048, n, d)
+            kblk = torch.empty((2048, n), device=eng._xk.device)
+
+            def bk():
+                return G.launch_block(lib, eng._xs[:2048], eng._xs,
+                                      eng._x2[:2048], eng._x2, kblk,
+                                      gamma=gamma, mode="rbf", plan=bplan)
+
+            assert bk() == 0
+            row["block_fp32_device_ms"] = cs.device_ms(bk, calls=20)
+            emit(measure="gram_cut", build=name, **row)
 
 
 def variant_lib(_build, tmp, source, name, subs, export):

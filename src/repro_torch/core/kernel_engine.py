@@ -8,15 +8,16 @@ training matrix it is given::
     engine.diag()            # (n,)  K(x_i, x_i)
     engine.row(i, cache)     # ((n,), cache) one kernel row, LRU-cached
     engine.block(rows, cols) # (r, c) arbitrary sub-block
-    engine.matvec(v)         # (n,)  K @ v, streamed over row blocks
+    engine.matvec(v)         # (n,)  K @ v (pallas: one launch, no K)
     engine.cross(z)          # (t, n) K(z, X) test-vs-train block
     engine.decide(z, coef,b) # (t,)  K(z, X) @ coef + b
     engine.init_cache()      # LRU row-cache state (None if unused)
 
 ``TaskKernelEngine`` is the same interface over a multiclass bucket of
 T tasks stacked as (T, w, d): ``row`` takes one index per task and
-returns the (T, w) rows — one launch of the task-axis ``rbf_gram`` row
-kernel under ``pallas`` — and ``diag`` / ``matvec`` work per task.
+returns the (T, w) rows, and ``matvec`` the (T, w) products — each one
+launch of the task-axis ``rbf_gram`` row or matvec kernel under
+``pallas`` — while ``diag`` works per task.
 
 Backends: ``dense`` (precomputed (n, n) Gram), ``chunked`` (rows on the
 fly, O(n d) memory, LRU row cache), ``pallas`` (the chunked layout with
@@ -45,7 +46,7 @@ import torch
 
 from repro_torch.core import kernels as K
 from repro_torch.kernels import ops
-from repro_torch.kernels.rbf_gram import lru_row_plain
+from repro_torch.kernels.rbf_gram import lru_row_plain, staged
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,12 +237,16 @@ class ChunkedKernelEngine(KernelEngine):
 class PallasKernelEngine(ChunkedKernelEngine):
     """The chunked layout with the Gram hot spots on the CUDA kernels.
 
-    RBF and linear rows, blocks and matvec blocks go through
-    ``ops.gram_row`` / ``ops.rbf_gram``, and RBF decisions through
+    RBF and linear rows, blocks and matvecs go through
+    ``ops.gram_row`` / ``ops.rbf_gram`` / ``ops.gram_matvec`` (one
+    launch a matvec, K never written), and RBF decisions through
     ``ops.decision``; on a CUDA tensor each launches its kernel or
     raises. Other kernels take the plain path, as the reference's
     pallas backend falls back to jnp for them. The training matrix is
-    kept once at the compute precision, with its squared norms.
+    kept at the compute precision, with its squared norms, and on the
+    card once more with its rows zero-padded to the Gram block route's
+    staged stride, so that a tile of rows is one copy
+    (``rbf_gram.staged``; on the CPU the same tensor).
     """
 
     backend = "pallas"
@@ -251,6 +256,7 @@ class PallasKernelEngine(ChunkedKernelEngine):
         self._mode = kernel.name if kernel.name in ("rbf", "linear") else None
         self._xk = self.x.to(ops.tile_dtype(cfg.gram_dtype)).contiguous()
         self._x2 = K.sqnorms(self._xk)
+        self._xs = staged(self._xk)
 
     def _gram(self, a, b, a2=None, b2=None):
         return ops.rbf_gram(a, b, gamma=self.kernel.gamma, mode=self._mode,
@@ -273,7 +279,7 @@ class PallasKernelEngine(ChunkedKernelEngine):
     def cross(self, z):
         if self._mode is None:
             return super().cross(z)
-        return self._gram(z, self._xk, b2=self._x2)
+        return self._gram(z, self._xs, b2=self._x2)
 
     def block(self, rows, cols):
         if self._mode is None:
@@ -284,11 +290,9 @@ class PallasKernelEngine(ChunkedKernelEngine):
     def matvec(self, v):
         if self._mode is None:
             return super().matvec(v)
-        step = min(self.cfg.chunk, max(self.n, 1))
-        return torch.cat([
-            self._gram(self._xk[s:s + step], self._xk,
-                       self._x2[s:s + step], self._x2) @ v
-            for s in range(0, self.n, step)])
+        return ops.gram_matvec(self._xs, self._x2, v.contiguous(),
+                               gamma=self.kernel.gamma, mode=self._mode,
+                               chunk=self.cfg.chunk)
 
     def decide(self, z, coef, b=0.0):
         if self.kernel.name == "rbf":
@@ -300,7 +304,7 @@ class PallasKernelEngine(ChunkedKernelEngine):
         self._refuse_full()
         if self._mode is None:
             return super().full()
-        return self._gram(self._xk, self._xk, self._x2, self._x2)
+        return self._gram(self._xs, self._xs, self._x2, self._x2)
 
 
 _BACKENDS = {
@@ -318,7 +322,8 @@ class TaskKernelEngine:
 
     It keeps one single-task engine per task (views of ``x``, no row
     cache: a batched lookup would compute every row anyway), so
-    ``diag`` and ``matvec`` are those engines' own, value for value.
+    ``diag`` and ``matvec`` are those engines' own, value for value (the
+    task-axis matvec launch gives each task its lone call's bits).
     ``row(i)`` takes the (T,) indices and returns the (T, w) rows:
     gathered from the stacked Gram (dense), one launch of the task-axis
     row kernel (pallas, RBF / linear), or the tasks' own row functions
@@ -368,6 +373,7 @@ class TaskKernelEngine:
         if backend == "pallas" and self.tasks[0]._mode is not None:
             self._xk = self.x.to(ops.tile_dtype(cfg.gram_dtype)).contiguous()
             self._x2 = torch.stack([e._x2 for e in self.tasks])
+            self._xs = staged(self._xk)
 
     def init_cache(self) -> None:
         return None
@@ -388,6 +394,13 @@ class TaskKernelEngine:
         return torch.stack([e.diag() for e in self.tasks])
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """(T, w) K_t v_t: one launch of the task-axis Gram matvec under
+        ``pallas`` (RBF / linear), else the tasks' own matvecs."""
+        if self._xk is not None:
+            return ops.gram_matvec(self._xs, self._x2, v.contiguous(),
+                                   gamma=self.kernel.gamma,
+                                   mode=self.tasks[0]._mode,
+                                   chunk=self.cfg.chunk)
         return torch.stack([e.matvec(vt) for e, vt in zip(self.tasks, v)])
 
 # low-rank approximation backends resolve lazily

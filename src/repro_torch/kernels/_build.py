@@ -34,7 +34,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # every exported function returns cudaGetLastError() as an int
 SIGNATURES = {
-    "svm_rbf_gram_block": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "svm_rbf_gram_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _P],
+    "svm_rbf_gram_matvec": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P],
     "svm_rbf_gram_row": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "svm_rbf_gram_row_cached": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _P, _I, _I, _F, _I, _I, _P],

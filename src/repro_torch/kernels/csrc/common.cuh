@@ -1,14 +1,9 @@
-// Shared pieces of the port's SVM kernels for Hopper (sm_90a).
-//
-// The rbf_gram block kernel contracts a tile of A rows against a tile
-// of B rows over the feature axis (rff_features and decision, which did
-// too, now use tile_f32.cuh). SVM features are narrow (d = 4..102), so
-// the product is short and the tile machinery stays plain: a 64 x 64 output
-// tile per 256-thread block, features staged through shared memory in
-// chunks of 32, 4 x 4 outputs per thread, IEEE float32 FMAs (no TF32:
-// the parity bounds against the float32 reference do not allow it).
-// bf16 operands are widened to float32 as they enter shared memory, so
-// products of bf16 values are exact and accumulate in float32.
+// Shared pieces of the port's SVM kernels for Hopper (sm_90a): the
+// ticket counter of the kernels whose last block combines, the RBF
+// epilogue the Gram kernels share (rbf_gram.cu's block, matvec and row
+// entries), and the tiles of the LM-substrate kernels. The Gram block
+// route's tensor-core tiles live in rbf_gram.cu, and rff_features /
+// decision stage theirs through tile_f32.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,82 +12,12 @@
 
 namespace svm {
 
-constexpr int TILE = 64;     // rows of A and of B per block tile
-constexpr int DK = 32;       // feature chunk staged in shared memory
+constexpr int TILE = 64;     // rows of A and of B per LM tile
 constexpr int THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-struct TileSmem {
-  float a[DK][TILE + 1];  // k-major; +1 keeps the transposing stores
-  float b[DK][TILE + 1];  // free of bank conflicts
-  float norm[2 * TILE];   // [0, TILE): A row norms, [TILE, 2 TILE): B
-};
-
-// Stage rows [row0, row0 + TILE) x features [k0, k0 + DK) of a
-// row-major (nrows, d) matrix into s[k][r]; the ragged edges of both
-// axes are filled with zeros (zero features add nothing to a dot or a
-// norm, and rows past the edge are never stored).
-template <typename T>
-__device__ __forceinline__ void stage(float (*s)[TILE + 1], const T* src,
-                                      int row0, int nrows, int k0, int d) {
-  for (int e = threadIdx.x; e < TILE * DK; e += THREADS) {
-    const int r = e / DK, c = e % DK;
-    const int gr = row0 + r, gc = k0 + c;
-    float v = 0.f;
-    if (gr < nrows && gc < d) v = to_f32(src[(size_t)gr * d + gc]);
-    s[c][r] = v;
-  }
-}
-
-// acc[i][j] = <A[a0 + ty + 16 i], B[b0 + tx + 16 j]> over all d features,
-// summed in feature order, A (na, d) and B (nb, d) row-major. With `norms`,
-// sm.norm also receives the squared norms of the staged A and B rows
-// (f32 of the rounded operands, as the reference computes them). Ends
-// with a barrier, so the caller may read sm.norm right away; starts
-// with one, so the caller may still be reading sm.norm of the previous
-// tile.
-template <typename T>
-__device__ __forceinline__ void tile_dot(TileSmem& sm, const T* A, int a0,
-                                         int na, const T* B, int b0, int nb,
-                                         int d, bool norms,
-                                         float acc[4][4]) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float sq = 0.f;
-  for (int k0 = 0; k0 < d; k0 += DK) {
-    __syncthreads();
-    stage(sm.a, A, a0, na, k0, d);
-    stage(sm.b, B, b0, nb, k0, d);
-    __syncthreads();
-    if (norms && tid < 2 * TILE) {
-      float(*s)[TILE + 1] = tid < TILE ? sm.a : sm.b;
-      const int r = tid % TILE;
-#pragma unroll 8
-      for (int k = 0; k < DK; ++k) sq = fmaf(s[k][r], s[k][r], sq);
-    }
-#pragma unroll 8
-    for (int k = 0; k < DK; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sm.a[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sm.b[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-  if (norms && tid < 2 * TILE) sm.norm[tid] = sq;
-  __syncthreads();
 }
 
 // Add one to a ticket counter in device memory and return the count

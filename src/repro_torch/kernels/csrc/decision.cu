@@ -14,7 +14,7 @@
 // reach a few hundred.
 //
 // Design (tile_f32.cuh). The first version walked the whole bank in one
-// block per (64-row tile, task) on common.cuh's tile_dot: at a served
+// block per (64-row tile, task) on a 64 x 64 FMA tile: at a served
 // 6-task bank over 1,024 rows that is 96 blocks for 132 SMs, and every
 // SV tile re-staged the same test rows and recomputed their norms. Now:
 // * a block stages its BM test rows (BM = 128, or 64 for small grids)

@@ -12,10 +12,9 @@
 // that is 6.16 GFLOP (0.092 ms at the 67 TFLOP/s float32 rate) against
 // 121 MB (0.036 ms at 3.35 TB/s): the FMA rate bounds it.
 //
-// Design (tile_f32.cuh). The first version rode common.cuh's tile_dot:
-// a 64 x 64 tile, 4 x 4 outputs a thread, features in chunks of 32
-// (d = 102 cost 128 FMAs an output) staged element by element between
-// two barriers each; 0.377 ms at the fit's shape on the H100, 24 % of
+// Design (tile_f32.cuh). The first version rode a 64 x 64 FMA tile, 4 x 4
+// outputs a thread, features in chunks of 32 (d = 102 cost 128 FMAs an
+// output) staged element by element between two barriers each; 0.377 ms at the fit's shape on the H100, 24 % of
 // the bound. Now:
 // * a block computes a BM x 128 tile of Phi (BM = 128, or 64 where the
 //   128-row grid would not give every SM a block: `rff_plan` in

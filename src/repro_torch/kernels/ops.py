@@ -32,11 +32,12 @@ from repro_torch.kernels import rbf_gram as _gram
 from repro_torch.kernels import ssd_diag as _ssd
 from repro_torch.kernels.tile_f32 import current_stream
 
-# one count per kernel entry point: rbf_gram.cu has a block, a row and a
-# cached-row one; a launch with the task axis (a multiclass bucket, the
-# tasks of a multiclass low-rank fit) counts once, whatever T
-KERNELS = ("rbf_gram", "rbf_gram_row", "rbf_gram_row_cached", "kkt_select",
-           "decision", "multitask_decision", "rff_features", "dcd_epoch",
+# one count per kernel entry point: rbf_gram.cu has a block, a matvec, a
+# row and a cached-row one; a launch with the task axis (a multiclass
+# bucket, the tasks of a multiclass low-rank fit) counts once, whatever T
+KERNELS = ("rbf_gram", "rbf_gram_matvec", "rbf_gram_row",
+           "rbf_gram_row_cached", "kkt_select", "decision",
+           "multitask_decision", "rff_features", "dcd_epoch",
            "flash_attention", "ssd_diag")
 
 # the largest rank dcd_epoch takes: w must fit the 232,448 bytes of
@@ -129,17 +130,64 @@ def rbf_gram(a: torch.Tensor, b: torch.Tensor, *, gamma: float = 1.0,
         raise ValueError("rbf_gram: norm vectors do not match the operands")
     if not _on_card("rbf_gram", a, b, a2, b2):
         return _gram.rbf_gram_plain(a, b, a2, b2, gamma=gamma, mode=mode)
-    _check_contiguous("rbf_gram", a=a, b=b, a2=a2, b2=b2)
+    _check_contiguous("rbf_gram", a2=a2, b2=b2)
     if a2.dtype != torch.float32 or b2.dtype != torch.float32:
         raise ValueError("rbf_gram: norms must be float32")
     out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32,
                       device=a.device)
     if out.numel() == 0:
         return out
+    a, b = (t if _gram.copyable(t) else _gram.staged(t) for t in (a, b))
+    plan = _gram.gram_plan(a.shape[0], b.shape[0], a.shape[1], a.dtype,
+                           sms=_sm_count(a.device))
     lib = _build.library()
     _count("rbf_gram")
     _raise_on_error("rbf_gram", _gram.launch_block(
-        lib, a, b, a2, b2, out, gamma=gamma, mode=mode))
+        lib, a, b, a2, b2, out, gamma=gamma, mode=mode, plan=plan))
+    return out
+
+
+def gram_matvec(x: torch.Tensor, x2: torch.Tensor, v: torch.Tensor, *,
+                gamma: float = 1.0, mode: str = "rbf",
+                chunk: int = 2048) -> torch.Tensor:
+    """K(X, X) v without forming K: (n,) float32 for x (n, d) and x2, v
+    (n,). ``x`` is already at the compute precision (float32 or
+    bfloat16) and ``x2`` its float32 squared norms, as ``gram_row``
+    takes them.
+
+    Task axis (one launch for a multiclass bucket): x (T, n, d), x2 and
+    v (T, n) give the (T, n) products, each the bits of its own one-task
+    call. On the card ``x`` goes as ``rbf_gram.staged`` lays it out (the
+    pallas engines pass it so; other layouts are copied into it). On the
+    CPU, the plain version in ``chunk``-row blocks."""
+    _check_mode(mode)
+    if x.ndim not in (2, 3) or x.dtype not in (torch.float32,
+                                               torch.bfloat16):
+        raise ValueError(f"gram_matvec: x must be (n, d) or (T, n, d) "
+                         f"float32/bfloat16, got {tuple(x.shape)} {x.dtype}")
+    for name, t in (("x2", x2), ("v", v)):
+        if t.shape != x.shape[:-1] or t.dtype != torch.float32:
+            raise ValueError(f"gram_matvec: {name} must be "
+                             f"{tuple(x.shape[:-1])} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if chunk < 1:
+        raise ValueError(f"gram_matvec: chunk must be >= 1, got {chunk}")
+    if not _on_card("gram_matvec", x, x2, v):
+        return _gram.gram_matvec_plain(x, x2, v, gamma=gamma, mode=mode,
+                                       chunk=chunk)
+    _check_contiguous("gram_matvec", x2=x2, v=v)
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    x = x if _gram.copyable(x) else _gram.staged(x)
+    n, d = x.shape[-2:]
+    plan = _gram.gram_plan(n, n, d, x.dtype,
+                           tasks=x.shape[0] if x.ndim == 3 else 1,
+                           entry="matvec", sms=_sm_count(x.device))
+    lib = _build.library()
+    _count("rbf_gram_matvec")
+    _raise_on_error("rbf_gram_matvec", _gram.launch_matvec(
+        lib, x, x2, v, out, gamma=gamma, mode=mode, plan=plan))
     return out
 
 

@@ -9,6 +9,9 @@ the machine with the card:
 
 Bounds are the reference's (tests/test_kernels_pallas.py): Gram rtol
 2e-5 / atol 2e-6, decisions rtol 2e-4 / atol 2e-5, kkt_select exact;
+the Gram matvec (``ops.gram_matvec``, which never writes K) against a
+float64 sum over the same rounded operands, GRAM_TOL on each term of a
+row's sum, summed: |got - Kv| <= 2e-5 sum |K v| + 2e-6 sum |v|;
 rff_features atol 1e-5 against its plain version on the same operands
 (bfloat16 operands are rounded before both, and both accumulate in
 float32), and 5e-2 for the bfloat16 map against the float32 one
@@ -17,8 +20,8 @@ another order than its plain version, so one epoch from the same state
 agrees to rtol 1e-4 (atol 1e-4 of the largest entry) in w and beta and
 to 1e-5 in the epoch's max projected gradient.
 
-The task axis (one launch for a multiclass bucket) of the row and
-selection kernels gives each task exactly what a T = 1 launch gives it,
+The task axis (one launch for a multiclass bucket) of the row, matvec
+and selection kernels gives each task exactly what a T = 1 launch gives it,
 so a bucket's batched SMO equals each task's lone solve bit for bit.
 ``flash_attention`` and ``ssd_diag`` hold rtol 2e-4 / atol 2e-5 against
 their plain versions on the same operands (bfloat16 ones rounded before
@@ -91,6 +94,195 @@ def test_gram_kernels_match_plain(cuda, dtype):  # noqa: F811
         assert state[0].tolist() == [5, i.item(), 7]
         assert state[1].tolist() == [2, 4, 1]
         assert [int(v) for v in state[3:]] == [4, 1, 1]
+
+
+# ------------------------------------------- the block route (tensor cores)
+GRAM_SHAPES_TC = [(300, 257, 102), (37, 129, 7), (1, 1, 1), (2048, 4099, 102),
+                  (129, 300, 300), (65, 33, 2)]
+
+
+def _operands(rng, dev, dt, *shapes):
+    out = []
+    for shape in shapes:
+        t = tt(rng.normal(size=shape), device=dev).to(dt)
+        out += [t, K.sqnorms(t)]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n,m,d", GRAM_SHAPES_TC)
+def test_gram_block_entry_matches_plain(cuda, dtype, n, m, d):  # noqa: F811
+    """The block entry (3xTF32 / bf16 tensor cores) against its plain
+    version: GRAM_TOL in rbf mode, atol 1e-4 in linear mode (dots of
+    size ~sqrt(d), as test_gram_kernels_match_plain); ragged tiles, a
+    depth past one staged chunk (d = 300), bf16 rows of odd d (loads,
+    not copies) and a view one row into its matrix."""
+    rng = np.random.default_rng(n + m + d)
+    dt = ops.tile_dtype(dtype)
+    a, a2, b, b2 = _operands(rng, cuda, dt, (n + 1, d), (m, d))
+    for lhs, lhs2 in ((a[:n], a2[:n]), (a[1:], a2[1:])):
+        for mode in ("rbf", "linear"):
+            got = ops.rbf_gram(lhs, b, gamma=0.01, mode=mode, a2=lhs2, b2=b2)
+            want = G.rbf_gram_plain(lhs, b, lhs2, b2, gamma=0.01, mode=mode)
+            tol = GRAM_TOL if mode == "rbf" else dict(rtol=2e-5, atol=1e-4)
+            torch.testing.assert_close(got, want, **tol)
+
+
+def _matvec_f64(x, v, gamma, mode):
+    """K(X, X) v and |K| |v| in float64 from the rounded operands."""
+    x, v = x.double(), v.double()
+    dot = x @ x.T
+    if mode == "rbf":
+        x2 = (x * x).sum(1)
+        k = torch.exp(-gamma * torch.clamp_min(x2[:, None] + x2[None, :]
+                                               - 2.0 * dot, 0.0))
+    else:
+        k = dot
+    return k @ v, k.abs() @ v.abs()
+
+
+def matvec_ok(got, x, v, gamma, mode):
+    """|got - K v| <= 2e-5 sum_c |K_rc v_c| + 2e-6 sum_c |v_c| per row:
+    GRAM_TOL on each term of the row's sum, summed."""
+    want, mag = _matvec_f64(x, v, gamma, mode)
+    bound = 2e-5 * mag + 2e-6 * v.double().abs().sum()
+    err = (got.double() - want).abs()
+    return bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["rbf", "linear"])
+@pytest.mark.parametrize("n,d", [(1, 7), (255, 102), (4099, 102), (300, 3),
+                                 (700, 300)])
+def test_gram_matvec_matches_float64(cuda, dtype, mode, n, d):  # noqa: F811
+    rng = np.random.default_rng(n * 7 + d)
+    x = tt(rng.normal(size=(n, d)), device=cuda).to(ops.tile_dtype(dtype))
+    x2 = K.sqnorms(x)
+    v = tt(rng.normal(size=n), device=cuda)
+    got = ops.gram_matvec(x, x2, v, gamma=0.01, mode=mode)
+    ok, worst = matvec_ok(got, x, v, 0.01, mode)
+    assert ok, worst
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_gram_matvec_task_axis_equals_lone_calls(cuda, dtype):  # noqa: F811
+    """One task-axis launch over a ragged bucket (zero rows past each
+    task, v 0 there) gives each task its lone call's bits, and holds the
+    float64 bound on each task's own rows."""
+    rng = np.random.default_rng(31)
+    for widths, w, d in [((300, 17, 256), 300, 102), ((5,), 5, 3),
+                         ((4000, 3999, 1, 2500), 4000, 7)]:
+        x, _, mask = _ragged_bucket(rng, widths, w, d, cuda)
+        xk = x.to(ops.tile_dtype(dtype))
+        x2 = K.sqnorms(xk)
+        v = tt(rng.normal(size=(len(widths), w)), device=cuda) * mask
+        got = ops.gram_matvec(xk, x2, v, gamma=0.01)
+        for t, k in enumerate(widths):
+            assert torch.equal(got[t], ops.gram_matvec(xk[t], x2[t], v[t],
+                                                       gamma=0.01))
+            ok, worst = matvec_ok(got[t, :k], xk[t, :k], v[t, :k], 0.01,
+                                  "rbf")
+            assert ok, (t, worst)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n,d", [(4099, 102), (300, 300), (77, 7)])
+def test_gram_matvec_bits_do_not_depend_on_plan(cuda, dtype, n, d):  # noqa: F811
+    """Every row tile the route takes (32, 64, 128 rows on mma.sync; the
+    float32 wgmma route takes 128) gives the same bits: a row's sum
+    order is fixed by n alone."""
+    rng = np.random.default_rng(n + d)
+    x = tt(rng.normal(size=(n, d)), device=cuda).to(ops.tile_dtype(dtype))
+    x2 = K.sqnorms(x)
+    v = tt(rng.normal(size=n), device=cuda)
+    want = ops.gram_matvec(x, x2, v, gamma=0.01)
+    lib, xs = _build.library(), G.staged(x)
+    for rows in G.route_rows(d, x.dtype, "matvec"):
+        plan = G.gram_plan(n, n, d, x.dtype, entry="matvec", rows=rows)
+        out = torch.empty_like(want)
+        assert G.launch_matvec(lib, xs, x2, v, out, gamma=0.01, mode="rbf",
+                               plan=plan) == 0
+        assert torch.equal(out, want), rows
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_gram_route_reads_nothing_past_d(cuda, dtype):  # noqa: F811
+    """Rows that are a view into a wider matrix (16-byte strides, other
+    data past d), with and without the task axis, give the bits of the
+    same rows copied out (which the wrappers pad): the block route copies
+    whole padded rows but zeroes every word past d as it loads it."""
+    rng = np.random.default_rng(3)
+    dt = ops.tile_dtype(dtype)
+    for d in (102, 7, 300):
+        width = -(-(d + 29) // 8) * 8
+        wide = tt(rng.normal(size=(2, 700, width)), device=cuda).to(dt)
+        x, xc = wide[..., :d], wide[..., :d].contiguous()
+        x2 = K.sqnorms(xc)
+        v = tt(rng.normal(size=(2, 700)), device=cuda)
+        assert torch.equal(ops.gram_matvec(x, x2, v, gamma=0.01),
+                           ops.gram_matvec(xc, x2, v, gamma=0.01))
+        assert torch.equal(ops.gram_matvec(x[1], x2[1], v[1], gamma=0.01),
+                           ops.gram_matvec(xc[1], x2[1], v[1], gamma=0.01))
+        for mode in ("rbf", "linear"):
+            assert torch.equal(
+                ops.rbf_gram(x[0, :300], x[1], gamma=0.01, mode=mode,
+                             a2=x2[0, :300], b2=x2[1]),
+                ops.rbf_gram(xc[0, :300], xc[1], gamma=0.01, mode=mode,
+                             a2=x2[0, :300], b2=x2[1]))
+
+
+def test_gram_matvec_is_one_kernel(cuda):  # noqa: F811
+    """Under the profiler: one device kernel a matvec, for T = 1, for a
+    bucket and through both engines; the launch counted once each."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import kernel_engine as KE
+    rng = np.random.default_rng(5)
+    x = tt(rng.normal(size=(4099, 102)), device=cuda)
+    xb = tt(rng.normal(size=(6, 1000, 102)), device=cuda)
+    v, vb = torch.ones(4099, device=cuda), torch.ones((6, 1000), device=cuda)
+    kp = K.KernelParams(gamma=0.01)
+    eng = KE.make_engine(x, kp, "pallas")
+    teng = KE.TaskKernelEngine(xb, kp, "pallas")
+    calls = [lambda: eng.matvec(v), lambda: teng.matvec(vb)]
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    best = 0
+    for _ in range(3):   # the profiler can drop records, never add them
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                for fn in calls:
+                    fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(e.count for e in prof.key_averages()
+                             if e.device_type
+                             == torch.autograd.DeviceType.CUDA))
+    assert best == 20, best
+    assert ops.launches["rbf_gram_matvec"] == 60
+    assert ops.launches["rbf_gram"] == 0
+
+
+def test_engine_matvecs_on_card(cuda):  # noqa: F811
+    """The pallas engine's matvec and the bucket engine's, against the
+    float64 bound, and each bucket task equal to its lone engine's."""
+    from repro_torch.core import kernel_engine as KE
+    rng = np.random.default_rng(13)
+    kp = K.KernelParams(gamma=0.02)
+    for dtype in ("fp32", "bf16"):
+        cfg = KE.EngineConfig(backend="pallas", gram_dtype=dtype)
+        x = tt(rng.normal(size=(2500, 102)), device=cuda)
+        v = tt(rng.normal(size=2500), device=cuda)
+        eng = KE.make_engine(x, kp, cfg)
+        ok, worst = matvec_ok(eng.matvec(v), eng._xk, v, 0.02, "rbf")
+        assert ok, worst
+        xb, _, mask = _ragged_bucket(rng, (700, 650, 1), 700, 102, cuda)
+        vb = tt(rng.normal(size=(3, 700)), device=cuda) * mask
+        teng = KE.TaskKernelEngine(xb, kp, cfg)
+        got = teng.matvec(vb)
+        for t in range(3):
+            lone = KE.make_engine(xb[t], kp, cfg).matvec(vb[t])
+            assert torch.equal(got[t], lone)
 
 
 @pytest.mark.parametrize("n", [1, 255, 4099, 100_000])
