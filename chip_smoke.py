@@ -57,9 +57,11 @@ then:
    through a schema-v2 pack;
 7. drives the LM-substrate kernels through ``ops.flash_attention`` at
    phi4_mini_3p8b's attention (B = 1, S = 4,096, 24 heads over 8 kv
-   heads, D = 128, causal) and a ragged non-causal S = 300 case, and
-   ``ops.ssd_diag`` at mamba2_780m's chunk (Q = 256, N = 128, P = 64,
-   48 heads, 16 chunks), each against its plain version;
+   heads, D = 128, causal; float32 and bfloat16 operands) and a ragged
+   non-causal S = 300 case, and ``ops.ssd_diag`` at mamba2_780m's chunk
+   (Q = 256, N = 128, P = 64, 48 heads, 16 chunks), each against its
+   plain version (``ssd_diag`` also with decays 40 times as steep, where
+   exp above the diagonal would overflow);
 8. holds the task-axis row and selection kernels against their plain
    versions at the OvO and OvR bucket shapes (ragged widths masked), and
    ``multitask_decision`` at the largest OvO and OvR serving banks;
@@ -123,6 +125,9 @@ FP32_FLOP_PER_S = 67e12
 # dense tensor-core peaks, the same sheet: the Gram block route's dots
 TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
+# exponentials (MUFU ex2): 16 a clock on each of the 132 SMs at the
+# 1,980 MHz boost clock; reported beside the bound, not in it
+MUFU_PER_S = 132 * 16 * 1.98e9
 SEED = 7
 GRAM_TOL = dict(rtol=2e-5, atol=2e-6)      # tests/test_kernels_pallas.py
 DECISION_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_kernels_pallas.py
@@ -358,22 +363,56 @@ def gram_bounds(n: int, m: int, d: int, dtype: str, n_bytes: float,
                 t_bytes, n * m * (2 * d + 6 + extra) / FP32_FLOP_PER_S * 1e3)}
 
 
+def lm_bounds(n_bytes: float, tc_flops: float, rate: float,
+              fp32_ops: float, exps: float,
+              route_passes: float | None = None) -> dict:
+    """Bounds of an LM-substrate kernel on its tensor-core route:
+    ``bound_ms`` the larger of its bytes' time and ``tc_flops`` at the
+    tensor cores' ``rate`` (3xTF32: three passes at TF32_FLOP_PER_S; bf16:
+    one pass at BF16_FLOP_PER_S, the route's own passes, P split in two
+    for P V, in ``route_ms``); ``fp32_core_bound_ms`` the bound as the
+    CUDA-core route counted it (``fp32_ops`` at 67 TFLOP/s against the
+    bytes); ``exp_ms`` the exponentials at MUFU_PER_S, beside it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    tc = tc_flops / rate * 1e3
+    out = {"bound_ms": max(t_bytes, tc),
+           "bound_by": "bytes" if t_bytes >= tc else "operations",
+           "tensor_core_ms": tc, "bytes_ms": t_bytes,
+           "exp_ms": exps / MUFU_PER_S * 1e3,
+           "fp32_core_bound_ms": max(
+               t_bytes, fp32_ops / FP32_FLOP_PER_S * 1e3)}
+    if route_passes is not None:
+        out["route_ms"] = route_passes * tc
+    return out
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max())
 
 
 def redesign_info(kernel: str, shape) -> dict:
     """The launch plan of a redesigned kernel (``rff_features`` at an
-    (n, k, d) shape, ``decision`` at an (nt, T, w, d) one) on this card,
-    and what ptxas reported for the float32 instantiation it runs:
+    (n, k, d) shape, ``decision`` at an (nt, T, w, d) one,
+    ``flash_attention`` at (b, sq, h, d, dtype), ``ssd_diag`` at
+    (bc, h, q, n, p)) on this card, and what ptxas reported for the
+    instantiation it runs (float32, or flash_attention's dtype):
     registers, static shared memory, spills."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decision as D
     from repro_torch.kernels import feature_map as FM
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import ssd_diag as SD
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if kernel == "rff_features":
         plan = FM.rff_plan(*shape, sms=sms)
         name = f"rff_features_kernelIfLi{plan.rows // 64}E"
+    elif kernel == "flash_attention":   # (b, sq, h, d, dtype)
+        plan = FA.flash_plan(*shape, sms=sms)
+        elem = "13__nv_bfloat16" if shape[4] == torch.bfloat16 else "f"
+        name = f"flash_kernelI{elem}Li{plan.d_tiles}E"
+    elif kernel == "ssd_diag":          # (bc, h, q, n, p)
+        plan = SD.ssd_plan(*shape, sms=sms)
+        name = "ssd_diag_kernel"
     else:
         plan = D.decision_plan(*shape, sms=sms)
         name = f"decision_kernelIfLi{plan.rows // 16}E"
@@ -1187,10 +1226,12 @@ def phase_lowrank_parity(ops, FM, DCD, dev, xtr, clf, phi_fit, yy_fit,
 
 
 def time_row(ops, name, src, replaces, kern, plain, lib, n_bytes, n_ops,
-             launches, err, plain_on_host=False):
+             launches, err, plain_on_host=False, bounds=None):
     """One ``kernels`` entry: the kernel, its plain version and the
     library call timed at main-path shapes (timing launches do not
-    count)."""
+    count). ``bounds`` (``gram_bounds`` / ``lm_bounds``) replaces the
+    float32-core bound of ``n_bytes`` and ``n_ops``; ``launches`` is the
+    path's count, by kernel name, or a number."""
     saved = dict(ops.launches)
     ms = median_ms(kern)
     if plain_on_host:   # a Python loop on the host: wall clock, few reps
@@ -1211,11 +1252,18 @@ def time_row(ops, name, src, replaces, kern, plain, lib, n_bytes, n_ops,
                                  else None)}
     ops.launches.update(saved)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
+    extra = {}
+    if bounds is not None:
+        extra = {k: v for k, v in bounds.items()
+                 if k not in ("bound_ms", "bound_by")}
+        b_ms, b_by = bounds["bound_ms"], bounds["bound_by"]
     return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (launches if isinstance(launches, int)
+                         else launches[name]),
             "max_abs_err": err, "ms": ms, "ms_repeat": ms2,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, **dev}
+            "library_ms": library_ms, **dev, **extra}
 
 
 def phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi_fit, yy, errs,
@@ -1760,19 +1808,26 @@ def lm_inputs(dev):
 
 def phase_lm(ops, FA, SD, dev):
     """The two LM-substrate kernels through their entry points at model
-    shapes (the launch counts of this run are the path's), then each
+    shapes (the launch counts of this run are the path's; attention in
+    float32 and in bfloat16, its bf16 launches counted apart), then each
     against its plain version: float32 operands, and bfloat16 operands
     rounded before both (the kernel's float32 output at the float32
-    bound; its bfloat16 output equal to that, rounded once)."""
+    bound; its bfloat16 output equal to that, rounded once); ssd_diag
+    also with decays 40 times as steep."""
     attn, ragged, ssd = lm_inputs(dev)
+    attn_bf16 = [t.to(torch.bfloat16) for t in attn]
     torch.cuda.synchronize()
     ops.reset_launches()
     out = ops.flash_attention(*attn, causal=True)
     out_r = ops.flash_attention(*ragged, causal=False)
+    before = ops.launches["flash_attention"]
+    out_b = ops.flash_attention(*attn_bf16, causal=True)
+    bf16_launches = ops.launches["flash_attention"] - before
     y = ops.ssd_diag(*ssd)
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     check(bool(torch.isfinite(out).all() and torch.isfinite(out_r).all()
+               and torch.isfinite(out_b).all()
                and torch.isfinite(y).all()), "LM kernels gave non-finite "
           "values")
     errs = {}
@@ -1794,17 +1849,24 @@ def phase_lm(ops, FA, SD, dev):
                  out_in_operand_dtype_equals_rounded_fp32=rounded)
             check(ok and rounded, f"flash_attention {name} {dt} disagrees "
                   "with its plain version")
-            if dt == torch.float32 and causal:
-                errs["flash_attention"] = max_err(got, want)
-    want = SD.ssd_diag_plain(*ssd)
-    ok = bool(torch.allclose(y, want, **LM_TOL))
-    emit(phase="parity", kernel="ssd_diag", shape=list(ssd[2].shape),
-         n_state=int(ssd[0].shape[2]), max_abs_err=max_err(y, want),
-         bound=LM_TOL, ok=ok)
-    check(ok, "ssd_diag disagrees with its plain version")
-    errs["ssd_diag"] = max_err(y, want)
+            if causal:
+                errs["flash_attention" if dt == torch.float32
+                     else "flash_attention_bf16"] = max_err(got, want)
+    cmat, bmat, x, dt_, cs = ssd
+    for case, c in (("mamba2", cs), ("steep_decay_x40", cs * 40.0)):
+        got = y if case == "mamba2" else ops.ssd_diag(cmat, bmat, x, dt_, c)
+        want = SD.ssd_diag_plain(cmat, bmat, x, dt_, c)
+        finite = bool(torch.isfinite(got).all())
+        ok = bool(torch.allclose(got, want, **LM_TOL))
+        emit(phase="parity", kernel="ssd_diag", case=case,
+             shape=list(x.shape), n_state=int(cmat.shape[2]),
+             max_abs_err=max_err(got, want), bound=LM_TOL, ok=ok,
+             finite=finite)
+        check(ok and finite, f"ssd_diag {case} disagrees with its plain "
+              "version")
+        errs["ssd_diag"] = max(errs.get("ssd_diag", 0.0), max_err(got, want))
     ops.launches.update(launches)
-    return launches, errs
+    return launches, errs, bf16_launches
 
 
 def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma, counts):
@@ -1981,37 +2043,56 @@ def bank_row(ops, D, dev, fit, strategy, xte, gamma,
     return row
 
 
-def phase_timing_lm(ops, FA, SD, dev, errs, launches):
-    """flash_attention and ssd_diag at their model shapes, float32."""
+def phase_timing_lm(ops, FA, SD, dev, errs, launches, bf16_launches):
+    """flash_attention (float32 and bfloat16) and ssd_diag at their model
+    shapes, each with its plan, ptxas's report and its tensor-core bounds
+    (``lm_bounds``)."""
     attn, _, ssd = lm_inputs(dev)
-    q, k, v = attn
     a, m = PHI4_ATTN, MAMBA2_SSD
     b, s_len, h, hkv, d = a["b"], a["s"], a["h"], a["hkv"], a["d"]
     bc, hs, qs, n, p = m["bc"], m["h"], m["q"], m["n"], m["p"]
+    pairs = b * h * s_len * (s_len + 1) // 2   # (query, key) under the mask
+    flops = 4.0 * pairs * d                    # both products
     tri = qs * (qs + 1) // 2   # (key, query) pairs under the causal mask
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (t.transpose(1, 2) for t in attn)
-    return [
-        time_row(ops, "flash_attention", "flash_attn.cu",
-                 "src/repro/kernels/flash_attn.py:83",
-                 lambda: ops.flash_attention(q, k, v, causal=True),
-                 lambda: FA.flash_attention_plain(q, k, v, causal=True,
-                                                  out_dtype=torch.float32),
-                 lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
-                 4 * (2 * b * s_len * h * d + 2 * b * s_len * hkv * d),
-                 2 * b * h * s_len * s_len * d, launches,
-                 errs["flash_attention"]),
-        time_row(ops, "ssd_diag", "ssd_diag.cu",
-                 "src/repro/kernels/ssd_diag.py:51",
-                 lambda: ops.ssd_diag(*ssd),
-                 lambda: SD.ssd_diag_plain(*ssd), None,
-                 # C and B once; x, dt, cs read and y written once
-                 4 * (2 * bc * qs * n + 2 * bc * hs * qs * (p + 1)),
-                 # scores once per chunk (shared by the heads); per head
-                 # the decay exp and two products, then the weighted sum
-                 bc * tri * 2 * n + bc * hs * tri * (3 + 2 * p),
-                 launches, errs["ssd_diag"]),
-    ]
+    rows = []
+    for dt, name in ((torch.float32, "flash_attention"),
+                     (torch.bfloat16, "flash_attention_bf16")):
+        q, k, v = (t.to(dt) for t in attn)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        elem = 2 if dt == torch.bfloat16 else 4
+        n_bytes = elem * (2 * b * s_len * h * d + 2 * b * s_len * hkv * d)
+        bounds = (lm_bounds(n_bytes, 3 * flops, TF32_FLOP_PER_S, flops,
+                            pairs) if dt == torch.float32
+                  else lm_bounds(n_bytes, flops, BF16_FLOP_PER_S, flops,
+                                 pairs, route_passes=1.5))
+        rows.append(time_row(
+            ops, name, "flash_attn.cu", "src/repro/kernels/flash_attn.py:83",
+            lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: FA.flash_attention_plain(q, k, v, causal=True,
+                                             out_dtype=dt),
+            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+            n_bytes, flops,
+            launches["flash_attention"] - bf16_launches
+            if dt == torch.float32 else bf16_launches,
+            errs[name], bounds=bounds))
+        rows[-1].update(dtype=str(dt).split(".")[1],
+                        **redesign_info("flash_attention",
+                                        (b, s_len, h, d, dt)))
+    # C and B once; x, dt, cs read and y written once
+    ssd_bytes = 4 * (2 * bc * qs * n + 2 * bc * hs * qs * (p + 1))
+    # scores once a chunk, the weighted sum once a head (causal halves)
+    ssd_flops = 2.0 * bc * tri * n + 2.0 * bc * hs * tri * p
+    rows.append(time_row(
+        ops, "ssd_diag", "ssd_diag.cu", "src/repro/kernels/ssd_diag.py:51",
+        lambda: ops.ssd_diag(*ssd), lambda: SD.ssd_diag_plain(*ssd), None,
+        ssd_bytes, bc * tri * 2 * n + bc * hs * tri * (3 + 2 * p),
+        launches, errs["ssd_diag"],
+        bounds=lm_bounds(ssd_bytes, 3 * ssd_flops, TF32_FLOP_PER_S,
+                         bc * tri * 2 * n + bc * hs * tri * (3 + 2 * p),
+                         bc * hs * tri)))
+    rows[-1].update(**redesign_info("ssd_diag", (bc, hs, qs, n, p)))
+    return rows
 
 
 def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
@@ -2260,7 +2341,8 @@ def main() -> int:
             fits[strategy][1], out_dir, config, strategy)
         lowrank_paths[f"svc_{strategy}_lowrank"] = path_launches
         lowrank_fits[strategy] = (mclf, mphi, path_launches)
-    lm, lm_errs = phase_lm(ops, FA, SD, dev)
+    lm, lm_errs, lm_bf16 = phase_lm(ops, FA, SD, dev)
+    check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
     paths = {"svc_exact": exact, "svc_linear": linear,
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
              "svr": svr, **mc_paths, **lowrank_paths,
@@ -2294,7 +2376,7 @@ def main() -> int:
     kernels += phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi, yy,
                                     errs, launches, svr_state, svr,
                                     task_rows)
-    kernels += phase_timing_lm(ops, FA, SD, dev, errs, launches)
+    kernels += phase_timing_lm(ops, FA, SD, dev, errs, launches, lm_bf16)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ checkout of this repository.
     python3 kernel_times.py --dcd --packs DIR [--src DIR] [--dcd-sweep]
     python3 kernel_times.py --smo [--src DIR] [--smo-sweep] [--out FILE]
     python3 kernel_times.py --gram [--src DIR] [--gram-sweep] [--out FILE]
+    python3 kernel_times.py --lm [--src DIR] [--lm-sweep] [--out FILE]
 
 ``--packs`` holds what chip_smoke.py saves under ``chiprun_out/``: the
 exact binary SVC (``chip_smoke_model.npz``), the OvO and OvR models of
@@ -89,6 +90,19 @@ column copies or two of three TF32 products, timed at the fp32 block and
 the bf16 matvec; the float32 matvec's wgmma route without its split, its
 wgmmas or two of three products), diagnostics that are never shipped.
 
+``--lm`` times the LM-substrate kernels at their model shapes (``lm``
+lines; no packs; the inputs of ``chip_smoke.lm_inputs``):
+``ops.flash_attention`` at phi4_mini_3p8b's causal attention and the
+ragged non-causal S = 300 case, float32 and bfloat16 operands, each
+beside ``scaled_dot_product_attention`` on the same operands, and
+``ops.ssd_diag`` at mamba2_780m's chunk: device time
+(``chip_smoke.device_ms``). ``--lm-sweep`` (this tree) adds the plans'
+alternatives (flash_attention's 64- and 128-row query tiles, ssd_diag's
+head groups and ring depths) and builds of ``csrc/flash_attn.cu`` and
+``csrc/ssd_diag.cu`` cut by a regex (``LM_CUTS``: no exponential, no
+MMAs, no copies, one TF32 product (bf16: no low part of P), and for
+ssd_diag no score MMAs), diagnostics that are never shipped.
+
 Two checkouts compare in one call of the chip tool, each run in its own
 process: parent, change, change, parent, and so on.
 """
@@ -127,9 +141,11 @@ def _args():
     p.add_argument("--smo-sweep", action="store_true")
     p.add_argument("--gram", action="store_true")
     p.add_argument("--gram-sweep", action="store_true")
+    p.add_argument("--lm", action="store_true")
+    p.add_argument("--lm-sweep", action="store_true")
     args = p.parse_args()
-    if args.packs is None and not (args.smo or args.gram):
-        p.error("--packs is required, except with --smo or --gram")
+    if args.packs is None and not (args.smo or args.gram or args.lm):
+        p.error("--packs is required, except with --smo, --gram or --lm")
     return args
 
 
@@ -169,6 +185,9 @@ def main() -> int:
         return 0
     if args.gram:
         gram_times(cs, data, _build, ops, dev, emit, args.gram_sweep)
+        return 0
+    if args.lm:
+        lm_times(cs, _build, ops, dev, emit, args.lm_sweep)
         return 0
     packs = {k: serve.load(os.path.join(args.packs, f))
              for k, f in PACKS.items()}
@@ -621,22 +640,31 @@ def gram_cuts(cs, _build, G, engines, v, gamma, emit):
 
 
 def variant_lib(_build, tmp, source, name, subs, export):
-    """A copy of csrc/``source`` with each (regex, replacement) of
-    ``subs`` made once, built alone into ``tmp`` and loaded; ``export``
-    gets the shipped library's signature."""
+    """A copy of csrc/ (``source`` and the headers it includes) with each
+    (regex, replacement[, count]) of ``subs`` made ``count`` times (1 by
+    default, "all": at least once) in ``source``, or where it does not
+    match there, in
+    ``mma.cuh``; ``source`` built alone into ``tmp`` and loaded;
+    ``export`` gets the shipped library's signature."""
     import re
+    import shutil
     csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
-    with open(os.path.join(csrc, source)) as f:
-        src = f.read()
-    for pat, new in subs:
-        src, k = re.subn(pat, new, src)
-        assert k == 1, (name, pat, k)
-    path = os.path.join(tmp, f"{name}.cu")
+    copy = os.path.join(tmp, f"{name}_csrc")
+    shutil.copytree(csrc, copy)
+    for pat, new, *count in subs:
+        want = count[0] if count else 1
+        for fname in (source, "mma.cuh"):
+            path = os.path.join(copy, fname)
+            with open(path) as f:
+                text, k = re.subn(pat, new, f.read())
+            if k:
+                break
+        assert k == want or (want == "all" and k > 0), (name, pat, k)
+        with open(path, "w") as f:
+            f.write(text)
     so = os.path.join(tmp, f"{name}.so")
-    with open(path, "w") as f:
-        f.write(src)
-    subprocess.run([_build._nvcc(), *_build.FLAGS, "-I", csrc, "-shared",
-                    path, "-o", so], check=True)
+    subprocess.run([_build._nvcc(), *_build.FLAGS, "-I", copy, "-shared",
+                    os.path.join(copy, source), "-o", so], check=True)
     lib = ctypes.CDLL(so)
     fn = getattr(lib, export)
     fn.argtypes = _build.SIGNATURES[export]
@@ -817,6 +845,158 @@ def dcd_sweep(cs, DCD, st, n, k, emit):
         ms = timed(diag, plan)
     emit(measure="dcd_no_rows", shape=[n, k], plan=plan._asdict(),
          device_ms=ms, ns_per_coord=ms * 1e6 / n)
+
+
+def lm_times(cs, _build, ops, dev, emit, sweep=False):
+    """The ``--lm`` lines (see the module's docstring)."""
+    import torch
+    attn, ragged, ssd = cs.lm_inputs(dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for case, args, causal in (("phi4_causal", attn, True),
+                               ("ragged_300_noncausal", ragged, False)):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dt) for t in args)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            emit(measure="lm", kernel="flash_attention", case=case,
+                 dtype=str(dt).split(".")[1], shape=list(q.shape),
+                 kv_heads=int(k.shape[2]), causal=causal,
+                 device_ms=cs.device_ms(
+                     lambda: ops.flash_attention(q, k, v, causal=causal)),
+                 library_device_ms=cs.device_ms(
+                     lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                  enable_gqa=True)))
+    emit(measure="lm", kernel="ssd_diag", shape=list(ssd[2].shape),
+         n_state=int(ssd[0].shape[2]),
+         device_ms=cs.device_ms(lambda: ops.ssd_diag(*ssd), calls=20))
+    if sweep:
+        lm_sweep(cs, _build, dev, attn, ssd, emit)
+
+
+# --lm-sweep: copies of csrc/flash_attn.cu and csrc/ssd_diag.cu cut by a
+# regex, diagnostics that are never shipped (each cut must match as many
+# times as it says)
+_MMA_NOP = (r"namespace \{\n\nusing namespace svm;\n",
+            "namespace {\n\nusing namespace svm;\n"
+            "__device__ __forceinline__ void mma_nop(float* c, "
+            "const uint32_t* a, const uint32_t* b) {\n"
+            "  asm volatile(\"\" : \"+f\"(c[0]) : \"r\"(a[0]), \"r\"(a[1]), "
+            "\"r\"(a[2]), \"r\"(a[3]), \"r\"(b[0]), \"r\"(b[1]));\n}\n")
+LM_CUTS = {
+    "flash_attn.cu": {
+        "shipped": [],
+        # p = x - m and corr = m - m_new: no ex2
+        "no_exp": [(r"const float pv = ex2\(__fsub_rn\(s\[j\]\[e\], "
+                    r"m\[e >> 1\]\)\);",
+                    "const float pv = __fsub_rn(s[j][e], m[e >> 1]);"),
+                   (r"corr\[h\] = ex2\(__fsub_rn\(m\[h\], m_new\)\);",
+                    "corr[h] = __fsub_rn(m[h], m_new);")],
+        # every mma.sync replaced by an empty asm that keeps its operands
+        "no_mma": [_MMA_NOP, (r"mma_tf32\(", "mma_nop(", "all"),
+                   (r"mma_bf16\(", "mma_nop(", "all")],
+        # the K / V tiles are never copied (Q still is)
+        "no_copies": [(r"mbar_arrive_expect_tx\(full \+ st, 2 \* KV \* 4\)",
+                       "mbar_arrive_expect_tx(full + st, 0)"),
+                      (r"for \(int c = 0; c < NB; \+\+c\) \{\n(\s+)"
+                       r"tma_tile\(kt", r"for (int c = 0; c < 0; ++c) {\n"
+                       r"\1tma_tile(kt")],
+        # fp32: one TF32 product a step (both products); bf16: P V
+        # without P's low part
+        "one_product": [(r"mma_tf32\(c, al, bh \+ 2 \* h\);", "", 2),
+                        (r"mma_tf32\(c, ah, bl \+ 2 \* h\);", "", 2),
+                        (r"mma_bf16\(o\[2 \* jp\], pl, bf\);", ""),
+                        (r"mma_bf16\(o\[2 \* jp \+ 1\], pl, bf \+ 2\);",
+                         "")],
+    },
+    "ssd_diag.cu": {
+        "shipped": [],
+        "no_exp": [(r"ex2\(__fmul_rn\(\s*__fsub_rn\(csq\[hh\], ck\.x\), "
+                    r"LOG2E\)\)", "__fsub_rn(csq[hh], ck.x)"),
+                   (r"ex2\(__fmul_rn\(\s*__fsub_rn\(csq\[hh\], ck\.y\), "
+                    r"LOG2E\)\)", "__fsub_rn(csq[hh], ck.y)")],
+        "no_mma": [_MMA_NOP, (r"mma_tf32\(", "mma_nop(", "all")],
+        # the score phase's MMAs only
+        "no_score_mma": [(r"float\* cc = acc\[2 \* jp \+ hh\];\n"
+                          r"(\s+)mma_tf32\(cc, al, bh \+ 2 \* hh\);\n"
+                          r"\s+mma_tf32\(cc, ah, bl \+ 2 \* hh\);\n"
+                          r"\s+mma_tf32\(cc, ah, bh \+ 2 \* hh\);",
+                          r"float* cc = acc[2 * jp + hh];\n\1(void)cc;")],
+        # no copies into the ring (B, x, cs, dt; C still is copied)
+        "no_copies": [(r"if \(a\.tma\) mbar_arrive_expect_tx\(full \+ st, "
+                       r"bytes\);", "if (a.tma) mbar_arrive_expect_tx("
+                       "full + st, 0);"),
+                      (r"tma_tile\(s \+ bx \* SD_BOX", "if (false) tma_tile("
+                       "s + bx * SD_BOX"),
+                      (r"tma_tile\(xs \+ bx \* SD_BOX", "if (false) tma_tile("
+                       "xs + bx * SD_BOX"),
+                      (r"if \(lane == 0\) tma_copy\(s, g, 4 \* n, bar\);",
+                       "")],
+        "one_product": [(r"mma_tf32\(cc, al, bh \+ 2 \* hh\);", ""),
+                        (r"mma_tf32\(cc, ah, bl \+ 2 \* hh\);", ""),
+                        (r"mma_tf32\(cc, wl\[j\], bh \+ 2 \* hh\);", ""),
+                        (r"mma_tf32\(cc, wh\[j\], bl \+ 2 \* hh\);", "")],
+    },
+}
+
+
+def lm_sweep(cs, _build, dev, attn, ssd, emit):
+    """Plan alternatives and LM_CUTS builds at the model shapes (see the
+    module's docstring)."""
+    import torch
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import ssd_diag as SD
+    flash = {dt: tuple(t.to(dt) for t in attn)
+             for dt in (torch.float32, torch.bfloat16)}
+    outs = {dt: torch.empty(qkv[0].shape, dtype=dt, device=dev)
+            for dt, qkv in flash.items()}
+    y = torch.empty(ssd[2].shape, device=dev)
+    b, s, h, d = attn[0].shape
+    bc, hs, qs, ps = ssd[2].shape
+    n = ssd[0].shape[2]
+
+    def flash_ms(lib, dt, plan):
+        def run():
+            return FA.launch(lib, *flash[dt], outs[dt], causal=True,
+                             plan=plan)
+        assert run() == 0
+        return cs.device_ms(run)
+
+    def ssd_ms(lib, plan):
+        def run():
+            return SD.launch(lib, *ssd, y, plan=plan)
+        assert run() == 0
+        return cs.device_ms(run, calls=20)
+
+    lib = _build.library()
+    for dt in flash:
+        for rows in FA.ROWS:
+            plan = FA.flash_plan(b, s, h, d, dt, rows=rows)
+            emit(measure="lm_sweep", kernel="flash_attention",
+                 dtype=str(dt).split(".")[1], plan=plan._asdict(),
+                 device_ms=flash_ms(lib, dt, plan))
+    plans = [SD.ssd_plan(bc, hs, qs, n, ps, group=group)
+             for group in (2, 4, 6, 8, 12, 16, 24, 48)]
+    plans += [SD.ssd_plan(bc, hs, qs, n, ps)._replace(
+        stages=stages, smem_bytes=SD.smem_bytes(n, stages))
+        for stages in SD.STAGES if SD.smem_bytes(n, stages) <= SD.SMEM_LIMIT]
+    for plan in plans:
+        emit(measure="lm_sweep", kernel="ssd_diag", plan=plan._asdict(),
+             device_ms=ssd_ms(lib, plan))
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for source, cuts in LM_CUTS.items():
+            for name, subs in cuts.items():
+                export = ("svm_flash_attention" if source == "flash_attn.cu"
+                          else "svm_ssd_diag")
+                lib = variant_lib(_build, tmp, source,
+                                  f"{source[:-3]}_{name}", subs, export)
+                if source == "flash_attn.cu":
+                    row = {str(dt).split(".")[1] + "_device_ms": flash_ms(
+                        lib, dt, FA.flash_plan(b, s, h, d, dt))
+                        for dt in flash}
+                else:
+                    row = {"device_ms": ssd_ms(lib, SD.ssd_plan(bc, hs, qs,
+                                                                n, ps))}
+                emit(measure="lm_cut", kernel=source[:-3], build=name,
+                     **row)
 
 
 if __name__ == "__main__":

@@ -52,8 +52,9 @@ SIGNATURES = {
     "svm_dcd_epoch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "svm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                            _I, _I, _I, _P],
-    "svm_ssd_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _P],
+    "svm_ssd_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
     "svm_empty": [_P],
 }
 

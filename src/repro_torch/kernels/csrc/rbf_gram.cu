@@ -143,6 +143,7 @@
 // the whole bucket (the reference vmaps its row call over the bucket).
 // T = 1 is the uncached entry.
 #include "common.cuh"
+#include "mma.cuh"
 #include "tile_f32.cuh"
 
 #include <atomic>
@@ -150,66 +151,6 @@
 namespace {
 
 using namespace svm;
-
-// ------------------------------------------------ shared memory, barriers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(b))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(b))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* b,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_copy(void* dst, const void* src,
-                                         uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Named barrier `id` of `count` threads: wait for all, or arrive (the
-// caller's earlier shared-memory writes are then visible to the threads
-// that wait) without waiting.
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
 
 // ----------------------------------------------------------- block route
 constexpr int GT_COLS = 128;       // columns of a column tile
@@ -237,14 +178,6 @@ __host__ __device__ constexpr int gt_smem_bytes(int rows, int chunk,
          16 * (stages + 1);
 }
 
-// 2^x, x <= 0 (ex2.approx: a relative error of 2^-22 at most; results
-// under 2^-126 flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 struct GramArgs {
   const void* a;    // rows: (T, n, d), rows `lda` elements apart
   const void* b;    // the block entry's (m, d) columns; the matvec: a
@@ -259,45 +192,6 @@ struct GramArgs {
   float gamma;
   int rbf;
 };
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x ~ hi + lo: hi its TF32 rounding, lo the TF32 rounding of the rest
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(__uint_as_float(x));
-  lo = to_tf32(__fsub_rn(__uint_as_float(x), __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8 x 4-word matrices of shared memory into the mma.sync fragment
-// layout: lane (g, t) = (lane / 4, lane % 4) receives word t of row g of
-// each; lanes 8q .. 8q + 7 give the row addresses of matrix q.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const uint32_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
 
 // Word w of a staged row of d elements as far as it lies inside the row:
 // a float32 word is one element, a bfloat16 word a pair (low half first).
@@ -329,17 +223,6 @@ __device__ __forceinline__ void copy_rows(uint32_t* s, int ld,
     tma_copy(s + r * ld, g + (size_t)(row0 + r) * ld_bytes + off, bytes,
              bar);
 }
-
-// acc[i][j] += the warp's 32 x 64 tile of dots over words [0, words) of a
-// staged depth chunk whose first word is word w0 of its rows: A points
-// at the warp's first row, B at its first column, rows `ld` words apart.
-// Each step loads the 2 A and 8 B fragments by ldmatrix (A: rows g, g + 8
-// x words t, t + 4 of each 16-row tile; B: row g x words t, t + 4 of each
-// 8-column tile); in the step that reaches past the row's d elements the
-// words past it are zeroed (what lies there in shared memory is never
-// read).
-template <typename T>
-struct Mma;
 
 // a step's raw fragments: the warp's two 16-row A tiles and four pairs of
 // 8-column B tiles, by ldmatrix
@@ -407,49 +290,6 @@ __device__ __forceinline__ void mma_chunk(const uint32_t* A,
     Mma<T>::step(ca, cb, acc);
   }
 }
-
-template <>
-struct Mma<float> {   // 3xTF32: lo*hi, hi*lo, hi*hi a tile and step
-  static __device__ __forceinline__ void step(const uint32_t xa[2][4],
-                                              const uint32_t yb[4][4],
-                                              float acc[2][8][4]) {
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(xa[i][e], ah[i][e], al[i][e]);
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t bh[2], bl[2];
-        split_tf32(yb[jp][2 * h], bh[0], bl[0]);
-        split_tf32(yb[jp][2 * h + 1], bh[1], bl[1]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float* c = acc[i][2 * jp + h];
-          mma_tf32(c, al[i], bh);
-          mma_tf32(c, ah[i], bl);
-          mma_tf32(c, ah[i], bh);
-        }
-      }
-  }
-};
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void step(const uint32_t xa[2][4],
-                                              const uint32_t yb[4][4],
-                                              float acc[2][8][4]) {
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          mma_bf16(acc[i][2 * jp + h], xa[i], yb[jp] + 2 * h);
-  }
-};
 
 // rows / 16 MMA warps and one producer warp. MMA warp (wr, wc) =
 // (warp / 2, warp % 2) owns rows wr * 32 + [0, 32) of the row tile and

@@ -531,7 +531,7 @@ def dcd_epoch_tasks(phi: torch.Tensor, rows: torch.Tensor,
 
 
 # -------------------------------------------------------- flash_attention
-FLASH_MAX_D = 128   # csrc/common.cuh LM_MAX_D: outputs held in registers
+FLASH_MAX_D = 128   # csrc/flash_attn.cu: outputs held in registers
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -573,15 +573,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if out.numel() == 0:
         return out
+    plan = _flash.flash_plan(b, q.shape[1], h, d, q.dtype,
+                             sms=_sm_count(q.device))
     lib = _build.library()
     _count("flash_attention")
-    _raise_on_error("flash_attention", _flash.launch(lib, q, k, v, out,
-                                                     causal=causal))
+    _raise_on_error("flash_attention", _flash.launch(
+        lib, q, k, v, out, causal=causal, plan=plan))
     return out
 
 
 # --------------------------------------------------------------- ssd_diag
-SSD_MAX_N = 256     # C and B tiles share the block's shared memory
+SSD_MAX_N = 256     # csrc/ssd_diag.cu: the C tile stays in shared memory
 
 
 def ssd_diag(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
@@ -614,7 +616,10 @@ def ssd_diag(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    plan = _ssd.ssd_plan(bc, x.shape[1], q, n, x.shape[3],
+                         sms=_sm_count(x.device))
     lib = _build.library()
     _count("ssd_diag")
-    _raise_on_error("ssd_diag", _ssd.launch(lib, cmat, bmat, x, dt, cs, out))
+    _raise_on_error("ssd_diag", _ssd.launch(lib, cmat, bmat, x, dt, cs, out,
+                                            plan=plan))
     return out

@@ -4,12 +4,35 @@ The CUDA kernel (``csrc/ssd_diag.cu``) replaces ``ssd_diag_pallas``
 (``repro/kernels/ssd_diag.py``): per (chunk, head) the masked quadratic
 form ``Y = ((C B^T) * L * dt_k) x`` of the Mamba-2 SSD scan, with the
 decay ``L[q, k] = exp(cs_q - cs_k)`` for k <= q and 0 above the
-diagonal, all in float32. ``ops.ssd_diag`` is the checked entry point;
-the functions here assume checked inputs.
+diagonal, all in float32. A block computes its score rows once for a
+group of heads, on the tensor cores (3xTF32); ``ssd_plan`` is the launch
+plan, and the kernel refuses a plan whose shared memory differs from its
+own count. ``ops.ssd_diag`` is the checked entry point; the functions
+here assume checked inputs.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
+
+from repro_torch.kernels.tile_f32 import H100_SMS, current_stream
+
+ROWS = 64             # query rows of a tile; keys of a chunk (csrc SD_ROWS)
+WINDOW = 256          # keys of a score window (csrc SD_WIN)
+STAGE_WORDS = 8704    # 32-bit words of a ring stage (csrc SD_STAGE)
+STAGES = (2, 3)
+SMEM_LIMIT = 232448   # shared memory a block may opt in to on the H100
+
+
+class SsdPlan(NamedTuple):
+    group: int        # heads a block walks (even; the last group may be short)
+    stages: int       # ring stages (STAGES)
+    q_tiles: int      # 64-row query tiles of a chunk
+    groups: int       # head groups: ceil(H / group)
+    smem_bytes: int   # dynamic shared memory a block takes
+    grid: tuple       # (q_tiles x groups x BC,), heaviest tiles first
 
 
 def ssd_diag_plain(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
@@ -29,10 +52,65 @@ def ssd_diag_plain(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
     return torch.einsum("chqk,chkp->chqp", w, x)
 
 
-def launch(lib, cmat, bmat, x, dt, cs, out) -> int:
+def smem_bytes(n: int, stages: int) -> int:
+    """Shared memory of a launch (csrc sd_smem_bytes): 1024 bytes to align
+    the tiles, 64 score rows of WINDOW + 8 floats, the C tile (rows of N
+    floats in 128-byte swizzled boxes of 64 rows), the ring (a stage: a B
+    chunk of up to 4 boxes, or two heads' x rows of 2 boxes each with
+    their cs and dt), and the mbarriers."""
+    boxes = -(-n // 32)
+    return (1024 + 4 * (ROWS * (WINDOW + 8) + boxes * ROWS * 32)
+            + 4 * stages * STAGE_WORDS + 8 * (2 * stages + 1))
+
+
+def ssd_plan(bc: int, h: int, q: int, n: int, p: int, sms: int = H100_SMS,
+             group: int | None = None) -> SsdPlan:
+    """Launch plan for BC chunks of Q rows, H heads, state N, P columns
+    of x: the even
+    head group that minimises the cost model ``plan_cost`` (ties: one
+    that divides H, then the smaller); a ring of 3 stages where it fits,
+    else 2. A head's bits do not depend on the plan."""
+    q_tiles = math.ceil(q / ROWS)
+    if group is None:
+        evens = range(2, 2 * math.ceil(h / 2) + 1, 2)
+        group = min(evens, key=lambda g: (plan_cost(bc, h, q, n, p, g, sms),
+                                          h % g != 0, g))
+    if group < 1:
+        raise ValueError("ssd_plan: group must be >= 1")
+    stages = max([s for s in STAGES if smem_bytes(n, s) <= SMEM_LIMIT]
+                 or [min(STAGES)])
+    groups = math.ceil(h / group)
+    return SsdPlan(group, stages, q_tiles, groups, smem_bytes(n, stages),
+                   (q_tiles * groups * bc,))
+
+
+def plan_cost(bc: int, h: int, q: int, n: int, p: int, group: int,
+              sms: int = H100_SMS) -> float:
+    """The time a head group gives, in ring stages of one block (each
+    about one warp's 16 x 64 x 64 chunk of MMAs): a block of query tile t
+    walks t + 1 key chunks, each a stage for every 128 words of N (the
+    scores) and one for every pair of heads and 64 columns of P; the
+    grid then takes the larger of its work over the SMs and its longest
+    block."""
+    tiles = math.ceil(q / ROWS)
+    per_chunk = math.ceil(n / 128) + math.ceil(group / 2) * math.ceil(p / 64)
+    total = bc * math.ceil(h / group) * per_chunk * tiles * (tiles + 1) / 2
+    return max(total / sms, tiles * per_chunk)
+
+
+def block_of(plan: SsdPlan, bc: int, i: int) -> tuple[int, int, int]:
+    """(query tile, head group, chunk) of block i, as the kernel computes
+    it: the last (heaviest) tile of every chunk and group first."""
+    cells = plan.groups * bc
+    return (plan.q_tiles - 1 - i // cells, i % cells % plan.groups,
+            i % cells // plan.groups)
+
+
+def launch(lib, cmat, bmat, x, dt, cs, out, *, plan: SsdPlan) -> int:
     bc, q, n = cmat.shape
     h, p = x.shape[1], x.shape[3]
     return lib.svm_ssd_diag(
         cmat.data_ptr(), bmat.data_ptr(), x.data_ptr(), dt.data_ptr(),
-        cs.data_ptr(), out.data_ptr(), bc, h, q, n, p,
-        torch.cuda.current_stream().cuda_stream)
+        cs.data_ptr(), out.data_ptr(), bc, h, q, n, p, plan.group,
+        plan.stages, plan.smem_bytes,
+        current_stream())

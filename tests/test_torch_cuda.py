@@ -26,7 +26,11 @@ so a bucket's batched SMO equals each task's lone solve bit for bit.
 ``flash_attention`` and ``ssd_diag`` hold rtol 2e-4 / atol 2e-5 against
 their plain versions on the same operands (bfloat16 ones rounded before
 both; the kernel's float32 output for that check, its bfloat16 output
-equal to that float32 output rounded once).
+equal to that float32 output rounded once), also with Sq != Sk, at
+d = 8 and 72 in bfloat16, at N = 20 and 256 and Q = 300; their bits
+depend on the inputs alone (two launches, both query tiles of
+``flash_plan``, grouped kv heads against repeated ones, and each head of
+an ``ssd_diag`` group against a one-head call).
 """
 import numpy as np
 import pytest
@@ -1142,3 +1146,127 @@ def test_ssd_diag_kernel_matches_plain(cuda, bc, h, q, n, p):  # noqa: F811
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, SD.ssd_diag_plain(cmat, bmat, x, dt,
                                                       steep), **LM_TOL)
+
+
+def _qkv(rng, b, sq, sk, h, hkv, d, dtype, dev):
+    return (tt(rng.normal(size=(b, sq, h, d)), device=dev).to(dtype),
+            tt(rng.normal(size=(b, sk, hkv, d)), device=dev).to(dtype),
+            tt(rng.normal(size=(b, sk, hkv, d)), device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(77, 300), (300, 77), (1, 130),
+                                   (129, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_sq_unlike_sk(cuda, dtype, sq, sk, causal):  # noqa: F811
+    """Queries and keys of different lengths: the causal mask compares
+    global positions, ragged tiles of either are masked."""
+    q, k, v = _qkv(np.random.default_rng(sq * sk), 2, sq, sk, 4, 2, 64,
+                   dtype, cuda)
+    got = ops.flash_attention(q, k, v, causal=causal,
+                              out_dtype=torch.float32)
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, **LM_TOL)
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal),
+                       got.to(dtype))
+
+
+@pytest.mark.parametrize("d", [8, 72])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_narrow_and_odd_widths(cuda, d, causal):  # noqa: F811
+    """bf16 at d = 8 (one zero-padded k16 step) and d = 72 (staged to
+    128, the words past d zero)."""
+    q, k, v = _qkv(np.random.default_rng(d), 2, 300, 300, 3, 1, d,
+                   torch.bfloat16, cuda)
+    got = ops.flash_attention(q, k, v, causal=causal,
+                              out_dtype=torch.float32)
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, **LM_TOL)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 6), (torch.float32, 101),
+                                     (torch.bfloat16, 20), (torch.bfloat16, 7)])
+def test_flash_attention_rows_no_tensor_map_takes(cuda, dtype, d):  # noqa: F811
+    """Rows that are not 16-byte multiples: the producer's loads stage
+    them in the tensor maps' layout, zero past d."""
+    q, k, v = _qkv(np.random.default_rng(d), 2, 150, 150, 4, 2, d, dtype,
+                   cuda)
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal,
+                                  out_dtype=torch.float32)
+        want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                        out_dtype=torch.float32)
+        torch.testing.assert_close(got, want, **LM_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bits_are_the_inputs_alone(cuda, dtype):  # noqa: F811
+    """Two launches give the same bits, and so do both query tiles of the
+    plan (64 and 128 rows a block): no atomics, no split over keys."""
+    q, k, v = _qkv(np.random.default_rng(3), 1, 700, 700, 6, 2, 128,
+                   dtype, cuda)
+    first = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(first, ops.flash_attention(q, k, v, causal=True))
+    lib = _build.library()
+    for rows in FA.ROWS:
+        out = torch.empty_like(first)
+        plan = FA.flash_plan(1, 700, 6, 128, dtype, rows=rows)
+        assert FA.launch(lib, q, k, v, out, causal=True, plan=plan) == 0
+        assert torch.equal(out, first), rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_grouped_heads_equal_repeated_kv(cuda, dtype):  # noqa: F811
+    """A query head reading its kv head in place gives the bits of the
+    same head over kv heads repeated to H."""
+    q, k, v = _qkv(np.random.default_rng(5), 2, 333, 333, 6, 2, 64, dtype,
+                   cuda)
+    grouped = ops.flash_attention(q, k, v, causal=True)
+    rep = [t.repeat_interleave(3, dim=2).contiguous() for t in (k, v)]
+    assert torch.equal(grouped, ops.flash_attention(q, *rep, causal=True))
+
+
+def _ssd(rng, bc, h, q, n, p, dev):
+    cmat, bmat = (tt(rng.normal(size=(bc, q, n)), device=dev)
+                  for _ in range(2))
+    x = tt(rng.normal(size=(bc, h, q, p)), device=dev)
+    dt_np = rng.uniform(0.001, 0.1, size=(bc, h, q))
+    a = -rng.uniform(1, 8, size=(h,))
+    return (cmat, bmat, x, tt(dt_np, device=dev),
+            tt(np.cumsum(dt_np * a[None, :, None], axis=2), device=dev))
+
+
+def test_ssd_diag_heads_do_not_depend_on_the_group(cuda):  # noqa: F811
+    """With H = 6 in groups of 6, 3, 2 and 1 heads (a group shares one
+    score computation) each head equals an H = 1 call on its slice bit
+    for bit."""
+    cmat, bmat, x, dt, cs = _ssd(np.random.default_rng(6), 2, 6, 300, 128,
+                                 64, cuda)
+    lone = [ops.ssd_diag(cmat, bmat, x[:, hd:hd + 1].contiguous(),
+                         dt[:, hd:hd + 1].contiguous(),
+                         cs[:, hd:hd + 1].contiguous()) for hd in range(6)]
+    lib = _build.library()
+    for group in (6, 3, 2, 1):
+        y = torch.empty_like(x)
+        plan = SD.ssd_plan(2, 6, 300, 128, 64, group=group)
+        assert SD.launch(lib, cmat, bmat, x, dt, cs, y, plan=plan) == 0
+        for hd in range(6):
+            assert torch.equal(y[:, hd:hd + 1], lone[hd]), (group, hd)
+
+
+@pytest.mark.parametrize("bc,h,q,n,p", [(2, 3, 256, 20, 64),
+                                        (1, 4, 300, 128, 64),
+                                        (2, 5, 300, 20, 72),
+                                        (1, 2, 70, 256, 16)])
+def test_ssd_diag_narrow_state_and_long_chunks(cuda, bc, h, q, n, p):  # noqa: F811
+    """N = 20 (depth not a multiple of the MMA step), Q = 300 (a second
+    score window), N = 256 (two depth chunks), steep decays included."""
+    cmat, bmat, x, dt, cs = _ssd(np.random.default_rng(q + n), bc, h, q, n,
+                                 p, cuda)
+    for c in (cs, cs * 40.0):
+        got = ops.ssd_diag(cmat, bmat, x, dt, c)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, SD.ssd_diag_plain(cmat, bmat, x, dt,
+                                                          c), **LM_TOL)

@@ -1,15 +1,20 @@
-"""The launch plans of the port's redesigned Gram-shaped kernels:
-``feature_map.rff_plan`` (tile of ``rff_features``) and
+"""The launch plans of the port's redesigned kernels:
+``feature_map.rff_plan`` (tile of ``rff_features``),
 ``decision.decision_plan`` (tile and SV-axis split of ``decision`` /
-``multitask_decision``). Plain Python, so they are held here, on the
-CPU; the kernels they configure run in tests/test_torch_cuda.py, which
-refuse a plan whose shared memory differs from their own count."""
+``multitask_decision``), ``flash_attn.flash_plan`` (query tiles, ring,
+heaviest tile first) and ``ssd_diag.ssd_plan`` (head groups, query
+tiles, ring). Plain Python, so they are held here, on the CPU; the
+kernels they configure run in tests/test_torch_cuda.py, which refuse a
+plan whose shared memory differs from their own count."""
 import math
 
 import pytest
+import torch
 
 from repro_torch.kernels import decision as D
 from repro_torch.kernels import feature_map as FM
+from repro_torch.kernels import flash_attn as FA
+from repro_torch.kernels import ssd_diag as SD
 from repro_torch.kernels import tile_f32
 
 SMS = tile_f32.H100_SMS
@@ -166,3 +171,116 @@ def test_kkt_select_blocks(n, blocks):
     a thread, at most MAX_BLOCKS."""
     from repro_torch.kernels import kkt_select as KS
     assert KS.n_blocks(n) == blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plan_shared_memory_fits_every_width(dtype):
+    """Every d <= 128, both query tiles: the ring takes 3 stages where
+    they fit, else 2, within the 232,448 bytes a block may take."""
+    for d in range(1, 129):
+        for rows in FA.ROWS:
+            plan = FA.flash_plan(1, 300, 4, d, dtype, rows=rows)
+            assert plan.smem_bytes <= MAX_SMEM
+            assert plan.smem_bytes == FA.smem_bytes(
+                rows, plan.stages, plan.d_tiles, 2 if dtype == torch.bfloat16
+                else 4)
+            assert plan.d_tiles * 8 >= d
+            if plan.stages < max(FA.STAGES):
+                assert FA.smem_bytes(rows, plan.stages + 1, plan.d_tiles,
+                                     2 if dtype == torch.bfloat16
+                                     else 4) > MAX_SMEM
+
+
+@pytest.mark.parametrize("b,sq,h,rows", [
+    (1, 4096, 24, 128),   # phi4_mini_3p8b: 24 x 32 = 768 blocks
+    (2, 300, 24, 128),    # the ragged case: 48 x 3 = 144
+    (1, 77, 3, 64),       # few blocks: 64-row tiles
+    (1, 1, 2, 64)])
+def test_flash_query_tiles_cover_the_queries(b, sq, h, rows):
+    plan = FA.flash_plan(b, sq, h, 128, sms=SMS)
+    assert plan.rows == rows
+    tiles = plan.grid[1]
+    assert plan.grid[0] == b * h
+    assert (tiles - 1) * rows < sq <= tiles * rows
+    covered = sorted(r for t in range(tiles)
+                     for r in range(t * rows, min((t + 1) * rows, sq)))
+    assert covered == list(range(sq))
+
+
+@pytest.mark.parametrize("sq,sk", [(4096, 4096), (300, 300), (77, 300),
+                                   (300, 77), (1, 130), (129, 64)])
+@pytest.mark.parametrize("rows", FA.ROWS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_key_tiles_equal_a_brute_force_count(sq, sk, rows, causal):
+    """A block walks exactly the key tiles that hold a key some row of
+    its query tile sees (causal: key <= row; every key below sk): they
+    are a prefix of the tiles, as many as the kernel walks."""
+    keys = torch.arange(sk)
+    for qt in range(math.ceil(sq / rows)):
+        q0 = qt * rows
+        qrows = torch.arange(q0, min(q0 + rows, sq))
+        seen = ((keys[None, :] <= qrows[:, None]) if causal
+                else torch.ones((len(qrows), sk), dtype=torch.bool))
+        need = sorted(set((keys[seen.any(0)] // FA.KEYS).tolist()))
+        assert need == list(range(len(need)))
+        assert FA.key_tiles(q0, rows, sq, sk, causal) == len(need)
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, 32, 64])
+def test_flash_heaviest_tile_first_is_a_permutation(tiles):
+    order = FA.tile_order(tiles)
+    assert sorted(order) == list(range(tiles))
+    walks = [FA.key_tiles(t * 128, 128, tiles * 128, tiles * 128, True)
+             for t in order]
+    assert walks == sorted(walks, reverse=True)
+
+
+def test_ssd_plan_shared_memory_fits_every_state_width():
+    for n in range(1, 257):
+        plan = SD.ssd_plan(16, 48, 256, n, 64)
+        assert plan.smem_bytes == SD.smem_bytes(n, plan.stages)
+        assert plan.smem_bytes <= MAX_SMEM
+        if plan.stages < max(SD.STAGES):
+            assert SD.smem_bytes(n, plan.stages + 1) > MAX_SMEM
+
+
+@pytest.mark.parametrize("bc,h,q,group,blocks", [
+    (16, 48, 256, 12, 256),  # mamba2_780m: 16 chunks x 4 tiles x 4 groups
+    (2, 6, 300, 2, 30),      # few blocks: the smallest group
+    (1, 1, 64, 2, 1),
+    (64, 48, 256, 48, 256)])   # many chunks: one group fills the card
+def test_ssd_head_groups_cover_the_heads(bc, h, q, group, blocks):
+    plan = SD.ssd_plan(bc, h, q, 128, 64, sms=SMS)
+    assert plan.group == group and plan.group % 2 == 0
+    assert plan.grid == (plan.q_tiles * plan.groups * bc,) == (blocks,)
+    heads = sorted(gi * plan.group + j for gi in range(plan.groups)
+                   for j in range(min(plan.group, h - gi * plan.group)))
+    assert heads == list(range(h))
+    assert (plan.q_tiles - 1) * SD.ROWS < q <= plan.q_tiles * SD.ROWS
+
+
+def test_ssd_grid_order_is_a_permutation_heaviest_tile_first():
+    """Block i runs (tile, group, chunk): every triple once, the tiles in
+    falling order over the whole grid (longest first)."""
+    bc = 16
+    plan = SD.ssd_plan(bc, 48, 256, 128, 64)
+    cells = [SD.block_of(plan, bc, i) for i in range(plan.grid[0])]
+    assert sorted(cells) == sorted((t, g, c) for t in range(plan.q_tiles)
+                                   for g in range(plan.groups)
+                                   for c in range(bc))
+    tiles = [t for t, _, _ in cells]
+    assert tiles == sorted(tiles, reverse=True)
+
+
+def test_ssd_cost_model_at_mamba2():
+    """The head group's cost at mamba2_780m (stages of one block): the
+    work over 132 SMs, or the longest block (tile 3, four chunks) once
+    the grid is short; 12 heads a group is the least."""
+    per = {g: 1 + g // 2 for g in (8, 12, 16, 24)}   # a chunk's stages
+    for g, stages in per.items():
+        total = 16 * math.ceil(48 / g) * stages * 10   # tiles walk 1..4
+        assert SD.plan_cost(16, 48, 256, 128, 64, g) == pytest.approx(
+            max(total / SMS, 4 * stages))
+    best = min(range(2, 49, 2),
+               key=lambda g: SD.plan_cost(16, 48, 256, 128, 64, g))
+    assert best == SD.ssd_plan(16, 48, 256, 128, 64).group == 12
