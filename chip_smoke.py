@@ -96,6 +96,21 @@ then:
    each), which the profiler counts at the start of the run (a
    ``kernel_counts`` line, at the binary and the bucket shapes).
 
+10. drives the paper's GD baseline and the cascade: ``gd`` —
+   ``SVC(solver="gd", engine="pallas")`` at the reference's lr 0.01 and
+   2,000 steps on the exact SVC's split (one Gram matvec launch a
+   step, counted), beside the SMO fit, with lr * lambda_max of
+   diag(y) K diag(y) (20 power-iteration matvecs) and whether the loss
+   descends or oscillates; ``gd_stable`` — the same at lr = 1 /
+   lambda_max, its first 200 steps held against the same loop on the
+   plain matvec (``engine="chunked"``); ``gd_svr``; ``gd_ovo`` — OvO GD
+   on the overlapping split, one task-axis matvec a step, a task against
+   its lone solve; ``cascade_svc`` (S = 4; S = 1 against the unsharded
+   fit bit for bit), ``cascade_svc_lowrank`` (RFF; a level's nodes
+   against their lone ``linear_svc`` solves bit for bit) and
+   ``cascade_svr`` (exact and RFF, each at a cut depth), each
+   certificate required <= 1e-3.
+
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
 
@@ -810,7 +825,7 @@ def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
           "decision kernel")
     main_launches = {k: fit_launches[k] + check_launches[k]
                      for k in fit_launches}
-    return xtr, xte, df_engine, main_launches, fit_s, (ytr, yte, acc)
+    return xtr, xte, df_engine, main_launches, fit_s, (ytr, yte, acc, clf)
 
 
 def phase_fit_linear(ops, smo, KE, SVC, dev, xtr, ytr, xte, yte):
@@ -960,7 +975,7 @@ def phase_lowrank_fit(ops, smo, SVC, dev, xtr, ytr, xte, yte, exact_acc):
           f"SVC's {exact_acc}")
     for k in ("rff_features", "dcd_epoch"):
         check(fit_launches[k] > 0, f"low-rank fit launched no {k}")
-    return clf, phi, yy, launches
+    return clf, phi, yy, launches, acc
 
 
 def phase_lowrank_serve(ops, serve_mod, FM, dev, path, clf, xte):
@@ -998,10 +1013,7 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
     """epsilon-SVR, exact (SMO over the doubled problem on the Gram
     kernels) and low-rank (rff_features + dcd_epoch): fit, certify, pack,
     save, load, serve."""
-    x, y = data.make_synth_regression(16384, 6, kind="sinc", noise=0.1,
-                                      seed=SEED)
-    xtr, ytr, xte, yte = data.train_test_split(x, y, test_frac=0.1,
-                                               seed=SEED)
+    xtr, ytr, xte, yte = svr_split(data, 16384)
     n = len(xtr)
     eps, C = 0.1, 1.0
     xt = torch.from_numpy(xtr).to(dev)
@@ -1019,6 +1031,7 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
         return float(smo.kkt_violation(a2, s, f, 0.0, C))
 
     total = {k: 0 for k in ops.KERNELS}
+    r2s = {}
     for engine in ("pallas", "rff"):
         kw = dict(engine=engine, epsilon=eps, C=C, tol=1e-3)
         if engine == "rff":
@@ -1057,8 +1070,7 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
         served = pred.predict(xte)
         torch.cuda.synchronize()
         launches = dict(ops.launches)
-        r2 = 1.0 - float(np.sum((yte - served) ** 2)
-                         / np.sum((yte - yte.mean()) ** 2))
+        r2 = r2s[engine] = r2_score(yte, served)
         ok = bool(np.allclose(served, values, **DECISION_TOL))
         emit(phase="svr", engine=engine, n_train=n, qp_variables=2 * n,
              d=int(xtr.shape[1]), rank=kw.get("rank"),
@@ -1096,7 +1108,7 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
           "converge")
     check(kkt <= 1e-3, f"SVR(pallas), default configuration: f64 KKT "
           f"{kkt} > tol 1e-3")
-    return total, lowrank
+    return total, lowrank, r2s
 
 
 def dcd_state(phi, s, p, beta0, perm):
@@ -2259,6 +2271,350 @@ def phase_timing(ops, K, G, KS, D, dev, xtr, xte, packed, gamma, errs,
     return out
 
 
+# ------------------------------------------------ the GD baseline, cascade
+# the reference's GD configuration: SVC's gd_lr, GDConfig's step count,
+# and the OvO steps of examples/multiclass_pavia.py
+GD_LR = 0.01
+GD_STEPS = 2000
+GD_OVO_STEPS = 800
+GD_TOL = dict(rtol=1e-4, atol=1e-4)          # tests/test_torch_gd.py
+# gd_stable: the pallas loop against the chunked (plain matvec) one
+GD_STABLE_STEPS = 200
+GD_STABLE_TOL = dict(loss_rtol=1e-3, alpha_atol_per_C=1e-3)
+CASCADE_SHARDS = 4
+# the SVR cascades' depths, cut: about 70 % of an SVR's rows are SVs,
+# so each of their 5-6 feedback rounds re-solves near-full nodes; on the
+# card the exact one took 90 s at 4,096 rows and the RFF one 131 s on
+# the full 16,384 (PERF.md section 6)
+CASCADE_SVR_ROWS = {"svr_cascade": 2048, "svr_cascade_lowrank": 4096}
+
+
+def svr_split(data, n: int):
+    """(xtr, ytr, xte, yte) of an SVR phase: the sinc regression problem
+    of n rows, 6 features, noise 0.1, a tenth held out."""
+    x, y = data.make_synth_regression(n, 6, kind="sinc", noise=0.1,
+                                      seed=SEED)
+    return data.train_test_split(x, y, test_frac=0.1, seed=SEED)
+
+
+def top_eigenvalue(eng, y: torch.Tensor, iters: int = 20) -> float:
+    """The largest eigenvalue of diag(y) K diag(y), by ``iters`` power
+    iterations of one engine matvec each (not the path's launches)."""
+    gen = torch.Generator(device=y.device)
+    gen.manual_seed(SEED)
+    v = torch.rand(y.shape, generator=gen, device=y.device)
+    v = v / torch.linalg.vector_norm(v)
+    lam = torch.zeros((), device=y.device)
+    for _ in range(iters):
+        w = y * eng.matvec((y * v).contiguous())
+        lam = torch.dot(v, w)
+        v = w / torch.linalg.vector_norm(w)
+    return float(lam)
+
+
+def loss_trend(losses: np.ndarray) -> dict:
+    """Whether a GD loss curve descends: the steps after a 50-step
+    warm-up that raise the loss by more than 1e-5 of its scale (the
+    bound of tests/test_gd.py)."""
+    losses = np.asarray(losses, np.float64)
+    rises = np.diff(losses[50:]) > 1e-5 * max(1.0, np.abs(losses).max())
+    return {"trend": "oscillates" if rises.any() else "descends",
+            "rising_steps": int(rises.sum()), "loss_first": losses[0],
+            "loss_last": losses[-1], "loss_min": losses.min()}
+
+
+def timed_fit(ops, make, x, y):
+    """(model, seconds, launches) of one fit from zeroed launch counts."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model = make().fit(x, y)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, dict(ops.launches)
+
+
+def serve_heldout(ops, model, xte):
+    """Held-out labels (SVC) or values (SVR) through the model's cached
+    Predictor, and the launches they took (the path's serving)."""
+    saved = dict(ops.launches)
+    out = model.predict(xte)
+    torch.cuda.synchronize()
+    return out, {k: ops.launches[k] - saved[k] for k in ops.KERNELS}
+
+
+def add(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_gd(ops, gd, KE, SVC, dev, split, smo_acc):
+    """The paper's comparison at the exact SVC's split: SVC(solver="gd",
+    engine="pallas") at the reference's lr 0.01 and GDConfig's 2,000
+    steps, beside the SMO fit of ``phase_fit``; the step size against
+    the curvature lr * lambda_max of diag(y) K diag(y)."""
+    xtr, ytr, xte, yte = split
+    kw = dict(solver="gd", engine="pallas", gd_steps=GD_STEPS, gd_lr=GD_LR)
+    clf, fit_s, fit_launches = timed_fit(
+        ops, lambda: SVC(**kw, device=dev), xtr, ytr)
+    warm_s = timed_fit(ops, lambda: SVC(**kw, device=dev), xtr, ytr)[1]
+    ops.launches.update(fit_launches)   # the warm fit is not the path
+    labels, serve_launches = serve_heldout(ops, clf, xte)
+    acc = float(np.mean(labels == yte))
+    saved = dict(ops.launches)
+    x = torch.from_numpy(xtr).to(dev)
+    yy = torch.from_numpy(np.where(ytr == clf.classes_[1], 1.0, -1.0)
+                          .astype(np.float32)).to(dev)
+    eng = KE.make_engine(x, clf.kernel_params, "pallas")
+    lam = top_eigenvalue(eng, yy)
+    short = gd.GDConfig(lr=GD_LR, steps=20)
+    per_fit = kernels_per_call(lambda: gd.binary_gd(
+        x, yy, cfg=short, kernel=clf.kernel_params, engine=eng), calls=3)
+    ops.launches.update(saved)   # the checks are not the path
+    matvecs = fit_launches["rbf_gram_matvec"]
+    emit(phase="gd", n=int(xtr.shape[0]), d=int(xtr.shape[1]),
+         steps=GD_STEPS, lr=GD_LR, fit_s=fit_s, fit_s_warm=warm_s,
+         ms_per_step_warm=warm_s / GD_STEPS * 1e3,
+         heldout_acc=acc, smo_heldout_acc=smo_acc,
+         n_support=clf.n_support_, gamma=clf.kernel_params.gamma,
+         lambda_max=lam, lr_times_lambda_max=GD_LR * lam,
+         stable_below=2.0, **loss_trend(clf.loss_curve_),
+         gram_matvec_launches=matvecs,
+         device_kernels_per_20_step_fit=per_fit,
+         device_kernels_per_step=per_fit / short.steps,
+         launches=fit_launches, heldout_launches=serve_launches)
+    check(0 < matvecs <= GD_STEPS + 1, f"GD fit: {matvecs} Gram matvec "
+          f"launches for {GD_STEPS} steps (one a step, at most steps + 1)")
+    check(bool(np.isfinite(clf.loss_curve_).all()),
+          "GD fit: loss curve not finite")
+    return lam, add(fit_launches, serve_launches)
+
+
+def phase_gd_stable(ops, gd, SVC, dev, split, lam, smo_acc):
+    """The same fit at the stable step lr = 1 / lambda_max, and its first
+    200 steps held against the same loop on the plain matvec on the card
+    (engine="chunked"): at a stable step the two trajectories contract,
+    so this holds the Gram matvec kernel inside the solver."""
+    xtr, ytr, xte, yte = split
+    lr = 1.0 / lam
+    kw = dict(solver="gd", engine="pallas", gd_steps=GD_STEPS, gd_lr=lr)
+    clf, fit_s, fit_launches = timed_fit(
+        ops, lambda: SVC(**kw, device=dev), xtr, ytr)
+    labels, serve_launches = serve_heldout(ops, clf, xte)
+    acc = float(np.mean(labels == yte))
+    saved = dict(ops.launches)
+    x = torch.from_numpy(xtr).to(dev)
+    yy = torch.from_numpy(np.where(ytr == clf.classes_[1], 1.0, -1.0)
+                          .astype(np.float32)).to(dev)
+    cfg = gd.GDConfig(lr=lr, steps=GD_STABLE_STEPS)
+    got, want = (gd.binary_gd(x, yy, cfg=cfg, kernel=clf.kernel_params,
+                              engine=e) for e in ("pallas", "chunked"))
+    loss_err = float(((got.loss_curve - want.loss_curve).abs()
+                      / want.loss_curve.abs().clamp_min(1e-30)).max())
+    alpha_err = max_err(got.alpha, want.alpha)
+    ok = (bool(torch.allclose(got.loss_curve, want.loss_curve,
+                              rtol=GD_STABLE_TOL["loss_rtol"], atol=0.0))
+          and alpha_err <= GD_STABLE_TOL["alpha_atol_per_C"] * cfg.C)
+    ops.launches.update(saved)   # the parity loops are not the path
+    emit(phase="gd_stable", steps=GD_STEPS, lr=lr, lr_times_lambda_max=1.0,
+         fit_s=fit_s, ms_per_step=fit_s / GD_STEPS * 1e3,
+         heldout_acc=acc, smo_heldout_acc=smo_acc,
+         n_support=clf.n_support_, **loss_trend(clf.loss_curve_),
+         parity_steps=GD_STABLE_STEPS, parity_vs="engine='chunked'",
+         loss_max_rel_err=loss_err, alpha_max_abs_err=alpha_err,
+         parity_bound=GD_STABLE_TOL, parity_ok=ok,
+         launches=fit_launches, heldout_launches=serve_launches)
+    check(ok, f"gd_stable: the pallas GD loop differs from the chunked one "
+          f"(loss rel {loss_err}, alpha {alpha_err})")
+    check(0 < fit_launches["rbf_gram_matvec"] <= GD_STEPS + 1,
+          "gd_stable: not one Gram matvec a step")
+    return add(fit_launches, serve_launches)
+
+
+def r2_score(y, pred) -> float:
+    y = np.asarray(y, np.float64)
+    return 1.0 - float(np.sum((y - pred) ** 2) / np.sum((y - y.mean()) ** 2))
+
+
+def phase_gd_svr(ops, data, SVR, dev, smo_r2):
+    """SVR(solver="gd", engine="pallas") on the SVR phase's data: 2,000
+    steps of one n-row Gram matvec each (the doubled matvec as [u; u])."""
+    xtr, ytr, xte, yte = svr_split(data, 16384)
+    kw = dict(solver="gd", engine="pallas", gd_steps=GD_STEPS)
+    reg, fit_s, fit_launches = timed_fit(
+        ops, lambda: SVR(**kw, device=dev), xtr, ytr)
+    values, serve_launches = serve_heldout(ops, reg, xte)
+    r2 = r2_score(yte, values)
+    emit(phase="gd_svr", n_train=int(len(xtr)), qp_variables=2 * len(xtr),
+         steps=GD_STEPS, lr=reg.gd_cfg.lr, fit_s=fit_s,
+         ms_per_step=fit_s / GD_STEPS * 1e3, heldout_r2=r2,
+         smo_heldout_r2=smo_r2, n_support=reg.n_support_,
+         **loss_trend(reg.loss_curve_),
+         gram_matvec_launches=fit_launches["rbf_gram_matvec"],
+         launches=fit_launches, heldout_launches=serve_launches)
+    check(0 < fit_launches["rbf_gram_matvec"] <= GD_STEPS + 1,
+          "GD SVR: not one Gram matvec a step")
+    check(bool(np.isfinite(values).all()), "GD SVR: values not finite")
+    return add(fit_launches, serve_launches)
+
+
+def phase_gd_ovo(ops, gd, dist, SVC, dev, split, smo_acc):
+    """OvO GD on the overlapping Pavia split: each bucket's tasks step
+    together, one task-axis Gram matvec launch a step; one task of the
+    largest bucket against its lone ``gd.binary_gd`` on the card."""
+    xtr, ytr, xte, yte = split
+    kw = dict(solver="gd", engine="pallas", gd_steps=GD_OVO_STEPS,
+              strategy="ovo")
+    clf, fit_s, fit_launches = timed_fit(
+        ops, lambda: SVC(**kw, device=dev), xtr, ytr)
+    labels, serve_launches = serve_heldout(ops, clf, xte)
+    acc = float(np.mean(labels == yte))
+    saved = dict(ops.launches)
+    bucket = max(clf._schedule.buckets, key=lambda b: b.width)
+    xt, yt, mk, _ = dist._bucket_arrays(clf._taskset, bucket)
+    s = 0
+    t = int(bucket.task_ids.reshape(-1)[s])
+    k = clf._taskset.tasks[t].size
+    lone = gd.binary_gd(torch.from_numpy(xt[s]).to(dev),
+                        torch.from_numpy(yt[s]).to(dev),
+                        torch.from_numpy(mk[s]).to(dev), cfg=clf.gd_cfg,
+                        kernel=clf.kernel_params, engine="pallas")
+    alpha = lone.alpha.cpu().numpy()
+    lone_ok = (bool(np.allclose(alpha[:k], clf._fit.alpha[t, :k], **GD_TOL))
+               and abs(float(lone.b) - float(clf._fit.b[t])) <= 1e-4)
+    equal = (bool(np.array_equal(alpha[:k], clf._fit.alpha[t, :k]))
+             and float(lone.b) == float(clf._fit.b[t]))
+    ops.launches.update(saved)   # the lone solve is not the path
+    n_buckets = len(clf._schedule.buckets)
+    matvecs = fit_launches["rbf_gram_matvec"]
+    emit(phase="gd_ovo", config="overlapping",
+         noise=PAVIA_NOISE["overlapping"], steps=GD_OVO_STEPS,
+         lr=clf.gd_cfg.lr, n_train=int(len(xtr)),
+         n_tasks=int(clf._taskset.n_tasks),
+         buckets=[[int(b.width), int(b.n_slots)]
+                  for b in clf._schedule.buckets],
+         fit_s=fit_s, ms_per_step=fit_s / GD_OVO_STEPS * 1e3,
+         heldout_acc=acc, smo_heldout_acc=smo_acc,
+         n_support_max=int(np.max(clf.n_support_)),
+         task_axis_matvec_launches=matvecs,
+         expected_launches=GD_OVO_STEPS * n_buckets,
+         lone_task=t, lone_task_size=int(k), lone_equal_bits=equal,
+         lone_within_tol=lone_ok, lone_tol=GD_TOL,
+         lone_alpha_max_abs_diff=float(np.abs(
+             alpha[:k] - clf._fit.alpha[t, :k]).max()),
+         launches=fit_launches, heldout_launches=serve_launches)
+    check(matvecs == GD_OVO_STEPS * n_buckets, f"OvO GD: {matvecs} matvec "
+          f"launches, not one a step a bucket ({GD_OVO_STEPS * n_buckets})")
+    check(lone_ok, f"OvO GD: task {t} differs from its lone binary_gd")
+    return add(fit_launches, serve_launches)
+
+
+def phase_cascade_svc(ops, cascade, SVC, dev, split, base, base_acc):
+    """SVC(shard="cascade", cascade_shards=4) on the exact SVC's split:
+    leaves and merge levels as task-axis SMO (row and kkt_select
+    kernels), the root on the binary path, the float64 certificate's
+    Gram blocks on the block kernel; S = 1 against the unsharded fit
+    ``base`` of phase_fit, bit for bit."""
+    xtr, ytr, xte, yte = split
+    kw = dict(shard="cascade", engine="pallas", shrink_every=4)
+    clf, fit_s, fit_launches = timed_fit(ops, lambda: SVC(
+        cascade_shards=CASCADE_SHARDS, **kw, device=dev), xtr, ytr)
+    labels, serve_launches = serve_heldout(ops, clf, xte)
+    acc = float(np.mean(labels == yte))
+    saved = dict(ops.launches)
+    one = SVC(cascade_shards=1, **kw, device=dev).fit(xtr, ytr)
+    same = (bool(np.array_equal(one.alpha_, base.alpha_))
+            and one.b_ == base.b_)
+    ops.launches.update(saved)   # the S = 1 check is not the path
+    emit(phase="cascade_svc", n=int(len(xtr)), shards=CASCADE_SHARDS,
+         rounds=clf.cascade_rounds_, history=list(clf.cascade_history_),
+         cascade_kkt=clf.cascade_kkt_, tol=clf.smo_cfg.tol,
+         converged=clf.converged_, n_iter=clf.n_iter_,
+         n_support=clf.n_support_, fit_s=fit_s, heldout_acc=acc,
+         unsharded_heldout_acc=base_acc, one_shard_equals_unsharded=same,
+         launches=fit_launches, heldout_launches=serve_launches)
+    check(clf.converged_ and clf.cascade_kkt_ <= 1e-3,
+          f"cascade SVC: certificate {clf.cascade_kkt_} > 1e-3")
+    check(abs(acc - base_acc) <= 0.01, f"cascade SVC accuracy {acc} not "
+          f"within 0.01 of the unsharded fit's {base_acc}")
+    check(same, "cascade SVC with one shard differs from the unsharded fit")
+    for k_ in ("rbf_gram_row", "kkt_select", "rbf_gram"):
+        check(fit_launches[k_] > 0, f"cascade SVC launched no {k_}")
+    return add(fit_launches, serve_launches)
+
+
+def phase_cascade_svc_lowrank(ops, cascade, SVC, dev, split, base_acc):
+    """SVC(engine="rff", rank=1024, shard="cascade", cascade_shards=4):
+    each level's nodes one batched DCD over their rows of the shared Phi
+    (one task-axis dcd_epoch launch an epoch); the leaf level solved
+    again against its lone ``linear_svc`` solves, bit for bit."""
+    xtr, ytr, xte, yte = split
+    kw = dict(engine="rff", rank=RANK, shard="cascade",
+              cascade_shards=CASCADE_SHARDS)
+    clf, fit_s, fit_launches = timed_fit(
+        ops, lambda: SVC(**kw, device=dev), xtr, ytr)
+    labels, serve_launches = serve_heldout(ops, clf, xte)
+    acc = float(np.mean(labels == yte))
+    saved = dict(ops.launches)
+    phi = clf._feature_map.transform(torch.from_numpy(xtr).to(dev))
+    yy = np.where(ytr == clf.classes_[1], 1.0, -1.0).astype(np.float32)
+    adapter = cascade._DCDSVCAdapter(phi, yy, dcd_cfg=clf.dcd_cfg)
+    leaves = [(p, None) for p in cascade.partition_indices(len(yy),
+                                                           CASCADE_SHARDS)]
+    level = adapter.solve_level(leaves)
+    lone = [adapter.solve_level([leaf])[0] for leaf in leaves]
+    level_equal = all(
+        np.array_equal(a.alpha, b.alpha) and np.array_equal(a.w, b.w)
+        and a.b == b.b and a.n_iter == b.n_iter for a, b in zip(level, lone))
+    ops.launches.update(saved)   # the level check is not the path
+    emit(phase="cascade_svc_lowrank", n=int(len(xtr)), rank=RANK,
+         shards=CASCADE_SHARDS, rounds=clf.cascade_rounds_,
+         history=list(clf.cascade_history_), cascade_kkt=clf.cascade_kkt_,
+         tol=clf.dcd_cfg.tol, converged=clf.converged_,
+         epochs=clf.n_iter_, fit_s=fit_s, heldout_acc=acc,
+         unsharded_heldout_acc=base_acc,
+         leaf_epochs=[int(v.n_iter) for v in level],
+         level_equals_lone_solves=level_equal,
+         launches=fit_launches, heldout_launches=serve_launches)
+    check(clf.converged_ and clf.cascade_kkt_ <= 1e-3,
+          f"low-rank cascade: certificate {clf.cascade_kkt_} > 1e-3")
+    check(abs(acc - base_acc) <= 0.01, f"low-rank cascade accuracy {acc} "
+          f"not within 0.01 of the unsharded low-rank fit's {base_acc}")
+    check(level_equal, "low-rank cascade: a level's node differs from its "
+          "lone linear_svc")
+    check(fit_launches["dcd_epoch"] > 0, "low-rank cascade launched no "
+          "dcd_epoch")
+    return add(fit_launches, serve_launches)
+
+
+def phase_cascade_svr(ops, data, SVR, dev):
+    """The exact SVR cascade (S = 4) and the RFF one (rank 1,024), each
+    on the SVR data cut to CASCADE_SVR_ROWS rows; both must certify."""
+    paths = {}
+    for name, kw in (("svr_cascade", dict(engine="pallas", shrink_every=4)),
+                     ("svr_cascade_lowrank", dict(engine="rff", rank=RANK))):
+        rows = CASCADE_SVR_ROWS[name]
+        xtr, ytr, xte, yte = svr_split(data, rows)
+        reg, fit_s, fit_launches = timed_fit(ops, lambda: SVR(
+            shard="cascade", cascade_shards=CASCADE_SHARDS, **kw,
+            device=dev), xtr, ytr)
+        values, serve_launches = serve_heldout(ops, reg, xte)
+        emit(phase="cascade_svr", path=name, engine=kw["engine"],
+             rows=rows, reduced=(f"{rows} of 16,384 rows: 5-6 rounds of "
+                                 "near-full node solves (~70 % of the "
+                                 "rows are SVs)"),
+             n_train=int(len(xtr)), shards=CASCADE_SHARDS,
+             rounds=reg.cascade_rounds_,
+             history=list(reg.cascade_history_),
+             cascade_kkt=reg.cascade_kkt_, tol=reg.smo_cfg.tol,
+             converged=reg.converged_, n_iter=reg.n_iter_,
+             n_support=reg.n_support_, fit_s=fit_s,
+             heldout_r2=r2_score(yte, values), launches=fit_launches,
+             heldout_launches=serve_launches)
+        check(reg.converged_ and reg.cascade_kkt_ <= 1e-3,
+              f"{name}: certificate {reg.cascade_kkt_} > 1e-3")
+        paths[name] = add(fit_launches, serve_launches)
+    return paths
+
+
 def gram_info(G, entry: str, shape) -> dict:
     """The block route's launch plan for an (n, m, d) float32 call on
     this card, and what ptxas reported for the kernel it runs (the
@@ -2282,7 +2638,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import data, serve as serve_mod
-    from repro_torch.core import dist, kernel_engine as KE, kernels as K, smo
+    from repro_torch.core import cascade, dist, gd
+    from repro_torch.core import kernel_engine as KE, kernels as K, smo
     from repro_torch.core import multiclass as MC
     from repro_torch.core.svm import SVC, SVR
     from repro_torch.kernels import _build, ops
@@ -2311,7 +2668,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     counts = phase_kernel_counts(ops, K, dev, n=29491, d=102)
     path = os.path.join(out_dir, "chip_smoke_model.npz")
-    xtr, xte, df_engine, fit_launches, _, (ytr, yte, acc) = phase_fit(
+    xtr, xte, df_engine, fit_launches, _, (ytr, yte, acc, base) = phase_fit(
         ops, data, smo, KE, serve_mod, SVC, dev, path)
     serve_launches, packed = phase_serve(ops, serve_mod, dev, path, xte,
                                          df_engine)
@@ -2320,13 +2677,13 @@ def main() -> int:
               "decision", "multitask_decision"):
         check(exact[k] > 0, f"main path launched no {k} kernel")
     linear = phase_fit_linear(ops, smo, KE, SVC, dev, xtr, ytr, xte, yte)
-    clf, phi, yy, lr_fit = phase_lowrank_fit(ops, smo, SVC, dev, xtr, ytr,
-                                             xte, yte, acc)
+    clf, phi, yy, lr_fit, lr_acc = phase_lowrank_fit(
+        ops, smo, SVC, dev, xtr, ytr, xte, yte, acc)
     lr_serve = phase_lowrank_serve(
         ops, serve_mod, FM, dev,
         os.path.join(out_dir, "chip_smoke_lowrank.npz"), clf, xte)
-    svr, svr_state = phase_svr(ops, data, smo, KE, serve_mod, SVR, dev,
-                               out_dir)
+    svr, svr_state, svr_r2 = phase_svr(ops, data, smo, KE, serve_mod, SVR,
+                                       dev, out_dir)
     mc_paths = {}
     for config, noise in PAVIA_NOISE.items():
         split, fits, by_path = phase_multiclass(
@@ -2341,11 +2698,26 @@ def main() -> int:
             fits[strategy][1], out_dir, config, strategy)
         lowrank_paths[f"svc_{strategy}_lowrank"] = path_launches
         lowrank_fits[strategy] = (mclf, mphi, path_launches)
+    # the paper's GD baseline and the cascade, beside the SMO fits above
+    binary = (xtr, ytr, xte, yte)
+    lam, gd_path = phase_gd(ops, gd, KE, SVC, dev, binary, acc)
+    new_paths = {
+        "svc_gd": gd_path,
+        "svc_gd_stable": phase_gd_stable(ops, gd, SVC, dev, binary, lam, acc),
+        "svr_gd": phase_gd_svr(ops, data, SVR, dev, svr_r2["pallas"]),
+        "svc_ovo_gd_overlapping": phase_gd_ovo(ops, gd, dist, SVC, dev,
+                                               split, fits["ovo"][1]),
+        "svc_cascade": phase_cascade_svc(ops, cascade, SVC, dev, binary,
+                                         base, acc),
+        "svc_cascade_lowrank": phase_cascade_svc_lowrank(
+            ops, cascade, SVC, dev, binary, lr_acc),
+        **phase_cascade_svr(ops, data, SVR, dev)}
+    del base
     lm, lm_errs, lm_bf16 = phase_lm(ops, FA, SD, dev)
     check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
     paths = {"svc_exact": exact, "svc_linear": linear,
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
-             "svr": svr, **mc_paths, **lowrank_paths,
+             "svr": svr, **mc_paths, **lowrank_paths, **new_paths,
              "lm_kernels": lm}
     launches = {k: sum(p[k] for p in paths.values()) for k in ops.KERNELS}
     emit(phase="launches", by_path=paths, total=launches)

@@ -4,22 +4,26 @@ SMO per schedule bucket.
 Mirrors the task-parallel, single-device part of ``repro/core/dist.py``
 (paper Fig. 4, ``MPI-CUDA_multiSMO``): C = m(m-1)/2 (OvO) or m (OvR)
 binary problems, grouped by the size-bucketed ``Schedule``
-(``core/multiclass.py``). The reference vmaps ``binary_smo`` over each
-bucket; here each bucket is stacked into (T, w, d) and solved by
-``smo.solve_qp_tasks`` — one batched SMO whose every iteration is one
-selection launch and two row launches for the whole bucket, and whose
-host check reads one flag per ``check_every`` block. Each task freezes
-when its own gap closes, so its result is that of the task solved
-alone.
+(``core/multiclass.py``). The reference vmaps ``binary_smo`` (or
+``binary_gd``) over each bucket; here each bucket is stacked into
+(T, w, d) and solved by ``smo.solve_qp_tasks`` — one batched SMO whose
+every iteration is one selection launch and two row launches for the
+whole bucket, and whose host check reads one flag per ``check_every``
+block; each task freezes when its own gap closes, so its result is
+that of the task solved alone — or, with ``solver="gd"``, by
+``gd.binary_gd_tasks``: the bucket's tasks step together, one
+task-axis matvec launch a step, each task as its lone ``binary_gd``.
 
 ``fit_taskset`` runs on ``device`` ("cuda" by default; "cpu" must be
 asked for). ``vmapped_ovo_fit`` is the legacy shim over it for the
-padded ``ovo.OvOTasks`` stack.
+padded ``ovo.OvOTasks`` stack; ``sequential_ovo_fit`` is the paper's
+"Multi-Tensorflow": one separately dispatched solve per task.
 
 Not ported yet, and raising NotImplementedError until their slice: a
 ``mesh`` / ``shard="data" | "auto"`` (data- and task-parallel over
-several devices, ROADMAP A.11), ``shard="cascade"`` (A.9) and
-``solver="gd"`` (A.7).
+several devices, ROADMAP A.11). ``shard="cascade"`` is not a mode of
+the task layer (the cascade is ``SVC`` / ``SVR(shard="cascade")``) and
+raises ValueError, as in the reference.
 """
 from __future__ import annotations
 
@@ -30,26 +34,23 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core import gd as gd_mod
 from repro_torch.core import kernel_engine as KE
 from repro_torch.core import kernels as K
 from repro_torch.core import multiclass as MC
 from repro_torch.core import smo as smo_mod
 from repro_torch.core.ovo import OvOTasks
 
-# the reference's options of the task layer this port refuses, and the
-# item that ports each
-_UNPORTED_SHARD = {
-    "data": "data-parallel SMO over a mesh (ROADMAP A.11)",
-    "auto": "data-parallel SMO over a mesh (ROADMAP A.11)",
-    "cascade": "the cascade (ROADMAP A.9)",
-}
+# the reference's shard modes this port refuses until data-parallel SMO
+# over a mesh is ported
+_UNPORTED_SHARD = ("data", "auto")
 
 
 class OvOFit(NamedTuple):
     alpha: torch.Tensor      # (C, n_task)
     b: torch.Tensor          # (C,)
     n_iter: torch.Tensor     # (C,)
-    converged: torch.Tensor  # (C,) bool
+    converged: torch.Tensor  # (C,) bool (always True for GD: fixed steps)
 
 
 class TaskSetFit(NamedTuple):
@@ -74,21 +75,23 @@ def resolve_worker_count(mesh=None, worker_axes: tuple[str, ...] = ()) -> int:
         "multi-device layouts come with ROADMAP A.11")
 
 
-def _check_options(mesh, worker_axes, solver: str, shard: str) -> None:
-    if solver == "gd":
-        raise NotImplementedError(
-            "solver 'gd' is not ported yet; the GD baseline comes with "
-            "ROADMAP A.7")
-    if solver != "smo":
+def _check_options(mesh, worker_axes, solver: str, shard: str,
+                   warm: bool) -> None:
+    if solver not in ("smo", "gd"):
         raise ValueError(f"unknown solver {solver!r}")
     if shard in _UNPORTED_SHARD:
         raise NotImplementedError(
             f"shard={shard!r} is not ported yet; it comes with "
-            f"{_UNPORTED_SHARD[shard]}")
+            "data-parallel SMO over a mesh (ROADMAP A.11)")
     if shard != "task":
         raise ValueError(f"unknown shard mode {shard!r}; expected "
-                         "'task', 'data', 'auto' or 'cascade'")
+                         "'task', 'data' or 'auto' (the cascade is "
+                         "SVC / SVR(shard='cascade'))")
     resolve_worker_count(mesh, tuple(worker_axes))
+    if warm and solver != "smo":
+        raise ValueError(
+            "alpha0 warm starts / svr_epsilon tasks require "
+            f"solver='smo' (got solver={solver!r})")
 
 
 def _bucket_arrays(taskset: MC.TaskSet, bucket: MC.Bucket,
@@ -151,6 +154,7 @@ def fit_taskset(taskset: MC.TaskSet,
                 worker_axes: tuple[str, ...] = ("workers",),
                 solver: str = "smo",
                 smo_cfg: smo_mod.SMOConfig = smo_mod.SMOConfig(),
+                gd_cfg: gd_mod.GDConfig = gd_mod.GDConfig(),
                 kernel: K.KernelParams = K.KernelParams(),
                 engine: Optional[KE.EngineConfig | str] = None,
                 schedule_cfg: Optional[MC.ScheduleConfig] = None,
@@ -158,8 +162,9 @@ def fit_taskset(taskset: MC.TaskSet,
                 alpha0: Optional[np.ndarray] = None,
                 svr_epsilon: Optional[float] = None,
                 device: str | torch.device = "cuda") -> TaskSetFit:
-    """Fit every binary task of ``taskset``, one batched SMO per schedule
-    bucket, on ``device``.
+    """Fit every binary task of ``taskset``, one batched SMO (or, with
+    ``solver="gd"``, one batched GD of ``gd_cfg``) per schedule bucket,
+    on ``device``.
 
     ``schedule`` defaults to a fresh pow2-bucketed build (``schedule_cfg``
     tunes it). ``engine`` is an ``EngineConfig`` or backend name applied
@@ -168,9 +173,11 @@ def fit_taskset(taskset: MC.TaskSet,
     reference's vmap. ``alpha0`` is a (C, max_k) warm start in the
     ``TaskSetFit.alpha`` layout; ``svr_epsilon`` switches every task to
     the doubled epsilon-SVR spec (task ``y`` = targets, returned
-    ``alpha`` = beta).
+    ``alpha`` = beta). Both need ``solver="smo"``. GD tasks report
+    ``n_iter = steps`` and ``converged`` True, as in the reference.
     """
-    _check_options(mesh, worker_axes, solver, shard)
+    _check_options(mesh, worker_axes, solver, shard,
+                   alpha0 is not None or svr_epsilon is not None)
     dev = resolve_device(device)
     if schedule is None:
         cfg = schedule_cfg if schedule_cfg is not None else MC.ScheduleConfig()
@@ -186,13 +193,18 @@ def fit_taskset(taskset: MC.TaskSet,
     n_iter = np.zeros(c, np.int64)
     converged = np.zeros(c, bool)
     for bucket in schedule.buckets:
-        xt, yt, mk, a0 = _bucket_arrays(taskset, bucket, alpha0)
-        r = _fit_bucket(*(None if a is None else torch.from_numpy(a).to(dev)
-                          for a in (xt, yt, mk, a0)),
-                        smo_cfg=smo_cfg, kernel=kernel, engine=engine,
-                        svr_epsilon=svr_epsilon)
-        r_alpha, r_b, r_iter, r_conv = (t.cpu().numpy() for t in (
-            r.alpha, r.b, r.n_iter, r.converged))
+        xt, yt, mk, a0 = (None if a is None else torch.from_numpy(a).to(dev)
+                          for a in _bucket_arrays(taskset, bucket, alpha0))
+        if solver == "gd":
+            r = gd_mod.binary_gd_tasks(xt, yt, mk, cfg=gd_cfg, kernel=kernel,
+                                       engine=engine)
+            r_iter = np.full(len(yt), gd_cfg.steps, np.int64)
+            r_conv = np.ones(len(yt), bool)
+        else:
+            r = _fit_bucket(xt, yt, mk, a0, smo_cfg=smo_cfg, kernel=kernel,
+                            engine=engine, svr_epsilon=svr_epsilon)
+            r_iter, r_conv = r.n_iter.cpu().numpy(), r.converged.cpu().numpy()
+        r_alpha, r_b = r.alpha.cpu().numpy(), r.b.cpu().numpy()
         for s, t in enumerate(bucket.task_ids.reshape(-1)):
             if t < 0:
                 continue
@@ -236,6 +248,7 @@ def taskset_from_ovo(tasks: OvOTasks) -> MC.TaskSet:
 
 def vmapped_ovo_fit(tasks: OvOTasks, *, solver: str = "smo",
                     smo_cfg: smo_mod.SMOConfig = smo_mod.SMOConfig(),
+                    gd_cfg: gd_mod.GDConfig = gd_mod.GDConfig(),
                     kernel: K.KernelParams = K.KernelParams(),
                     engine: Optional[KE.EngineConfig | str] = None,
                     device: str | torch.device = "cuda") -> OvOFit:
@@ -245,8 +258,8 @@ def vmapped_ovo_fit(tasks: OvOTasks, *, solver: str = "smo",
     c_total, n_task = tasks.y.shape
     taskset = taskset_from_ovo(tasks)
     fit = fit_taskset(
-        taskset, solver=solver, smo_cfg=smo_cfg, kernel=kernel,
-        engine=engine, device=device,
+        taskset, solver=solver, smo_cfg=smo_cfg, gd_cfg=gd_cfg,
+        kernel=kernel, engine=engine, device=device,
         schedule_cfg=MC.ScheduleConfig(bucket_by="none", pad_width=n_task))
     c_real = taskset.n_tasks
     alpha = np.zeros((c_total, n_task), np.float32)
@@ -260,3 +273,36 @@ def vmapped_ovo_fit(tasks: OvOTasks, *, solver: str = "smo",
     return OvOFit(alpha=torch.from_numpy(alpha), b=torch.from_numpy(b),
                   n_iter=torch.from_numpy(n_iter),
                   converged=torch.from_numpy(converged))
+
+
+def sequential_ovo_fit(tasks: OvOTasks, *, solver: str = "gd",
+                       smo_cfg: smo_mod.SMOConfig = smo_mod.SMOConfig(),
+                       gd_cfg: gd_mod.GDConfig = gd_mod.GDConfig(),
+                       kernel: K.KernelParams = K.KernelParams(),
+                       engine: Optional[KE.EngineConfig | str] = None,
+                       n_real_tasks: Optional[int] = None,
+                       device: str | torch.device = "cuda") -> OvOFit:
+    """The paper's "Multi-Tensorflow": one solve per task of the padded
+    OvO stack, dispatched one after another on ``device`` — on purpose
+    not batched, to reproduce the baseline's execution profile.
+    ``solver`` is "gd" (the baseline) or "smo"; the first
+    ``n_real_tasks`` tasks are solved (all by default). Returns device
+    tensors stacked over the tasks."""
+    if solver not in ("smo", "gd"):
+        raise ValueError(f"unknown solver {solver!r}")
+    dev = resolve_device(device)
+    c_total = tasks.x.shape[0] if n_real_tasks is None else n_real_tasks
+    outs = []
+    for t in range(c_total):
+        xt, yt, mt = (torch.from_numpy(np.asarray(a[t])).to(dev)
+                      for a in (tasks.x, tasks.y, tasks.mask))
+        if solver == "gd":
+            r = gd_mod.binary_gd(xt, yt, mt, cfg=gd_cfg, kernel=kernel,
+                                 engine=engine)
+            conv = torch.ones((), dtype=torch.bool, device=dev)
+        else:
+            r = smo_mod.binary_smo(xt, yt, mt, cfg=smo_cfg, kernel=kernel,
+                                   engine=engine)
+            conv = r.converged
+        outs.append(OvOFit(r.alpha, r.b, r.n_iter, conv))
+    return OvOFit(*(torch.stack(f) for f in zip(*outs)))

@@ -35,8 +35,9 @@ sweeps on unless that is <= tol. It stops there or after
 ``max_epochs``. The reference stops at the epoch rule alone; where its
 state certifies (the common case) the two stop at the same epoch.
 
-``dcd_qp_tasks`` / ``linear_svc_tasks`` solve T such problems over rows
-of one shared Phi together (the tasks of a multiclass low-rank fit):
+``dcd_qp_tasks`` / ``linear_svc_tasks`` / ``linear_svr_tasks`` solve T
+such problems over rows of one shared Phi together (the tasks of a
+multiclass low-rank fit, the nodes of a low-rank cascade level):
 each epoch is one task-axis launch (``ops.dcd_epoch_tasks``) for the
 tasks still sweeping, and each task keeps its own generator, exact w,
 certificate and stopping epoch, so it ends exactly where its lone solve
@@ -176,7 +177,8 @@ def dcd_qp_tasks(phi: torch.Tensor, rows: Optional[Sequence],
     masks[t], alpha0=alpha0[t])``, and each task's result is that
     solve's, bit for bit, whatever the other tasks. ``p``, ``lo`` and
     ``hi`` are values shared by every task, or vectors of a task's
-    length when there is one. Each epoch is one ``ops.dcd_epoch_tasks``
+    length when there is one; ``p`` may also be a list of per-task
+    vectors (``p[t]`` for task t). Each epoch is one ``ops.dcd_epoch_tasks``
     launch for the tasks still sweeping, a block each, reading Phi
     through the tasks' row indices; each task keeps its own generator
     (seeded 0, so it draws its lone solve's permutations), computes its
@@ -199,7 +201,8 @@ def dcd_qp_tasks(phi: torch.Tensor, rows: Optional[Sequence],
     def task_phi(t):
         return phi if whole else phi.index_select(0, rows[t])
 
-    coords = [_coords(task_phi(t), y[t], p, lo, hi, masks[t], alpha0[t],
+    ps = list(p) if isinstance(p, (list, tuple)) else [p] * n_tasks
+    coords = [_coords(task_phi(t), y[t], ps[t], lo, hi, masks[t], alpha0[t],
                       bias) for t in range(n_tasks)]
     bounds = [0]
     for c in coords:
@@ -313,23 +316,52 @@ def linear_svr(phi: torch.Tensor, y: torch.Tensor, *, epsilon: float,
     variables; ``alpha0`` is a beta = alpha - alpha* warm start, split
     into ``[max(beta, 0); max(-beta, 0)]``."""
     n, dev = phi.shape[0], phi.device
-    y = torch.as_tensor(y, dtype=torch.float32, device=dev)
-    phi2 = torch.cat([phi, phi], dim=0)
-    s = torch.cat([torch.ones((n,), device=dev),
-                   -torch.ones((n,), device=dev)])
-    p = torch.cat([epsilon - y, epsilon + y])
     m2 = None
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
         m2 = torch.cat([mask, mask])
+    s, p, a2 = _svr_doubled(y, epsilon, alpha0, dev)
+    r = dcd_qp(torch.cat([phi, phi], dim=0), s, p,
+               torch.zeros((2 * n,), device=dev),
+               torch.full((2 * n,), float(cfg.C), device=dev), m2, cfg=cfg,
+               alpha0=a2)
+    return _svr_result(r, n)
+
+
+def _svr_doubled(y, epsilon: float, alpha0, dev):
+    """(s, p, doubled warm start) of the epsilon-SVR dual of targets y:
+    s = [+1; -1], p = [eps - y; eps + y], alpha0 a beta split into
+    ``[max(beta, 0); max(-beta, 0)]`` (None stays None)."""
+    y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    ones = torch.ones(y.shape, device=dev)
     a2 = None
     if alpha0 is not None:
         beta0 = torch.as_tensor(alpha0, dtype=torch.float32, device=dev)
         a2 = torch.cat([torch.clamp_min(beta0, 0.0),
                         torch.clamp_min(-beta0, 0.0)])
-    r = dcd_qp(phi2, s, p, torch.zeros((2 * n,), device=dev),
-               torch.full((2 * n,), float(cfg.C), device=dev), m2, cfg=cfg,
-               alpha0=a2)
+    return torch.cat([ones, -ones]), torch.cat([epsilon - y, epsilon + y]), a2
+
+
+def _svr_result(r: DCDResult, n: int) -> LinearSVRResult:
     return LinearSVRResult(beta=r.alpha[:n] - r.alpha[n:], w=r.w, b=r.b,
                            alpha=r.alpha, n_iter=r.n_iter,
                            converged=r.converged, gap=r.gap)
+
+
+def linear_svr_tasks(phi: torch.Tensor, rows: Sequence, y: Sequence, *,
+                     epsilon: float, cfg: DCDConfig = DCDConfig(),
+                     alpha0: Optional[Sequence] = None
+                     ) -> list[LinearSVRResult]:
+    """``linear_svr`` of T tasks over rows of one shared Phi
+    (``dcd_qp_tasks`` over each task's rows taken twice, the doubled
+    layout): task t is ``linear_svr(phi[rows[t]], y[t], alpha0=
+    alpha0[t])``, bit for bit. ``alpha0[t]`` is a beta warm start."""
+    dev = phi.device
+    rows = [torch.as_tensor(r, device=dev).to(torch.int64) for r in rows]
+    alpha0 = [None] * len(rows) if alpha0 is None else list(alpha0)
+    specs = [_svr_doubled(yt, epsilon, a0, dev) for yt, a0 in zip(y, alpha0)]
+    fits = dcd_qp_tasks(phi, [torch.cat([r, r]) for r in rows],
+                        [s for s, _, _ in specs], [p for _, p, _ in specs],
+                        0.0, float(cfg.C), cfg=cfg,
+                        alpha0=[a2 for _, _, a2 in specs])
+    return [_svr_result(r, len(rt)) for r, rt in zip(fits, rows)]

@@ -272,6 +272,21 @@ def _certified(eng, alpha, y, p, lo, hi, mask, tol: float):
     return float(kkt_violation(alpha, y, f, lo, hi, mask=mask)) <= tol, f
 
 
+def _start(alpha0, lo, hi, mask) -> torch.Tensor:
+    """A warm start clipped to the box, entries within the solver's
+    bound band (1e-6 of the box width, the band a pair update snaps its
+    variables from) moved onto the bound, masked entries zeroed. Selection
+    (float32) counts an entry at float32(hi - 1e-6 (hi - lo)) as at the
+    bound, while the float64 ``kkt_violation`` counts it as free; a
+    start left there would never move and never certify (the cascade's
+    equality repair, draining a merged start's largest entries by a
+    rounding-scale residue, lands on it)."""
+    a = torch.minimum(torch.maximum(alpha0, lo), hi)
+    band = 1e-6 * (hi - lo)
+    a = torch.where(a <= lo + band, lo, torch.where(a >= hi - band, hi, a))
+    return a * mask
+
+
 def _resolve_engine(x, kernel, engine) -> KE.KernelEngine:
     if isinstance(engine, KE.KernelEngine):
         return engine
@@ -306,9 +321,10 @@ def solve_qp(x: torch.Tensor,
         and keep alpha = 0.
       engine: a bound ``KernelEngine``, an ``EngineConfig``, or a backend
         name; None is the dense backend (the reference's default).
-      alpha0: (n,) warm-start multipliers, clipped to the box and zeroed
-        on masked entries; the f-cache is rebuilt with one matvec. The
-        caller keeps ``sum_i y_i alpha0_i`` ~ 0.
+      alpha0: (n,) warm-start multipliers, clipped to the box, snapped
+        onto a bound within 1e-6 of the box width of it (``_start``) and
+        zeroed on masked entries; the f-cache is rebuilt with one
+        matvec. The caller keeps ``sum_i y_i alpha0_i`` ~ 0.
     """
     if cfg.selection not in ("first", "second"):
         raise ValueError(f"unknown selection {cfg.selection!r}; expected "
@@ -337,9 +353,8 @@ def solve_qp(x: torch.Tensor,
         a0 = torch.zeros((n,), dtype=torch.float32, device=dev)
         f0 = y * p  # alpha = 0  =>  f_i = y_i p_i (classification: -y_i)
     else:
-        a0 = torch.minimum(torch.maximum(
-            torch.as_tensor(alpha0, dtype=torch.float32, device=dev), lo),
-            hi) * mask
+        a0 = _start(torch.as_tensor(alpha0, dtype=torch.float32,
+                                    device=dev), lo, hi, mask)
         f0 = eng.matvec(a0 * y) + y * p
     st = _State(alpha=a0.contiguous(), f=f0,
                 n_iter=torch.zeros((), dtype=torch.int64, device=dev),
@@ -475,7 +490,7 @@ def solve_qp_tasks(x: torch.Tensor,
         a0 = torch.zeros(shape, dtype=torch.float32, device=dev)
         f0 = y * p
     else:
-        a0 = torch.minimum(torch.maximum(vec(alpha0), lo), hi) * mask
+        a0 = _start(vec(alpha0), lo, hi, mask)
         f0 = eng.matvec(a0 * y) + y * p
     n_tasks = shape[0]
     st = _State(alpha=a0.contiguous(), f=f0,

@@ -6,10 +6,12 @@ epsilon-``SVR``.
     clf = SVC(engine="rff", rank=1024)                # low-rank tier
     clf = SVC(strategy="ovr")                         # one-vs-rest
     clf = SVC(decision="margin")                      # OvO summed margins
+    clf = SVC(solver="gd", gd_steps=2000)             # paper's TF baseline
+    clf = SVC(shard="cascade", cascade_shards=4)      # hierarchical cascade
     clf.fit(X, y); clf.predict(Xt); clf.score(Xt, yt)  # binary or multiclass
     reg = SVR(epsilon=0.1, engine="pallas").fit(X, y); reg.score(Xt, yt)
 
-Mirrors the SMO, low-rank, multiclass and SVR paths of
+Mirrors the SMO, GD, cascade, low-rank, multiclass and SVR paths of
 ``repro/core/svm.py``. ``fit`` runs on ``device`` ("cuda" by default;
 "cpu" must be asked for) and keeps the reference's conventions:
 ``classes_[1]`` maps to +1 in a binary fit, so a positive margin
@@ -18,7 +20,10 @@ a support vector above ``1e-8 * C`` (``|beta|`` for SVR); a gamma <= 0
 ("scale") is re-resolved from the data on every fit; single-class input
 raises.
 
-Exact engines train by SMO (``core/smo.py``); the low-rank engines
+Exact engines train by SMO (``core/smo.py``), or with ``solver="gd"``
+by the paper's fixed-step projected gradient descent (``core/gd.py``:
+``gd_steps`` steps of ``gd_lr``, one engine matvec a step;
+``converged_`` is True, as in the reference); the low-rank engines
 (``engine="nystrom" | "rff"`` with ``rank`` / ``landmarks`` / ``seed``)
 train by dual coordinate descent on an explicit feature map
 (``core/approx.py`` + ``core/linear.py``), with ``max_iter`` bounding
@@ -38,9 +43,20 @@ into pow2 SV-width serving buckets. Low-rank engines draw one feature
 map over all of X, transform it once and fit each task by DCD on its
 rows of it, so serving is one transform and a (n_tasks, rank) product.
 
-Not ported yet, and raising NotImplementedError until their slice: the
-GD solver (ROADMAP A.7), the cascade (A.9) and the sharded solver
-(A.11).
+``shard="cascade"`` trains hierarchically (``core/cascade.py``): the
+data in ``cascade_shards`` round-robin shards solved independently,
+support-vector unions merged up a binary tree, and feedback rounds (at
+most ``cascade_rounds``) until the full-dataset float64 KKT certificate
+passes at the solver tol — ``converged_`` reports the certificate, and
+``cascade_rounds_`` / ``cascade_kkt_`` / ``cascade_history_`` the
+trail (per task, rounds and certificate only, for a multiclass fit). It
+needs ``solver="smo"``; on a low-rank engine it runs over row slices of
+the one feature map (DCD nodes, the solver knob ignored). The serving
+state has the shape of every other path's, so ``serve.pack`` and the
+``Predictor`` work unchanged.
+
+Not ported yet, and raising NotImplementedError until their slice:
+``shard="data" | "auto"``, a ``mesh`` (ROADMAP A.11).
 """
 from __future__ import annotations
 
@@ -48,7 +64,8 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core import approx, dist
+from repro_torch.core import approx, dist, gd
+from repro_torch.core import cascade as cascade_mod
 from repro_torch.core import kernel_engine as KE
 from repro_torch.core import kernels as K
 from repro_torch.core import linear
@@ -66,11 +83,32 @@ def _sv_threshold(C: float) -> float:
     return _SV_EPS * float(C)
 
 
-def _check_solver(solver: str) -> None:
-    if solver != "smo":
+def _host(a) -> np.ndarray:
+    """numpy view of a result field (a tensor on any device, or already
+    host numpy, as a cascade's)."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _cascade_attrs(model, r: cascade_mod.CascadeResult) -> None:
+    """A binary cascade's trail; ``converged_`` is its certificate."""
+    model.n_iter_ = int(r.n_iter)
+    model.converged_ = bool(r.converged)
+    model.cascade_rounds_ = int(r.rounds)
+    model.cascade_kkt_ = float(r.kkt)
+    model.cascade_history_ = r.history
+
+
+def _check_modes(solver: str, shard: str, mesh) -> None:
+    if solver not in ("smo", "gd"):
+        raise ValueError(f"unknown solver {solver!r}; expected 'smo' or "
+                         "'gd'")
+    if shard not in ("task", "data", "auto", "cascade"):
+        raise ValueError(f"unknown shard mode {shard!r}; expected "
+                         "'task', 'data', 'auto' or 'cascade'")
+    if shard in ("data", "auto") or mesh is not None:
         raise NotImplementedError(
-            f"solver {solver!r} is not ported yet; the GD baseline comes "
-            "with ROADMAP A.7")
+            f"shard={shard!r} / a mesh is not ported yet; data-parallel "
+            "SMO over several devices comes with ROADMAP A.11")
 
 
 def _engine_config(engine, rank: int, landmarks: str,
@@ -151,7 +189,8 @@ class SVC:
     def __init__(self, *, kernel: str = "rbf", C: float = 1.0,
                  gamma: float = -1.0, degree: int = 3, coef0: float = 0.0,
                  tol: float = 1e-3, max_iter: int = 100_000,
-                 solver: str = "smo",
+                 solver: str = "smo", gd_lr: float = 0.01,
+                 gd_steps: int = 300,
                  engine: str | KE.EngineConfig = "auto",
                  rank: int = 256, landmarks: str = "uniform",
                  seed: int = 0,
@@ -159,8 +198,12 @@ class SVC:
                  strategy: str | MC.MulticlassStrategy = "ovo",
                  decision: str = "vote",
                  schedule: str = "bucketed",
+                 mesh=None,
+                 shard: str = "task",
+                 cascade_shards: int = 4,
+                 cascade_rounds: int = 8,
                  device: str | torch.device = "cuda"):
-        _check_solver(solver)
+        _check_modes(solver, shard, mesh)
         self.device = resolve_device(device)
         # the constructor keeps the gamma<=0 "scale" sentinel; fit()
         # re-resolves from it each call (sklearn semantics)
@@ -169,10 +212,15 @@ class SVC:
         self.kernel_params = self._kernel_cfg
         self.smo_cfg = smo.SMOConfig(C=C, tol=tol, max_iter=max_iter,
                                      shrink_every=shrink_every)
+        self.gd_cfg = gd.GDConfig(C=C, lr=gd_lr, steps=gd_steps)
+        self.solver = solver
         self.engine_cfg = _engine_config(engine, rank, landmarks, seed)
         # max_iter bounds both solvers: SMO pair updates and (as epochs)
         # the low-rank DCD sweeps
         self.dcd_cfg = linear.DCDConfig(C=C, tol=tol, max_epochs=max_iter)
+        self.shard = shard
+        self.cascade_cfg = cascade_mod.CascadeConfig(shards=cascade_shards,
+                                                     rounds=cascade_rounds)
         self.strategy = MC.get_strategy(strategy)
         if decision not in ("vote", "margin"):
             raise ValueError(f"unknown OvO decision {decision!r}; "
@@ -211,12 +259,29 @@ class SVC:
         yt = torch.from_numpy(yy).to(self.device)
         if lowrank:
             self._fit_binary_lowrank(xt, yt)
-        else:
+        elif self.shard == "cascade":
+            cascade_mod.validate_cascade(self.solver, self.cascade_cfg)
+            r = cascade_mod.cascade_binary(
+                x, yy, smo_cfg=self.smo_cfg, kernel=self.kernel_params,
+                engine=self.engine_cfg, cascade=self.cascade_cfg,
+                device=self.device)
+            _cascade_attrs(self, r)
+            self.alpha_, self.b_ = r.alpha, r.b
+        elif self.solver == "smo":
             r = smo.binary_smo(xt, yt, cfg=self.smo_cfg,
                                kernel=self.kernel_params,
                                engine=self.engine_cfg)
             self.n_iter_ = int(r.n_iter)
             self.converged_ = bool(r.converged)
+            self.alpha_ = r.alpha.cpu().numpy()
+            self.b_ = float(r.b)
+        else:
+            r = gd.binary_gd(xt, yt, cfg=self.gd_cfg,
+                             kernel=self.kernel_params,
+                             engine=self.engine_cfg)
+            self.n_iter_ = int(r.n_iter)
+            self.converged_ = True
+            self.loss_curve_ = r.loss_curve.cpu().numpy()
             self.alpha_ = r.alpha.cpu().numpy()
             self.b_ = float(r.b)
         # serving state: compacted support-vector set only
@@ -231,11 +296,22 @@ class SVC:
     def _fit_binary_lowrank(self, xt: torch.Tensor, yt: torch.Tensor) -> None:
         """Approximate-kernel binary fit: explicit low-rank features
         (``core/approx.py``) + the O(n k) dual coordinate descent
-        (``core/linear.py``); no (n, n) object is ever formed."""
+        (``core/linear.py``), or its cascade over row slices of the one
+        map; no (n, n) object is ever formed."""
         fmap = approx.make_feature_map(xt, self.kernel_params,
                                        self.engine_cfg)
-        r = linear.linear_svc(fmap.transform(xt), yt, cfg=self.dcd_cfg)
+        phi = fmap.transform(xt)
         self._feature_map = fmap
+        if self.shard == "cascade":
+            # the solver knob is ignored on this path: don't validate it
+            cascade_mod.validate_cascade(None, self.cascade_cfg)
+            r = cascade_mod.cascade_dcd(phi, yt.cpu().numpy(),
+                                        dcd_cfg=self.dcd_cfg,
+                                        cascade=self.cascade_cfg)
+            _cascade_attrs(self, r)
+            self.alpha_, self.b_, self.w_ = r.alpha, r.b, r.w
+            return
+        r = linear.linear_svc(phi, yt, cfg=self.dcd_cfg)
         self.alpha_ = r.alpha.cpu().numpy()
         self.b_ = float(r.b)
         self.w_ = r.w.cpu().numpy()
@@ -244,21 +320,50 @@ class SVC:
 
     def _fit_multiclass(self, x: np.ndarray, y: np.ndarray) -> None:
         """Every binary task of the strategy's TaskSet, one batched SMO
-        per schedule bucket (``dist.fit_taskset``), then the pow2
-        SV-width serving compaction."""
+        (or GD) per schedule bucket (``dist.fit_taskset``), or a cascade
+        per task, then the pow2 SV-width serving compaction."""
         taskset = self.strategy.build_taskset(x, y)
-        bucket_by = "pow2" if self.schedule == "bucketed" else "none"
-        sched = MC.build_schedule(taskset.sizes,
-                                  MC.ScheduleConfig(bucket_by=bucket_by))
-        fit = dist.fit_taskset(taskset, sched, smo_cfg=self.smo_cfg,
-                               kernel=self.kernel_params,
-                               engine=self.engine_cfg, device=self.device)
+        if self.shard == "cascade":
+            cascade_mod.validate_cascade(self.solver, self.cascade_cfg)
+            sched = None
+            fit = self._fit_taskset_cascade(taskset)
+        else:
+            bucket_by = "pow2" if self.schedule == "bucketed" else "none"
+            sched = MC.build_schedule(taskset.sizes,
+                                      MC.ScheduleConfig(bucket_by=bucket_by))
+            fit = dist.fit_taskset(taskset, sched, solver=self.solver,
+                                   smo_cfg=self.smo_cfg, gd_cfg=self.gd_cfg,
+                                   kernel=self.kernel_params,
+                                   engine=self.engine_cfg,
+                                   device=self.device)
         self._taskset = taskset
         self._schedule = sched
         self._fit = fit
         self.n_iter_ = int(np.max(fit.n_iter))
         self.converged_ = bool(np.all(fit.converged))
         self._compact_tasks()
+
+    def _fit_taskset_cascade(self, taskset: MC.TaskSet) -> dist.TaskSetFit:
+        """Each binary task trained by its own cascade, results in the
+        ``TaskSetFit`` layout (``converged``: each task's certificate)."""
+        c, sizes = taskset.n_tasks, taskset.sizes
+        alpha = np.zeros((c, int(sizes.max())), np.float32)
+        b = np.zeros(c, np.float32)
+        n_iter = np.zeros(c, np.int64)
+        converged = np.zeros(c, bool)
+        rounds = np.zeros(c, np.int64)
+        kkt = np.zeros(c)
+        for t, task in enumerate(taskset.tasks):
+            r = cascade_mod.cascade_binary(
+                task.x, task.y, smo_cfg=self.smo_cfg,
+                kernel=self.kernel_params, engine=self.engine_cfg,
+                cascade=self.cascade_cfg, device=self.device)
+            alpha[t, :task.size] = r.alpha
+            b[t], n_iter[t], converged[t] = r.b, r.n_iter, r.converged
+            rounds[t], kkt[t] = r.rounds, r.kkt
+        self.cascade_rounds_, self.cascade_kkt_ = rounds, kkt
+        return dist.TaskSetFit(alpha=alpha, b=b, n_iter=n_iter,
+                               converged=converged, sizes=sizes)
 
     def _compact_tasks(self) -> None:
         """Keep each task's alpha > threshold rows only, grouped into pow2
@@ -297,8 +402,9 @@ class SVC:
         """One feature map over all of X, transformed once; each task is a
         DCD fit on its rows of that Phi (``task.indices``), all tasks
         solved together by ``linear.linear_svc_tasks`` (one launch an
-        epoch, each task as its lone solve), so serving is one transform
-        and a (n_tasks, rank) product."""
+        epoch, each task as its lone solve) — or, with
+        ``shard="cascade"``, a cascade per task over its rows — so serving
+        is one transform and a (n_tasks, rank) product."""
         taskset = self.strategy.build_taskset(x, y)
         fmap = approx.make_feature_map(xt, self.kernel_params,
                                        self.engine_cfg)
@@ -311,14 +417,24 @@ class SVC:
         converged = np.ones(n_tasks, bool)
         alphas = []
         thr = _sv_threshold(self.smo_cfg.C)
-        fits = linear.linear_svc_tasks(
-            phi, [torch.from_numpy(task.indices) for task in taskset.tasks],
-            [torch.from_numpy(task.y) for task in taskset.tasks],
-            cfg=self.dcd_cfg)
+        rows = [torch.from_numpy(task.indices).to(self.device)
+                for task in taskset.tasks]
+        if self.shard == "cascade":
+            cascade_mod.validate_cascade(None, self.cascade_cfg)
+            fits = [cascade_mod.cascade_dcd(phi.index_select(0, r), task.y,
+                                            dcd_cfg=self.dcd_cfg,
+                                            cascade=self.cascade_cfg)
+                    for r, task in zip(rows, taskset.tasks)]
+            self.cascade_rounds_ = np.array([r.rounds for r in fits])
+            self.cascade_kkt_ = np.array([r.kkt for r in fits])
+        else:
+            fits = linear.linear_svc_tasks(
+                phi, rows, [torch.from_numpy(task.y) for task in taskset.tasks],
+                cfg=self.dcd_cfg)
         for t, r in enumerate(fits):
-            a = r.alpha.cpu().numpy()
+            a = _host(r.alpha)
             alphas.append(a)
-            task_w[t] = r.w.cpu().numpy()
+            task_w[t] = _host(r.w)
             task_b[t] = float(r.b)
             n_support[t] = int((a > thr).sum())
             n_iter[t] = int(r.n_iter)
@@ -358,20 +474,26 @@ class SVC:
 class SVR:
     """epsilon-insensitive Support Vector Regression: one doubled-variable
     QP through the same engine / shrinking stack as binary ``SVC``
-    (``smo.svr_smo``), or, on a low-rank engine, the doubled DCD over the
-    feature map (``linear.linear_svr``)."""
+    (``smo.svr_smo``; ``gd.svr_gd`` with ``solver="gd"``; a cascade of
+    them with ``shard="cascade"``), or, on a low-rank engine, the doubled
+    DCD over the feature map (``linear.linear_svr``; its cascade)."""
 
     def __init__(self, *, kernel: str = "rbf", C: float = 1.0,
                  epsilon: float = 0.1,
                  gamma: float = -1.0, degree: int = 3, coef0: float = 0.0,
                  tol: float = 1e-3, max_iter: int = 100_000,
-                 solver: str = "smo",
+                 solver: str = "smo", gd_lr: float = 0.01,
+                 gd_steps: int = 300,
                  engine: str | KE.EngineConfig = "auto",
                  rank: int = 256, landmarks: str = "uniform",
                  seed: int = 0,
                  shrink_every: int = 0,
+                 mesh=None,
+                 shard: str = "task",
+                 cascade_shards: int = 4,
+                 cascade_rounds: int = 8,
                  device: str | torch.device = "cuda"):
-        _check_solver(solver)
+        _check_modes(solver, shard, mesh)
         self.device = resolve_device(device)
         # gamma "scale" sentinel kept; re-resolved per fit (see SVC)
         self._kernel_cfg = K.KernelParams(name=kernel, gamma=gamma,
@@ -379,32 +501,62 @@ class SVR:
         self.kernel_params = self._kernel_cfg
         self.smo_cfg = smo.SMOConfig(C=C, tol=tol, max_iter=max_iter,
                                      shrink_every=shrink_every)
+        self.gd_cfg = gd.GDConfig(C=C, lr=gd_lr, steps=gd_steps)
+        self.solver = solver
         self.epsilon = float(epsilon)
         self.engine_cfg = _engine_config(engine, rank, landmarks, seed)
         self.dcd_cfg = linear.DCDConfig(C=C, tol=tol, max_epochs=max_iter)
+        self.shard = shard
+        self.cascade_cfg = cascade_mod.CascadeConfig(shards=cascade_shards,
+                                                     rounds=cascade_rounds)
         self._fitted = False
 
     # ------------------------------------------------------------------ fit
     def fit(self, x: np.ndarray, y: np.ndarray) -> "SVR":
         x, xt = _fit_inputs(self, x)
-        yt = torch.from_numpy(np.asarray(y, np.float32)).to(self.device)
+        y = np.asarray(y, np.float32)
+        yt = torch.from_numpy(y).to(self.device)
         self._feature_map = None
+        eps, cascade = self.epsilon, self.shard == "cascade"
         if self.engine_cfg.backend in KE.LOWRANK_BACKENDS:
             fmap = approx.make_feature_map(xt, self.kernel_params,
                                            self.engine_cfg)
-            r = linear.linear_svr(fmap.transform(xt), yt,
-                                  epsilon=self.epsilon, cfg=self.dcd_cfg)
+            phi = fmap.transform(xt)
+            if cascade:
+                cascade_mod.validate_cascade(None, self.cascade_cfg)
+                r = cascade_mod.cascade_dcd_svr(phi, y, epsilon=eps,
+                                                dcd_cfg=self.dcd_cfg,
+                                                cascade=self.cascade_cfg)
+            else:
+                r = linear.linear_svr(phi, yt, epsilon=eps, cfg=self.dcd_cfg)
             self._feature_map = fmap
-            self.w_ = r.w.cpu().numpy()
-        else:
-            r = smo.svr_smo(xt, yt, epsilon=self.epsilon, cfg=self.smo_cfg,
+            self.w_ = _host(r.w)
+        elif cascade:
+            cascade_mod.validate_cascade(self.solver, self.cascade_cfg)
+            r = cascade_mod.cascade_svr(
+                x, y, epsilon=eps, smo_cfg=self.smo_cfg,
+                kernel=self.kernel_params, engine=self.engine_cfg,
+                cascade=self.cascade_cfg, device=self.device)
+        elif self.solver == "smo":
+            r = smo.svr_smo(xt, yt, epsilon=eps, cfg=self.smo_cfg,
                             kernel=self.kernel_params,
                             engine=self.engine_cfg)
-        self.n_iter_ = int(r.n_iter)
-        self.converged_ = bool(r.converged)
-        self.beta_ = r.beta.cpu().numpy()
+        else:
+            r = gd.svr_gd(xt, yt, epsilon=eps, cfg=self.gd_cfg,
+                          kernel=self.kernel_params, engine=self.engine_cfg)
+            self.loss_curve_ = _host(r.loss_curve)
+        if isinstance(r, cascade_mod.CascadeResult):
+            # alpha IS the per-sample beta, alpha_raw the (2n,) doubled
+            # scatter of the root solve
+            _cascade_attrs(self, r)
+            self.beta_, self.alpha_raw_ = r.alpha, r.alpha_raw
+        else:
+            self.n_iter_ = int(r.n_iter)
+            self.converged_ = (True if isinstance(r, gd.SVRGDResult)
+                               else bool(r.converged))
+            self.beta_ = _host(r.beta)
+            self.alpha_raw_ = _host(r.alpha)  # (2n,) [alpha; alpha*]
         self.b_ = float(r.b)
-        self.alpha_raw_ = r.alpha.cpu().numpy()  # (2n,) [alpha; alpha*]
         # serving state: compacted support-vector set only
         sv = np.abs(self.beta_) > _sv_threshold(self.smo_cfg.C)
         self.support_ = np.where(sv)[0]

@@ -8,8 +8,8 @@
   CUDA unless ``device="cpu"``;
   functional entry points follow their input tensors' device.
 * Features of later slices raise NotImplementedError naming the slice
-  (multiclass fits run; the task layer's mesh, cascade
-  and GD options still raise).
+  (multiclass fits, the GD solver and the cascade run; a mesh and the
+  data-parallel shard modes still raise).
 """
 import ast
 import pathlib
@@ -81,8 +81,16 @@ def test_functional_entry_points_follow_their_tensors():
 
 
 @pytest.mark.parametrize("cls", [SVC, SVR])
+def test_gd_solver_runs(cls):
+    """solver="gd" (ROADMAP A.7) runs now, on the CPU when asked."""
+    x, y = make_blobs(20, 2, 3, seed=1)
+    model = cls(device="cpu", solver="gd", gd_steps=50).fit(x, y)
+    assert model.converged_ and model.n_iter_ == 50
+    assert model.predict(x).shape == y.shape
+
+
+@pytest.mark.parametrize("cls", [SVC, SVR])
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(solver="gd"), "A.7"),
     (dict(engine="sharded"), "A.11"),
     (dict(engine=TKE.EngineConfig(backend="sharded")), "A.11"),
 ])
@@ -93,14 +101,21 @@ def test_unported_options_raise(kwargs, match, cls):
 
 @pytest.mark.parametrize("engine", ["auto", "rff", "nystrom"])
 def test_multiclass_fit_raises(engine):
-    """Multiclass fits run now, exact and low-rank; what the multiclass
-    task layer still refuses raises naming its ROADMAP item."""
+    """Multiclass fits run now, exact and low-rank, by SMO and by GD (the
+    solver knob is ignored on a low-rank engine, as in the reference);
+    the task layer refuses ``shard="cascade"`` (a mode of ``SVC``, not
+    of the task layer) with ValueError, and what it still refuses raises
+    naming its ROADMAP item."""
     x, y = load_iris()
     clf = SVC(device="cpu", engine=engine, rank=16).fit(x, y)
     assert clf.predict(x).shape == y.shape and not clf._binary
-    for kwargs, match in ((dict(solver="gd"), "A.7"),
-                          (dict(shard="cascade"), "A.9"),
-                          (dict(shard="data"), "A.11"),
+    gd = SVC(device="cpu", engine=engine, rank=16, solver="gd",
+             gd_steps=50).fit(x, y)
+    assert gd.predict(x).shape == y.shape and not gd._binary
+    with pytest.raises(ValueError, match="shard mode"):
+        tdist.fit_taskset(clf._taskset, engine=engine, device="cpu",
+                          shard="cascade")
+    for kwargs, match in ((dict(shard="data"), "A.11"),
                           (dict(mesh=object()), "A.11")):
         with pytest.raises(NotImplementedError, match=match):
             tdist.fit_taskset(clf._taskset, engine=engine, device="cpu",

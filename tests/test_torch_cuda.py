@@ -22,7 +22,11 @@ to 1e-5 in the epoch's max projected gradient.
 
 The task axis (one launch for a multiclass bucket) of the row, matvec
 and selection kernels gives each task exactly what a T = 1 launch gives it,
-so a bucket's batched SMO equals each task's lone solve bit for bit.
+so a bucket's batched SMO equals each task's lone solve bit for bit, and
+so does a bucket's batched GD (its sums accumulate in float64). The
+GD loop on the card follows the CPU's to rtol 1e-4 / atol 1e-4 at a
+stable step; cascades certify at 1e-3 on the card, and one shard is the
+unsharded fit bit for bit.
 ``flash_attention`` and ``ssd_diag`` hold rtol 2e-4 / atol 2e-5 against
 their plain versions on the same operands (bfloat16 ones rounded before
 both; the kernel's float32 output for that check, its bfloat16 output
@@ -38,7 +42,7 @@ import torch
 
 from repro_torch import serve
 from repro_torch.core import kernels as K
-from repro_torch.core import dist, linear, smo
+from repro_torch.core import dist, gd, linear, smo
 from repro_torch.core import multiclass as MC
 from repro_torch.core.svm import SVC, SVR
 from repro_torch.data import (load_breast_cancer_like, load_pavia_like,
@@ -1076,6 +1080,103 @@ def test_bucket_smo_equals_lone_solves(cuda):  # noqa: F811
         assert torch.equal(lone.alpha, r.alpha[s])
         assert float(lone.b) == float(r.b[s])
         assert int(lone.n_iter) == int(r.n_iter[s])
+
+
+def test_gd_bucket_equals_lone_solves(cuda):  # noqa: F811
+    """A multiclass bucket stepped by one batched GD on the card: one
+    task-axis Gram matvec launch a step, and each task's alphas, b and
+    loss curve equal its lone ``binary_gd`` (T = 1 launches)."""
+    x, y = load_pavia_like(n_per_class=120, n_classes=4, seed=7)
+    taskset = MC.get_strategy("ovo").build_taskset(normalize(x), y)
+    bucket = MC.build_schedule(taskset.sizes).buckets[0]
+    xt, yt, mk, _ = dist._bucket_arrays(taskset, bucket)
+    kw = dict(cfg=gd.GDConfig(lr=0.01, steps=300),
+              kernel=K.KernelParams(gamma=0.05), engine="pallas")
+    ops.reset_launches()
+    r = gd.binary_gd_tasks(tt(xt, device=cuda), tt(yt, device=cuda),
+                           tt(mk, torch.bool, cuda), **kw)
+    assert ops.launches["rbf_gram_matvec"] == 300
+    for s in range(xt.shape[0]):
+        lone = gd.binary_gd(tt(xt[s], device=cuda), tt(yt[s], device=cuda),
+                            tt(mk[s], torch.bool, cuda), **kw)
+        assert torch.equal(lone.alpha, r.alpha[s])
+        assert torch.equal(lone.b, r.b[s])
+        assert torch.equal(lone.loss_curve, r.loss_curve[s])
+
+
+@pytest.mark.parametrize("kind", ["svc", "svr"])
+def test_gd_on_card_matches_cpu(cuda, kind):  # noqa: F811
+    """The GD loop on the card (one Gram matvec launch a step) against
+    the same loop on the CPU's plain path, at a stable step."""
+    if kind == "svc":
+        x, y = load_pavia_like(n_per_class=300, n_classes=2, seed=7)
+        x, y = normalize(x), np.where(y == 0, 1.0, -1.0).astype(np.float32)
+        fit = gd.binary_gd
+    else:
+        x, y = make_synth_regression(500, 6, kind="sinc", noise=0.1, seed=7)
+        fit = gd.svr_gd
+    kw = dict(cfg=gd.GDConfig(lr=1e-3, steps=400),
+              kernel=K.KernelParams(gamma=0.05), engine="pallas")
+    ops.reset_launches()
+    got = fit(tt(x, device=cuda), tt(y, device=cuda), **kw)
+    assert ops.launches["rbf_gram_matvec"] == 400
+    want = fit(tt(x), tt(y), **kw)
+    np.testing.assert_allclose(got.alpha.cpu().numpy(), want.alpha.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.loss_curve.cpu().numpy(),
+                               want.loss_curve.numpy(), rtol=1e-4, atol=1e-4)
+    assert abs(float(got.b) - float(want.b)) <= 1e-4
+
+
+@pytest.mark.parametrize("kind,engine", [("svc", "pallas"), ("svr", "pallas"),
+                                         ("svc", "rff"), ("svr", "rff")])
+def test_cascade_certifies_on_card(cuda, kind, engine):  # noqa: F811
+    """S = 4 cascades on the card certify at 1e-3 (the certificate
+    recomputed here in float64); S = 1 is the unsharded fit bit for
+    bit."""
+    kw = dict(engine=engine, rank=256, gamma=0.05, device=cuda)
+    if kind == "svc":
+        x, y = load_pavia_like(n_per_class=300, n_classes=2, seed=7)
+        x, make = normalize(x), SVC
+    else:
+        x, y = make_synth_regression(600, 6, kind="sinc", noise=0.1, seed=7)
+        make = SVR
+    ops.reset_launches()
+    model = make(shard="cascade", cascade_shards=4, **kw).fit(x, y)
+    assert model.converged_ and model.cascade_kkt_ <= 1e-3
+    if engine == "pallas":
+        assert ops.launches["rbf_gram"] > 0 and ops.launches["kkt_select"] > 0
+    else:
+        assert ops.launches["dcd_epoch"] > 0
+    one = make(shard="cascade", cascade_shards=1, **kw).fit(x, y)
+    plain = make(**kw).fit(x, y)
+    coef = "alpha_" if kind == "svc" else "beta_"
+    np.testing.assert_array_equal(getattr(one, coef), getattr(plain, coef))
+    assert one.b_ == plain.b_
+    # the certificate, from scratch in float64
+    xd = tt(x, device=cuda).double()
+    if engine == "rff":
+        phi = model._feature_map.transform(tt(x, device=cuda)).double()
+        phib = torch.cat([phi, torch.ones((len(x), 1), dtype=torch.float64,
+                                          device=cuda)], 1)
+        gram = phib @ phib.T
+    else:
+        gram = torch.exp(-0.05 * torch.cdist(xd, xd) ** 2)
+    r = 0.0 if engine == "rff" else None
+    if kind == "svc":
+        yy = torch.from_numpy(np.where(y == model.classes_[1], 1.0, -1.0)
+                              ).to(cuda)
+        a = torch.from_numpy(model.alpha_).to(cuda).double()
+        f = gram @ (a * yy) - yy
+        viol = smo.kkt_violation(a, yy, f, 0.0, 1.0, r=r)
+    else:
+        y64 = torch.from_numpy(y).to(cuda).double()
+        g = gram @ torch.from_numpy(model.beta_).to(cuda).double()
+        f = torch.cat([g + 0.1 - y64, g - 0.1 - y64])
+        ones = torch.ones(len(y), dtype=torch.float64, device=cuda)
+        viol = smo.kkt_violation(torch.from_numpy(model.alpha_raw_).to(cuda),
+                                 torch.cat([ones, -ones]), f, 0.0, 1.0, r=r)
+    assert float(viol) <= 1e-3
 
 
 @pytest.mark.parametrize("strategy", ["ovo", "ovr"])

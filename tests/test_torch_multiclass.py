@@ -412,13 +412,24 @@ def test_vmapped_ovo_shim_matches_reference():
     assert not np_(t.alpha)[3:].any()    # the padding task
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(solver="gd"), "A.7"), (dict(shard="cascade"), "A.9"),
-    (dict(shard="data"), "A.11"), (dict(shard="auto"), "A.11"),
-    (dict(mesh=object()), "A.11")])
-def test_fit_taskset_unported_options_raise(kwargs, match):
+def test_fit_taskset_gd_runs():
+    """solver="gd" (ROADMAP A.7) runs: every task for its fixed steps,
+    reported converged, as in the reference (held against it in
+    tests/test_torch_gd.py)."""
     _, ts, _ = _bucket("iris", "ovo")
-    with pytest.raises(NotImplementedError, match=match):
+    fit = tdist.fit_taskset(ts, solver="gd", device="cpu")
+    assert fit.converged.all() and (fit.n_iter == 2000).all()
+    assert fit.alpha.shape == (ts.n_tasks, int(ts.sizes.max()))
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(shard="cascade"), ValueError, "shard mode"),
+    (dict(shard="data"), NotImplementedError, "A.11"),
+    (dict(shard="auto"), NotImplementedError, "A.11"),
+    (dict(mesh=object()), NotImplementedError, "A.11")])
+def test_fit_taskset_unported_options_raise(kwargs, error, match):
+    _, ts, _ = _bucket("iris", "ovo")
+    with pytest.raises(error, match=match):
         tdist.fit_taskset(ts, device="cpu", **kwargs)
     with pytest.raises(ValueError):
         tdist.fit_taskset(ts, device="cpu", shard="rows")
