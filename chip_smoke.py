@@ -110,6 +110,21 @@ then:
    against their lone ``linear_svc`` solves bit for bit) and
    ``cascade_svr`` (exact and RFF, each at a cut depth), each
    certificate required <= 1e-3.
+11. drives the data-parallel SMO (the paper's MPI-CUDA solver) through
+   ``SVC`` / ``SVR(mesh=..., shard=...)``, every rank a spawned process
+   with a gloo group on the one card (collectives staged through host
+   memory, a 60 s timeout each): ``sharded_svc`` (the exact SVC's split
+   on 4 ranks, n not divisible by 4: alphas, b and n_iter equal to the
+   ``fit`` phase's bit for bit, certified), ``sharded_svc_nccl`` (the
+   same on a one-rank NCCL group in this process, bits equal),
+   ``sharded_svr`` (the SVR data cut to 512 rows, 4 ranks, unshrunk:
+   bits equal to the unsharded ``svr_smo``, certified) and
+   ``mesh_multiclass`` (the overlapping OvO fit task-parallel on 4
+   workers, every task equal to the fit without a mesh; the separable
+   OvR fit data-parallel, labels equal, every task certified); the
+   ``row_range`` line holds the row-range entries against the whole
+   call's slices bit for bit (fp32 and bf16, several ranges), and the
+   ``kernels`` line times them at one rank's block.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -1359,16 +1374,18 @@ def phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi_fit, yy, errs,
     return rows
 
 
-def task_certificates(ops, smo, KE, clf, dev) -> list[float]:
-    """float64 KKT violation of each task of a multiclass exact fit, from
-    a gradient recomputed by one matvec over the task's own rows."""
+def task_certificates(ops, smo, KE, clf, dev, alpha=None) -> list[float]:
+    """float64 KKT violation of each task of a multiclass exact fit (or
+    of ``alpha``, a (C, max_k) matrix over the same tasks), from a
+    gradient recomputed by one matvec over the task's own rows."""
     saved = dict(ops.launches)
+    alphas = clf._fit.alpha if alpha is None else alpha
     out = []
     for t, task in enumerate(clf._taskset.tasks):
         k = task.size
         xt = torch.from_numpy(task.x).to(dev)
         yt = torch.from_numpy(task.y).to(dev)
-        alpha = torch.from_numpy(clf._fit.alpha[t, :k]).to(dev)
+        alpha = torch.from_numpy(alphas[t, :k]).to(dev)
         eng = KE.make_engine(xt, clf.kernel_params, "pallas")
         f = eng.matvec(alpha * yt) - yt
         out.append(float(smo.kkt_violation(alpha, yt, f, 0.0,
@@ -2615,6 +2632,540 @@ def phase_cascade_svr(ops, data, SVR, dev):
     return paths
 
 
+# -------------------------------------------- the data-parallel SMO (A.11)
+# SHARDED_RANKS processes on the one card, each a rank of one gloo group
+# over a FileStore in a temporary directory (NCCL refuses two ranks on
+# one device; launch.mesh.Mesh.all_reduce stages gloo's CUDA tensors
+# through host memory), every collective timing out after 60 s. Threads
+# would share one GIL: ~600 GIL hand-offs an SMO iteration across four
+# ranks made a thread-rank iteration ~50 ms on the H100 (PERF.md).
+SHARDED_RANKS = 4
+# the SVR data cut to 512 rows (922 doubled variables): each iteration is
+# two staged all_reduces across four ranks time-sharing the card, ~20 ms
+# (2,048 rows took 7,254 iterations, 144 s: PERF.md)
+SHARDED_SVR_ROWS = 512
+COLLECTIVE_TIMEOUT_S = 60
+RANKS_TIMEOUT_S = 900        # the rank processes' whole run, at most
+
+
+class Collectives:
+    """Counts the mesh's all_reduce calls (every collective of the port)
+    and their host seconds, while active."""
+
+    def __enter__(self):
+        from repro_torch.launch import mesh as M
+        self.cls, self.orig = M.Mesh, M.Mesh.all_reduce
+        self.calls, self.seconds = 0, 0.0
+        orig = self.orig
+
+        def counted(mesh, t, op="sum"):
+            t0 = time.perf_counter()
+            out = orig(mesh, t, op)
+            self.calls += 1
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        self.cls.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.all_reduce = self.orig
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rank_fit(mesh, make, x, y, extract) -> dict:
+    """One rank's part of a collective fit: after a barrier (an
+    all_reduce), ``make().fit(x, y)`` timed, with this rank's kernel
+    launches and all_reduce calls; ``extract(model)`` gives the rest."""
+    from repro_torch.kernels import ops
+    mesh.all_reduce(torch.zeros(1, device=mesh.device))
+    sync(mesh.device)
+    ops.reset_launches()
+    with Collectives() as coll:
+        t0 = time.perf_counter()
+        model = make().fit(x, y)
+        sync(mesh.device)
+        fit_s = time.perf_counter() - t0
+    return dict(fit_s=fit_s, launches=dict(ops.launches),
+                all_reduces=coll.calls, all_reduce_s=coll.seconds,
+                **extract(model))
+
+
+def job_svc(mesh) -> dict:
+    """The exact SVC's split, sample-sharded (``SVC(shard="data")``)."""
+    from repro_torch import data
+    from repro_torch.core.svm import SVC
+    xtr, ytr, _, _ = binary_split(data)
+    return rank_fit(mesh, lambda: SVC(
+        engine="pallas", shrink_every=4, mesh=mesh, worker_axes=("shards",),
+        shard="data", device=mesh.device), xtr, ytr,
+        lambda c: dict(alpha=c.alpha_, b=c.b_, n_iter=c.n_iter_,
+                       converged=c.converged_))
+
+
+def job_svr(mesh) -> dict:
+    """The SVR data cut to SHARDED_SVR_ROWS rows, its doubled axis
+    sharded, default (unshrunk) configuration."""
+    from repro_torch import data
+    from repro_torch.core.svm import SVR
+    xtr, ytr, xte, _ = svr_split(data, SHARDED_SVR_ROWS)
+    return rank_fit(mesh, lambda: SVR(
+        engine="pallas", epsilon=0.1, C=1.0, tol=1e-3, mesh=mesh,
+        worker_axes=("shards",), shard="data", device=mesh.device), xtr, ytr,
+        lambda r: dict(alpha=r.alpha_raw_, b=r.b_, n_iter=r.n_iter_,
+                       converged=r.converged_, pred=r.predict(xte)))
+
+
+def _multiclass_job(mesh, config, strategy, shard, engine):
+    from repro_torch import data
+    from repro_torch.core.svm import SVC
+    xtr, ytr, xte, _ = pavia_split(data, PAVIA_NOISE[config])
+    return rank_fit(mesh, lambda: SVC(
+        strategy=strategy, decision="vote", engine=engine, C=1.0, tol=1e-3,
+        mesh=mesh, worker_axes=("shards",), shard=shard,
+        device=mesh.device), xtr, ytr,
+        lambda c: dict(alpha=c._fit.alpha, b=c._fit.b, n_iter=c._fit.n_iter,
+                       converged=c._fit.converged, labels=c.predict(xte)))
+
+
+def job_ovo_task(mesh) -> dict:
+    """The overlapping OvO fit, its bucket's slots over the workers."""
+    return _multiclass_job(mesh, "overlapping", "ovo", "task", "pallas")
+
+
+def job_ovr_data(mesh) -> dict:
+    """The separable OvR fit, every task's samples over the ranks, no
+    row cache (as the task path runs it: the uncached row-range entry)."""
+    from repro_torch.core import kernel_engine as KE
+    return _multiclass_job(mesh, "separable", "ovr", "data",
+                           KE.EngineConfig(backend="pallas", cache_slots=0))
+
+
+RANK_JOBS = {"svc": job_svc, "svr": job_svr, "ovo_task": job_ovo_task,
+             "ovr_data": job_ovr_data}
+
+
+def rank_main(rank: int, n_ranks: int, store: str, jobs, queue,
+              device: str) -> None:
+    """A rank process: its gloo group and mesh on ``device``, then each
+    job in turn; puts (rank, "ok", {job: result}) or (rank, "error",
+    traceback) on ``queue``."""
+    try:
+        import datetime
+        import torch.distributed as dist
+        from repro_torch.kernels import _build
+        from repro_torch.launch.mesh import make_shard_mesh
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if device == "cuda":
+            _build.library()   # built by the parent: loaded, not compiled
+        group = dist.ProcessGroupGloo(
+            dist.FileStore(store, n_ranks), rank, n_ranks,
+            datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        mesh = make_shard_mesh(n_ranks, group=group, device=device)
+        queue.put((rank, "ok", {j: RANK_JOBS[j](mesh) for j in jobs}))
+    except BaseException:
+        import traceback
+        queue.put((rank, "error", traceback.format_exc()))
+
+
+def run_rank_jobs(jobs, n_ranks: int = SHARDED_RANKS,
+                  device: str = "cuda") -> tuple[dict, float]:
+    """Each job of RANK_JOBS as a collective call of ``n_ranks`` spawned
+    rank processes: ({job: [rank 0's result, ...]}, wall s). A failing
+    rank fails the phase; every process is stopped before returning."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+    ctx = mp.get_context("spawn")
+    results, t0 = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        q = ctx.Queue()
+        procs = [ctx.Process(target=rank_main, args=(
+            r, n_ranks, os.path.join(tmp, "store"), list(jobs), q, device),
+            daemon=True) for r in range(n_ranks)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + RANKS_TIMEOUT_S
+            while len(results) < n_ranks:
+                try:
+                    rank, status, out = q.get(timeout=max(
+                        1.0, deadline - time.monotonic()))
+                except queue_mod.Empty:
+                    raise SmokeFailure(f"rank processes did not finish in "
+                                       f"{RANKS_TIMEOUT_S} s")
+                check(status == "ok", f"rank {rank} failed:\n{out}")
+                results[rank] = out
+        finally:
+            for p in procs:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    return ({j: [results[r][j] for r in range(n_ranks)] for j in jobs},
+            time.perf_counter() - t0)
+
+
+def summed_launches(ranks) -> dict:
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
+def per_rank_iter(launches, n_ranks: int, n_iter: int) -> dict:
+    return {k: v / n_ranks / max(n_iter, 1) for k, v in launches.items() if v}
+
+
+def ranks_equal(ranks, want: dict) -> bool:
+    """Every rank's result equals ``want`` bit for bit, key by key."""
+    return all(np.array_equal(np.asarray(r[k]), np.asarray(v))
+               for r in ranks for k, v in want.items())
+
+
+def collective_stats(ranks, n_iter: int) -> dict:
+    """A collective fit's wall time (the slowest rank's), its ms an
+    iteration, all_reduces an iteration on each rank and their host s."""
+    fit_s = max(r["fit_s"] for r in ranks)
+    return dict(fit_s=fit_s, ms_per_iter=fit_s * 1e3 / max(n_iter, 1),
+                all_reduces_per_iter=ranks[0]["all_reduces"] / max(n_iter, 1),
+                all_reduce_host_s_rank0=ranks[0]["all_reduce_s"])
+
+
+def svc_certificate(smo, KE, alpha, clf, xtr, ytr, dev) -> float:
+    """float64 KKT of a binary fit's ``alpha`` from a gradient recomputed
+    by one matvec (the check is not the path: its launch is not
+    counted)."""
+    yy = torch.from_numpy(np.where(ytr == clf.classes_[1], 1.0, -1.0)
+                          .astype(np.float32)).to(dev)
+    a = torch.from_numpy(alpha).to(dev)
+    eng = KE.make_engine(torch.from_numpy(xtr).to(dev), clf.kernel_params,
+                         "pallas")
+    f = eng.matvec(a * yy) - yy
+    return float(smo.kkt_violation(a, yy, f, 0.0, clf.smo_cfg.C))
+
+
+def phase_sharded_svc(ops, smo, KE, SVC, dev, split, base, ranks, spawn):
+    """The exact SVC's split sample-sharded over SHARDED_RANKS rank
+    processes (``SVC(mesh=, shard="data")``): every rank's alphas, b and
+    n_iter equal the ``fit`` phase's unsharded fit bit for bit, and its
+    certificate holds."""
+    xtr, ytr = split[:2]
+    saved = dict(ops.launches)
+    t0 = time.perf_counter()
+    again = SVC(engine="pallas", shrink_every=4, device=dev).fit(xtr, ytr)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0   # the unsharded fit, warm
+    kkt = svc_certificate(smo, KE, ranks[0]["alpha"], base, xtr, ytr, dev)
+    ops.launches.update(saved)
+    n_iter = ranks[0]["n_iter"]
+    launches = summed_launches(ranks)
+    equal = ranks_equal(ranks, dict(alpha=base.alpha_, b=base.b_,
+                                    n_iter=base.n_iter_))
+    stats = collective_stats(ranks, n_iter)
+    emit(phase="sharded_svc", ranks=SHARDED_RANKS, backend="gloo",
+         processes="one a rank, spawned; the ranks' start-up "
+                   f"{spawn['startup_s']:.1f} s, all rank jobs "
+                   f"{spawn['wall_s']:.1f} s",
+         collectives="all_reduce, CUDA tensors staged through host memory",
+         n=int(xtr.shape[0]), d=int(xtr.shape[1]), shrink_every=4,
+         n_iter=n_iter, n_iter_unsharded=base.n_iter_, **stats,
+         unsharded_fit_s_warm=base_s,
+         unsharded_ms_per_iter=base_s * 1e3 / max(again.n_iter_, 1),
+         kernels_per_iter_per_rank=per_rank_iter(launches, SHARDED_RANKS,
+                                                 n_iter),
+         launches=launches, equal_unsharded=equal, kkt_f64=kkt,
+         tol=base.smo_cfg.tol,
+         note="the ranks share one card: this measures the collectives' "
+              "cost, not scaling")
+    check(equal, "sharded_svc: a rank's alphas / b / n_iter differ from "
+          "the unsharded fit")
+    check(all(r["converged"] for r in ranks) and kkt <= base.smo_cfg.tol,
+          f"sharded_svc: f64 KKT {kkt} > tol")
+    for k in ("rbf_gram_row_cached_range", "rbf_gram_matvec_range",
+              "kkt_select"):
+        check(launches[k] > 0, f"sharded_svc launched no {k}")
+    return launches
+
+
+def phase_sharded_svc_nccl(ops, SVC, dev, split, base):
+    """The same fit on a one-rank NCCL group (``init_process_group`` over
+    an in-memory store): the MPI-CUDA transport on the card, collectives
+    stream-ordered. Bits equal to the unsharded fit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_shard_mesh
+    xtr, ytr = split[:2]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_shard_mesh(1, device=dev)
+        mesh.all_reduce(torch.zeros(1, device=dev))   # NCCL's set-up
+        r = rank_fit(mesh, lambda: SVC(
+            engine="pallas", shrink_every=4, mesh=mesh,
+            worker_axes=("shards",), shard="data", device=dev), xtr, ytr,
+            lambda c: dict(alpha=c.alpha_, b=c.b_, n_iter=c.n_iter_))
+    finally:
+        dist.destroy_process_group()
+    equal = ranks_equal([r], dict(alpha=base.alpha_, b=base.b_,
+                                  n_iter=base.n_iter_))
+    emit(phase="sharded_svc_nccl", ranks=1, backend="nccl",
+         n_iter=r["n_iter"], **collective_stats([r], r["n_iter"]),
+         launches=r["launches"], equal_unsharded=equal)
+    check(equal, "sharded_svc_nccl: the one-rank NCCL fit differs from the "
+          "unsharded fit")
+    check(r["launches"]["rbf_gram_row_cached"] > 0
+          and r["launches"]["kkt_select"] > 0,
+          "sharded_svc_nccl launched no row or selection kernel")
+    return r["launches"]
+
+
+def phase_sharded_svr(ops, data, smo, KE, SVR, dev, ranks):
+    """epsilon-SVR on the SVR data cut to SHARDED_SVR_ROWS rows, its
+    doubled axis sharded over SHARDED_RANKS rank processes in the default
+    (unshrunk) configuration: bits equal to the unsharded ``svr_smo`` at
+    the same cut, certificate <= 1e-3."""
+    xtr, ytr, xte, yte = svr_split(data, SHARDED_SVR_ROWS)
+    saved = dict(ops.launches)
+    t0 = time.perf_counter()
+    base = SVR(engine="pallas", epsilon=0.1, C=1.0, tol=1e-3,
+               device=dev).fit(xtr, ytr)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    n = len(xtr)
+    xt, yt = torch.from_numpy(xtr).to(dev), torch.from_numpy(ytr).to(dev)
+    s = torch.cat([torch.ones(n, device=dev), -torch.ones(n, device=dev)])
+    p = torch.cat([0.1 - yt, 0.1 + yt])
+    a2 = torch.from_numpy(ranks[0]["alpha"]).to(dev)
+    eng = KE.make_engine(torch.cat([xt, xt]), base.kernel_params, "pallas")
+    kkt = float(smo.kkt_violation(a2, s, eng.matvec(a2 * s) + s * p, 0.0,
+                                  1.0))
+    ops.launches.update(saved)
+    n_iter = ranks[0]["n_iter"]
+    launches = summed_launches(ranks)
+    equal = ranks_equal(ranks, dict(alpha=base.alpha_raw_, b=base.b_,
+                                    n_iter=base.n_iter_))
+    emit(phase="sharded_svr", ranks=SHARDED_RANKS, backend="gloo",
+         rows=SHARDED_SVR_ROWS, n_train=n, doubled=2 * n,
+         reduced=f"{SHARDED_SVR_ROWS} of 16,384 rows: ~20 ms an iteration "
+                 "on 4 ranks sharing the card",
+         n_iter=n_iter, **collective_stats(ranks, n_iter),
+         unsharded_fit_s=base_s,
+         unsharded_ms_per_iter=base_s * 1e3 / max(base.n_iter_, 1),
+         kernels_per_iter_per_rank=per_rank_iter(launches, SHARDED_RANKS,
+                                                 n_iter),
+         launches=launches, equal_unsharded=equal, kkt_f64=kkt, tol=1e-3,
+         heldout_r2=r2_score(yte, ranks[0]["pred"]))
+    check(equal, "sharded_svr: a rank's result differs from the unsharded "
+          "svr_smo")
+    check(ranks[0]["converged"] and kkt <= 1e-3,
+          f"sharded_svr: f64 KKT {kkt} > 1e-3")
+    for k in ("rbf_gram_row_cached_range", "kkt_select"):
+        check(launches[k] > 0, f"sharded_svr launched no {k}")
+    return launches
+
+
+def phase_mesh_multiclass(ops, smo, KE, dev, overlapping, separable,
+                          task_ranks, data_ranks):
+    """Multiclass on a SHARDED_RANKS-worker mesh: the overlapping OvO fit
+    task-parallel (``SVC(mesh=, shard="task")``: each rank solves the
+    slots the LPT layout gave it, one all_reduce a bucket), every task's
+    alpha, b and n_iter equal to the fit without a mesh; the separable
+    OvR fit data-parallel (``SVC(mesh=, shard="data")``), labels equal
+    and every task certified."""
+    ovo = overlapping[1]["ovo"][0]
+    task_equal = ranks_equal(task_ranks, dict(
+        alpha=ovo._fit.alpha, b=ovo._fit.b, n_iter=ovo._fit.n_iter))
+    (_, _, xte, yte), sep = separable[0], separable[1]["ovr"][0]
+    kkt = task_certificates(ops, smo, KE, sep, dev,
+                            alpha=data_ranks[0]["alpha"])
+    want = sep.predict(xte)
+    same = all(np.array_equal(r["labels"], want) for r in data_ranks)
+    alpha_equal = all(np.array_equal(r["alpha"], sep._fit.alpha)
+                      for r in data_ranks)
+    task_launches = summed_launches(task_ranks)
+    data_launches = summed_launches(data_ranks)
+    iters = int(np.sum(data_ranks[0]["n_iter"]))
+    emit(phase="mesh_multiclass", ranks=SHARDED_RANKS,
+         task=dict(config="overlapping", strategy="ovo", shard="task",
+                   n_tasks=int(ovo._taskset.n_tasks),
+                   fit_s=max(r["fit_s"] for r in task_ranks),
+                   all_reduces=task_ranks[0]["all_reduces"],
+                   launches=task_launches, equal_no_mesh=task_equal),
+         data=dict(config="separable", strategy="ovr", shard="data",
+                   n_tasks=int(sep._taskset.n_tasks),
+                   n_iter=[int(v) for v in data_ranks[0]["n_iter"]],
+                   **collective_stats(data_ranks, iters),
+                   launches=data_launches, kkt_f64_max=max(kkt),
+                   labels_equal_no_mesh=same,
+                   alpha_equal_no_mesh=alpha_equal,
+                   heldout_acc=float(np.mean(data_ranks[0]["labels"]
+                                             == yte))))
+    check(task_equal, "mesh_multiclass: a task of the 4-worker OvO fit "
+          "differs from the fit without a mesh")
+    check(same, "mesh_multiclass: data-parallel OvR labels differ from the "
+          "fit without a mesh")
+    check(all(all(r["converged"]) for r in data_ranks) and max(kkt) <= 1e-3,
+          f"mesh_multiclass: a task's f64 KKT {max(kkt)} > 1e-3")
+    check(data_launches["rbf_gram_row_range"] > 0,
+          "mesh_multiclass launched no uncached row-range entry")
+    return add(task_launches, data_launches)
+
+
+def phase_data_parallel(ops, data, smo, KE, SVC, SVR, dev, binary, base,
+                        mc_configs) -> dict:
+    """Every data-parallel path: the rank processes' jobs (one spawn for
+    all of them), then the one-rank NCCL fit in this process; one
+    launch-count dict a path."""
+    t0 = time.perf_counter()
+    jobs, wall_s = run_rank_jobs(RANK_JOBS)
+    spawn = dict(wall_s=wall_s, startup_s=wall_s - sum(
+        max(r["fit_s"] for r in ranks) for ranks in jobs.values()))
+    paths = {
+        "svc_sharded": phase_sharded_svc(ops, smo, KE, SVC, dev, binary,
+                                         base, jobs["svc"], spawn),
+        "svc_sharded_nccl": phase_sharded_svc_nccl(ops, SVC, dev, binary,
+                                                   base),
+        "svr_sharded": phase_sharded_svr(ops, data, smo, KE, SVR, dev,
+                                         jobs["svr"]),
+        "svc_mesh_multiclass": phase_mesh_multiclass(
+            ops, smo, KE, dev, mc_configs["overlapping"],
+            mc_configs["separable"], jobs["ovo_task"], jobs["ovr_data"])}
+    emit(phase="data_parallel", seconds=time.perf_counter() - t0, **spawn)
+    return paths
+
+
+def phase_row_range(ops, K, G, dev, xtr, gamma, launches):
+    """The row-range entries (one rank's rows of the data-parallel SMO)
+    against the whole call's slice, bit for bit, in fp32 and bf16, at
+    ranges of n / SHARDED_RANKS rows (row0 = 7,373 k: not a multiple of
+    the row kernel's 32-row chunks or the matvec's 128-row tiles), at the
+    sharded engine's blocks (whole 32-row chunks) and a range that ends
+    past n; then each entry timed at rank 1's block of the engine
+    (``kernels`` rows), beside the whole call."""
+    saved = dict(ops.launches)
+    x = torch.from_numpy(xtr).to(dev)
+    n, d = x.shape
+    quarter = -(-n // SHARDED_RANKS)
+    block = -(-n // (SHARDED_RANKS * G.ROW_CHUNK)) * G.ROW_CHUNK
+    i = torch.tensor(n // 3, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    v = torch.randn(n, generator=gen, device=dev)
+    errs, cases = {}, []
+    for dt in (torch.float32, torch.bfloat16):
+        xk = x.to(dt)
+        x2 = K.sqnorms(xk)
+        xs = G.staged(xk)
+        row = ops.gram_row(xk, x2, i, gamma=gamma)
+        mv = ops.gram_matvec(xs, x2, v, gamma=gamma)
+        for r0, count in ([(r * quarter, quarter)
+                           for r in range(SHARDED_RANKS)]
+                          + [(r * block, block) for r in (1, 3)]
+                          + [(n - 5, quarter)]):
+            valid = max(0, min(count, n - r0))
+            pad = torch.zeros(count - valid, device=dev)
+            want_row = torch.cat([row[r0:r0 + valid], pad])
+            want_mv = torch.cat([mv[r0:r0 + valid], pad])
+            got_row = ops.gram_row(xk, x2, i, gamma=gamma, row0=r0,
+                                   count=count)
+            got_mv = ops.gram_matvec(xs, x2, v, gamma=gamma, row0=r0,
+                                     count=count)
+            cache = fresh_row_cache(count, dev)
+            miss = ops.gram_row_cached(xk, x2, i, *cache, gamma=gamma,
+                                       row0=r0, count=count)
+            hit = ops.gram_row_cached(xk, x2, i, *cache, gamma=gamma,
+                                      row0=r0, count=count)
+            got = {"rbf_gram_row_range": got_row,
+                   "rbf_gram_matvec_range": got_mv,
+                   "rbf_gram_row_cached_range": torch.maximum(
+                       (miss - want_row).abs(), (hit - want_row).abs())}
+            ok = (torch.equal(got_row, want_row)
+                  and torch.equal(got_mv, want_mv)
+                  and torch.equal(miss, want_row)
+                  and torch.equal(hit, want_row))
+            cases.append(dict(dtype=str(dt)[6:], row0=r0, count=count,
+                              valid=valid, equal=ok))
+            for k, g in got.items():
+                want = want_mv if "matvec" in k else want_row
+                e = (float(g.max()) if k.endswith("cached_range")
+                     else max_err(g, want))
+                errs[k] = max(errs.get(k, 0.0), e)
+    emit(phase="row_range", ranks=SHARDED_RANKS, n=n, d=d, cases=cases,
+         max_abs_err=errs)
+    check(all(c["equal"] for c in cases), "row_range: a range is not the "
+          f"whole call's slice bit for bit: {cases}")
+
+    # timing at rank 1's block of the sharded engine, beside the whole
+    # call
+    x2 = K.sqnorms(x)
+    xs = G.staged(x)
+    r0 = count = block
+    turn = [torch.tensor(j, device=dev) for j in range(0, n, n // 64)][:64]
+    kern_cache, plain_cache = (fresh_row_cache(count, dev),
+                               fresh_row_cache(count, dev))
+    turns = {"kern": 0, "plain": 0}
+
+    def next_row(which):
+        turns[which] += 1
+        return turn[turns[which] % len(turn)]
+
+    def lib_rbf(a, b):
+        return torch.exp(-gamma * torch.cdist(a, b).square())
+
+    xr = x[r0:r0 + count]
+    rows = [
+        ("rbf_gram_matvec_range", "rbf_gram.cu",
+         "src/repro/kernels/rbf_gram.py:91",
+         lambda: ops.gram_matvec(xs, x2, v, gamma=gamma, row0=r0,
+                                 count=count),
+         lambda: G.gram_matvec_plain(x, x2, v, gamma=gamma, row0=r0,
+                                     count=count),
+         lambda: torch.cat([lib_rbf(xr[s:s + 2048], x) @ v
+                            for s in range(0, count, 2048)]),
+         4 * (count * d + n * d + count + 2 * n), count * n * (2 * d + 8)),
+        ("rbf_gram_row_range", "rbf_gram.cu",
+         "src/repro/kernels/rbf_gram.py:91",
+         lambda: ops.gram_row(x, x2, i, gamma=gamma, row0=r0, count=count),
+         lambda: G.gram_row_plain(x, x2, i, gamma=gamma, row0=r0,
+                                  count=count),
+         lambda: lib_rbf(xr, x[n // 3:n // 3 + 1]),
+         4 * (count * d + d + 2 * count + 1), count * (2 * d + 6)),
+        ("rbf_gram_row_cached_range", "rbf_gram.cu",
+         "src/repro/kernels/rbf_gram.py:91",
+         lambda: ops.gram_row_cached(x, x2, next_row("kern"), *kern_cache,
+                                     gamma=gamma, row0=r0, count=count),
+         lambda: G.lru_row_plain(*plain_cache, next_row("plain"),
+                                 lambda j: G.gram_row_plain(
+                                     x, x2, j, gamma=gamma, row0=r0,
+                                     count=count)),
+         None,
+         4 * (count * d + d + 3 * count + 1) + 16 * ROW_CACHE_SLOTS + 32,
+         count * (2 * d + 6)),
+    ]
+    out = [time_row(ops, *row, launches, errs[row[0]]) for row in rows]
+    matvec = out[0]
+    matvec.update(gram_bounds(count, n, d, "fp32",
+                              4 * (count * d + n * d + count + 2 * n),
+                              matvec=True),
+                  library_composition="chunked exp(-gamma cdist^2) @ v over "
+                                      "the range's rows",
+                  library_composition_ms=matvec["library_ms"],
+                  library_composition_device_ms=matvec["library_device_ms"],
+                  library_ms=None, library_device_ms=None,
+                  whole_call_device_ms=device_ms(lambda: ops.gram_matvec(
+                      xs, x2, v, gamma=gamma)),
+                  shape=f"{count} x {n} x {d}")
+    for row, whole in ((out[1], lambda: ops.gram_row(x, x2, i, gamma=gamma)),
+                       (out[2], None)):
+        row["shape"] = f"{count} of {n} x {d}"
+        if whole is not None:
+            row["whole_call_device_ms"] = device_ms(whole)
+    ops.launches.update(saved)
+    return out
+
+
 def gram_info(G, entry: str, shape) -> dict:
     """The block route's launch plan for an (n, m, d) float32 call on
     this card, and what ptxas reported for the kernel it runs (the
@@ -2684,12 +3235,13 @@ def main() -> int:
         os.path.join(out_dir, "chip_smoke_lowrank.npz"), clf, xte)
     svr, svr_state, svr_r2 = phase_svr(ops, data, smo, KE, serve_mod, SVR,
                                        dev, out_dir)
-    mc_paths = {}
+    mc_paths, mc_configs = {}, {}
     for config, noise in PAVIA_NOISE.items():
         split, fits, by_path = phase_multiclass(
             ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev, out_dir,
             config, noise)
         mc_paths.update(by_path)
+        mc_configs[config] = (split, fits)
     # the low-rank fits on the last (overlapping) configuration's split
     lowrank_paths, lowrank_fits = {}, {}
     for strategy in ("ovo", "ovr"):
@@ -2711,8 +3263,10 @@ def main() -> int:
                                          base, acc),
         "svc_cascade_lowrank": phase_cascade_svc_lowrank(
             ops, cascade, SVC, dev, binary, lr_acc),
-        **phase_cascade_svr(ops, data, SVR, dev)}
-    del base
+        **phase_cascade_svr(ops, data, SVR, dev),
+        **phase_data_parallel(ops, data, smo, KE, SVC, SVR, dev, binary,
+                              base, mc_configs)}
+    del base, mc_configs
     lm, lm_errs, lm_bf16 = phase_lm(ops, FA, SD, dev)
     check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
     paths = {"svc_exact": exact, "svc_linear": linear,
@@ -2749,6 +3303,8 @@ def main() -> int:
                                     errs, launches, svr_state, svr,
                                     task_rows)
     kernels += phase_timing_lm(ops, FA, SD, dev, errs, launches, lm_bf16)
+    kernels += phase_row_range(ops, K, G, dev, xtr, packed.kernel.gamma,
+                               launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,7 +75,9 @@ block ``ops.rbf_gram`` at 2,048 x 29,491 x 102 (the binary split's
 training rows) in float32 and bfloat16, and the pallas engine's matvec
 ``engine.matvec(v)`` at the binary fit's shape (both dtypes) and
 ``TaskKernelEngine.matvec`` at the OvO and OvR buckets of the
-overlapping multiclass split: device time (``chip_smoke.device_ms``
+overlapping multiclass split, and (a checkout with row ranges) the
+matvec over one rank's rows at P = 4, 7,392 x 29,491 x 102, checked
+against the whole call's slice: device time (``chip_smoke.device_ms``
 over as many calls as take ~50 ms) and device kernels a call. Then the
 exact SVC (``shrink_every=4``) and the exact OvR fit, each fitted once
 and again warm with every engine matvec counted by shape: the warm
@@ -111,6 +113,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import inspect
 import json
 import os
 import subprocess
@@ -127,6 +130,7 @@ DCD_PACKS = {"lowrank": "chip_smoke_lowrank.npz",
              "ovo_lowrank": "chip_smoke_ovo_lowrank.npz"}
 WARM_EPOCHS = 20
 HOST_CALLS = 500   # back-to-back calls a host_us reading averages
+RANGE_RANKS = 4    # --gram: the row-range matvec of one rank of 4
 
 
 def _args():
@@ -465,6 +469,21 @@ def gram_times(cs, data, _build, ops, dev, emit, sweep=False):
                                           b2=eng._x2)))
         emit(measure="gram", case="matvec", dtype=dtype, shape=[1, n, d],
              **timed(lambda: eng.matvec(v)))
+        if "row0" in inspect.signature(ops.gram_matvec).parameters:
+            # one rank's rows of the data-parallel SMO at P = RANGE_RANKS
+            # the sharded engine's block: whole 32-row chunks
+            count = -(-n // (RANGE_RANKS * 32)) * 32
+            whole = eng.matvec(v)
+
+            def ranged():
+                return ops.gram_matvec(xs, eng._x2, v, gamma=kp.gamma,
+                                       row0=count, count=count)
+
+            emit(measure="gram", case="matvec_range", dtype=dtype,
+                 shape=[count, n, d], row0=count, ranks=RANGE_RANKS,
+                 equal_whole_slice=bool(torch.equal(
+                     ranged(), whole[count:2 * count])),
+                 **timed(ranged))
     xm, ym, _, _ = cs.pavia_split(data, cs.PAVIA_NOISE["overlapping"])
     kpm = K.resolve_gamma(K.KernelParams(gamma=-1.0),
                           torch.from_numpy(xm).to(dev))

@@ -39,8 +39,12 @@ How the nodes run on the port:
   ``PhiBar^T (alpha y)`` and ``PhiBar wbar`` on the device, with the
   multiplier pinned at r = 0.
 
-A ``mesh`` (each level's nodes spread over several devices) raises
-NotImplementedError until ROADMAP A.11.
+With a ``mesh`` (``launch.mesh``) the exact cascades are collective
+calls: every rank runs the round loop, and a level of several nodes is
+one ``dist.fit_taskset`` over the mesh (``shard="task"``: each rank
+solves the nodes the LPT layout gave it, one all_reduce a bucket), each
+node the bits of its lone solve; single-node levels run on every rank.
+So a cascade on a mesh equals the cascade without one, bit for bit.
 """
 from __future__ import annotations
 
@@ -123,13 +127,6 @@ def validate_cascade(solver: Optional[str],
     if cascade.rounds < 1:
         raise ValueError(f"cascade_rounds must be >= 1 "
                          f"(got {cascade.rounds})")
-
-
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a cascade over a mesh is not ported yet; multi-device "
-            "layouts come with ROADMAP A.11")
 
 
 def _repair_equality(v: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -231,7 +228,8 @@ class _ExactSVCAdapter:
 
     kind = "svc"
 
-    def __init__(self, x, yy, *, smo_cfg, kernel, engine, dev):
+    def __init__(self, x, yy, *, smo_cfg, kernel, engine, dev, mesh,
+                 worker_axes):
         self.x = np.asarray(x, np.float32)
         self.yy = np.asarray(yy, np.float32)
         self.dev = dev
@@ -242,6 +240,8 @@ class _ExactSVCAdapter:
         self.ecfg = (KE.EngineConfig(backend=engine) if isinstance(engine, str)
                      else engine)
         self.thr = SV_EPS * smo_cfg.C
+        self.mesh = mesh
+        self.worker_axes = tuple(worker_axes)
 
     def is_sv(self, alpha: np.ndarray) -> np.ndarray:
         return alpha > self.thr
@@ -286,7 +286,8 @@ class _ExactSVCAdapter:
                     a0m[t, :len(a0)] = a0
         fit = dist.fit_taskset(
             ts, solver="smo", smo_cfg=self.cfg, kernel=self.kernel,
-            engine=self.ecfg, alpha0=a0m, device=self.dev,
+            engine=self.ecfg, alpha0=a0m, device=self.dev, mesh=self.mesh,
+            worker_axes=self.worker_axes,
             **self._taskset_kwargs())
         return [
             _NodeFit(idx=nodes[t][0],
@@ -322,9 +323,11 @@ class _ExactSVRAdapter(_ExactSVCAdapter):
 
     kind = "svr"
 
-    def __init__(self, x, y, *, epsilon, smo_cfg, kernel, engine, dev):
+    def __init__(self, x, y, *, epsilon, smo_cfg, kernel, engine, dev,
+                 mesh, worker_axes):
         super().__init__(x, np.asarray(y, np.float32), smo_cfg=smo_cfg,
-                         kernel=kernel, engine=engine, dev=dev)
+                         kernel=kernel, engine=engine, dev=dev, mesh=mesh,
+                         worker_axes=worker_axes)
         self.epsilon = float(epsilon)
 
     def is_sv(self, beta: np.ndarray) -> np.ndarray:
@@ -542,19 +545,26 @@ def _run_cascade(n: int, adapter, cascade: CascadeConfig,
 
 
 # ------------------------------------------------------------- entry points
+def _device(device, mesh) -> torch.device:
+    return resolve_device(device) if mesh is None else mesh.device
+
+
 def cascade_binary(x, yy, *,
                    smo_cfg: smo.SMOConfig = smo.SMOConfig(),
                    kernel: K.KernelParams = K.KernelParams(),
                    engine=None,
                    cascade: CascadeConfig = CascadeConfig(),
                    mesh=None,
+                   worker_axes: tuple[str, ...] = ("workers",),
                    device: str | torch.device = "cuda") -> CascadeResult:
-    """Exact-kernel binary cascade on ``device``. ``x`` (n, d) and
-    ``yy`` in {+1, -1} are host arrays; ``engine`` is an
-    ``EngineConfig`` or backend name (None: dense, as ``binary_smo``)."""
-    _check_mesh(mesh)
+    """Exact-kernel binary cascade on ``device`` (with a ``mesh``, a
+    collective call on ``mesh.device``, a level's nodes spread over
+    ``worker_axes``). ``x`` (n, d) and ``yy`` in {+1, -1} are host
+    arrays; ``engine`` is an ``EngineConfig`` or backend name (None:
+    dense, as ``binary_smo``)."""
     adapter = _ExactSVCAdapter(x, yy, smo_cfg=smo_cfg, kernel=kernel,
-                               engine=engine, dev=resolve_device(device))
+                               engine=engine, dev=_device(device, mesh),
+                               mesh=mesh, worker_axes=worker_axes)
     tol = smo_cfg.tol if cascade.tol is None else cascade.tol
     alpha, root, n_iter, conv, viol, rounds, hist = _run_cascade(
         len(adapter.yy), adapter, cascade, tol)
@@ -570,14 +580,15 @@ def cascade_svr(x, y, *,
                 engine=None,
                 cascade: CascadeConfig = CascadeConfig(),
                 mesh=None,
+                worker_axes: tuple[str, ...] = ("workers",),
                 device: str | torch.device = "cuda") -> CascadeResult:
-    """Exact-kernel epsilon-SVR cascade on ``device``; ``alpha`` is the
-    per-sample beta vector, ``alpha_raw`` the (2n,) doubled scatter of
-    the root solve."""
-    _check_mesh(mesh)
+    """Exact-kernel epsilon-SVR cascade on ``device`` (a mesh as in
+    ``cascade_binary``); ``alpha`` is the per-sample beta vector,
+    ``alpha_raw`` the (2n,) doubled scatter of the root solve."""
     adapter = _ExactSVRAdapter(x, y, epsilon=epsilon, smo_cfg=smo_cfg,
                                kernel=kernel, engine=engine,
-                               dev=resolve_device(device))
+                               dev=_device(device, mesh), mesh=mesh,
+                               worker_axes=worker_axes)
     tol = smo_cfg.tol if cascade.tol is None else cascade.tol
     beta, root, n_iter, conv, viol, rounds, hist = _run_cascade(
         len(adapter.yy), adapter, cascade, tol)

@@ -24,9 +24,12 @@ fly, O(n d) memory, LRU row cache), ``pallas`` (the chunked layout with
 the RBF / linear Gram, its rows and the decision values on the port's
 hand-written CUDA kernels; the name is the reference's, kept so that a
 config means the same in both packages), ``auto`` (dense up to
-``dense_limit`` samples, chunked above) and the low-rank ``nystrom`` /
+``dense_limit`` samples, chunked above), the low-rank ``nystrom`` /
 ``rff`` (``approx.LowRankKernelEngine``, K ~ Phi Phi^T over an explicit
-feature map; the RFF map runs on the ``rff_features`` kernel). The
+feature map; the RFF map runs on the ``rff_features`` kernel) and
+``sharded`` (``ShardedKernelEngine``: one rank's row block of the
+data-parallel SMO over a ``launch.mesh.Mesh``, on the ``pallas``
+kernels' row-range entries; ``make_engine(..., mesh=)``). The
 plain backends compute with PyTorch ops in full float32 (TF32 stays
 off, the default of ``torch.backends.cuda.matmul.allow_tf32``).
 
@@ -46,7 +49,7 @@ import torch
 
 from repro_torch.core import kernels as K
 from repro_torch.kernels import ops
-from repro_torch.kernels.rbf_gram import lru_row_plain, staged
+from repro_torch.kernels.rbf_gram import ROW_CHUNK, lru_row_plain, staged
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,14 +57,14 @@ class EngineConfig:
     """Static engine selection/config (same fields and defaults as the
     reference).
 
-    backend:     auto | dense | chunked | pallas | nystrom | rff. The
-                 reference's sharded backend raises NotImplementedError
-                 here until its slice is ported.
+    backend:     auto | dense | chunked | pallas | nystrom | rff |
+                 sharded (one rank of ``smo.sharded_solve_qp``; needs
+                 ``shard_axis`` and a mesh).
     cache_slots: LRU row-cache capacity (chunked/pallas row mode).
     chunk:       row-block size for matvec()/decide() streaming.
     dense_limit: 'auto' picks dense up to this n, chunked above; also the
                  guard above which chunked/pallas full() refuse.
-    shard_axis:  the sharded backend's mesh axis (not ported yet).
+    shard_axis:  the sharded backend's mesh axis.
     gram_dtype:  "fp32" (exact, default) or "bf16" (bf16 operands with
                  f32 accumulation and f32 epilogue).
     rank / landmarks / seed: low-rank backends only (nystrom | rff;
@@ -307,6 +310,147 @@ class PallasKernelEngine(ChunkedKernelEngine):
         return self._gram(self._xs, self._xs, self._x2, self._x2)
 
 
+class ShardedKernelEngine(ChunkedKernelEngine):
+    """One rank's engine of the data-parallel SMO
+    (``smo.sharded_solve_qp``), after the reference's
+    ``ShardedKernelEngine``; every rank of the mesh builds one.
+
+    ``x`` is the FULL (n, d) sample matrix: every rank holds it (O(n d),
+    as the reference all-gathers it once; the (n, n) Gram exists nowhere).
+    The sample axis, zero-padded, is split into P (the mesh axis's size)
+    contiguous blocks of ``n_local`` rows, ``n / P`` rounded up to whole
+    32-row chunks of the row kernel (so every chunk's copy is one
+    16-byte-aligned TMA copy; one rank takes the n rows as they are),
+    and this rank owns rows
+    ``[row0, row0 + n_local)``; its methods return the
+    LOCAL slice of the global quantity (zero on the padding):
+
+      row(i)     -> (n_local,) K(x_local, x_i) for a GLOBAL i, through a
+                    per-rank LRU cache keyed by the global index
+      matvec(v)  -> (n_local,) this rank's rows of K @ v, from the LOCAL
+                    part of v (one all_reduce builds the whole v)
+      diag()     -> (n_local,) K(x_r, x_r) of the local rows
+      cross(z)   -> (t, n_local) K(z, x_local)
+      decide(..) -> (t,) the global decision (local partial + all_reduce)
+
+    ``full()`` is refused: there is no global Gram in this layout. Rows
+    and matvecs run on the ``rbf_gram`` kernels' row-range entries (RBF
+    and linear kernels only), decisions on ``decision``; on a CUDA tensor
+    each launches its kernel or raises, on the CPU it runs the plain
+    version. A local row's bits are those of the same row of the whole
+    call, so a sharded solve follows ``engine="pallas"``'s trajectory bit
+    for bit.
+    """
+
+    backend = "sharded"
+
+    def __init__(self, x, kernel, cfg: EngineConfig = EngineConfig(), *,
+                 mesh=None):
+        if not cfg.shard_axis:
+            raise ValueError(
+                "ShardedKernelEngine needs EngineConfig.shard_axis (the "
+                "mesh axis the sample dimension is sharded over)")
+        if mesh is None:
+            raise ValueError(
+                "ShardedKernelEngine runs on a mesh: pass mesh= (a "
+                "launch.mesh.make_shard_mesh) from every rank")
+        if cfg.shard_axis not in mesh.shape:
+            raise ValueError(
+                f"shard_axis {cfg.shard_axis!r} is not an axis of the mesh "
+                f"(mesh axes: {tuple(mesh.shape)})")
+        if kernel.name not in ("rbf", "linear"):
+            raise ValueError(
+                "the sharded backend runs on the rbf_gram kernels: kernel "
+                f"'rbf' or 'linear', got {kernel.name!r}")
+        super().__init__(x, kernel, cfg)
+        self.mesh = mesh
+        self.n_global = n = self.n
+        self.n_shards = int(mesh.shape[cfg.shard_axis])
+        chunk = ROW_CHUNK * self.n_shards
+        self.n = (n if self.n_shards == 1             # n_local
+                  else -(-n // chunk) * ROW_CHUNK)
+        self.row0 = mesh.rank * self.n
+        self.valid = max(0, min(self.n, n - self.row0))  # rows inside X
+        self._mode = kernel.name
+        self._xk = self.x.to(ops.tile_dtype(cfg.gram_dtype)).contiguous()
+        self._x2 = K.sqnorms(self._xk)
+        self._xs = staged(self._xk)
+
+    def _pad(self, t: torch.Tensor) -> torch.Tensor:
+        """(.., valid) -> (.., n_local), zero on the padding."""
+        return torch.nn.functional.pad(t, (0, self.n - t.shape[-1]))
+
+    def _compute_row(self, i):
+        return ops.gram_row(self._xk, self._x2, i, gamma=self.kernel.gamma,
+                            mode=self._mode, row0=self.row0, count=self.n)
+
+    def _cached_row(self, i, cache):
+        return ops.gram_row_cached(
+            self._xk, self._x2, i, cache.keys, cache.stamp, cache.rows,
+            cache.clock, cache.hits, cache.misses, gamma=self.kernel.gamma,
+            mode=self._mode, row0=self.row0, count=self.n)
+
+    def gather(self, v: torch.Tensor) -> torch.Tensor:
+        """The (n,) global vector of the ranks' (n_local,) parts: one
+        all_reduce SUM over a zero-filled (P n_local,) buffer in which
+        each rank writes its block (exact: every other entry is 0)."""
+        full = v.new_zeros((self.n_shards * self.n,))
+        full[self.row0:self.row0 + self.n] = v
+        return self.mesh.all_reduce(full)[:self.n_global]
+
+    def matvec(self, v):
+        return ops.gram_matvec(self._xs, self._x2, self.gather(v),
+                               gamma=self.kernel.gamma, mode=self._mode,
+                               chunk=self.cfg.chunk, row0=self.row0,
+                               count=self.n)
+
+    def diag(self):
+        if self.kernel.name == "rbf":   # K(x, x) = exp(0) exactly
+            return torch.ones((self.n,), dtype=torch.float32,
+                              device=self.device)
+        # the whole engine's chunk-row blocks, so each entry has its bits
+        step = min(self.cfg.chunk, max(self.n_global, 1))
+        first = self.row0 // step * step
+        stop = self.row0 + self.valid
+        diag = [torch.diagonal(self._gram_fn(xb, xb))
+                for xb in (self.x[s:s + step] for s in range(first, stop,
+                                                             step))]
+        d = torch.cat(diag)[self.row0 - first:] if diag else self.x[:0, 0]
+        return self._pad(d[:self.valid])
+
+    def cross(self, z):
+        lo, hi = self.row0, self.row0 + self.valid
+        return self._pad(ops.rbf_gram(
+            z, self._xs[lo:hi], gamma=self.kernel.gamma, mode=self._mode,
+            compute_dtype=self.cfg.gram_dtype, b2=self._x2[lo:hi]))
+
+    def block(self, rows, cols):
+        """K(x_rows, x_cols) for GLOBAL index tensors."""
+        return ops.rbf_gram(self._xk[rows], self._xk[cols],
+                            gamma=self.kernel.gamma, mode=self._mode,
+                            compute_dtype=self.cfg.gram_dtype,
+                            a2=self._x2[rows], b2=self._x2[cols])
+
+    def decide(self, z, coef, b=0.0):
+        """sum_i coef_i K(z, x_i) + b over ALL samples, from the LOCAL
+        ``coef``: this rank's partial (the ``decision`` kernel for RBF),
+        then one all_reduce SUM. A collective: every rank calls it."""
+        z = z.to(torch.float32)
+        lo, hi = self.row0, self.row0 + self.valid
+        if self.kernel.name == "rbf":
+            part = ops.decision(z, self.x[lo:hi], coef[:self.valid].contiguous(),
+                                0.0, gamma=self.kernel.gamma,
+                                compute_dtype=self.cfg.gram_dtype)
+        else:
+            part = super().decide(z, coef, 0.0)
+        return self.mesh.all_reduce(part.contiguous()) + b
+
+    def full(self):
+        raise RuntimeError(
+            "ShardedKernelEngine has no global Gram; row()/matvec() "
+            "return local slices of the sharded sample axis")
+
+
 _BACKENDS = {
     "dense": DenseKernelEngine,
     "chunked": ChunkedKernelEngine,
@@ -346,6 +490,10 @@ class TaskKernelEngine:
                 f"engine {cfg.backend!r} has no task-batched form: a "
                 "low-rank multiclass fit shares one feature map over the "
                 "tasks (SVC with engine='nystrom' | 'rff')")
+        if cfg.backend == "sharded":
+            raise ValueError(
+                "engine 'sharded' has no task-batched form: a task is "
+                "sharded over a mesh by dist.fit_taskset(shard='data')")
         if x.ndim != 3:
             raise ValueError(f"TaskKernelEngine: x must be (T, w, d), got "
                              f"{tuple(x.shape)}")
@@ -407,38 +555,35 @@ class TaskKernelEngine:
 # (repro_torch.core.approx imports this module for the base class)
 LOWRANK_BACKENDS = ("nystrom", "rff")
 
-# the reference's other backends, and the slice that ports each
-UNPORTED_BACKENDS = {
-    "sharded": "data-parallel SMO (ROADMAP A.11)",
-}
-
 
 def check_backend(backend: str) -> None:
-    """Raise for a backend name this slice cannot build."""
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"engine backend {backend!r} is not ported yet; it comes with "
-            f"{UNPORTED_BACKENDS[backend]}")
-    if (backend != "auto" and backend not in _BACKENDS
+    """Raise for an unknown backend name."""
+    if (backend not in ("auto", "sharded") and backend not in _BACKENDS
             and backend not in LOWRANK_BACKENDS):
         raise ValueError(
             f"unknown engine backend {backend!r}; expected one of "
-            f"{sorted([*_BACKENDS, *LOWRANK_BACKENDS, *UNPORTED_BACKENDS])}"
+            f"{sorted([*_BACKENDS, *LOWRANK_BACKENDS, 'sharded'])}"
             " or 'auto'")
 
 
 def make_engine(x: torch.Tensor, kernel: K.KernelParams,
                 cfg: EngineConfig | str = EngineConfig(), *,
-                gram: Optional[torch.Tensor] = None) -> KernelEngine:
+                gram: Optional[torch.Tensor] = None,
+                mesh=None) -> KernelEngine:
     """Resolve an EngineConfig (or backend name) into an engine bound to
     ``x``, on ``x``'s device. A provided ``gram`` forces the dense
-    backend (the reference's shim for precomputed Grams)."""
+    backend (the reference's shim for precomputed Grams). The
+    ``sharded`` backend is one rank's engine over ``mesh`` (``x`` the
+    full sample matrix); without a mesh or ``shard_axis`` it raises the
+    reference's ValueError."""
     if isinstance(cfg, str):
         cfg = EngineConfig(backend=cfg)
     if gram is not None:
         return DenseKernelEngine(x, kernel, cfg, gram=gram)
     check_backend(cfg.backend)
     backend = cfg.backend
+    if backend == "sharded":
+        return ShardedKernelEngine(x, kernel, cfg, mesh=mesh)
     if backend == "auto":
         backend = "dense" if x.shape[0] <= cfg.dense_limit else "chunked"
     if backend in LOWRANK_BACKENDS:

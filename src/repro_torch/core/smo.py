@@ -37,6 +37,18 @@ state, one launch of each task-axis kernel per step for the whole
 bucket, each task frozen once its own gap closes — so each ends where
 it would alone, as under the reference's vmap.
 
+``sharded_solve_qp`` / ``sharded_binary_smo`` / ``sharded_svr_smo``
+are the paper's MPI-CUDA solver: ONE QP data-parallel over the ranks of
+a ``launch.mesh.Mesh``. Each rank owns a contiguous block of the
+samples (n zero-padded to P equal blocks, the padding masked) and its
+row block of the Gram matrix (``ShardedKernelEngine``:
+the ``rbf_gram`` row-range entries); selection is a per-rank
+``kkt_select`` followed by one all_reduce (the MPI_Allreduce), the pair's
+scalars come in one more, and the f update runs over each rank's own
+samples. It is a collective call (SPMD: every rank calls it with the
+same arguments and gets the same full result), and its result is the
+unsharded ``solve_qp``'s with ``engine="pallas"``, bit for bit.
+
 ``kkt_violation`` is the solver-independent optimality certificate,
 computed in float64.
 """
@@ -152,18 +164,9 @@ def _shrink_active(f, alpha, y, mask, b_up, b_low, lo, hi, cfg: SMOConfig):
     return mask & (free | keep_up | keep_low)
 
 
-def kkt_violation(alpha, y, f, lo, hi, tol: float = 0.0, mask=None,
-                  r=None) -> torch.Tensor:
-    """Max per-sample KKT violation of the box QP at ``alpha``, in
-    float64 — the solver-independent optimality certificate.
-
-    ``f`` is the optimality vector y_i ((Q alpha)_i + p_i); recompute it
-    from scratch to certify a solver rather than trust its bookkeeping.
-    Returns min_r max_i [(r - f_i)_+ on I_up, (f_i - r)_+ on I_low]
-    == max(0, (b_low - b_up) / 2), or with ``r`` given the violation at
-    that pinned multiplier. ``tol`` loosens the bound-membership epsilon
-    (as a fraction of the box width); 0 keeps the solver's 1e-6 rule.
-    A 0-d float64 tensor on ``alpha``'s device."""
+def _kkt_bounds(alpha, y, f, lo, hi, tol: float = 0.0, mask=None):
+    """(b_up, b_low) of ``kkt_violation``: float64 0-d tensors on
+    ``alpha``'s device, +inf / -inf for empty sets."""
     f64 = torch.float64
     dev = alpha.device if isinstance(alpha, torch.Tensor) else "cpu"
 
@@ -179,9 +182,24 @@ def kkt_violation(alpha, y, f, lo, hi, tol: float = 0.0, mask=None,
             if mask is None else cast(mask, torch.bool))
     in_up, in_low, _ = _membership(alpha, y, lo, hi,
                                    max(1e-6, tol) * (hi - lo))
-    b_up = torch.min(torch.where(mask & in_up, f, torch.inf))
-    b_low = torch.max(torch.where(mask & in_low, f, -torch.inf))
-    zero = torch.zeros((), dtype=f64, device=dev)
+    return (torch.min(torch.where(mask & in_up, f, torch.inf)),
+            torch.max(torch.where(mask & in_low, f, -torch.inf)))
+
+
+def kkt_violation(alpha, y, f, lo, hi, tol: float = 0.0, mask=None,
+                  r=None) -> torch.Tensor:
+    """Max per-sample KKT violation of the box QP at ``alpha``, in
+    float64 — the solver-independent optimality certificate.
+
+    ``f`` is the optimality vector y_i ((Q alpha)_i + p_i); recompute it
+    from scratch to certify a solver rather than trust its bookkeeping.
+    Returns min_r max_i [(r - f_i)_+ on I_up, (f_i - r)_+ on I_low]
+    == max(0, (b_low - b_up) / 2), or with ``r`` given the violation at
+    that pinned multiplier. ``tol`` loosens the bound-membership epsilon
+    (as a fraction of the box width); 0 keeps the solver's 1e-6 rule.
+    A 0-d float64 tensor on ``alpha``'s device."""
+    b_up, b_low = _kkt_bounds(alpha, y, f, lo, hi, tol, mask)
+    zero = torch.zeros((), dtype=torch.float64, device=b_up.device)
     if r is None:
         return torch.maximum(zero, (b_low - b_up) / 2.0)
     return torch.maximum(zero, torch.maximum(r - b_up, b_low - r))
@@ -616,6 +634,318 @@ def svr_smo(x: torch.Tensor,
     m2 = None if mask is None else torch.cat([mask, mask])
     r = solve_qp(torch.cat([x, x], dim=0), s, p, lo, hi, m2, cfg=cfg,
                  kernel=kernel, engine=engine, alpha0=alpha0)
+    return _svr_result(r, n)
+
+
+# --------------------------------------------------------------------------
+# Sharded single-problem SMO: data-parallel over the SAMPLE axis, after
+# repro/core/smo.py's shard_map solver, as an SPMD program over a mesh:
+#
+#   per-rank block-reduce   ->  kkt_select on the rank's own samples
+#   MPI_Allreduce           ->  one all_reduce SUM of a zero-filled (P, 4)
+#                               float64 buffer, each rank writing its
+#                               (value, GLOBAL index) pairs, then the same
+#                               combine_selection on every rank
+#   Gram row block          ->  ShardedKernelEngine.row (the rbf_gram
+#                               row-range entries over the full X)
+#   scalar pair state       ->  one all_reduce SUM of owner-masked picks
+#
+# The combine keeps FIRST-OCCURRENCE argmin / argmax semantics (blocks
+# are contiguous, in rank order), every rank's row entries are the bits
+# of the whole row, and the f update keeps its addcmul association, so
+# the trajectory is the unsharded solve_qp's bit for bit.
+# --------------------------------------------------------------------------
+def combine_selection(b_up_shards, i_up_shards, b_low_shards, i_low_shards):
+    """Cross-rank working-set reduction: per-rank extrema with GLOBAL
+    indices, in rank order, -> the global (b_up, i_up, b_low, i_low).
+
+    ``argmin`` over the per-rank minima picks the FIRST rank attaining
+    the global minimum, and that rank's local argmin its first attainer,
+    so the index is the first global attainer — the unsharded
+    selection's tie-break (and symmetrically on the max side); an
+    all-masked input gives (+inf, 0, -inf, 0), as ``kkt_select`` does.
+    0-d tensors, on the device (no host read)."""
+    s = torch.argmin(b_up_shards)
+    t = torch.argmax(b_low_shards)
+    return (KE.take(b_up_shards, s), KE.take(i_up_shards, s),
+            KE.take(b_low_shards, t), KE.take(i_low_shards, t))
+
+
+def _sharded_selection(f, alpha, y, mask, lo, hi, eng: KE.ShardedKernelEngine):
+    """Globally exact working-set selection from this rank's (n_local,)
+    block: the local ``kkt_select``, ONE all_reduce of the packed
+    (value, global index) pairs (float64 holds both exactly) and the
+    replicated ``combine_selection``; returns GLOBAL indices."""
+    b_up, i_up, b_low, i_low = _selection(f, alpha, y, mask, lo, hi)
+    f64 = torch.float64
+    buf = torch.zeros((eng.n_shards, 4), dtype=f64, device=f.device)
+    buf[eng.mesh.rank] = torch.stack([
+        b_up.to(f64), (i_up + eng.row0).to(f64),
+        b_low.to(f64), (i_low + eng.row0).to(f64)])
+    vu, iu, vl, il = eng.mesh.all_reduce(buf).unbind(1)
+    b_up, i_up, b_low, i_low = combine_selection(vu, iu, vl, il)
+    return (b_up.to(torch.float32), i_up.to(torch.int64),
+            b_low.to(torch.float32), i_low.to(torch.int64))
+
+
+def _owned(g: torch.Tensor, eng: KE.ShardedKernelEngine):
+    """(local index, owned?) of GLOBAL indices ``g``: the index clamped
+    into this rank's block, and whether the rank owns it."""
+    local = g - eng.row0
+    return (torch.clamp(local, 0, eng.n - 1),
+            (local >= 0) & (local < eng.n))
+
+
+def _pick_sum(vals: torch.Tensor, own: torch.Tensor,
+              eng: KE.ShardedKernelEngine) -> torch.Tensor:
+    """Owner-masked picks summed over the ranks (ONE all_reduce): each
+    entry comes from the rank that owns it, every other adds 0."""
+    return eng.mesh.all_reduce(torch.where(own, vals, 0.0))
+
+
+# the picks of a pair (i, j): f, alpha, y, lo, hi at (i, j), row_i at
+# (i, j) and, first-order, row_j at j
+_PAIR = torch.tensor([0, 1] * 6 + [1])
+
+
+def _sharded_iteration(st: _State, *, y, mask, lo, hi,
+                       engine: KE.ShardedKernelEngine, cfg: SMOConfig,
+                       diag=None, shrink: bool = False) -> None:
+    """``_smo_iteration`` on this rank's block, in place on ``st``. Its
+    collectives: the selection, the pair's 12 scalars and K(x_j, x_j) in
+    one all_reduce, and with ``selection="second"`` K(x_j, x_j) before the
+    gain and the gain's combine (two more)."""
+    eng = engine
+    alpha, f = st.alpha, st.f
+    sel_mask = (mask & st.active) if shrink else mask
+    b_up, i_up, b_low, i_low = _sharded_selection(f, alpha, y, sel_mask,
+                                                  lo, hi, eng)
+    step_live = b_low > b_up + 2.0 * cfg.tol
+
+    j = i_up  # global
+    row_j, cache = eng.row(j, st.cache)
+    lj, own_j = _owned(j.reshape(1), eng)
+    if cfg.selection == "second":
+        k_jj = _pick_sum(row_j.gather(0, lj), own_j, eng)[0]
+        _, in_low, _ = _membership(alpha, y, lo, hi, 1e-6 * (hi - lo))
+        eta_all = torch.clamp_min(diag + k_jj.unsqueeze(-1) - 2.0 * row_j,
+                                  1e-12)
+        df = f - b_up.unsqueeze(-1)
+        gain = torch.where(sel_mask & in_low & (df > 0.0), df * df / eta_all,
+                           -torch.inf)
+        li = torch.argmax(gain)
+        f64 = torch.float64
+        buf = torch.zeros((eng.n_shards, 2), dtype=f64, device=f.device)
+        buf[eng.mesh.rank] = torch.stack([KE.take(gain, li).to(f64),
+                                          (li + eng.row0).to(f64)])
+        gv, gi = eng.mesh.all_reduce(buf).unbind(1)
+        i = KE.take(gi, torch.argmax(gv)).to(torch.int64)
+    else:
+        i = i_low
+
+    row_i, cache = eng.row(i, cache)
+    ij = torch.stack([i, j])
+    lij, own = _owned(ij, eng)
+    vals = [v.gather(0, lij) for v in (f, alpha, y, lo, hi, row_i)]
+    pair = _PAIR.to(f.device)
+    if cfg.selection == "second":
+        pair = pair[:-1]
+    else:
+        vals.append(row_j.gather(0, lj))
+    picks = _pick_sum(torch.cat(vals), own.index_select(0, pair), eng)
+    f_i, f_j, a_i, a_j, y_i, y_j, lo_i, lo_j, hi_i, hi_j, k_ii, k_ij = \
+        picks[:12].unbind(0)
+    if cfg.selection != "second":
+        k_jj = picks[12]
+    a_i_new, a_j_new = _pair_update(a_i, a_j, y_i, y_j, f_i, f_j,
+                                    k_ii, k_jj, k_ij, lo_i, hi_i, lo_j, hi_j)
+
+    d_i = torch.where(step_live, a_i_new - a_i, 0.0)
+    d_j = torch.where(step_live, a_j_new - a_j, 0.0)
+    # the owner adds the step; every other rank adds 0 at some entry
+    dij = torch.where(own, torch.stack([d_i, d_j]), 0.0)
+    alpha.scatter_add_(0, lij[:1], dij[:1])
+    alpha.scatter_add_(0, lij[1:], dij[1:])
+    # the f update on this rank's samples, associated as _smo_iteration's
+    c_i, c_j = (d_i * y_i).unsqueeze(-1), (d_j * y_j).unsqueeze(-1)
+    if shrink:
+        upd = torch.addcmul(c_j * row_j, row_i, c_i)
+        st.f = torch.where(st.active, f + upd, f)
+    else:
+        st.f = torch.addcmul(torch.addcmul(f, row_i, c_i), row_j, c_j)
+    st.n_iter = st.n_iter + step_live.to(torch.int64)
+    st.b_up, st.b_low, st.cache = b_up, b_low, cache
+
+
+def _sharded_certified(eng: KE.ShardedKernelEngine, alpha, y, p, lo, hi,
+                       mask, tol: float):
+    """``_certified`` over the mesh: f recomputed by one sharded matvec,
+    the float64 ``kkt_violation`` from each rank's (b_up, b_low) under one
+    all_reduce MIN of (b_up, -b_low) — the unsharded value exactly."""
+    f = eng.matvec(alpha * y) + y * p
+    b_up, b_low = _kkt_bounds(alpha, y, f, lo, hi, mask=mask)
+    bounds = eng.mesh.all_reduce(torch.stack([b_up, -b_low]), "min")
+    viol = torch.clamp_min((-bounds[1] - bounds[0]) / 2.0, 0.0)
+    return float(viol) <= tol, f
+
+
+def _resolve_sharded_cfg(engine, axis: str) -> KE.EngineConfig:
+    """The sharded engine's config: the caller's knobs (cache_slots,
+    chunk, gram_dtype) with the backend set to "sharded" over ``axis``."""
+    if engine is None:
+        return KE.EngineConfig(backend="sharded", shard_axis=axis)
+    if isinstance(engine, str):
+        engine = KE.EngineConfig(backend=engine)
+    if isinstance(engine, KE.EngineConfig):
+        return dataclasses.replace(engine, backend="sharded",
+                                   shard_axis=axis)
+    raise ValueError(
+        "sharded_binary_smo builds its engine on every rank; pass an "
+        "EngineConfig or backend name, not a bound engine "
+        f"({type(engine).__name__})")
+
+
+def sharded_solve_qp(x, y, p, lo, hi, mask=None, *,
+                     mesh,
+                     axis: str = "shards",
+                     cfg: SMOConfig = SMOConfig(),
+                     kernel: K.KernelParams = K.KernelParams(),
+                     engine: Optional[KE.EngineConfig | str] = None
+                     ) -> SMOResult:
+    """Solve ONE box-constrained dual QP (``solve_qp``'s problem) with
+    the sample axis sharded over the ``mesh.shape[axis]`` ranks — the
+    paper's data-parallel MPI-CUDA solver. A collective call: every rank
+    passes the same full inputs (numpy or tensors), computes on
+    ``mesh.device`` and returns the same full ``SMOResult`` (alpha of
+    length n, b, n_iter, converged, gap, n_active).
+
+    n is zero-padded to P equal blocks (of whole 32-row chunks: see
+    ``ShardedKernelEngine``); padded samples are masked and their alphas
+    are 0. ``engine`` keeps its knobs
+    (``cache_slots``, ``chunk``, ``gram_dtype``) and runs as the
+    ``sharded`` backend (RBF or linear kernels). The result equals
+    ``solve_qp(..., engine=EngineConfig(backend="pallas", <same knobs>))``
+    on the same device bit for bit: shrinking, ``selection="second"`` and
+    the unshrunk solve's float64 certificate as there. Host reads: one
+    pair of numbers a ``check_every`` block on every rank (replicated
+    values, so every rank takes the same branch)."""
+    if cfg.selection not in ("first", "second"):
+        raise ValueError(f"unknown selection {cfg.selection!r}; expected "
+                         "'first' or 'second'")
+    if axis not in mesh.shape:
+        raise ValueError(f"axis {axis!r} is not an axis of the mesh (mesh "
+                         f"axes: {tuple(mesh.shape)})")
+    ecfg = _resolve_sharded_cfg(engine, axis)
+    dev = mesh.device
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    n = x.shape[0]
+    y = _vec(y, n, dev)
+    p, lo, hi = _vec(p, n, dev), _vec(lo, n, dev), _vec(hi, n, dev)
+    if bool(torch.any((lo > 0.0) | (hi < 0.0))):  # see solve_qp
+        raise ValueError(
+            "sharded_solve_qp initializes alpha = 0, which must be "
+            "feasible: need lo <= 0 <= hi elementwise")
+    mask = (torch.ones((n,), dtype=torch.bool, device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev).to(torch.bool))
+    mask = mask & (torch.abs(y) > 0.5)
+    eng = KE.ShardedKernelEngine(x, kernel, ecfg, mesh=mesh)
+
+    def local(v):   # this rank's block of the zero-padded vector
+        pad = eng.n_shards * eng.n - n
+        return torch.nn.functional.pad(v, (0, pad))[
+            eng.row0:eng.row0 + eng.n].contiguous()
+
+    y, p, lo, hi = local(y), local(p), local(lo), local(hi)
+    mask = local(mask)
+    shrink = cfg.shrink_every > 0
+    st = _State(alpha=torch.zeros((eng.n,), dtype=torch.float32, device=dev),
+                f=y * p,
+                n_iter=torch.zeros((), dtype=torch.int64, device=dev),
+                b_up=torch.tensor(-1.0, device=dev),
+                b_low=torch.tensor(1.0, device=dev),
+                active=mask, cache=eng.init_cache())
+    diag = eng.diag() if cfg.selection == "second" else None
+    two_tol = 2.0 * cfg.tol
+
+    done, n_iter, checks = False, 0, 0
+    exact_at = -1   # n_iter at which st.f was last recomputed
+    while not done and n_iter < cfg.max_iter:
+        for _ in range(cfg.check_every):
+            _sharded_iteration(st, y=y, mask=mask, lo=lo, hi=hi, engine=eng,
+                               cfg=cfg, diag=diag, shrink=shrink)
+        conv_active = st.b_low <= st.b_up + two_tol
+        conv, n_iter = torch.stack([conv_active.to(torch.int64),
+                                    st.n_iter]).tolist()  # the one read
+        if not shrink:
+            if conv and n_iter != exact_at:
+                ok, f_exact = _sharded_certified(eng, st.alpha, y, p, lo, hi,
+                                                 mask, cfg.tol)
+                if not ok:
+                    st.f, exact_at, conv = f_exact, n_iter, False
+            done = bool(conv)
+            continue
+        checks += 1
+        if conv:
+            st.f = eng.matvec(st.alpha * y) + y * p
+            st.b_up, _, st.b_low, _ = _sharded_selection(
+                st.f, st.alpha, y, mask, lo, hi, eng)
+            st.active = mask
+            done = bool(st.b_low <= st.b_up + two_tol)
+        elif checks % cfg.shrink_every == 0:
+            st.active = _shrink_active(st.f, st.alpha, y, mask, st.b_up,
+                                       st.b_low, lo, hi, cfg) & st.active
+
+    f_final = eng.matvec(st.alpha * y) + y * p if shrink else st.f
+    b_up, _, b_low, _ = _sharded_selection(f_final, st.alpha, y, mask, lo,
+                                           hi, eng)
+    n_active = eng.mesh.all_reduce(
+        torch.sum(st.active & mask).reshape(1))[0]
+    return SMOResult(alpha=eng.gather(st.alpha * mask), b=-(b_up + b_low) / 2.0,
+                     n_iter=st.n_iter,
+                     converged=b_low <= b_up + two_tol, gap=b_low - b_up,
+                     n_active=n_active)
+
+
+def sharded_binary_smo(x, y, mask=None, *,
+                       mesh,
+                       axis: str = "shards",
+                       cfg: SMOConfig = SMOConfig(),
+                       kernel: K.KernelParams = K.KernelParams(),
+                       engine: Optional[KE.EngineConfig | str] = None
+                       ) -> SMOResult:
+    """Solve ONE binary SVM dual data-parallel over the mesh: the
+    classification instance of ``sharded_solve_qp`` (a collective call;
+    see there for the layout and the bit-for-bit guarantee)."""
+    y = torch.as_tensor(y, dtype=torch.float32, device=mesh.device)
+    p, lo, hi = _classification_spec(y, cfg.C)
+    return sharded_solve_qp(x, y, p, lo, hi, mask, mesh=mesh, axis=axis,
+                            cfg=cfg, kernel=kernel, engine=engine)
+
+
+def sharded_svr_smo(x, y, mask=None, *,
+                    epsilon: float = 0.1,
+                    mesh,
+                    axis: str = "shards",
+                    cfg: SMOConfig = SMOConfig(),
+                    kernel: K.KernelParams = K.KernelParams(),
+                    engine: Optional[KE.EngineConfig | str] = None
+                    ) -> SVRResult:
+    """Solve ONE epsilon-SVR dual data-parallel over the mesh: the doubled
+    2n-variable QP of ``svr_smo`` through ``sharded_solve_qp`` (the
+    doubled axis is what gets sharded, so a sample's alpha and alpha* may
+    lie on different ranks; the selection stays globally exact)."""
+    dev = mesh.device
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    n = x.shape[0]
+    s, p, lo, hi = _svr_spec(y, epsilon, cfg.C)
+    m2 = None
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=dev).to(torch.bool)
+        m2 = torch.cat([mask, mask])
+    r = sharded_solve_qp(torch.cat([x, x], dim=0), s, p, lo, hi, m2,
+                         mesh=mesh, axis=axis, cfg=cfg, kernel=kernel,
+                         engine=engine)
     return _svr_result(r, n)
 
 

@@ -8,6 +8,8 @@ epsilon-``SVR``.
     clf = SVC(decision="margin")                      # OvO summed margins
     clf = SVC(solver="gd", gd_steps=2000)             # paper's TF baseline
     clf = SVC(shard="cascade", cascade_shards=4)      # hierarchical cascade
+    clf = SVC(mesh=mesh, worker_axes=("shards",),
+              shard="data")                           # samples over ranks
     clf.fit(X, y); clf.predict(Xt); clf.score(Xt, yt)  # binary or multiclass
     reg = SVR(epsilon=0.1, engine="pallas").fit(X, y); reg.score(Xt, yt)
 
@@ -55,8 +57,17 @@ the one feature map (DCD nodes, the solver knob ignored). The serving
 state has the shape of every other path's, so ``serve.pack`` and the
 ``Predictor`` work unchanged.
 
-Not ported yet, and raising NotImplementedError until their slice:
-``shard="data" | "auto"``, a ``mesh`` (ROADMAP A.11).
+With a ``mesh`` (``launch.mesh.make_shard_mesh`` over a process
+group) ``fit`` is a collective call: every rank of the group fits the
+same model on the same data and ends with the same fitted state, on
+``mesh.device`` (``device`` then only names the serving device's type
+and must agree with it). ``shard="data"`` solves a binary (or every
+multiclass task's) QP data-parallel over the ``worker_axes[0]`` ranks
+(``smo.sharded_binary_smo``; SVR shards the doubled 2n axis), the
+paper's MPI-CUDA solver; ``shard="auto"`` does so for problems at least
+``dist.DATA_PARALLEL_MIN_WIDTH`` wide on more than one rank, and
+multiclass fits pick per bucket (``dist.fit_taskset``); ``"task"``
+spreads a multiclass fit's tasks and the cascade's nodes over the ranks.
 """
 from __future__ import annotations
 
@@ -98,17 +109,41 @@ def _cascade_attrs(model, r: cascade_mod.CascadeResult) -> None:
     model.cascade_history_ = r.history
 
 
-def _check_modes(solver: str, shard: str, mesh) -> None:
+def _check_modes(solver: str, shard: str) -> None:
     if solver not in ("smo", "gd"):
         raise ValueError(f"unknown solver {solver!r}; expected 'smo' or "
                          "'gd'")
     if shard not in ("task", "data", "auto", "cascade"):
         raise ValueError(f"unknown shard mode {shard!r}; expected "
                          "'task', 'data', 'auto' or 'cascade'")
-    if shard in ("data", "auto") or mesh is not None:
-        raise NotImplementedError(
-            f"shard={shard!r} / a mesh is not ported yet; data-parallel "
-            "SMO over several devices comes with ROADMAP A.11")
+
+
+def _fit_device(device, mesh) -> torch.device:
+    """The fit's device: the mesh's where there is one (``device`` must
+    name the same type), else ``device``."""
+    if mesh is None:
+        return resolve_device(device)
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device={str(device)!r} but the mesh's ranks run "
+                         f"on {mesh.device}")
+    return mesh.device
+
+
+def _use_data_parallel(model, n: int) -> bool:
+    """The sharded single-problem path for a problem of ``n`` variables
+    (SVR: the doubled 2n): explicit ``shard="data"`` (validated hard by
+    ``dist.validate_data_shard``), or ``"auto"`` once the problem is wide
+    enough to amortize the per-iteration collectives, on more than one
+    rank."""
+    if model.shard == "data":
+        dist.validate_data_shard(model.mesh, model.worker_axes, model.solver)
+        return True
+    if model.mesh is None or model.shard in ("task", "cascade"):
+        return False
+    n_workers = dist.resolve_worker_count(model.mesh,
+                                          tuple(model.worker_axes))
+    return (model.solver == "smo" and len(model.worker_axes) == 1
+            and n_workers > 1 and n >= dist.DATA_PARALLEL_MIN_WIDTH)
 
 
 def _engine_config(engine, rank: int, landmarks: str,
@@ -199,12 +234,15 @@ class SVC:
                  decision: str = "vote",
                  schedule: str = "bucketed",
                  mesh=None,
+                 worker_axes: tuple[str, ...] = ("workers",),
                  shard: str = "task",
                  cascade_shards: int = 4,
                  cascade_rounds: int = 8,
                  device: str | torch.device = "cuda"):
-        _check_modes(solver, shard, mesh)
-        self.device = resolve_device(device)
+        _check_modes(solver, shard)
+        self.device = _fit_device(device, mesh)
+        self.mesh = mesh
+        self.worker_axes = tuple(worker_axes)
         # the constructor keeps the gamma<=0 "scale" sentinel; fit()
         # re-resolves from it each call (sklearn semantics)
         self._kernel_cfg = K.KernelParams(name=kernel, gamma=gamma,
@@ -264,18 +302,28 @@ class SVC:
             r = cascade_mod.cascade_binary(
                 x, yy, smo_cfg=self.smo_cfg, kernel=self.kernel_params,
                 engine=self.engine_cfg, cascade=self.cascade_cfg,
+                mesh=self.mesh, worker_axes=self.worker_axes,
                 device=self.device)
             _cascade_attrs(self, r)
             self.alpha_, self.b_ = r.alpha, r.b
         elif self.solver == "smo":
-            r = smo.binary_smo(xt, yt, cfg=self.smo_cfg,
-                               kernel=self.kernel_params,
-                               engine=self.engine_cfg)
+            if _use_data_parallel(self, x.shape[0]):
+                r = smo.sharded_binary_smo(
+                    xt, yt, mesh=self.mesh, axis=self.worker_axes[0],
+                    cfg=self.smo_cfg, kernel=self.kernel_params,
+                    engine=self.engine_cfg)
+            else:
+                r = smo.binary_smo(xt, yt, cfg=self.smo_cfg,
+                                   kernel=self.kernel_params,
+                                   engine=self.engine_cfg)
             self.n_iter_ = int(r.n_iter)
             self.converged_ = bool(r.converged)
             self.alpha_ = r.alpha.cpu().numpy()
             self.b_ = float(r.b)
         else:
+            if self.shard == "data":   # raises: GD has no sharded path
+                dist.validate_data_shard(self.mesh, self.worker_axes,
+                                         self.solver)
             r = gd.binary_gd(xt, yt, cfg=self.gd_cfg,
                              kernel=self.kernel_params,
                              engine=self.engine_cfg)
@@ -328,13 +376,18 @@ class SVC:
             sched = None
             fit = self._fit_taskset_cascade(taskset)
         else:
+            n_workers = dist.resolve_worker_count(self.mesh,
+                                                  self.worker_axes)
             bucket_by = "pow2" if self.schedule == "bucketed" else "none"
-            sched = MC.build_schedule(taskset.sizes,
-                                      MC.ScheduleConfig(bucket_by=bucket_by))
-            fit = dist.fit_taskset(taskset, sched, solver=self.solver,
-                                   smo_cfg=self.smo_cfg, gd_cfg=self.gd_cfg,
+            sched = MC.build_schedule(
+                taskset.sizes, MC.ScheduleConfig(bucket_by=bucket_by,
+                                                 n_workers=n_workers))
+            fit = dist.fit_taskset(taskset, sched, mesh=self.mesh,
+                                   worker_axes=self.worker_axes,
+                                   solver=self.solver, smo_cfg=self.smo_cfg,
+                                   gd_cfg=self.gd_cfg,
                                    kernel=self.kernel_params,
-                                   engine=self.engine_cfg,
+                                   engine=self.engine_cfg, shard=self.shard,
                                    device=self.device)
         self._taskset = taskset
         self._schedule = sched
@@ -357,7 +410,8 @@ class SVC:
             r = cascade_mod.cascade_binary(
                 task.x, task.y, smo_cfg=self.smo_cfg,
                 kernel=self.kernel_params, engine=self.engine_cfg,
-                cascade=self.cascade_cfg, device=self.device)
+                cascade=self.cascade_cfg, mesh=self.mesh,
+                worker_axes=self.worker_axes, device=self.device)
             alpha[t, :task.size] = r.alpha
             b[t], n_iter[t], converged[t] = r.b, r.n_iter, r.converged
             rounds[t], kkt[t] = r.rounds, r.kkt
@@ -489,12 +543,15 @@ class SVR:
                  seed: int = 0,
                  shrink_every: int = 0,
                  mesh=None,
+                 worker_axes: tuple[str, ...] = ("workers",),
                  shard: str = "task",
                  cascade_shards: int = 4,
                  cascade_rounds: int = 8,
                  device: str | torch.device = "cuda"):
-        _check_modes(solver, shard, mesh)
-        self.device = resolve_device(device)
+        _check_modes(solver, shard)
+        self.device = _fit_device(device, mesh)
+        self.mesh = mesh
+        self.worker_axes = tuple(worker_axes)
         # gamma "scale" sentinel kept; re-resolved per fit (see SVC)
         self._kernel_cfg = K.KernelParams(name=kernel, gamma=gamma,
                                           degree=degree, coef0=coef0)
@@ -536,7 +593,13 @@ class SVR:
             r = cascade_mod.cascade_svr(
                 x, y, epsilon=eps, smo_cfg=self.smo_cfg,
                 kernel=self.kernel_params, engine=self.engine_cfg,
-                cascade=self.cascade_cfg, device=self.device)
+                cascade=self.cascade_cfg, mesh=self.mesh,
+                worker_axes=self.worker_axes, device=self.device)
+        elif _use_data_parallel(self, 2 * x.shape[0]):
+            r = smo.sharded_svr_smo(
+                xt, yt, epsilon=eps, mesh=self.mesh,
+                axis=self.worker_axes[0], cfg=self.smo_cfg,
+                kernel=self.kernel_params, engine=self.engine_cfg)
         elif self.solver == "smo":
             r = smo.svr_smo(xt, yt, epsilon=eps, cfg=self.smo_cfg,
                             kernel=self.kernel_params,

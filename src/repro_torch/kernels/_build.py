@@ -36,11 +36,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "svm_rbf_gram_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                            _I, _I, _I, _I, _I, _I, _I, _P],
-    "svm_rbf_gram_matvec": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _P],
-    "svm_rbf_gram_row": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "svm_rbf_gram_matvec": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _P],
+    "svm_rbf_gram_row": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "svm_rbf_gram_row_cached": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                _P, _I, _I, _F, _I, _I, _P],
+                                _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "svm_kkt_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                        _P],
     "svm_decision": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,

@@ -142,6 +142,16 @@
 // blockIdx.y and writes row t of a (T, n) output, so one launch serves
 // the whole bucket (the reference vmaps its row call over the bucket).
 // T = 1 is the uncached entry.
+//
+// Row range (one rank of the data-parallel SMO, core/smo.py
+// sharded_solve_qp): the row entries and the matvec take the full, staged
+// X and compute only output rows [row0, row0 + count) of it, K(X, x_i)
+// for a global i, or rows of K(X, X) v over all n columns. The row
+// entries write 0 for an output row past X's last (the padding of the
+// last rank's block); the matvec's caller zeroes those. A row's bits do
+// not depend on the range: the row kernel computes each entry on its
+// own, and a matvec row's order is fixed by n, the column count, so a
+// range is a slice of the full call bit for bit.
 #include "common.cuh"
 #include "mma.cuh"
 #include "tile_f32.cuh"
@@ -179,11 +189,12 @@ __host__ __device__ constexpr int gt_smem_bytes(int rows, int chunk,
 }
 
 struct GramArgs {
-  const void* a;    // rows: (T, n, d), rows `lda` elements apart
-  const void* b;    // the block entry's (m, d) columns; the matvec: a
-  const float* a2;  // (T, n)
-  const float* b2;  // (m,); the matvec: a2
-  const float* v;   // the matvec's (T, n)
+  const void* a;    // the n rows, `lda` elements apart; the matvec's
+                    // tasks lie m rows apart (a range: rows of b)
+  const void* b;    // the m columns: (m, d); the matvec's (T, m, d)
+  const float* a2;  // (n,); the matvec's tasks m apart
+  const float* b2;  // (m,); the matvec's (T, m)
+  const float* v;   // the matvec's (T, m)
   float* out;       // block: (n, m); matvec: (T, n)
   int n, m, d;
   int lda, ldb;     // row strides in elements: 16-byte multiples
@@ -307,19 +318,21 @@ gram_tc_kernel(GramArgs p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int consumers = p.rows / 16;   // the producer is warp `consumers`
   const int task = MATVEC ? blockIdx.y : 0;
-  const int n = p.n, m = MATVEC ? p.n : p.m, d = p.d;
+  const int n = p.n, m = p.m, d = p.d;
   const int row0 = blockIdx.x * p.rows;
   const int tile0 = MATVEC ? 0 : blockIdx.y * p.col_tiles;
   const int tiles = min(p.col_tiles, (m + GT_COLS - 1) / GT_COLS - tile0);
   const int elem = static_cast<int>(sizeof(T));
+  // a matvec task's rows and columns are one (m, d) matrix (the rows a
+  // range of it): both move by m rows a task
   const char* a = static_cast<const char*>(p.a) +
-                  (int64_t)task * n * p.lda * elem;
-  const char* b = MATVEC ? a : static_cast<const char*>(p.b);
-  const int lda_bytes = p.lda * elem, ldb_bytes = MATVEC ? lda_bytes
-                                                         : p.ldb * elem;
-  const float* a2 = p.a2 + (int64_t)task * n;
-  const float* b2 = MATVEC ? a2 : p.b2;
-  const float* v = MATVEC ? p.v + (int64_t)task * n : nullptr;
+                  (int64_t)task * m * p.lda * elem;
+  const char* b = static_cast<const char*>(p.b) +
+                  (int64_t)task * m * p.ldb * elem;
+  const int lda_bytes = p.lda * elem, ldb_bytes = p.ldb * elem;
+  const float* a2 = p.a2 + (int64_t)task * m;
+  const float* b2 = p.b2 + (int64_t)task * m;
+  const float* v = MATVEC ? p.v + (int64_t)task * m : nullptr;
   const int chunks = p.chunks, S = p.stages, ld = p.chunk + 4;
   const float gl = p.gamma * 1.4426950408889634f;   // gamma log2(e)
   const int a_words = p.rows * ld, b_words = GT_COLS * ld;
@@ -620,15 +633,19 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 gram_wg_matvec_kernel(GramArgs p) {
   extern __shared__ __align__(128) unsigned char wsm[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int task = blockIdx.y, n = p.n, d = p.d;
+  const int task = blockIdx.y, n = p.n, m = p.m, d = p.d;
   const int row0 = blockIdx.x * 128;
   const int nks = (d + GT_KSTEP - 1) / GT_KSTEP;
   const int ld_bytes = p.lda * 4;
-  const char* x = static_cast<const char*>(p.a) + (int64_t)task * n * ld_bytes;
-  const float* x2 = p.a2 + (int64_t)task * n;
-  const float* v = p.v + (int64_t)task * n;
+  // the block's rows (n of them: a range of the columns' matrix) and the
+  // m columns, tasks m rows apart
+  const char* xa = static_cast<const char*>(p.a) + (int64_t)task * m * ld_bytes;
+  const char* xb = static_cast<const char*>(p.b) + (int64_t)task * m * ld_bytes;
+  const float* a2 = p.a2 + (int64_t)task * m;
+  const float* b2 = p.b2 + (int64_t)task * m;
+  const float* v = p.v + (int64_t)task * m;
   const float gl = p.gamma * 1.4426950408889634f;   // gamma log2(e)
-  const int stages = (n + WG_COLS - 1) / WG_COLS;
+  const int stages = (m + WG_COLS - 1) / WG_COLS;
   unsigned char* parts = wsm;                        // [S][hi | lo]
   uint32_t* land = reinterpret_cast<uint32_t*>(wsm + WG_STAGES * 2 * WG_PART_BYTES);
   float* sv = reinterpret_cast<float*>(land + WG_STAGES * WG_COLS * WG_LD);
@@ -660,7 +677,7 @@ gram_wg_matvec_kernel(GramArgs p) {
     const int r = e / (WG_LD / 4), q = e - r * (WG_LD / 4);
     float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < n && 4 * q < d) {
-      f = *reinterpret_cast<const float4*>(x + (size_t)(row0 + r) * ld_bytes +
+      f = *reinterpret_cast<const float4*>(xa + (size_t)(row0 + r) * ld_bytes +
                                            16 * q);
       if (4 * q + 1 >= d) f.y = 0.f;
       if (4 * q + 2 >= d) f.z = 0.f;
@@ -692,11 +709,11 @@ gram_wg_matvec_kernel(GramArgs p) {
     const int sl = threadIdx.x - 256, r = sl % WG_COLS, q0 = sl / WG_COLS;
     auto land_stage = [&](int s) {   // TMA of stage s's rows (warp 8)
       const int st = s % WG_STAGES;
-      const int valid = min(WG_COLS, n - s * WG_COLS);
+      const int valid = min(WG_COLS, m - s * WG_COLS);
       if (lane == 0) mbar_arrive_expect_tx(landed + st, valid * row_bytes);
       __syncwarp();
-      copy_rows(land + st * WG_COLS * WG_LD, WG_LD, x, ld_bytes, 0,
-                row_bytes, s * WG_COLS, n, WG_COLS, landed + st, lane);
+      copy_rows(land + st * WG_COLS * WG_LD, WG_LD, xb, ld_bytes, 0,
+                row_bytes, s * WG_COLS, m, WG_COLS, landed + st, lane);
     };
     if (warp == 8)
       for (int s = 0; s < min(stages, WG_STAGES); ++s) land_stage(s);
@@ -704,8 +721,8 @@ gram_wg_matvec_kernel(GramArgs p) {
       const int st = s % WG_STAGES, round = s / WG_STAGES;
       const int col = s * WG_COLS + r;
       float cb = 0.f, cv = 0.f;   // loads in flight meanwhile
-      if (q0 == 0 && col < n) {
-        cb = p.rbf ? -gl * x2[col] : 0.f;
+      if (q0 == 0 && col < m) {
+        cb = p.rbf ? -gl * b2[col] : 0.f;
         cv = v[col];
       }
       if (round > 0) mbar_wait(empty + st, (round - 1) & 1);
@@ -713,7 +730,7 @@ gram_wg_matvec_kernel(GramArgs p) {
       unsigned char* hi = parts + st * 2 * WG_PART_BYTES;
       unsigned char* lo = hi + WG_PART_BYTES;
       const uint32_t* lr = land + (st * WG_COLS + r) * WG_LD;
-      const bool row_in = col < n;
+      const bool row_in = col < m;
       // the high part by truncation to TF32 (the low 13 bits cleared),
       // the low part the exact rest (the tensor cores read its top bits)
       for (int q = q0; q < 2 * nks; q += 2) {
@@ -753,7 +770,7 @@ gram_wg_matvec_kernel(GramArgs p) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + wgi * 64 + w * 16 + h * 8 + g;
-    ra[h] = p.rbf && r < n ? -gl * x2[r] : 0.f;
+    ra[h] = p.rbf && r < n ? -gl * a2[r] : 0.f;
   }
   float acc[32];
 #pragma unroll
@@ -899,10 +916,11 @@ struct Lru {
 };
 
 struct RowArgs {
-  const void* x;     // (T, n, d)
-  const float* x2;   // (T, n)
+  const void* x;     // (T, nx, d)
+  const float* x2;   // (T, nx)
   const int64_t* idx;  // (T,)
-  float* out;        // (T, n)
+  float* out;        // (T, n): rows row0 + [0, n) of X, 0 past nx
+  int nx, row0;      // X's rows a task; the first row of the range
   int n, d, staged;  // staged: chunks through shared memory
   int warps;         // row warps a block
   float gamma;
@@ -921,8 +939,8 @@ gram_row_kernel(RowArgs a, Lru c) {
   __shared__ int s_slot, s_hit;
   const int task = blockIdx.y, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n = a.n, d = a.d;
-  const T* x = static_cast<const T*>(a.x) + (int64_t)task * n * d;
-  const float* x2 = a.x2 + (int64_t)task * n;
+  const T* x = static_cast<const T*>(a.x) + (int64_t)task * a.nx * d;
+  const float* x2 = a.x2 + (int64_t)task * a.nx;
   // the cached entry's extra warp does the lookup and owns no rows
   const int W = a.warps, row_threads = 32 * W;
   const bool cache_warp = CACHED && warp == W;
@@ -933,12 +951,14 @@ gram_row_kernel(RowArgs a, Lru c) {
              (size_t)w * CHUNK_ROWS * d;
   const int r0 = (blockIdx.x * W + w) * CHUNK_ROWS;
   const int rows = cache_warp ? 0 : max(0, min(CHUNK_ROWS, n - r0));
+  // the chunk's rows that lie in X (the rest, a range's padding, are 0)
+  const int valid = max(0, min(rows, a.nx - a.row0 - r0));
   const int r = r0 + lane;
-  const bool mine = lane < rows;
+  const bool mine = lane < rows, real = lane < valid;
+  const T* xc = x + (size_t)(a.row0 + r0) * d;   // the chunk's first row
 
   // 1. the chunk's copy, which depends on nothing the block reads
-  if (a.staged && rows > 0)
-    start_chunk(chunk, x + (size_t)r0 * d, rows * d, bar, lane);
+  if (a.staged && valid > 0) start_chunk(chunk, xc, valid * d, bar, lane);
   // 2. nor do this row's norm, the cache's first 32 keys and stamps, and
   // the clock and counts
   const bool slot0 = cache_warp && lane < c.slots;
@@ -950,7 +970,7 @@ gram_row_kernel(RowArgs a, Lru c) {
     hits = *c.hits;
     misses = *c.misses;
   }
-  const float r2 = a.rbf && mine ? x2[r] : 0.f;
+  const float r2 = a.rbf && real ? x2[a.row0 + r] : 0.f;
   // 3. the index, x_i, and the lookup
   const int64_t i = a.idx[task];
   const float i2 = a.rbf ? x2[i] : 0.f;
@@ -1001,14 +1021,17 @@ gram_row_kernel(RowArgs a, Lru c) {
   // 4. the row
   float* out = a.out + (int64_t)task * n;
   if (hit && mine) out[r] = c.rows[slot * n + r];
-  if (a.staged && rows > 0) {   // also on a hit: the copy must land
+  if (a.staged && valid > 0) {   // also on a hit: the copy must land
     __syncwarp();
     mbar_wait(bar, 0);
   }
   if (!hit && mine) {
-    const T* xr = a.staged ? chunk + (size_t)lane * d : x + (size_t)r * d;
-    const float dot = row_dot(xr, z, d);
-    const float v = a.rbf ? rbf_epilogue(r2, i2, dot, a.gamma) : dot;
+    float v = 0.f;
+    if (real) {
+      const T* xr = (a.staged ? chunk : xc) + (size_t)lane * d;
+      const float dot = row_dot(xr, z, d);
+      v = a.rbf ? rbf_epilogue(r2, i2, dot, a.gamma) : dot;
+    }
     out[r] = v;
     if (CACHED) c.rows[slot * n + r] = v;
   }
@@ -1112,20 +1135,26 @@ int svm_rbf_gram_block(const void* a, const void* b, const float* a2,
               : launch_gram<float, false>(p, grid, smem, s);
 }
 
-// K(X_t, X_t) v_t for each task: x (n_tasks, n, d) with rows ldx elements
-// apart (tasks n ldx apart), x2 and v (n_tasks, n) -> out (n_tasks, n);
-// the plan as above (one column group); wgmma: the float32 route of
-// gram_wg_matvec_kernel (d <= 104, 128 rows, its own shared memory)
+// Rows [row0, row0 + count) of K(X_t, X_t) v_t for each task: x
+// (n_tasks, n, d) with rows ldx elements apart (tasks n ldx apart), x2
+// and v (n_tasks, n) -> out (n_tasks, count), row0 + count <= n (the
+// whole product: row0 = 0, count = n); the plan as above (one column
+// group); wgmma: the float32 route of gram_wg_matvec_kernel (d <= 104,
+// 128 rows, its own shared memory)
 int svm_rbf_gram_matvec(const void* x, const float* x2, const float* v,
-                        float* out, int n_tasks, int n, int d, int ldx,
-                        float gamma, int rbf, int bf16, int rows, int chunk,
-                        int chunks, int stages, int smem, int wgmma,
-                        void* stream) {
-  if (!rows_ok(x, ldx, d, bf16 ? 2 : 4))
+                        float* out, int n_tasks, int n, int row0, int count,
+                        int d, int ldx, float gamma, int rbf, int bf16,
+                        int rows, int chunk, int chunks, int stages,
+                        int smem, int wgmma, void* stream) {
+  const int elem = bf16 ? 2 : 4;
+  if (!rows_ok(x, ldx, d, elem) || row0 < 0 || count < 1 ||
+      row0 + count > n || (n_tasks > 1 && count != n))
     return static_cast<int>(cudaErrorInvalidValue);
-  const GramArgs p{x, x, x2, x2, v, out, n, n, d, ldx, ldx, rows, chunk,
-                   chunks, stages, (n + GT_COLS - 1) / GT_COLS, gamma, rbf};
-  const dim3 grid((n + rows - 1) / rows, n_tasks);
+  const void* a = static_cast<const char*>(x) + (size_t)row0 * ldx * elem;
+  const GramArgs p{a, x, x2 + row0, x2, v, out, count, n, d, ldx, ldx,
+                   rows, chunk, chunks, stages, (n + GT_COLS - 1) / GT_COLS,
+                   gamma, rbf};
+  const dim3 grid((count + rows - 1) / rows, n_tasks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wgmma) {
     if (bf16 || d > GT_KSTEP * WG_MAX_KS || rows != 128 ||
@@ -1143,28 +1172,33 @@ int svm_rbf_gram_matvec(const void* x, const float* x2, const float* v,
               : launch_gram<float, true>(p, grid, smem, s);
 }
 
-// x (n_tasks, n, d), x2 (n_tasks, n), idx (n_tasks,), out (n_tasks, n)
+// x (n_tasks, nx, d), x2 (n_tasks, nx), idx (n_tasks,) -> out
+// (n_tasks, n): rows row0 + [0, n) of each task's row, 0 past nx (the
+// whole row: row0 = 0, n = nx)
 int svm_rbf_gram_row(const void* x, const float* x2, const int64_t* idx,
-                     float* out, int n_tasks, int n, int d, float gamma,
-                     int rbf, int bf16, void* stream) {
-  const RowArgs a{x, x2, idx, out, n, d, 0, 0, gamma, rbf};
+                     float* out, int n_tasks, int nx, int row0, int n,
+                     int d, float gamma, int rbf, int bf16, void* stream) {
+  if (row0 < 0 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const RowArgs a{x, x2, idx, out, nx, row0, n, d, 0, 0, gamma, rbf};
   const Lru none{};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_row<__nv_bfloat16, false>(a, none, n_tasks, s)
               : launch_row<float, false>(a, none, n_tasks, s);
 }
 
-// One task: x (n, d), x2 (n,), the 0-d index idx, out (n,), and the LRU
-// row cache keys / stamp (slots,) int64, rows (slots, n) float32,
-// clock / hits / misses 0-d int64, all updated in place; ticket: one
-// int, 0 between launches on the stream.
+// One task: x (nx, d), x2 (nx,), the 0-d index idx, out (n,) (rows
+// row0 + [0, n), as svm_rbf_gram_row), and the LRU row cache keys /
+// stamp (slots,) int64, rows (slots, n) float32, clock / hits / misses
+// 0-d int64, all updated in place; ticket: one int, 0 between launches
+// on the stream.
 int svm_rbf_gram_row_cached(const void* x, const float* x2,
                             const int64_t* idx, float* out, int64_t* keys,
                             int64_t* stamp, float* rows, int64_t* clock,
                             int64_t* hits, int64_t* misses, int slots,
-                            int* ticket, int n, int d, float gamma, int rbf,
-                            int bf16, void* stream) {
-  const RowArgs a{x, x2, idx, out, n, d, 0, 0, gamma, rbf};
+                            int* ticket, int nx, int row0, int n, int d,
+                            float gamma, int rbf, int bf16, void* stream) {
+  if (row0 < 0 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const RowArgs a{x, x2, idx, out, nx, row0, n, d, 0, 0, gamma, rbf};
   const Lru c{keys, stamp, rows, clock, hits, misses, ticket, slots};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_row<__nv_bfloat16, true>(a, c, 1, s)

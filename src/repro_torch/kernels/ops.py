@@ -33,11 +33,14 @@ from repro_torch.kernels import ssd_diag as _ssd
 from repro_torch.kernels.tile_f32 import current_stream
 
 # one count per kernel entry point: rbf_gram.cu has a block, a matvec, a
-# row and a cached-row one; a launch with the task axis (a multiclass
-# bucket, the tasks of a multiclass low-rank fit) counts once, whatever T
+# row and a cached-row one, the last three also over a row range (one
+# rank's rows of the data-parallel SMO: "*_range", counted apart from
+# whole calls); a launch with the task axis (a multiclass bucket, the
+# tasks of a multiclass low-rank fit) counts once, whatever T
 KERNELS = ("rbf_gram", "rbf_gram_matvec", "rbf_gram_row",
-           "rbf_gram_row_cached", "kkt_select", "decision",
-           "multitask_decision", "rff_features", "dcd_epoch",
+           "rbf_gram_row_cached", "rbf_gram_matvec_range",
+           "rbf_gram_row_range", "rbf_gram_row_cached_range", "kkt_select",
+           "decision", "multitask_decision", "rff_features", "dcd_epoch",
            "flash_attention", "ssd_diag")
 
 # the largest rank dcd_epoch takes: w must fit the 232,448 bytes of
@@ -147,13 +150,28 @@ def rbf_gram(a: torch.Tensor, b: torch.Tensor, *, gamma: float = 1.0,
     return out
 
 
+def _row_range(name: str, n: int, row0: int, count: int | None) -> int:
+    """The range's row count, checked: ``row0 >= 0``, ``count >= 0``
+    (None: the rows from ``row0`` to n)."""
+    count = n - row0 if count is None else count
+    if row0 < 0 or count < 0:
+        raise ValueError(f"{name}: bad row range row0={row0}, "
+                         f"count={count}")
+    return count
+
+
 def gram_matvec(x: torch.Tensor, x2: torch.Tensor, v: torch.Tensor, *,
                 gamma: float = 1.0, mode: str = "rbf",
-                chunk: int = 2048) -> torch.Tensor:
+                chunk: int = 2048, row0: int = 0,
+                count: int | None = None) -> torch.Tensor:
     """K(X, X) v without forming K: (n,) float32 for x (n, d) and x2, v
     (n,). ``x`` is already at the compute precision (float32 or
     bfloat16) and ``x2`` its float32 squared norms, as ``gram_row``
     takes them.
+
+    Row range (one task): rows ``[row0, row0 + count)`` of the product
+    over all n columns, (count,) with rows past n zero, each row the
+    bits of the whole call's (one rank of the data-parallel SMO).
 
     Task axis (one launch for a multiclass bucket): x (T, n, d), x2 and
     v (T, n) give the (T, n) products, each the bits of its own one-task
@@ -172,22 +190,33 @@ def gram_matvec(x: torch.Tensor, x2: torch.Tensor, v: torch.Tensor, *,
                              f"{tuple(t.shape)} {t.dtype}")
     if chunk < 1:
         raise ValueError(f"gram_matvec: chunk must be >= 1, got {chunk}")
+    n, d = x.shape[-2:]
+    if (row0 or count is not None) and x.ndim != 2:
+        raise ValueError("gram_matvec: a row range is a one-task call")
+    rows = _row_range("gram_matvec", n, row0, count)
     if not _on_card("gram_matvec", x, x2, v):
         return _gram.gram_matvec_plain(x, x2, v, gamma=gamma, mode=mode,
-                                       chunk=chunk)
+                                       chunk=chunk, row0=row0, count=count)
     _check_contiguous("gram_matvec", x2=x2, v=v)
-    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    count = rows
+    out = torch.empty((*x.shape[:-2], count), dtype=torch.float32,
+                      device=x.device)
+    # rows past n (a range's padding) are zero; the kernel takes the rest
+    valid = max(0, min(count, n - row0))
+    if valid < count:
+        out[valid:].zero_()
+    if valid == 0 or out.numel() == 0:
         return out
     x = x if _gram.copyable(x) else _gram.staged(x)
-    n, d = x.shape[-2:]
-    plan = _gram.gram_plan(n, n, d, x.dtype,
+    plan = _gram.gram_plan(valid, valid, d, x.dtype,
                            tasks=x.shape[0] if x.ndim == 3 else 1,
                            entry="matvec", sms=_sm_count(x.device))
     lib = _build.library()
-    _count("rbf_gram_matvec")
+    _count("rbf_gram_matvec_range" if row0 or count != n
+           else "rbf_gram_matvec")
     _raise_on_error("rbf_gram_matvec", _gram.launch_matvec(
-        lib, x, x2, v, out, gamma=gamma, mode=mode, plan=plan))
+        lib, x, x2, v, out[..., :valid], gamma=gamma, mode=mode, plan=plan,
+        row0=row0))
     return out
 
 
@@ -207,26 +236,38 @@ def _row_operands(name: str, x, x2, i):
 
 
 def gram_row(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor, *,
-             gamma: float = 1.0, mode: str = "rbf") -> torch.Tensor:
+             gamma: float = 1.0, mode: str = "rbf", row0: int = 0,
+             count: int | None = None) -> torch.Tensor:
     """The Gram row K(X, x_i), (n,) float32, for the SMO f-cache update.
 
     ``x`` is already at the compute precision (float32 or bfloat16) and
     ``x2`` its float32 squared norms; ``i`` is a 0-d int64 tensor on the
     same device, so the solver never reads it on the host.
 
+    Row range: entries ``[row0, row0 + count)`` of the row, (count,)
+    with entries past n zero, for a global ``i`` (one rank of the
+    data-parallel SMO); each the bits of the whole row's.
+
     Task axis (one launch for a multiclass bucket): x (T, n, d), x2
     (T, n) and i (T,) give the (T, n) rows K(X_t, x_t[i_t]), each the
     bits of the same row from a one-task call."""
     _check_mode(mode)
     _row_operands("gram_row", x, x2, i)
+    rows = _row_range("gram_row", x.shape[-2], row0, count)
     if not _on_card("gram_row", x, x2, i):
-        return _gram.gram_row_plain(x, x2, i, gamma=gamma, mode=mode)
+        return _gram.gram_row_plain(x, x2, i, gamma=gamma, mode=mode,
+                                    row0=row0, count=count)
     _check_contiguous("gram_row", x=x, x2=x2, i=i)
-    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    count = rows
+    out = torch.empty((*x.shape[:-2], count), dtype=torch.float32,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
     lib = _build.library()
-    _count("rbf_gram_row")
+    _count("rbf_gram_row_range" if row0 or count != x.shape[-2]
+           else "rbf_gram_row")
     _raise_on_error("rbf_gram_row", _gram.launch_row(
-        lib, x, x2, i, out, gamma=gamma, mode=mode))
+        lib, x, x2, i, out, gamma=gamma, mode=mode, row0=row0))
     return out
 
 
@@ -234,20 +275,25 @@ def gram_row_cached(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor,
                     keys: torch.Tensor, stamp: torch.Tensor,
                     rows: torch.Tensor, clock: torch.Tensor,
                     hits: torch.Tensor, misses: torch.Tensor, *,
-                    gamma: float = 1.0, mode: str = "rbf") -> torch.Tensor:
+                    gamma: float = 1.0, mode: str = "rbf",
+                    row0: int = 0, count: int | None = None) -> torch.Tensor:
     """``gram_row`` through the solver's LRU row cache (the fields of
     ``kernel_engine.RowCache``: keys / stamp (slots,) int64, rows
-    (slots, n) float32, clock / hits / misses 0-d int64), in one launch
-    on the card: the lookup, the row on a miss (written into its slot),
-    the state's update in place, and a (n,) copy of the row. The state
-    after any sequence of calls is the one ``rbf_gram.lru_row_plain``
-    leaves, bit for bit; the row is the uncached entry's."""
+    (slots, count) float32, clock / hits / misses 0-d int64), in one
+    launch on the card: the lookup, the row on a miss (written into its
+    slot), the state's update in place, and a (count,) copy of the row.
+    The slots hold entries ``[row0, row0 + count)`` of each row (count
+    defaults to n - row0; past n, zeros), as ``gram_row``'s range gives
+    them. The state after any sequence of calls is the one
+    ``rbf_gram.lru_row_plain`` leaves, bit for bit; the row is the
+    uncached entry's."""
     _check_mode(mode)
     _row_operands("gram_row_cached", x, x2, i)
     if x.ndim != 2:
         raise ValueError("gram_row_cached: the row cache is a one-task "
                          f"feature; x must be (n, d), got {tuple(x.shape)}")
-    n, slots = x.shape[0], keys.shape[0] if keys.ndim == 1 else 0
+    slots = keys.shape[0] if keys.ndim == 1 else 0
+    n = _row_range("gram_row_cached", x.shape[0], row0, count)
     state = dict(keys=keys, stamp=stamp, rows=rows, clock=clock, hits=hits,
                  misses=misses)
     want = dict(keys=((slots,), torch.int64), stamp=((slots,), torch.int64),
@@ -260,14 +306,16 @@ def gram_row_cached(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor,
     if not _on_card("gram_row_cached", x, x2, i, *state.values()):
         return _gram.lru_row_plain(
             keys, stamp, rows, clock, hits, misses, i,
-            lambda j: _gram.gram_row_plain(x, x2, j, gamma=gamma, mode=mode))
+            lambda j: _gram.gram_row_plain(x, x2, j, gamma=gamma, mode=mode,
+                                           row0=row0, count=n))
     _check_contiguous("gram_row_cached", x=x, x2=x2, i=i, **state)
     out = torch.empty((n,), dtype=torch.float32, device=x.device)
     lib = _build.library()
-    _count("rbf_gram_row_cached")
+    _count("rbf_gram_row_cached_range" if row0 or n != x.shape[0]
+           else "rbf_gram_row_cached")
     _raise_on_error("rbf_gram_row_cached", _gram.launch_row_cached(
         lib, x, x2, i, out, keys, stamp, rows, clock, hits, misses,
-        gamma=gamma, mode=mode))
+        gamma=gamma, mode=mode, row0=row0))
     return out
 
 

@@ -17,6 +17,15 @@ row kernel also has a cached entry that folds in the SMO solver's LRU
 row cache (``kernel_engine.RowCache``); ``lru_row_plain`` is that
 lookup in plain PyTorch, the one the chunked engine runs.
 
+The row entries and the matvec also take a row range ``(row0, count)``
+over the full X: one rank of the data-parallel SMO computes only its
+own block of rows (``kernel_engine.ShardedKernelEngine``). Output rows
+past X's last are 0. A row's bits do not depend on the range, so the
+plain versions compute a range as the slice of the full call it is.
+A range whose first row is a multiple of ROW_CHUNK has its row chunks'
+copies 16-byte aligned (one TMA bulk copy a chunk); others take
+ordinary loads.
+
 ``ops.rbf_gram`` / ``ops.gram_matvec`` / ``ops.gram_row`` /
 ``ops.gram_row_cached`` are the checked entry points; the functions
 here assume checked inputs.
@@ -40,6 +49,7 @@ KSTEP = 8           # 32-bit words of depth an MMA step takes
 MAX_CHUNK = 128     # widest depth, in words, staged whole
 CHUNK = 64          # words a stage holds past it
 ROWS = (32, 64, 128)  # row tiles: two warps per 32 rows, and a producer
+ROW_CHUNK = 32      # rows a warp of the row entries owns (csrc CHUNK_ROWS)
 STAGES = (2, 3)       # column-tile stages in the ring: 3 where they fit
 SMEM_LIMIT = 232448   # shared memory a block may opt in to on the H100
 # the float32 matvec's wgmma route (csrc WG_*): d <= 104, 128-row tiles,
@@ -63,25 +73,37 @@ def rbf_gram_plain(a: torch.Tensor, b: torch.Tensor, a2: torch.Tensor,
     return _epilogue(dot, a2[:, None], b2[None, :], gamma, mode)
 
 
+def _pad_rows(t: torch.Tensor, count: int) -> torch.Tensor:
+    """``t`` (.., k) zero-padded to (.., count)."""
+    return torch.nn.functional.pad(t, (0, count - t.shape[-1]))
+
+
 def gram_matvec_plain(x: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
                       *, gamma: float, mode: str = "rbf",
-                      chunk: int = 2048) -> torch.Tensor:
+                      chunk: int = 2048, row0: int = 0,
+                      count: int | None = None) -> torch.Tensor:
     """(n,) float32 K(X, X) v for x (n, d): ``chunk``-row blocks of
     ``rbf_gram_plain`` times v, concatenated (the pallas engine's matvec
     before the fused kernel, bit for bit). With the task axis — x
     (T, n, d), x2 and v (T, n) — the (T, n) products, each task's
-    computed as a lone call computes it."""
+    computed as a lone call computes it. A row range gives rows
+    ``[row0, row0 + count)`` (0 past n) from the same blocks the whole
+    call computes, so it is that call's slice bit for bit."""
     if x.ndim == 3:
         return torch.stack([gram_matvec_plain(xt, x2t, vt, gamma=gamma,
                                               mode=mode, chunk=chunk)
                             for xt, x2t, vt in zip(x, x2, v)])
     n = x.shape[0]
-    if n == 0:
-        return torch.zeros((0,), dtype=torch.float32, device=x.device)
+    count = n - row0 if count is None else count
+    stop = min(row0 + count, n)
+    if stop <= row0:
+        return torch.zeros((count,), dtype=torch.float32, device=x.device)
     step = min(chunk, n)
-    return torch.cat([rbf_gram_plain(x[s:s + step], x, x2[s:s + step], x2,
+    first = row0 // step * step
+    rows = torch.cat([rbf_gram_plain(x[s:s + step], x, x2[s:s + step], x2,
                                      gamma=gamma, mode=mode) @ v
-                      for s in range(0, n, step)])
+                      for s in range(first, stop, step)])
+    return _pad_rows(rows[row0 - first:stop - first], count)
 
 
 class GramPlan(NamedTuple):
@@ -211,18 +233,25 @@ def gram_plan(n: int, m: int, d: int, dtype: torch.dtype = torch.float32,
 
 
 def gram_row_plain(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor, *,
-                   gamma: float, mode: str = "rbf") -> torch.Tensor:
+                   gamma: float, mode: str = "rbf", row0: int = 0,
+                   count: int | None = None) -> torch.Tensor:
     """(n,) float32 row K(X, x_i); ``i`` is a 0-d int64 tensor. With the
     task axis — x (T, n, d), x2 (T, n), i (T,) — the (T, n) rows, each
-    task's row computed as a lone call computes it."""
+    task's row computed as a lone call computes it. A row range gives
+    entries ``[row0, row0 + count)`` (0 past n): the whole row's slice
+    (a GEMV's bits on the CPU may depend on its row count)."""
     if x.ndim == 3:
         return torch.stack([gram_row_plain(xt, x2t, it, gamma=gamma,
-                                           mode=mode)
+                                           mode=mode, row0=row0, count=count)
                             for xt, x2t, it in zip(x, x2, i)])
     xf = x.to(torch.float32)
     z = xf.index_select(0, i.reshape(1))[0]
-    return _epilogue(xf @ z, x2, x2.index_select(0, i.reshape(1))[0],
-                     gamma, mode)
+    row = _epilogue(xf @ z, x2, x2.index_select(0, i.reshape(1))[0],
+                    gamma, mode)
+    if row0 == 0 and count is None:
+        return row
+    count = x.shape[0] - row0 if count is None else count
+    return _pad_rows(row[row0:row0 + count], count)
 
 
 def lru_row_plain(keys, stamp, rows, clock, hits, misses, i, compute):
@@ -278,31 +307,38 @@ def launch_block(lib, a, b, a2, b2, out, *, gamma: float, mode: str,
 
 
 def launch_matvec(lib, x, x2, v, out, *, gamma: float, mode: str,
-                  plan: GramPlan) -> int:
-    """x (n, d), or (T, n, d) with the task axis, ``staged``."""
+                  plan: GramPlan, row0: int = 0) -> int:
+    """x (n, d), or (T, n, d) with the task axis, ``staged``; ``out``
+    (count,) takes rows [row0, row0 + count) (one task), the plan made
+    for count rows."""
     n, d = x.shape[-2:]
     n_tasks = x.shape[0] if x.ndim == 3 else 1
     return lib.svm_rbf_gram_matvec(
         x.data_ptr(), x2.data_ptr(), v.data_ptr(), out.data_ptr(), n_tasks,
-        n, d, x.stride(-2), float(gamma), int(mode == "rbf"),
+        n, row0, out.shape[-1], d, x.stride(-2), float(gamma),
+        int(mode == "rbf"),
         int(x.dtype == torch.bfloat16), plan.rows, plan.chunk, plan.chunks,
         plan.stages, plan.smem_bytes, int(plan.route == "wgmma"),
         current_stream())
 
 
-def launch_row(lib, x, x2, i, out, *, gamma: float, mode: str) -> int:
-    """x (n, d), or (T, n, d) with the task axis."""
+def launch_row(lib, x, x2, i, out, *, gamma: float, mode: str,
+               row0: int = 0) -> int:
+    """x (n, d), or (T, n, d) with the task axis; ``out`` (.., count)
+    takes entries [row0, row0 + count) of each row."""
     n, d = x.shape[-2:]
     n_tasks = x.shape[0] if x.ndim == 3 else 1
     return lib.svm_rbf_gram_row(
         x.data_ptr(), x2.data_ptr(), i.data_ptr(), out.data_ptr(), n_tasks,
-        n, d, float(gamma), int(mode == "rbf"),
+        n, row0, out.shape[-1], d, float(gamma), int(mode == "rbf"),
         int(x.dtype == torch.bfloat16), current_stream())
 
 
 def launch_row_cached(lib, x, x2, i, out, keys, stamp, rows, clock, hits,
-                      misses, *, gamma: float, mode: str) -> int:
-    """x (n, d); the LRU state as ``lru_row_plain`` takes it."""
+                      misses, *, gamma: float, mode: str,
+                      row0: int = 0) -> int:
+    """x (n, d); the LRU state as ``lru_row_plain`` takes it; ``out``
+    and the cached rows hold entries [row0, row0 + count)."""
     n, d = x.shape
     stream = current_stream()
     tk = ticket(x.device, stream)
@@ -310,5 +346,5 @@ def launch_row_cached(lib, x, x2, i, out, keys, stamp, rows, clock, hits,
         x.data_ptr(), x2.data_ptr(), i.data_ptr(), out.data_ptr(),
         keys.data_ptr(), stamp.data_ptr(), rows.data_ptr(), clock.data_ptr(),
         hits.data_ptr(), misses.data_ptr(), keys.shape[0], tk.data_ptr(), n,
-        d, float(gamma), int(mode == "rbf"), int(x.dtype == torch.bfloat16),
+        row0, out.shape[0], d, float(gamma), int(mode == "rbf"), int(x.dtype == torch.bfloat16),
         stream)

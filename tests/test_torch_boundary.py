@@ -8,8 +8,9 @@
   CUDA unless ``device="cpu"``;
   functional entry points follow their input tensors' device.
 * Features of later slices raise NotImplementedError naming the slice
-  (multiclass fits, the GD solver and the cascade run; a mesh and the
-  data-parallel shard modes still raise).
+  (multiclass fits, the GD solver, the cascade, a mesh and the
+  data-parallel shard modes run; misuse of the last raises the
+  reference's ValueError).
 """
 import ast
 import pathlib
@@ -25,6 +26,7 @@ from repro_torch.core import kernels as TK
 from repro_torch.core import smo as tsmo
 from repro_torch.core.svm import SVC, SVR
 from repro_torch.data import load_iris, make_blobs
+from torch_helpers import run_ranks
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
@@ -91,12 +93,16 @@ def test_gd_solver_runs(cls):
 
 @pytest.mark.parametrize("cls", [SVC, SVR])
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(engine="sharded"), "A.11"),
-    (dict(engine=TKE.EngineConfig(backend="sharded")), "A.11"),
+    (dict(engine="sharded"), "shard_axis"),
+    (dict(engine=TKE.EngineConfig(backend="sharded")), "shard_axis"),
 ])
 def test_unported_options_raise(kwargs, match, cls):
-    with pytest.raises(NotImplementedError, match=match):
-        cls(device="cpu", **kwargs)
+    """The sharded backend is ported (ROADMAP A.11); named as an engine
+    without a mesh axis it raises the reference's ValueError at fit."""
+    x, y = make_blobs(20, 2, 3, seed=1)
+    model = cls(device="cpu", **kwargs)
+    with pytest.raises(ValueError, match=match):
+        model.fit(x, y)
 
 
 @pytest.mark.parametrize("engine", ["auto", "rff", "nystrom"])
@@ -115,8 +121,15 @@ def test_multiclass_fit_raises(engine):
     with pytest.raises(ValueError, match="shard mode"):
         tdist.fit_taskset(clf._taskset, engine=engine, device="cpu",
                           shard="cascade")
-    for kwargs, match in ((dict(shard="data"), "A.11"),
-                          (dict(mesh=object()), "A.11")):
-        with pytest.raises(NotImplementedError, match=match):
-            tdist.fit_taskset(clf._taskset, engine=engine, device="cpu",
-                              **kwargs)
+    # shard="data" without a mesh raises the reference's ValueError; on a
+    # one-rank mesh the task layer fits as it does without one (the
+    # low-rank engines have no task-batched form)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tdist.fit_taskset(clf._taskset, engine=engine, device="cpu",
+                          shard="data")
+    if engine != "auto":
+        return
+    want = tdist.fit_taskset(clf._taskset, engine=engine, device="cpu")
+    got, = run_ranks(lambda m: tdist.fit_taskset(
+        clf._taskset, engine=engine, mesh=m, worker_axes=("shards",)), 1)
+    np.testing.assert_array_equal(got.alpha, want.alpha)

@@ -17,7 +17,9 @@ reference (``repro/core/cascade.py``).
   ``linear_svc_tasks`` / ``linear_svr_tasks`` over the nodes' rows of
   the shared Phi) equals its lone solves bit for bit; cascade fits pack
   and serve in both packages; the validation errors match the
-  reference's; a mesh raises naming ROADMAP A.11.
+  reference's, a mesh's worker-axis mismatch included (the cascade on
+  a mesh is held against the one without in
+  ``tests/test_torch_dist_mesh.py``).
 
 The port runs on the CPU here (``device="cpu"``).
 """
@@ -36,7 +38,7 @@ from repro_torch.core import linear as tlinear
 from repro_torch.core import smo as tsmo
 from repro_torch.core.svm import SVC as TSVC, SVR as TSVR
 from repro_torch.data import make_blobs, make_synth_regression, normalize
-from torch_helpers import np_, tt
+from torch_helpers import np_, run_ranks, tt
 
 TOL = 1e-3
 
@@ -279,8 +281,10 @@ def test_cascade_packs_serve_across_packages(tmp_path, kind):
 
 # ------------------------------------------------------------- validation
 def test_cascade_validation_matches_the_reference():
-    """The reference's errors (tests/test_cascade.py), and a mesh, which
-    raises naming ROADMAP A.11."""
+    """The reference's errors (tests/test_cascade.py), and on a mesh the
+    reference's worker-axis check (``dist.resolve_worker_count``): a
+    level's nodes go to ``fit_taskset`` over ``worker_axes``, which the
+    mesh's "shards" axis does not name."""
     x, y = _binary_problem(n=60)
     for make, fit in (
             (lambda: TSVC(solver="gd", shard="cascade", device="cpu"),
@@ -296,10 +300,9 @@ def test_cascade_validation_matches_the_reference():
              device="cpu").fit(x, y.astype(float))
     with pytest.raises(ValueError, match="shard mode"):
         TSVC(shard="waterfall", device="cpu")
-    for call in (lambda: tcascade.cascade_binary(x, y, mesh=object(),
-                                                 device="cpu"),
-                 lambda: tcascade.cascade_svr(x, y, mesh=object(),
-                                              device="cpu"),
-                 lambda: TSVC(shard="cascade", mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            call()
+    for call in (lambda m: tcascade.cascade_binary(x, y, mesh=m),
+                 lambda m: tcascade.cascade_svr(x, y, mesh=m),
+                 lambda m: TSVC(shard="cascade", mesh=m,
+                                device="cpu").fit(x, y)):
+        with pytest.raises(ValueError, match="worker axes"):
+            run_ranks(call, 2)

@@ -27,6 +27,9 @@ so does a bucket's batched GD (its sums accumulate in float64). The
 GD loop on the card follows the CPU's to rtol 1e-4 / atol 1e-4 at a
 stable step; cascades certify at 1e-3 on the card, and one shard is the
 unsharded fit bit for bit.
+The row-range entries (one rank's block of rows, for the data-parallel
+SMO) give the whole call's slice bit for bit, and a sharded solve over
+two thread ranks on the card equals ``solve_qp`` there bit for bit.
 ``flash_attention`` and ``ssd_diag`` hold rtol 2e-4 / atol 2e-5 against
 their plain versions on the same operands (bfloat16 ones rounded before
 both; the kernel's float32 output for that check, its bfloat16 output
@@ -58,7 +61,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rbf_gram as G
 from repro_torch.kernels import ssd_diag as SD
 from repro_torch.kernels.tile_f32 import current_stream
-from torch_helpers import cuda, tt  # noqa: F401  (cuda: fixture)
+from torch_helpers import cuda, run_ranks, tt  # noqa: F401  (cuda: fixture)
 
 GRAM_TOL = dict(rtol=2e-5, atol=2e-6)
 DECISION_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -1371,3 +1374,62 @@ def test_ssd_diag_narrow_state_and_long_chunks(cuda, bc, h, q, n, p):  # noqa: F
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, SD.ssd_diag_plain(cmat, bmat, x, dt,
                                                           c), **LM_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n,d", [(4099, 102), (777, 300), (300, 7)])
+def test_row_range_entries_are_slices_of_the_whole_call(cuda, dtype, n, d):  # noqa: F811
+    """``gram_row``, ``gram_row_cached`` and ``gram_matvec`` over rows
+    [row0, row0 + count): the whole call's slice bit for bit, zeros past
+    n; row0 at and off the row kernel's 32-row chunks and the matvec's
+    128-row tiles, ranges that end past n or start there."""
+    rng = np.random.default_rng(n + d)
+    x = tt(rng.normal(size=(n, d)) / np.sqrt(d), device=cuda).to(
+        ops.tile_dtype(dtype))
+    x2 = K.sqnorms(x)
+    xs = G.staged(x)
+    v = tt(rng.normal(size=n), device=cuda)
+    i = torch.tensor(n // 3, device=cuda)
+    row = ops.gram_row(x, x2, i, gamma=0.5)
+    mv = ops.gram_matvec(xs, x2, v, gamma=0.5)
+    q = -(-n // 4)
+    for row0, count in ((0, q), (q, q), (77, q), (n - 5, q), (n, 3)):
+        valid = max(0, min(count, n - row0))
+        pad = torch.zeros(count - valid, device=cuda)
+        want_row = torch.cat([row[row0:row0 + valid], pad])
+        got = ops.gram_row(x, x2, i, gamma=0.5, row0=row0, count=count)
+        assert torch.equal(got, want_row), (row0, count)
+        got = ops.gram_matvec(xs, x2, v, gamma=0.5, row0=row0, count=count)
+        assert torch.equal(got, torch.cat([mv[row0:row0 + valid], pad])), \
+            (row0, count)
+        cache = _fresh_cache(4, count, cuda)
+        miss = ops.gram_row_cached(x, x2, i, *cache, gamma=0.5, row0=row0,
+                                   count=count)
+        hit = ops.gram_row_cached(x, x2, i, *cache, gamma=0.5, row0=row0,
+                                  count=count)
+        assert [int(c) for c in cache[4:]] == [1, 1]
+        assert torch.equal(miss, want_row) and torch.equal(hit, want_row)
+        assert torch.equal(cache[2][int(cache[0].argmax())], want_row)
+
+
+def test_sharded_smo_on_card_equals_solve_qp(cuda):  # noqa: F811
+    """Two thread ranks over gloo on the one card (collectives staged
+    through host memory): the sharded solve launches the row-range,
+    matvec and selection kernels, and its alphas, b and n_iter are the
+    unsharded ``solve_qp``'s on the card, bit for bit."""
+    x, yl = load_breast_cancer_like(n_samples=261)
+    x = normalize(x)
+    y = np.where(yl == 1, 1.0, -1.0).astype(np.float32)
+    kw = dict(cfg=smo.SMOConfig(C=1.0, shrink_every=4),
+              kernel=K.KernelParams(gamma=0.05), engine="pallas")
+    want = smo.binary_smo(tt(x, device=cuda), tt(y, device=cuda), **kw)
+    ops.reset_launches()
+    got = run_ranks(lambda m: smo.sharded_binary_smo(x, y, mesh=m, **kw), 2,
+                    device=cuda)
+    for k in ("rbf_gram_row_cached_range", "rbf_gram_matvec_range",
+              "kkt_select"):
+        assert ops.launches[k] > 0, k
+    for r in got:
+        assert torch.equal(r.alpha, want.alpha)
+        assert float(r.b) == float(want.b)
+        assert int(r.n_iter) == int(want.n_iter) and bool(r.converged)

@@ -42,7 +42,7 @@ from repro_torch.core import svm as tsvm
 from repro_torch.core.svm import SVC as TSVC
 from repro_torch.data import (load_iris, load_pavia_like, normalize,
                               train_test_split)
-from torch_helpers import np_, tt
+from torch_helpers import np_, run_ranks, tt
 
 IMBALANCED_SIZES = (64, 48, 24, 12, 7)   # tests/test_multiclass.py
 
@@ -424,13 +424,26 @@ def test_fit_taskset_gd_runs():
 
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(shard="cascade"), ValueError, "shard mode"),
-    (dict(shard="data"), NotImplementedError, "A.11"),
-    (dict(shard="auto"), NotImplementedError, "A.11"),
-    (dict(mesh=object()), NotImplementedError, "A.11")])
+    (dict(shard="data"), ValueError, "needs a mesh"),
+    (dict(shard="auto"), None, None),
+    (dict(mesh="one rank"), None, None)])
 def test_fit_taskset_unported_options_raise(kwargs, error, match):
+    """The reference's answer for each input (tests/test_sharded_smo.py):
+    "cascade" is no mode of the task layer, "data" without a mesh raises,
+    "auto" without a mesh and a one-rank mesh fit as no mesh does."""
     _, ts, _ = _bucket("iris", "ovo")
-    with pytest.raises(error, match=match):
-        tdist.fit_taskset(ts, device="cpu", **kwargs)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            tdist.fit_taskset(ts, device="cpu", **kwargs)
+    else:
+        want = tdist.fit_taskset(ts, device="cpu")
+        if "mesh" in kwargs:
+            got, = run_ranks(lambda m: tdist.fit_taskset(
+                ts, mesh=m, worker_axes=("shards",)), 1)
+        else:
+            got = tdist.fit_taskset(ts, device="cpu", **kwargs)
+        np.testing.assert_array_equal(got.alpha, want.alpha)
+        np.testing.assert_array_equal(got.n_iter, want.n_iter)
     with pytest.raises(ValueError):
         tdist.fit_taskset(ts, device="cpu", shard="rows")
 

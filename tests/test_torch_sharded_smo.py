@@ -1,0 +1,421 @@
+"""The port's data-parallel SMO (ROADMAP A.11: ``smo.sharded_solve_qp`` and
+its binary / SVR instances, ``kernel_engine.ShardedKernelEngine``,
+``launch.mesh``) against the port's unsharded solver and the JAX
+reference.
+
+The ranks here are threads of one process, each with its own gloo group
+over a shared in-memory store (``torch_helpers.run_ranks``): every
+sharded entry point is a collective call that every rank makes with the
+same arguments. Every group times out after at most 60 s.
+
+* ``combine_selection`` (the cross-rank reduction) gives the unsharded
+  selection's values and indices bit for bit, ties to the first index,
+  an all-masked shard included (``tests/test_sharded_smo.py:157-200``).
+* The row-range entries of the kernels' plain versions (``gram_row``,
+  ``gram_row_cached``, ``gram_matvec``) are slices of the whole call,
+  bit for bit, fp32 and bf16.
+* ``sharded_binary_smo`` at P in {1, 2, 3, 4}, rbf and linear, with n
+  not divisible by P, shrinking and ``selection="second"``: alphas, b,
+  n_iter and the gap equal the unsharded ``solve_qp`` with
+  ``engine="pallas"`` bit for bit on every rank, and the reference's
+  ``binary_smo`` at its own sharded-test bounds (same support set,
+  alphas within 5e-3, |b| within 1e-2, identical predictions).
+* ``sharded_svr_smo`` likewise against the port's ``svr_smo`` and the
+  reference's unsharded ``svr_smo`` (its sharded SVR raises on this
+  stack, ROADMAP C.1).
+* An unshrunk sharded solve whose rows drift (as in
+  ``tests/test_torch_certify.py``) stops only on a certified state,
+  equal to the unsharded solve on the same drift.
+* ``ShardedKernelEngine``'s row / matvec / diag / cross / decide against
+  the dense engine, and the validation of meshes and engines.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import kernels as JK
+from repro.core import smo as jsmo
+from repro_torch.core import kernel_engine as TKE
+from repro_torch.core import kernels as TK
+from repro_torch.core import smo as tsmo
+from repro_torch.data import make_blobs, make_synth_regression, normalize
+from repro_torch.kernels import ops
+from repro_torch.kernels.kkt_select import kkt_select_plain
+from repro_torch.launch.mesh import make_local_mesh, make_shard_mesh
+from torch_helpers import np_, run_ranks, tt
+
+SV_EPS = 1e-6
+PALLAS = TKE.EngineConfig(backend="pallas", chunk=48, cache_slots=8)
+
+
+def _binary_problem(n, d=6, sep=2.0, seed=11):
+    x, yc = make_blobs(n // 2 + n % 2, 2, d, sep=sep, seed=seed)
+    x, yc = x[:n], yc[:n]
+    return normalize(x), np.where(yc == 0, 1.0, -1.0).astype(np.float32)
+
+
+def _kernel(name, x):
+    return TK.resolve_gamma(TK.KernelParams(name=name), tt(x))
+
+
+def _grid(x, n_test=64, seed=3):
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(x.shape[0], size=min(n_test, x.shape[0]),
+                     replace=False)
+    return x[idx] + rng.normal(scale=0.05, size=x[idx].shape).astype(
+        np.float32)
+
+
+def _assert_bitwise(got, want):
+    """Every rank's result equals the unsharded one bit for bit."""
+    for r in got:
+        np.testing.assert_array_equal(np_(r.alpha), np_(want.alpha))
+        for f in ("b", "n_iter", "gap", "converged", "n_active"):
+            assert np_(getattr(r, f)) == np_(getattr(want, f)), f
+
+
+def _assert_equivalent(ref, got, *, x, yy, kp, b_tol=1e-2):
+    """The reference's sharded-test bounds (tests/test_sharded_smo.py:
+    46-72): same support set off the borderline multipliers, alphas
+    within 5e-3, |delta b| <= b_tol, identical predictions."""
+    a_ref, a_got = np_(ref.alpha), np_(got.alpha)
+    assert bool(np_(got.converged))
+    borderline = np.maximum(a_ref, a_got) < 5e-3
+    assert ((a_ref > SV_EPS) == (a_got > SV_EPS))[~borderline].all()
+    np.testing.assert_allclose(a_got, a_ref, rtol=5e-3, atol=5e-3)
+    assert abs(float(np_(ref.b)) - float(np_(got.b))) <= b_tol
+    zt = _grid(x)
+    jkp = JK.KernelParams(name=kp.name, gamma=kp.gamma)
+    df_ref = jsmo.decision_function(jnp.asarray(x), jnp.asarray(yy),
+                                    jnp.asarray(a_ref), np_(ref.b),
+                                    jnp.asarray(zt), kernel=jkp)
+    df_got = tsmo.decision_function(tt(x), tt(yy), got.alpha, got.b, tt(zt),
+                                    kernel=kp)
+    np.testing.assert_array_equal(np.sign(np_(df_ref)), np.sign(np_(df_got)))
+
+
+# ----------------------------------------------- the cross-rank reduction
+def _split_selection(f, alpha, y, mask, c, n_shards):
+    """The sharded reduction on the host: each shard's ``kkt_select``
+    (+ its global index offset), then ``combine_selection``."""
+    n_local = f.shape[0] // n_shards
+    parts = []
+    for p in range(n_shards):
+        sl = slice(p * n_local, (p + 1) * n_local)
+        zero = torch.zeros(n_local)
+        b_up, i_up, b_low, i_low = kkt_select_plain(
+            f[sl], alpha[sl], y[sl], mask[sl], zero, zero + c)
+        parts.append((b_up, p * n_local + i_up, b_low, p * n_local + i_low))
+    return tsmo.combine_selection(*(torch.stack(v) for v in zip(*parts)))
+
+
+def _check_selection(f, alpha, y, mask, n_shards, reference=False):
+    """The combine equals the unsharded ``kkt_select`` (and, asked, the
+    reference's ``_selection``) in values and indices."""
+    t = [tt(a) for a in (f, alpha, y)] + [torch.from_numpy(mask)]
+    n = len(f)
+    want = kkt_select_plain(*t, torch.zeros(n), torch.ones(n))
+    got = _split_selection(*t, 1.0, n_shards)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np_(g), np_(w))
+    if reference:
+        ref = jsmo._selection(jnp.asarray(f), jnp.asarray(alpha),
+                              jnp.asarray(y), jnp.asarray(mask), 0.0, 1.0)
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(np_(g), np_(r))
+
+
+def test_combine_selection_matches_unsharded_seeded():
+    rng = np.random.default_rng(42)
+    for case in range(40):
+        n_shards = int(rng.choice([1, 2, 4, 8]))
+        n = n_shards * int(rng.integers(1, 25))
+        f = rng.uniform(-4, 4, n).astype(np.float32)
+        if case % 2:    # duplicate extrema: the first-occurrence tie-break
+            f = np.round(f)
+        alpha = rng.choice([0.0, 1.0, 0.5, 1e-8, 1.0 - 1e-8],
+                           size=n).astype(np.float32)
+        y = rng.choice([-1.0, 1.0], size=n).astype(np.float32)
+        _check_selection(f, alpha, y, rng.random(n) < 0.8, n_shards,
+                         reference=case < 4)
+
+
+def test_combine_selection_all_masked_shard():
+    n_shards, n_local = 4, 8
+    n = n_shards * n_local
+    f = np.linspace(-1, 1, n).astype(np.float32)
+    y = np.resize([1.0, -1.0], n).astype(np.float32)
+    mask = np.r_[np.zeros(n_local, bool), np.ones(n - n_local, bool)]
+    _check_selection(f, np.zeros(n, np.float32), y, mask, n_shards,
+                     reference=True)
+    # every entry masked: (+inf, 0, -inf, 0), as kkt_select gives
+    _check_selection(f, np.zeros(n, np.float32), y, np.zeros(n, bool),
+                     n_shards, reference=True)
+
+
+try:
+    from hypothesis import given, settings, strategies as st
+    import hypothesis.extra.numpy as hnp
+    _HAVE_HYPOTHESIS = True
+except ImportError:  # pragma: no cover - optional dev dependency
+    _HAVE_HYPOTHESIS = False
+
+
+if _HAVE_HYPOTHESIS:
+
+    @st.composite
+    def wss_shards(draw):
+        n_shards = draw(st.sampled_from([1, 2, 4, 8]))
+        n = n_shards * draw(st.integers(1, 24))
+        f = draw(hnp.arrays(np.float32, (n,), elements=st.one_of(
+            st.floats(-4, 4, width=32), st.sampled_from([-1.0, 0.0, 1.0]))))
+        alpha = draw(hnp.arrays(np.float32, (n,), elements=st.sampled_from(
+            [0.0, 1.0, 0.5, 1e-8, 1.0 - 1e-8])))
+        y = draw(hnp.arrays(np.int8, (n,), elements=st.sampled_from([-1, 1])))
+        mask = draw(hnp.arrays(np.bool_, (n,)))
+        return n_shards, f, alpha, y.astype(np.float32), mask
+
+    @given(wss_shards())
+    @settings(max_examples=60, deadline=None)
+    def test_combine_selection_matches_unsharded_bit_for_bit(case):
+        n_shards, f, alpha, y, mask = case
+        _check_selection(f, alpha, y, mask, n_shards)
+
+
+# ------------------------------------------------- row-range plain entries
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["rbf", "linear"])
+def test_row_range_entries_are_slices_of_the_whole_call(mode, dtype):
+    rng = np.random.default_rng(3)
+    n, d, chunk = 203, 7, 48
+    x = tt(rng.normal(size=(n, d))).to(dtype)
+    x2 = TK.sqnorms(x)
+    v = tt(rng.normal(size=n))
+    i = torch.tensor(57)
+    kw = dict(gamma=0.3, mode=mode)
+    row = ops.gram_row(x, x2, i, **kw)
+    mv = ops.gram_matvec(x, x2, v, chunk=chunk, **kw)
+    for row0, count in ((0, 51), (51, 51), (37, 60), (150, 53), (200, 51),
+                        (204, 51)):   # 37, 150: not multiples of chunk
+        valid = max(0, min(count, n - row0))
+        pad = torch.zeros(count - valid)
+        torch.testing.assert_close(
+            ops.gram_row(x, x2, i, row0=row0, count=count, **kw),
+            torch.cat([row[row0:row0 + valid], pad]), rtol=0, atol=0)
+        torch.testing.assert_close(
+            ops.gram_matvec(x, x2, v, chunk=chunk, row0=row0, count=count,
+                            **kw),
+            torch.cat([mv[row0:row0 + valid], pad]), rtol=0, atol=0)
+        # the cached entry's slots hold the range; state as the plain LRU
+        cache = TKE.RowCache(
+            keys=torch.full((2,), -1, dtype=torch.int64),
+            stamp=torch.zeros(2, dtype=torch.int64),
+            rows=torch.zeros((2, count)), clock=torch.zeros((), dtype=torch.int64),
+            hits=torch.zeros((), dtype=torch.int64),
+            misses=torch.zeros((), dtype=torch.int64))
+        for j in (i, torch.tensor(3), i):
+            got = ops.gram_row_cached(x, x2, j, cache.keys, cache.stamp,
+                                      cache.rows, cache.clock, cache.hits,
+                                      cache.misses, row0=row0, count=count,
+                                      **kw)
+            torch.testing.assert_close(
+                got, ops.gram_row(x, x2, j, row0=row0, count=count, **kw),
+                rtol=0, atol=0)
+        assert (int(cache.hits), int(cache.misses)) == (1, 2)
+
+
+# ------------------------------------------------------ the sharded solver
+def _unsharded(x, yy, cfg, kp, engine=PALLAS):
+    return tsmo.binary_smo(tt(x), tt(yy), cfg=cfg, kernel=kp, engine=engine)
+
+
+def _reference(x, yy, cfg, kp):
+    return jsmo.binary_smo(
+        jnp.asarray(x), jnp.asarray(yy),
+        cfg=jsmo.SMOConfig(C=cfg.C, tol=cfg.tol, selection=cfg.selection,
+                           shrink_every=cfg.shrink_every),
+        kernel=JK.KernelParams(name=kp.name, gamma=kp.gamma))
+
+
+@pytest.mark.parametrize("kernel_name", ["rbf", "linear"])
+def test_sharded_binary_smo_matches_unsharded_and_reference(kernel_name):
+    x, yy = _binary_problem(71)   # not divisible by 2, 3 or 4
+    kp = _kernel(kernel_name, x)
+    cfg = tsmo.SMOConfig()
+    want = _unsharded(x, yy, cfg, kp)
+    ref = _reference(x, yy, cfg, kp)
+    for n_ranks in (1, 2, 3, 4):
+        got = run_ranks(lambda m: tsmo.sharded_binary_smo(
+            x, yy, mesh=m, cfg=cfg, kernel=kp, engine=PALLAS), n_ranks)
+        assert got[0].alpha.shape == (71,)
+        _assert_bitwise(got, want)
+        _assert_equivalent(ref, got[0], x=x, yy=yy, kp=kp)
+
+
+@pytest.mark.parametrize("cfg,n_ranks", [
+    (tsmo.SMOConfig(shrink_every=2), 3),
+    (tsmo.SMOConfig(selection="second"), 2),
+    (tsmo.SMOConfig(selection="second", shrink_every=2), 4)])
+def test_sharded_shrinking_and_second_order(cfg, n_ranks):
+    x, yy = _binary_problem(70, seed=5)
+    kp = _kernel("rbf", x)
+    want = _unsharded(x, yy, cfg, kp)
+    got = run_ranks(lambda m: tsmo.sharded_binary_smo(
+        x, yy, mesh=m, cfg=cfg, kernel=kp, engine=PALLAS), n_ranks)
+    _assert_bitwise(got, want)
+    assert int(got[0].n_active) <= 70
+    _assert_equivalent(_reference(x, yy, cfg, kp), got[0], x=x, yy=yy,
+                       kp=kp)
+
+
+def test_sharded_masked_and_bf16_solve_is_the_unsharded_one():
+    x, yy = _binary_problem(70, seed=2)
+    mask = np.ones(70, bool)
+    mask[::9] = False
+    kp = _kernel("rbf", x)
+    eng = TKE.EngineConfig(backend="pallas", gram_dtype="bf16", chunk=32)
+    want = tsmo.binary_smo(tt(x), tt(yy), torch.from_numpy(mask), kernel=kp,
+                           engine=eng)
+    got = run_ranks(lambda m: tsmo.sharded_binary_smo(
+        x, yy, mask, mesh=m, kernel=kp, engine=eng), 3)
+    _assert_bitwise(got, want)
+    assert not np_(got[0].alpha)[~mask].any()
+
+
+def test_sharded_svr_smo_matches_unsharded_and_reference():
+    x, y = make_synth_regression(50, 4, kind="sinc", noise=0.05, seed=3)
+    kp = TK.KernelParams(gamma=0.5)
+    cfg = tsmo.SMOConfig(C=1.0, tol=1e-3)
+    want = tsmo.svr_smo(tt(x), tt(y), epsilon=0.1, cfg=cfg, kernel=kp,
+                        engine=PALLAS)
+    got = run_ranks(lambda m: tsmo.sharded_svr_smo(
+        x, y, epsilon=0.1, mesh=m, cfg=cfg, kernel=kp, engine=PALLAS), 3)
+    for r in got:
+        np.testing.assert_array_equal(np_(r.alpha), np_(want.alpha))
+        np.testing.assert_array_equal(np_(r.beta), np_(want.beta))
+        assert float(r.b) == float(want.b)
+        assert int(r.n_iter) == int(want.n_iter)
+    ref = jsmo.svr_smo(jnp.asarray(x), jnp.asarray(y), epsilon=0.1,
+                       cfg=jsmo.SMOConfig(C=1.0, tol=1e-3),
+                       kernel=JK.KernelParams(gamma=0.5))
+    assert bool(got[0].converged) and bool(ref.converged)
+    np.testing.assert_allclose(np_(got[0].beta), np_(ref.beta), rtol=5e-3,
+                               atol=5e-3)
+    assert abs(float(got[0].b) - float(ref.b)) <= 1e-2
+
+
+def test_sharded_unshrunk_solve_certifies_a_drifted_state(monkeypatch):
+    """Rows scaled by a fixed (1 + err) while the matvec stays exact (the
+    drift of tests/test_torch_certify.py, on the pallas and the sharded
+    engine alike): the sharded solve stops only on a state whose float64
+    certificate of a recomputed gradient is <= tol, the unsharded one's
+    bit for bit."""
+    x, yy = _binary_problem(90, seed=4)
+    kp = TK.KernelParams(gamma=0.5)
+    err = tt(np.random.default_rng(0).uniform(-1e-2, 1e-2, 90))
+    pallas_row = TKE.PallasKernelEngine.row
+    sharded_row = TKE.ShardedKernelEngine.row
+
+    def drifted(self, i, cache=None):
+        row, cache = pallas_row(self, i, cache)
+        return row * (1.0 + err), cache
+
+    def drifted_local(self, i, cache=None):
+        row, cache = sharded_row(self, i, cache)
+        e = torch.nn.functional.pad(err, (0, self.n_shards * self.n - 90))
+        return row * (1.0 + e[self.row0:self.row0 + self.n]), cache
+
+    monkeypatch.setattr(TKE.PallasKernelEngine, "row", drifted)
+    monkeypatch.setattr(TKE.ShardedKernelEngine, "row", drifted_local)
+    cfg = tsmo.SMOConfig(C=1.0, tol=1e-3)
+    want = _unsharded(x, yy, cfg, kp)
+    got = run_ranks(lambda m: tsmo.sharded_binary_smo(
+        x, yy, mesh=m, cfg=cfg, kernel=kp, engine=PALLAS), 2)
+    _assert_bitwise(got, want)
+    gram = TK.make_gram_fn(kp)(tt(x), tt(x))
+    a = got[0].alpha
+    f = gram @ (a * tt(yy)) - tt(yy)
+    assert bool(got[0].converged)
+    assert float(tsmo.kkt_violation(a, tt(yy), f, 0.0, 1.0)) <= 1e-3
+
+
+# ------------------------------------------------------------- the engine
+def test_sharded_engine_matches_dense():
+    rng = np.random.default_rng(0)
+    n, d, t = 64, 5, 9
+    x, v, coef = (tt(rng.normal(size=s)) for s in ((n, d), (n,), (n,)))
+    z = tt(rng.normal(size=(t, d)))
+    for name in ("rbf", "linear"):
+        kp = TK.KernelParams(name=name, gamma=0.4)
+        dense = TKE.make_engine(x, kp, "dense")
+        pallas = TKE.make_engine(x, kp, TKE.EngineConfig(backend="pallas",
+                                                         chunk=16))
+        ecfg = TKE.EngineConfig(backend="sharded", shard_axis="s", chunk=16)
+
+        def rank(m):
+            eng = TKE.make_engine(x, kp, ecfg, mesh=m)
+            sl = slice(eng.row0, eng.row0 + eng.valid)
+
+            def local(t):   # the rank's (n_local,) block, 0 on padding
+                return torch.nn.functional.pad(
+                    t, (0, eng.n_shards * eng.n - n))[eng.row0:][:eng.n]
+
+            row, _ = eng.row(torch.tensor(37), eng.init_cache())
+            return (sl, eng.n, row, eng.matvec(local(v)), eng.diag(),
+                    eng.cross(z), eng.decide(z, local(coef), 0.25))
+
+        for sl, n_local, row, mv, diag, cross, dec in run_ranks(rank, 3,
+                                                                axis="s"):
+            k = sl.stop - sl.start
+            assert row.shape == mv.shape == diag.shape == (n_local,)
+            assert not row[k:].any() and not mv[k:].any()
+            # a local row is the pallas engine's row, bit for bit
+            torch.testing.assert_close(
+                row[:k], pallas.row(torch.tensor(37))[0][sl], rtol=0, atol=0)
+            torch.testing.assert_close(row[:k], dense.full()[37][sl],
+                                       rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(mv[:k], dense.matvec(v)[sl],
+                                       rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(diag[:k], dense.diag()[sl],
+                                       rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(cross[:, :k], dense.cross(z)[:, sl],
+                                       rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(dec, dense.decide(z, coef, 0.25),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_engine_and_mesh_validation():
+    x = torch.zeros((8, 2))
+    kp = TK.KernelParams()
+    with pytest.raises(ValueError, match="shard_axis"):
+        TKE.ShardedKernelEngine(x, kp, TKE.EngineConfig())
+    with pytest.raises(ValueError, match="bound engine"):
+        tsmo._resolve_sharded_cfg(TKE.make_engine(x, kp, "dense"), "s")
+    with pytest.raises(ValueError, match="no process group"):
+        make_shard_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="process group has 2"):
+        run_ranks(lambda m: make_shard_mesh(4, group=m.group, device="cpu"),
+                  2)
+    with pytest.raises(ValueError, match="process group has 2"):
+        run_ranks(lambda m: make_local_mesh(3, group=m.group, device="cpu"),
+                  2)
+    meshes = run_ranks(lambda m: make_local_mesh(2, group=m.group,
+                                                 device="cpu"), 2)
+    assert [(m.shape, m.axis_names, m.rank, m.size) for m in meshes] == [
+        ({"workers": 2}, ("workers",), r, 2) for r in range(2)]
+    for call, match in (
+            (lambda m: TKE.ShardedKernelEngine(
+                x, TK.KernelParams(name="poly"),
+                TKE.EngineConfig(shard_axis="shards"), mesh=m), "rbf_gram"),
+            (lambda m: TKE.ShardedKernelEngine(
+                x, kp, TKE.EngineConfig(shard_axis="rows"), mesh=m),
+             "mesh axes"),
+            (lambda m: tsmo.sharded_binary_smo(
+                np.zeros((8, 2), np.float32), np.ones(8), mesh=m,
+                axis="rows"), "mesh axes"),
+            (lambda m: tsmo.sharded_binary_smo(
+                np.zeros((8, 2), np.float32), np.ones(8), mesh=m,
+                cfg=tsmo.SMOConfig(selection="third")), "selection")):
+        with pytest.raises(ValueError, match=match):
+            run_ranks(call, 2)

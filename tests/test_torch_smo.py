@@ -121,8 +121,13 @@ def test_engine_resolution_and_guards():
         dense_limit=10)), TKE.ChunkedKernelEngine)
     with pytest.raises(ValueError):
         TKE.make_engine(tt(x), kp, "no_such_backend")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # the sharded backend (ROADMAP A.11): the reference's ValueError
+    # without shard_axis, and without the mesh its ranks span
+    with pytest.raises(ValueError, match="shard_axis"):
         TKE.make_engine(tt(x), kp, "sharded")
+    with pytest.raises(ValueError, match="mesh"):
+        TKE.make_engine(tt(x), kp, TKE.EngineConfig(backend="sharded",
+                                                    shard_axis="shards"))
     for backend in TKE.LOWRANK_BACKENDS:   # ported with the low-rank tier
         eng = TKE.make_engine(tt(x), kp, TKE.EngineConfig(backend=backend,
                                                           rank=8))

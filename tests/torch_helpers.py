@@ -1,6 +1,8 @@
 """Shared pieces of the ``tests/test_torch_*.py`` files (the PyTorch port
 held against the JAX reference). Inputs are made with numpy and handed to
 both packages."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -29,3 +31,47 @@ def np_(t):
     if isinstance(t, torch.Tensor):
         return t.detach().cpu().numpy()
     return np.asarray(t)
+
+
+_groups = itertools.count()
+
+
+def run_ranks(fn, n_ranks: int, *, axis: str = "shards", device="cpu",
+              timeout: float = 60.0):
+    """``fn(mesh)`` on ``n_ranks`` thread ranks of one gloo group (a
+    ``ProcessGroupGloo`` a thread over a shared in-memory store: no
+    ``init_process_group``, no port), each rank's mesh one axis named
+    ``axis`` on ``device``. Returns the ranks' results in rank order.
+    The group times out after ``timeout`` seconds, the threads are
+    joined with a timeout too, and the first exception a rank raises is
+    re-raised here, so a rank that fails never leaves a test waiting
+    longer than the group's timeout."""
+    import datetime
+    import threading
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_shard_mesh
+
+    store = dist.PrefixStore(f"ranks{next(_groups)}", dist.HashStore())
+    results, errors = [None] * n_ranks, []
+
+    def rank(r):
+        try:
+            group = dist.ProcessGroupGloo(
+                store, r, n_ranks, datetime.timedelta(seconds=timeout))
+            results[r] = fn(make_shard_mesh(n_ranks, axis=axis, group=group,
+                                            device=device))
+        except BaseException as e:   # re-raised by the caller
+            errors.append(e)          # in the order they happen
+
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True)
+               for r in range(n_ranks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout + 30.0)
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"a rank of {n_ranks} did not finish in "
+                           f"{timeout + 30.0} s")
+    if errors:
+        raise errors[0]   # the first to fail; the others may wait on it
+    return results
