@@ -125,6 +125,31 @@ then:
    ``row_range`` line holds the row-range entries against the whole
    call's slices bit for bit (fp32 and bf16, several ranges), and the
    ``kernels`` line times them at one rank's block.
+12. drives the serving layer (schema v3, ``ModelRegistry``,
+   ``ServingService``) over the exact binary SVC's pack and the
+   overlapping OvO and OvR packs: ``serve_quantized`` — each pack
+   quantized to fp16 and bf16, saved as v3, loaded and served by
+   ``Predictor(engine="pallas")`` from its storage dtype (every bank
+   resident at that dtype, half the fp32 predictor's ``sv_x`` bytes; the
+   kernel's decisions equal to the fp32 kernel's on the upcast bank bit
+   for bit; within DECISION_TOL of the chunked predictor; rows alone
+   equal to the batch), beside the fp32 pack (memory, max |delta|,
+   labels that differ, accuracy, rows/s); ``serving_load`` —
+   ``benchmarks/bench_serving_load.py``'s open-loop Poisson replay
+   (seeded) against a ``ServingService(window_ms=2.0, max_batch=1024)``
+   over a registry of the binary, OvO and OvO-bf16 packs and against a
+   one-request-a-call server, at 0.5, 1.5 and 4.0 x the warm OvO
+   predictor's batch-1 capacity, then a mixed-size run over the three
+   models: p50 / p99 ms, sustained rows/s, rows a batch, flushes, the
+   host ms of each decision call and the collector's pauses; every
+   response equal to its rows served alone (values bit for bit, labels),
+   dynamic >= 1.3 x per-request at 4 x; ``registry`` —
+   ``max_resident=2`` over four packs: the LRU order, re-admitted models
+   serving their first bits, an eviction returning >= 0.9 x its bank's
+   bytes of ``memory_allocated``. The ``kernels`` line times the
+   quantized route (fp16 / bf16 bank, float32 rows) at the largest OvO
+   and OvR banks beside the fp32 kernel in the same call, and lists
+   ``multitask_decision``'s launches by bank dtype.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -198,8 +223,22 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+# every line printed also goes to chiprun_out/chip_smoke.jsonl, so a run
+# whose output is cut short keeps all its lines; a phase line carries the
+# seconds since the script started
+LOG_PATH = os.path.join(HERE, "chiprun_out", "chip_smoke.jsonl")
+T_START = time.perf_counter()
+
+
+def out_line(obj: dict) -> None:
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(line + "\n")
+
+
 def emit(**obj) -> None:
-    print(json.dumps(obj), flush=True)
+    out_line({**obj, "elapsed_s": time.perf_counter() - T_START})
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -420,12 +459,13 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max())
 
 
-def redesign_info(kernel: str, shape) -> dict:
+def redesign_info(kernel: str, shape, bank: str = "fp32") -> dict:
     """The launch plan of a redesigned kernel (``rff_features`` at an
     (n, k, d) shape, ``decision`` at an (nt, T, w, d) one,
     ``flash_attention`` at (b, sq, h, d, dtype), ``ssd_diag`` at
     (bc, h, q, n, p)) on this card, and what ptxas reported for the
-    instantiation it runs (float32, or flash_attention's dtype):
+    instantiation it runs (float32, or flash_attention's dtype; the
+    decision kernel's float32 rows against a ``bank`` of that dtype):
     registers, static shared memory, spills."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decision as D
@@ -443,9 +483,10 @@ def redesign_info(kernel: str, shape) -> dict:
     elif kernel == "ssd_diag":          # (bc, h, q, n, p)
         plan = SD.ssd_plan(*shape, sms=sms)
         name = "ssd_diag_kernel"
-    else:
+    else:   # the float32-rows instantiation at the bank's dtype
         plan = D.decision_plan(*shape, sms=sms)
-        name = f"decision_kernelIfLi{plan.rows // 16}E"
+        elem = {"fp32": "f", "fp16": "6__half", "bf16": "13__nv_bfloat16"}
+        name = f"decision_kernelIf{elem[bank]}Li{plan.rows // 16}E"
     found = _build.ptxas_report(name)
     check(len(found) == 1, f"ptxas log: {len(found)} kernels named {name}")
     return {"plan": plan._asdict(), "ptxas": found[0]}
@@ -3166,6 +3207,524 @@ def phase_row_range(ops, K, G, dev, xtr, gamma, launches):
     return out
 
 
+# ------------------------------------ serving: schema v3 banks, registry,
+# and the dynamic-batching service under open-loop load
+QUANT_GATE = 3e-2             # tests/test_serve_service.py (reported here)
+QUANT_DTYPES = {"fp16": torch.float16, "bf16": torch.bfloat16}
+# benchmarks/bench_serving_load.py: the batching window, the offered
+# rates as multiples of the per-request batch-1 capacity, its CI gate (the
+# reference's committed full run targets 2x), and its replay's length
+WINDOW_MS = 2.0
+RATE_FACTORS = (0.5, 1.5, 4.0)
+SPEEDUP_GATE = 1.3
+SPEEDUP_TARGET = 2.0
+LOAD_SECONDS = 2.0
+LOAD_MAX_REQUESTS = 6000
+FUTURE_TIMEOUT_S = 60
+LOAD_OPS = ("values", "predict")   # request i asks for LOAD_OPS[i % 2]
+
+
+def bank_bytes(pred) -> dict:
+    """Device bytes of a predictor's resident banks, by array."""
+    return {"sv_x": sum(sv.nbytes for sv, _, _, _ in pred._banks),
+            "sv_coef": sum(cf.nbytes for _, cf, _, _ in pred._banks),
+            "b": sum(b.nbytes for _, _, b, _ in pred._banks)}
+
+
+def constructed(make):
+    """(what ``make`` returns, torch.cuda.memory_allocated's growth over
+    the call)."""
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    out = make()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - m0
+
+
+def add_launches(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def quantized_bits_equal(ops, pred, x, dev) -> bool:
+    """Every bank of a quantized predictor, read by the kernel at its
+    storage dtype, against the float32 kernel on the upcast bank, over
+    the rows ``x``: equal bit for bit (comparison launches, not the
+    path's)."""
+    saved = dict(ops.launches)
+    z = torch.from_numpy(x).to(dev)
+    gamma = pred.model.kernel.gamma
+    same = all(torch.equal(ops.multitask_decision(z, sv, cf, gamma=gamma),
+                           ops.multitask_decision(z, sv.float(), cf,
+                                                  gamma=gamma))
+               for sv, cf, _, _ in pred._banks)
+    ops.launches.update(saved)
+    return same
+
+
+def phase_serve_quantized(ops, serve_mod, dev, out_dir, packs) -> dict:
+    """Each pack (``packs``: name -> (fp32 pack, held-out rows, labels))
+    quantized to fp16 and bf16, saved as schema v3, loaded and served by
+    ``Predictor(engine="pallas")`` from its storage dtype; each beside the
+    fp32 pack's predictor (its construction's memory, its decisions,
+    labels and accuracy; not the path's launches)."""
+    entries, path_launches = [], []
+    for name, (packed, xte, yte) in packs.items():
+        saved = dict(ops.launches)
+        full, full_mem = constructed(lambda: serve_mod.Predictor(
+            packed, engine="pallas", device=dev))
+        df_full = full.decision_values(xte)
+        labels_full = full.decode(df_full, "predict")
+        full_bytes = bank_bytes(full)
+        del full
+        ops.launches.update(saved)
+        for sv_dtype, dt in QUANT_DTYPES.items():
+            path = os.path.join(out_dir, f"chip_smoke_{name}_{sv_dtype}.npz")
+            serve_mod.save(path, serve_mod.quantize(packed, sv_dtype))
+            with np.load(path) as z:
+                version = json.loads(str(z["meta"]))["version"]
+            loaded = serve_mod.load(path)
+            ops.reset_launches()
+            pred, mem = constructed(lambda: serve_mod.Predictor(
+                loaded, engine="pallas", device=dev))
+            rates, _ = serve_rates(pred, xte)
+            dfs = pred.decision_values(xte)
+            labels = pred.decode(dfs, "predict")
+            alone = alone_equal_batch(pred, xte)
+            torch.cuda.synchronize()
+            launches = dict(ops.launches)
+            bits = quantized_bits_equal(ops, pred, xte, dev)
+            chunked = serve_mod.Predictor(loaded, engine="chunked",
+                                          device=dev).decision_values(xte)
+            ops.launches.update(launches)
+            path_launches.append(launches)
+            nbytes = bank_bytes(pred)
+            entry = dict(
+                pack=name, sv_dtype=sv_dtype, schema_version=version,
+                banks=[[list(sv.shape), str(sv.dtype)]
+                       for sv, _, _, _ in pred._banks],
+                bank_bytes=nbytes, fp32_bank_bytes=full_bytes,
+                memory_allocated_delta=mem, fp32_memory_allocated_delta=full_mem,
+                kernel_bits_equal_fp32_on_upcast=bits,
+                max_abs_err_vs_chunked=float(np.abs(dfs - chunked).max()),
+                max_abs_delta_vs_fp32_pack=float(np.abs(dfs - df_full).max()),
+                within_quant_gate=bool(np.abs(dfs - df_full).max()
+                                       <= QUANT_GATE),
+                labels_differing_from_fp32=int(np.sum(labels != labels_full)),
+                n_test=int(len(xte)),
+                rows_alone_equal_batch=alone, rows_per_s=rates,
+                launches={k: v for k, v in launches.items() if v})
+            if yte is not None:
+                entry.update(heldout_acc=float(np.mean(labels == yte)),
+                             fp32_heldout_acc=float(np.mean(
+                                 labels_full == yte)))
+            entries.append(entry)
+            what = f"serve_quantized {name} {sv_dtype}"
+            check(version == 3 and loaded.sv_dtype == sv_dtype,
+                  f"{what}: the artifact is not schema v3 at {sv_dtype}")
+            check(all(sv.dtype == dt for sv, _, _, _ in pred._banks),
+                  f"{what}: a bank is not resident at its storage dtype")
+            check(2 * nbytes["sv_x"] == full_bytes["sv_x"],
+                  f"{what}: sv_x takes {nbytes['sv_x']} bytes, the fp32 "
+                  f"predictor's {full_bytes['sv_x']}")
+            check(bits, f"{what}: the kernel's decisions differ from the "
+                  "fp32 kernel's on the upcast bank")
+            check(bool(np.allclose(dfs, chunked, **DECISION_TOL)),
+                  f"{what}: decisions differ from the chunked predictor")
+            check(alone, f"{what}: a row served alone differs from the same "
+                  "row in a 1,024-row request")
+            check(launches[f"multitask_decision_{sv_dtype}_bank"] > 0
+                  and launches["multitask_decision"] == 0,
+                  f"{what}: the path did not serve through the "
+                  f"{sv_dtype}-bank kernel alone: {launches}")
+            del pred
+    emit(phase="serve_quantized", quant_gate=QUANT_GATE, packs=entries)
+    return add_launches(*path_launches)
+
+
+class PerRequestServer:
+    """The no-batching baseline of ``benchmarks/bench_serving_load.py``:
+    one worker thread, one predictor call a request, in arrival order."""
+
+    def __init__(self, pred):
+        import queue
+        import threading
+        self._pred = pred
+        self._q = queue.Queue()
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def submit(self, x, op):
+        from concurrent.futures import Future
+        fut = Future()
+        self._q.put((x, op, fut))
+        return fut
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            x, op, fut = item
+            try:
+                fut.set_result(self._pred.decode(
+                    self._pred.decision_values(x), op))
+            except Exception as e:   # noqa: BLE001 -- handed to the caller
+                fut.set_exception(e)
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._worker.join(FUTURE_TIMEOUT_S)
+
+
+class ReplayProbe:
+    """While active: the host time of every ``decision_values`` call of
+    the given predictors (the service's flushes, the per-request
+    server's calls) and every garbage collection's pause, to tell a
+    stall in the serving work from one outside it."""
+
+    def __init__(self, preds):
+        self.preds, self.calls, self.gcs, self._gc_t0 = preds, [], [], None
+
+    def __enter__(self):
+        import gc
+        for pred in self.preds:
+            orig = pred.decision_values
+
+            def timed(x, _orig=orig):
+                t0 = time.perf_counter()
+                out = _orig(x)
+                self.calls.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            pred.decision_values = timed   # an instance attribute
+        gc.callbacks.append(self._gc)
+        return self
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            self.gcs.append((time.perf_counter() - self._gc_t0) * 1e3)
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._gc)
+        for pred in self.preds:
+            del pred.decision_values
+
+    def summary(self) -> dict:
+        calls = np.array(self.calls or [0.0])
+        return {"calls": len(self.calls),
+                "call_ms_p50": float(np.percentile(calls, 50)),
+                "call_ms_p99": float(np.percentile(calls, 99)),
+                "call_ms_max": float(calls.max()),
+                "call_ms_total": float(calls.sum()),
+                "gc_pauses": len(self.gcs),
+                "gc_ms_max": max(self.gcs, default=0.0),
+                "gc_ms_total": float(sum(self.gcs))}
+
+
+def draw_schedule(rng, rate: float, sizes, probs):
+    """Poisson arrivals (s) at ``rate`` over LOAD_SECONDS, at most
+    LOAD_MAX_REQUESTS, with iid request sizes."""
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, LOAD_MAX_REQUESTS))
+    arrivals = arrivals[arrivals < LOAD_SECONDS]
+    return arrivals, rng.choice(sizes, size=len(arrivals), p=probs)
+
+
+def replay(submit, arrivals, sizes, models, pools, rng) -> dict:
+    """Open-loop replay: request i (``sizes[i]`` rows of model
+    ``models[i % len(models)]``'s pool, op LOAD_OPS[i % 2]) submitted at
+    its scheduled instant, never waiting for completions; latency =
+    completion - scheduled arrival. Returns the summary and the records."""
+    starts = [int(rng.integers(0, len(pools[models[i % len(models)]]) - n
+                               + 1)) for i, n in enumerate(sizes)]
+    recs = []
+    t0 = time.perf_counter()
+    for i, (arrival, n) in enumerate(zip(arrivals, sizes)):
+        now = time.perf_counter() - t0
+        if arrival > now:
+            time.sleep(arrival - now)
+        m, s, op = models[i % len(models)], starts[i], LOAD_OPS[i % 2]
+        rec = {"sched": float(arrival), "rows": int(n), "model": m,
+               "start": s, "op": op}
+        fut = submit(pools[m][s:s + n], m, op)
+        fut.add_done_callback(
+            lambda f, rec=rec: rec.__setitem__("done",
+                                               time.perf_counter() - t0))
+        rec["future"] = fut
+        recs.append(rec)
+    for rec in recs:
+        rec["out"] = rec.pop("future").result(timeout=FUTURE_TIMEOUT_S)
+    deadline = time.perf_counter() + FUTURE_TIMEOUT_S
+    while (any("done" not in r for r in recs)   # callbacks run after result
+           and time.perf_counter() < deadline):
+        time.sleep(1e-4)
+    check(all("done" in r for r in recs), "a completion was not recorded")
+    lat = np.array([r["done"] - r["sched"] for r in recs])
+    span = max(r["done"] for r in recs) - recs[0]["sched"]
+    rows = sum(r["rows"] for r in recs)
+    return {"n_requests": len(recs), "n_rows": int(rows), "span_s": span,
+            "sustained_rows_per_s": rows / span,
+            "sustained_requests_per_s": len(recs) / span,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}, recs
+
+
+def responses_equal(reg, pools, recs, cache) -> tuple[int, int]:
+    """(responses, those equal to the same rows served alone by their
+    model's predictor: decision values bit for bit, labels exactly)."""
+    equal = 0
+    for r in recs:
+        key = (r["model"], r["start"], r["rows"])
+        pred = reg.get(r["model"])
+        if key not in cache:
+            s, n = r["start"], r["rows"]
+            cache[key] = pred.decision_values(pools[r["model"]][s:s + n])
+        want = (cache[key] if r["op"] == "values"
+                else pred.decode(cache[key], "predict"))
+        equal += bool(np.array_equal(r["out"], want))
+    return len(recs), equal
+
+
+def phase_serving_load(ops, serve_mod, dev, packs, pools) -> dict:
+    """``benchmarks/bench_serving_load.py``'s open-loop replay on the
+    card: a ServingService(window_ms=2.0, max_batch=1024) over a
+    ModelRegistry of three packs, against a per-request server, at
+    RATE_FACTORS x the warm OvO predictor's batch-1 capacity, then a
+    mixed-size run over all three models."""
+    ops.reset_launches()
+    reg = serve_mod.ModelRegistry(
+        max_resident=3, engine="pallas", max_batch=1024, device=dev,
+        warmup_sizes=tuple(1 << k for k in range(11)))
+    for name, p in packs.items():
+        reg.register(name, p)
+        reg.get(name)
+    ovo = reg.get("ovo")
+    one = pools["ovo"][:1]
+    ovo.predict(one)
+    times = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        ovo.predict(one)
+        times.append(time.perf_counter() - t0)
+    per_request_s = statistics.median(times)
+    capacity = 1.0 / per_request_s
+    rng = np.random.default_rng(SEED)
+    runs, all_recs = [], []
+
+    def run(mode, factor, sizes, probs, models, arrivals=None):
+        if arrivals is None:
+            arrivals = draw_schedule(rng, capacity * factor, sizes, probs)
+        probe = ReplayProbe([reg.get(m) for m in dict.fromkeys(models)])
+        if mode == "dynamic":
+            svc = serve_mod.ServingService(reg, window_ms=WINDOW_MS,
+                                           device=dev)
+            try:
+                with probe:
+                    out, recs = replay(lambda x, m, op: svc.submit(
+                        x, model=m, op=op), *arrivals, models, pools, rng)
+            finally:
+                svc.close(FUTURE_TIMEOUT_S)
+            st = svc.stats
+            out.update(rows_per_batch=st["rows_per_batch"],
+                       n_batches=st["n_batches"],
+                       window_flushes=st["n_window_flushes"],
+                       full_flushes=st["n_full_flushes"],
+                       max_batch_rows=st["max_batch_rows"])
+        else:
+            srv = PerRequestServer(reg.get(models[0]))
+            try:
+                with probe:
+                    out, recs = replay(lambda x, m, op: srv.submit(x, op),
+                                       *arrivals, models, pools, rng)
+            finally:
+                srv.close()
+        out.update(mode=mode, rate_factor=factor, probe=probe.summary(),
+                   offered_requests_per_s=capacity * factor,
+                   models=list(models),
+                   sizes={str(k): v for k, v in zip(sizes, probs)})
+        runs.append(out)
+        all_recs.extend(recs)
+        return arrivals
+
+    t0 = time.perf_counter()
+    for factor in RATE_FACTORS:
+        arrivals = run("per_request", factor, [1], [1.0], ["ovo"])
+        run("dynamic", factor, [1], [1.0], ["ovo"], arrivals)
+    run("dynamic", 2.0, [1, 8, 32], [0.7, 0.2, 0.1], list(packs))
+    replay_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    t0 = time.perf_counter()
+    n, equal = responses_equal(reg, pools, all_recs, {})
+    verify_s = time.perf_counter() - t0
+    ops.launches.update(launches)
+    top = {r["mode"]: r["sustained_rows_per_s"] for r in runs
+           if r["rate_factor"] == RATE_FACTORS[-1]}
+    speedup = top["dynamic"] / top["per_request"]
+    emit(phase="serving_load", window_ms=WINDOW_MS, max_batch=1024,
+         resident=list(reg.resident),
+         per_request_s=per_request_s, capacity_requests_per_s=capacity,
+         load_seconds=LOAD_SECONDS, max_requests=LOAD_MAX_REQUESTS,
+         runs=runs, speedup_at_top_rate=speedup, speedup_gate=SPEEDUP_GATE,
+         reference_target=SPEEDUP_TARGET, responses=n,
+         responses_equal_alone=equal, replay_s=replay_s, verify_s=verify_s,
+         registry_stats=reg.stats,
+         launches={k: v for k, v in launches.items() if v})
+    check(equal == n, f"serving_load: {n - equal} of {n} responses differ "
+          "from the same rows served alone")
+    check(speedup >= SPEEDUP_GATE, f"serving_load: dynamic sustained "
+          f"{speedup:.2f}x the per-request rows/s at "
+          f"{RATE_FACTORS[-1]}x capacity (gate {SPEEDUP_GATE}x)")
+    check(launches["multitask_decision"] > 0
+          and launches["multitask_decision_bf16_bank"] > 0,
+          f"serving_load: launches {launches}")
+    return launches
+
+
+def phase_registry(ops, serve_mod, dev, packs, pools) -> dict:
+    """``ModelRegistry(max_resident=2)`` over four packs: the LRU order
+    of admissions and evictions, re-admitted models serving their first
+    bits, and an explicit eviction returning the bank's device memory."""
+    ops.reset_launches()
+    reg = serve_mod.ModelRegistry(max_resident=2, engine="pallas",
+                                  device=dev)
+    for name, p in packs.items():
+        reg.register(name, p)
+    order, first, same = [], {}, {}
+    want_order = [("binary",), ("binary", "ovo"), ("ovo", "binary"),
+                  ("binary", "ovo_fp16"), ("ovo_fp16", "ovr"),
+                  ("ovr", "binary"), ("binary", "ovo"), ("ovo", "ovo_fp16"),
+                  ("ovo_fp16", "ovr")]
+    for name in ("binary", "ovo", "binary", "ovo_fp16", "ovr", "binary",
+                 "ovo", "ovo_fp16", "ovr"):
+        df = reg.get(name).decision_values(pools[name][:256])
+        order.append(reg.resident)
+        if name in first:
+            same[name] = same.get(name, True) and bool(
+                np.array_equal(df, first[name]))
+        else:
+            first[name] = df
+    stats = reg.stats
+    freed = []
+    for name in ("ovr", "ovo_fp16"):
+        nbytes = sum(bank_bytes(reg.get(name)).values())
+        _, delta = constructed(lambda: reg.evict(name))
+        freed.append(dict(model=name, bank_bytes=nbytes,
+                          memory_allocated_drop=-delta,
+                          ok=-delta >= 0.9 * nbytes))
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    emit(phase="registry", max_resident=2, order=order, stats=stats,
+         readmitted_bits_equal=same, evictions=freed,
+         launches={k: v for k, v in launches.items() if v})
+    check(order == want_order, f"registry: residency {order}, want the "
+          f"LRU order {want_order}")
+    check(stats == {"hits": 1, "admissions": 8, "evictions": 6},
+          f"registry: stats {stats}")
+    check(all(same.values()) and len(same) == 4,
+          f"registry: a re-admitted model served other bits {same}")
+    check(all(f["ok"] for f in freed), f"registry: an eviction freed less "
+          f"than 0.9 x its bank's bytes {freed}")
+    return launches
+
+
+def phase_serving(ops, serve_mod, dev, out_dir, binary_pack, binary_test,
+                  fits, split) -> dict:
+    """The serving layer over the exact binary SVC's pack and the
+    overlapping OvO and OvR packs: quantized banks, the service under
+    load, the registry; one launch-count dict a path."""
+    xte, yte = binary_test
+    ovo, ovr = fits["ovo"][2], fits["ovr"][2]
+    pools = {"binary": xte, "ovo": split[2], "ovo_bf16": split[2],
+             "ovo_fp16": split[2], "ovr": split[2]}
+    return {
+        "serve_quantized": phase_serve_quantized(
+            ops, serve_mod, dev, out_dir, {
+                "binary": (binary_pack, xte, yte),
+                "ovo": (ovo, split[2], split[3]),
+                "ovr": (ovr, split[2], split[3])}),
+        "serving_load": phase_serving_load(
+            ops, serve_mod, dev, {"binary": binary_pack, "ovo": ovo,
+                                  "ovo_bf16": serve_mod.quantize(ovo, "bf16")},
+            pools),
+        "registry": phase_registry(
+            ops, serve_mod, dev, {"binary": binary_pack, "ovo": ovo,
+                                  "ovo_fp16": serve_mod.quantize(ovo, "fp16"),
+                                  "ovr": ovr}, pools)}
+
+
+def quantized_bank_rows(ops, D, dev, fits, xte, launches) -> list[dict]:
+    """The quantized route (an fp16 / bf16 bank under float32 compute) at
+    the largest OvO and OvR serving banks over one 1,024-row slice: the
+    kernel beside the float32 kernel on the upcast bank (same call), its
+    plain version, the library composition (upcast, then batched cdist,
+    exp and bmm) and its bound (the bank's bytes halved)."""
+    saved = dict(ops.launches)
+    z = torch.from_numpy(xte[:1024]).to(dev)
+    nt = z.shape[0]
+    rows = []
+    for strategy in ("ovo", "ovr"):
+        packed = fits[strategy][2]
+        gamma = packed.kernel.gamma
+        sv_np, cf_np = serving_bank(packed)
+        sv32 = torch.from_numpy(np.ascontiguousarray(sv_np)).to(dev)
+        cf32 = torch.from_numpy(np.ascontiguousarray(cf_np)).to(dev)
+        n_tasks, w, d = sv32.shape
+        for sv_dtype, dt in QUANT_DTYPES.items():
+            svq = sv32.to(dt)
+            up = svq.float()
+            cf = cf32.to(dt).float()   # the coef a quantized pack serves
+            name = f"multitask_decision_{sv_dtype}_bank"
+
+            def kern():
+                return ops.multitask_decision(z, svq, cf, gamma=gamma)
+
+            def fp32():
+                return ops.multitask_decision(z, up, cf, gamma=gamma)
+
+            def plain():
+                return D.multitask_decision_plain(z, svq, cf, gamma=gamma)
+
+            def lib():
+                return library_decision(z, svq.float(), cf, gamma)
+
+            got, want, bits = kern(), plain(), torch.equal(kern(), fp32())
+            n_ops = n_tasks * nt * w * (2 * d + 8)
+            n_bytes = 4 * (nt * d + n_tasks * w + n_tasks * nt) \
+                + 2 * n_tasks * w * d
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            row = {
+                "name": name, "route": "cuda", "source": f"{CSRC}/decision.cu",
+                "replaces": "src/repro/kernels/decision.py:121",
+                "task_axis": strategy, "bank": "largest served",
+                "shape": [n_tasks, nt, w, d], "bank_dtype": sv_dtype,
+                "launches": launches[name], "max_abs_err": max_err(got, want),
+                "bits_equal_fp32_kernel_on_upcast_bank": bits,
+                "ms": median_ms(kern), "device_ms": device_ms(kern),
+                "fp32_ms": median_ms(fp32), "fp32_device_ms": device_ms(fp32),
+                "plain_ms": median_ms(plain),
+                "plain_device_ms": device_ms(plain),
+                "ms_repeat": median_ms(kern),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "fp32_bound_ms": bound_ms(n_bytes + 2 * n_tasks * w * d,
+                                          n_ops)[0],
+                "library_ms": median_ms(lib),
+                "library_device_ms": device_ms(lib),
+                "library_composition": "upcast, then batched cdist, exp, bmm",
+                **redesign_info("decision", (nt, n_tasks, w, d),
+                                bank=sv_dtype)}
+            rows.append(row)
+            check(bits, f"{name}: the {strategy} bank's decisions differ "
+                  "from the fp32 kernel's on the upcast bank")
+            check(bool(torch.allclose(got, want, **DECISION_TOL)),
+                  f"{name}: disagrees with its plain version on the "
+                  f"{strategy} bank")
+    ops.launches.update(saved)
+    return rows
+
+
 def gram_info(G, entry: str, shape) -> dict:
     """The block route's launch plan for an (n, m, d) float32 call on
     this card, and what ptxas reported for the kernel it runs (the
@@ -3208,6 +3767,9 @@ def main() -> int:
         timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
     print(card, flush=True)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    open(LOG_PATH, "w").close()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     _build.library()
@@ -3215,8 +3777,6 @@ def main() -> int:
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
          nvcc_s=_build.build_seconds[0] if _build.build_seconds else None)
 
-    out_dir = os.path.join(HERE, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     counts = phase_kernel_counts(ops, K, dev, n=29491, d=102)
     path = os.path.join(out_dir, "chip_smoke_model.npz")
     xtr, xte, df_engine, fit_launches, _, (ytr, yte, acc, base) = phase_fit(
@@ -3267,12 +3827,14 @@ def main() -> int:
         **phase_data_parallel(ops, data, smo, KE, SVC, SVR, dev, binary,
                               base, mc_configs)}
     del base, mc_configs
+    serving = phase_serving(ops, serve_mod, dev, out_dir, packed, (xte, yte),
+                            fits, split)
     lm, lm_errs, lm_bf16 = phase_lm(ops, FA, SD, dev)
     check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
     paths = {"svc_exact": exact, "svc_linear": linear,
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
              "svr": svr, **mc_paths, **lowrank_paths, **new_paths,
-             "lm_kernels": lm}
+             **serving, "lm_kernels": lm}
     launches = {k: sum(p[k] for p in paths.values()) for k in ops.KERNELS}
     emit(phase="launches", by_path=paths, total=launches)
     for k, v in launches.items():
@@ -3305,10 +3867,17 @@ def main() -> int:
     kernels += phase_timing_lm(ops, FA, SD, dev, errs, launches, lm_bf16)
     kernels += phase_row_range(ops, K, G, dev, xtr, packed.kernel.gamma,
                                launches)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
+    kernels += quantized_bank_rows(ops, D, dev, fits, split[2], launches)
+    for row in kernels:   # the decision kernel's launches by bank dtype
+        if row["name"] == "multitask_decision":
+            row["launches_by_bank"] = {
+                b: launches["multitask_decision" + s] for b, s in (
+                    ("fp32", ""), ("fp16", "_fp16_bank"),
+                    ("bf16", "_bf16_bank"))}
+    out_line({"kernels": kernels})
+    out_line({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}})
     return 0
 
 

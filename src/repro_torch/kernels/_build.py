@@ -46,7 +46,7 @@ SIGNATURES = {
     "svm_decision": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
                      _P, _P, _P],
     "svm_multitask_decision": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                               _I, _I, _I, _I, _I, _P, _P, _P],
+                               _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "svm_rff_features": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
                          _P],
     "svm_dcd_epoch": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -34,6 +34,16 @@
 //   (row tile x task) grid cannot fill the card (`decision_plan`,
 //   kernels/decision.py): split s takes a contiguous run of SV tiles
 //   (whole segments, below).
+// * a quantized bank (fp16 or bf16, from a schema-v3 pack) is read at
+//   its storage dtype, half the bytes, against float32 test rows: its
+//   SV tiles are widened to float32 as they land in shared memory
+//   (tile_f32.cuh's 16-bit stage; loads, not cp.async, so the bank's
+//   copies no longer run ahead of the contraction), and everything after
+//   staging is the float32 kernel's. The widening is exact, so a
+//   quantized bank's decisions are the float32 kernel's on the upcast
+//   bank, bit for bit. The test rows and the bank therefore have types
+//   of their own (TZ, TS): float32 rows with a float32, fp16 or bf16
+//   bank, or bf16 rows with a bf16 bank (bf16 compute).
 // A row's decision does not depend on the plan, its batch or its place
 // in it: the sum is folded in an order fixed by the bank alone. A task's
 // terms cancel (coef = alpha y of both signs, often one class's rows
@@ -74,9 +84,9 @@ __host__ __device__ constexpr int smem_floats(int bm, int chunk, int nch) {
          2 * SV_TILE * row_stride(chunk) + bm + SV_TILE + 4 * bm;
 }
 
-template <typename T, int RM>   // RM test rows a thread: BM = 16 RM
+template <typename TZ, typename TS, int RM>   // RM rows a thread: BM = 16 RM
 __global__ void __launch_bounds__(NT, 2)
-decision_kernel(const T* __restrict__ z, int nt, const T* __restrict__ sv,
+decision_kernel(const TZ* __restrict__ z, int nt, const TS* __restrict__ sv,
                 const float* __restrict__ coef, int w, int d, float gamma,
                 int rbf, int chunk, int seg, int vz, int vs,
                 float2* __restrict__ partial, int* __restrict__ ticket,
@@ -285,8 +295,8 @@ struct Plan {
   int rows, chunk, splits, seg, smem_bytes;
 };
 
-template <typename T, int RM>
-int launch(const T* z, const T* sv, const float* coef, float* out, int nt,
+template <typename TZ, typename TS, int RM>
+int launch(const TZ* z, const TS* sv, const float* coef, float* out, int nt,
            int ntasks, int w, int d, float gamma, int rbf, const Plan& pl,
            float2* partial, int* ticket, int vz, int vs, cudaStream_t s) {
   constexpr int BM = 16 * RM;
@@ -294,7 +304,7 @@ int launch(const T* z, const T* sv, const float* coef, float* out, int nt,
   const int smem = smem_floats(BM, pl.chunk, nch) * 4;
   if (smem != pl.smem_bytes)   // the host's plan sizes the tile otherwise
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = decision_kernel<T, RM>;
+  auto kern = decision_kernel<TZ, TS, RM>;
   static std::atomic<bool> allowed[MAX_DEVICES];
   if (const int e = allow_max_smem(kern, allowed)) return e;
   const dim3 grid((nt + BM - 1) / BM, ntasks, pl.splits);
@@ -303,8 +313,8 @@ int launch(const T* z, const T* sv, const float* coef, float* out, int nt,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const T* z, const T* sv, const float* coef, float* out, int nt,
+template <typename TZ, typename TS>
+int dispatch(const TZ* z, const TS* sv, const float* coef, float* out, int nt,
              int ntasks, int w, int d, float gamma, int rbf, const Plan& pl,
              float2* partial, int* ticket, int vz, int vs, cudaStream_t s) {
   const int ntiles = (w + SV_TILE - 1) / SV_TILE;
@@ -315,15 +325,18 @@ int dispatch(const T* z, const T* sv, const float* coef, float* out, int nt,
       (pl.splits > 1 && (partial == nullptr || ticket == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (pl.rows == 128)
-    return launch<T, 8>(z, sv, coef, out, nt, ntasks, w, d, gamma, rbf, pl,
+    return launch<TZ, TS, 8>(z, sv, coef, out, nt, ntasks, w, d, gamma, rbf, pl,
                         partial, ticket, vz, vs, s);
   if (pl.rows == 64)
-    return launch<T, 4>(z, sv, coef, out, nt, ntasks, w, d, gamma, rbf, pl,
+    return launch<TZ, TS, 4>(z, sv, coef, out, nt, ntasks, w, d, gamma, rbf, pl,
                         partial, ticket, vz, vs, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
+
+// dtype codes of the bank (sv_dtype below)
+constexpr int BANK_FP32 = 0, BANK_FP16 = 1, BANK_BF16 = 2;
 
 extern "C" {
 
@@ -331,33 +344,55 @@ extern "C" {
 // smem_bytes (the block's dynamic shared memory, which must equal this
 // side's count) come from kernels/decision.py's decision_plan; with
 // splits > 1, partial holds (T, ceil(ceil(w / 64) / seg), nt) float2 and
-// ticket T x ceil(nt / rows) ints, all 0.
+// ticket T x ceil(nt / rows) ints, all 0. bf16 says the test rows are
+// bfloat16 (else float32); sv_dtype is the bank's (BANK_*): float32 rows
+// take any, bfloat16 rows a bfloat16 bank.
 int svm_multitask_decision(const void* z, const void* sv, const float* coef,
                            float* out, int nt, int ntasks, int w, int d,
-                           float gamma, int rbf, int bf16, int rows,
-                           int chunk, int splits, int seg, int smem_bytes,
-                           void* partial, void* ticket, void* stream) {
+                           float gamma, int rbf, int bf16, int sv_dtype,
+                           int rows, int chunk, int splits, int seg,
+                           int smem_bytes, void* partial, void* ticket,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* p = static_cast<float2*>(partial);
   int* tk = static_cast<int*>(ticket);
   const Plan pl{rows, chunk, splits, seg, smem_bytes};
-  if (bf16)
-    return dispatch(static_cast<const __nv_bfloat16*>(z),
-                    static_cast<const __nv_bfloat16*>(sv), coef, out, nt,
-                    ntasks, w, d, gamma, rbf, pl, p, tk, 1, 1, s);
-  return dispatch(static_cast<const float*>(z), static_cast<const float*>(sv),
-                  coef, out, nt, ntasks, w, d, gamma, rbf, pl, p, tk,
-                  copy_width(z, d), copy_width(sv, d), s);
+  const auto* zf = static_cast<const float*>(z);
+  const auto* sh = static_cast<const __half*>(sv);
+  const auto* sb = static_cast<const __nv_bfloat16*>(sv);
+  if (bf16) {
+    if (sv_dtype != BANK_BF16) return static_cast<int>(cudaErrorInvalidValue);
+    const auto* zb = static_cast<const __nv_bfloat16*>(z);
+    return dispatch(zb, sb, coef, out, nt, ntasks, w, d, gamma, rbf, pl, p,
+                    tk, copy_width16(zb, d), copy_width16(sb, d), s);
+  }
+  const int vz = copy_width(z, d);
+  switch (sv_dtype) {
+    case BANK_FP32:
+      return dispatch(zf, static_cast<const float*>(sv), coef, out, nt,
+                      ntasks, w, d, gamma, rbf, pl, p, tk, vz,
+                      copy_width(sv, d), s);
+    case BANK_FP16:
+      return dispatch(zf, sh, coef, out, nt, ntasks, w, d, gamma, rbf, pl, p,
+                      tk, vz, copy_width16(sh, d), s);
+    case BANK_BF16:
+      return dispatch(zf, sb, coef, out, nt, ntasks, w, d, gamma, rbf, pl, p,
+                      tk, vz, copy_width16(sb, d), s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// The single-task entry: the same kernel with one task, RBF.
+// The single-task entry: the same kernel with one task, RBF, the bank in
+// the test rows' dtype.
 int svm_decision(const void* z, const void* sv, const float* coef,
                  float* out, int nt, int w, int d, float gamma, int bf16,
                  int rows, int chunk, int splits, int seg, int smem_bytes,
                  void* partial, void* ticket, void* stream) {
   return svm_multitask_decision(z, sv, coef, out, nt, 1, w, d, gamma, 1,
-                                bf16, rows, chunk, splits, seg, smem_bytes,
-                                partial, ticket, stream);
+                                bf16, bf16 ? BANK_BF16 : BANK_FP32, rows,
+                                chunk, splits, seg, smem_bytes, partial,
+                                ticket, stream);
 }
 
 }  // extern "C"

@@ -19,9 +19,12 @@
 //   of a row as one float2 or float4. Rows are `ld` floats apart with
 //   ld / 4 odd, so 8 threads reading 8 different rows at one feature
 //   offset hit 32 different banks.
-// * bfloat16 operands are widened to float32 as they land (ordinary
-//   loads: a copy cannot convert), so products of bf16 values are exact
-//   and accumulate in float32.
+// * bfloat16 and float16 operands are widened to float32 as they land
+//   (ordinary loads, a batch of 8 in flight a thread, of two elements
+//   each where the rows allow: a copy cannot convert), so products of
+//   bf16 or fp16 values are exact and accumulate in float32. The
+//   widening is exact, so a 16-bit operand gives the bits its float32
+//   upcast gives.
 //
 // All products are IEEE float32 fmaf (no TF32: the parity bounds against
 // the float32 reference do not allow it).
@@ -29,6 +32,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -56,6 +60,13 @@ inline int copy_width(const void* p, int len) {
   if (a % 16 == 0 && len % 4 == 0) return 4;
   if (a % 8 == 0 && len % 2 == 0) return 2;
   return 1;
+}
+
+// The same for a 16-bit matrix, in elements: 2 where every row's pairs
+// are 4-byte aligned, else 1.
+template <typename H>
+inline int copy_width16(const H* p, int len) {
+  return reinterpret_cast<uintptr_t>(p) % 4 == 0 && len % 2 == 0 ? 2 : 1;
 }
 
 // Lets `kern` take all the dynamic shared memory a block may opt in to
@@ -137,18 +148,79 @@ __device__ __forceinline__ void stage(float* s, int ld, const float* g,
     stage_copy<NT, 1>(s, ld, g, len, row0, nrows, col0, rows, width);
 }
 
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
+__device__ __forceinline__ float2 widen2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 widen2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+
+// A 16-bit operand: loads of VEC elements (1, or 2 when the rows' pairs
+// are aligned: copy_width16), BATCH of them issued a thread before any
+// is widened and stored, so the loads overlap.
+template <int NT, int VEC, typename H>
+__device__ __forceinline__ void stage_widen(float* s, int ld, const H* g,
+                                            int len, int row0, int nrows,
+                                            int col0, int rows, int width) {
+  constexpr int BATCH = 8;
+  const int per = width / VEC, total = rows * per;
+  for (int e0 = threadIdx.x; e0 < total; e0 += NT * BATCH) {
+    float2 v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int e = e0 + u * NT;
+      const int r = e / per, c = (e - r * per) * VEC;
+      const int gr = row0 + r, gc = col0 + c;
+      v[u] = make_float2(0.f, 0.f);
+      if (e < total && gr < nrows && gc < len) {   // VEC divides len, gc
+        const H* p = g + (size_t)gr * len + gc;
+        if constexpr (VEC == 2)
+          v[u] = widen2(p);
+        else
+          v[u].x = widen(*p);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int e = e0 + u * NT;
+      if (e >= total) break;
+      const int r = e / per, c = (e - r * per) * VEC;
+      s[r * ld + c] = v[u].x;
+      if constexpr (VEC == 2) s[r * ld + c + 1] = v[u].y;
+    }
+  }
+}
+
+// bfloat16 and float16: loads widened to float32 (`vec` from
+// copy_width16, or 1).
+template <int NT, typename H>
+__device__ __forceinline__ void stage16(float* s, int ld, const H* g,
+                                        int len, int row0, int nrows,
+                                        int col0, int rows, int width,
+                                        int vec) {
+  if (vec == 2)
+    stage_widen<NT, 2>(s, ld, g, len, row0, nrows, col0, rows, width);
+  else
+    stage_widen<NT, 1>(s, ld, g, len, row0, nrows, col0, rows, width);
+}
+
 template <int NT>
 __device__ __forceinline__ void stage(float* s, int ld,
                                       const __nv_bfloat16* g, int len,
                                       int row0, int nrows, int col0, int rows,
-                                      int width, int /*vec*/) {
-  for (int e = threadIdx.x; e < rows * width; e += NT) {
-    const int r = e / width, c = e - r * width;
-    const int gr = row0 + r, gc = col0 + c;
-    s[r * ld + c] = gr < nrows && gc < len
-                        ? __bfloat162float(g[(size_t)gr * len + gc])
-                        : 0.f;
-  }
+                                      int width, int vec) {
+  stage16<NT>(s, ld, g, len, row0, nrows, col0, rows, width, vec);
+}
+
+template <int NT>
+__device__ __forceinline__ void stage(float* s, int ld, const __half* g,
+                                      int len, int row0, int nrows, int col0,
+                                      int rows, int width, int vec) {
+  stage16<NT>(s, ld, g, len, row0, nrows, col0, rows, width, vec);
 }
 
 __device__ __forceinline__ float2 ld2(const float* p) {

@@ -4,7 +4,10 @@ The CUDA kernels (``csrc/decision.cu``) replace ``decision_pallas`` and
 ``multitask_decision_pallas`` (``repro/kernels/decision.py``): the
 kernel block K(z, SV) is contracted with coef on the fly and never
 stored. Operands come at the compute precision (float32 or bfloat16),
-coef in float32; the bias is added by the caller.
+coef in float32; the bias is added by the caller. Under float32 compute
+the multitask kernel also reads a quantized (float16 or bfloat16) bank
+at its storage dtype, widening it as it is staged, with the float32
+kernel's bits on the upcast bank; the plain version upcasts it.
 ``ops.decision`` / ``ops.multitask_decision`` are the checked entry
 points. ``decision_plan`` picks the kernel's tile and how many blocks
 share a task's SV axis; ``scratch`` holds what split launches need.
@@ -25,6 +28,8 @@ from repro_torch.kernels.tile_f32 import H100_SMS, current_stream, \
 
 SV_TILE = 64        # SVs a ring stage of csrc/decision.cu holds
 MAX_SEGMENTS = 64   # partial sums a (task, row) a split launch keeps
+# the bank dtypes the kernel reads, by csrc/decision.cu's BANK_* codes
+BANK_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 class DecisionPlan(NamedTuple):
@@ -167,11 +172,14 @@ def launch_decision(lib, z, x, coef, out, *, gamma: float,
 def launch_multitask(lib, z, sv, coef, out, *, gamma: float, mode: str,
                      plan: DecisionPlan, partial=None, ticket=None,
                      stream: int | None = None) -> int:
+    """The kernel over a (T, w, d) bank at its own dtype (``BANK_DTYPES``:
+    float32, float16 or bfloat16 against float32 rows; bfloat16 against
+    bfloat16 rows)."""
     nt, d = z.shape
     n_tasks, w, _ = sv.shape
     return lib.svm_multitask_decision(
         z.data_ptr(), sv.data_ptr(), coef.data_ptr(), out.data_ptr(), nt,
         n_tasks, w, d, float(gamma), int(mode == "rbf"),
-        int(z.dtype == torch.bfloat16), plan.rows, plan.chunk, plan.splits,
-        plan.seg, plan.smem_bytes, _ptr(partial), _ptr(ticket),
-        current_stream() if stream is None else stream)
+        int(z.dtype == torch.bfloat16), BANK_DTYPES[sv.dtype], plan.rows,
+        plan.chunk, plan.splits, plan.seg, plan.smem_bytes, _ptr(partial),
+        _ptr(ticket), current_stream() if stream is None else stream)

@@ -36,11 +36,14 @@ from repro_torch.kernels.tile_f32 import current_stream
 # row and a cached-row one, the last three also over a row range (one
 # rank's rows of the data-parallel SMO: "*_range", counted apart from
 # whole calls); a launch with the task axis (a multiclass bucket, the
-# tasks of a multiclass low-rank fit) counts once, whatever T
+# tasks of a multiclass low-rank fit) counts once, whatever T; a
+# multitask_decision launch over a quantized (fp16 / bf16) bank under
+# float32 compute counts apart, under "*_bank"
 KERNELS = ("rbf_gram", "rbf_gram_matvec", "rbf_gram_row",
            "rbf_gram_row_cached", "rbf_gram_matvec_range",
            "rbf_gram_row_range", "rbf_gram_row_cached_range", "kkt_select",
-           "decision", "multitask_decision", "rff_features", "dcd_epoch",
+           "decision", "multitask_decision", "multitask_decision_fp16_bank",
+           "multitask_decision_bf16_bank", "rff_features", "dcd_epoch",
            "flash_attention", "ssd_diag")
 
 # the largest rank dcd_epoch takes: w must fit the 232,448 bytes of
@@ -356,7 +359,11 @@ def kkt_select(f: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor,
 
 
 # --------------------------------------------------------------- decision
-def _decision_operands(name, z, sv, coef, compute_dtype):
+def _decision_operands(name, z, sv, coef, compute_dtype, *,
+                       keep_half_bank: bool = False):
+    """Test rows and bank at the compute dtype, coef in float32; with
+    ``keep_half_bank``, a float16 or bfloat16 bank under float32 compute
+    stays at its storage dtype (the kernel widens it as it stages it)."""
     dt = tile_dtype(compute_dtype)
     if z.ndim != 2 or z.shape[1] != sv.shape[-1]:
         raise ValueError(f"{name}: need (nt, d) test rows matching the "
@@ -365,7 +372,10 @@ def _decision_operands(name, z, sv, coef, compute_dtype):
     if coef.shape != sv.shape[:-1]:
         raise ValueError(f"{name}: coef shape {tuple(coef.shape)} != bank "
                          f"shape {tuple(sv.shape[:-1])}")
-    return z.to(dt), sv.to(dt), coef.to(torch.float32)
+    half = sv.dtype in (torch.float16, torch.bfloat16)
+    bank_dt = sv.dtype if keep_half_bank and half and dt == torch.float32 \
+        else dt
+    return z.to(dt), sv.to(bank_dt), coef.to(torch.float32)
 
 
 def decision(z: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
@@ -400,13 +410,16 @@ def multitask_decision(z: torch.Tensor, sv: torch.Tensor,
                        gamma: float = 1.0, mode: str = "rbf",
                        compute_dtype: str = "fp32") -> torch.Tensor:
     """f_t(z) = K(z, SV_t) @ coef_t + b_t for a stacked (T, w, d) bank:
-    (T, nt) float32. A width-0 bank (no support vectors anywhere)
-    short-circuits to the broadcast bias."""
+    (T, nt) float32. Under float32 compute a float16 or bfloat16 bank (a
+    quantized pack's) is read at that dtype, not copied: its launches
+    count under ``multitask_decision_fp16_bank`` / ``_bf16_bank``. A
+    width-0 bank (no support vectors anywhere) short-circuits to the
+    broadcast bias."""
     _check_mode(mode)
     if sv.ndim != 3:
         raise ValueError("multitask_decision: sv must be (T, w, d)")
     z, sv, coef = _decision_operands("multitask_decision", z, sv, coef,
-                                     compute_dtype)
+                                     compute_dtype, keep_half_bank=True)
     n_tasks, w, _ = sv.shape
     bias = (None if b is None
             else b.to(torch.float32).reshape(n_tasks, 1))
@@ -427,11 +440,19 @@ def multitask_decision(z: torch.Tensor, sv: torch.Tensor,
     partial, ticket = _decision.scratch(plan, n_tasks, z.shape[0], z.device,
                                         stream)
     lib = _build.library()
-    _count("multitask_decision")
+    _count(_BANK_COUNTS[(z.dtype, sv.dtype)])
     _raise_on_error("multitask_decision", _decision.launch_multitask(
         lib, z, sv, coef, out, gamma=gamma, mode=mode, plan=plan,
         partial=partial, ticket=ticket, stream=stream))
     return out if bias is None else out + bias
+
+
+# the launch count of a multitask_decision call, by (rows, bank) dtype
+_BANK_COUNTS = {(torch.float32, torch.float32): "multitask_decision",
+                (torch.bfloat16, torch.bfloat16): "multitask_decision",
+                (torch.float32, torch.float16): "multitask_decision_fp16_bank",
+                (torch.float32, torch.bfloat16):
+                    "multitask_decision_bf16_bank"}
 
 
 # ----------------------------------------------------------- rff_features

@@ -1,7 +1,6 @@
 """Packed model artifacts — the immutable, serving-side form of a fit.
 
-Mirrors the fp32 parts of ``repro/serve/artifact.py``. A
-``PackedModel`` holds either
+Mirrors ``repro/serve/artifact.py``. A ``PackedModel`` holds either
 
 * serving buckets — stacked, zero-padded SV banks ``sv_x`` /
   ``sv_coef`` / ``b``: one bucket for a binary SVC (kind "svc") or an
@@ -17,13 +16,21 @@ Mirrors the fp32 parts of ``repro/serve/artifact.py``. A
 plus the kernel parameters, the class table, the vote-routing ``pairs``
 and the OvO ``decision``, all as numpy arrays. ``save`` / ``load`` read
 and write the reference's versioned ``.npz`` format
-(``repro.svm-pack``) byte for byte: SV-bank packs write version 1,
-low-rank packs version 2 (meta ``feature_map``, arrays ``fm_a`` /
-``fm_b`` / ``linear_w`` / ``linear_b``), so an artifact written by
-either package loads in the other.
+(``repro.svm-pack``) array for array: fp32 SV-bank packs write version
+1, low-rank packs version 2 (meta ``feature_map``, arrays ``fm_a`` /
+``fm_b`` / ``linear_w`` / ``linear_b``), quantized packs version 3, so
+an artifact written by either package loads in the other.
 
-Not ported yet, and raising NotImplementedError until its slice:
-quantized banks (schema v3, ROADMAP A.10).
+Quantized SV banks (``pack(..., sv_dtype="fp16" | "bf16")`` or
+``quantize`` on a pack) store ``sv_x`` / ``sv_coef`` at half precision
+— half the artifact and half the device-resident bank — while biases,
+counts and routing stay float32 / int64. Version 3 records
+``meta.sv_dtype``. numpy has no bfloat16 (and this package does not
+need ``ml_dtypes``), so a bf16 bank is held as its uint16 bit pattern,
+which is also what the npz stores; the ``Predictor`` views it as
+``torch.bfloat16`` on the device. Rounding is to nearest, ties to even,
+as numpy (fp16) and ``ml_dtypes`` (bf16) round, so a bank quantized
+here has the reference's bits.
 """
 from __future__ import annotations
 
@@ -39,17 +46,57 @@ from repro_torch.core import kernels as K
 SCHEMA_NAME = "repro.svm-pack"
 SCHEMA_VERSION = 2                  # current writer for low-rank packs
 SCHEMA_VERSION_CLASSIC = 1          # fp32 SV-bank packs
-SCHEMA_VERSIONS = (1, 2)            # what this port's load() accepts
-_LATER = {3: "quantized SV banks (ROADMAP A.10)"}
+SCHEMA_VERSION_QUANT = 3            # quantized (fp16 / bf16) SV-bank packs
+SCHEMA_VERSIONS = (1, 2, 3)         # what load() accepts
+
+# storage dtypes of the SV bank (sv_x / sv_coef) as numpy holds them: a
+# bf16 bank as its uint16 bit pattern (see the module docstring)
+SV_DTYPES = {"fp32": np.float32, "fp16": np.float16, "bf16": np.uint16}
+
+
+def bf16_bits(a) -> np.ndarray:
+    """uint16 bit patterns of float32 values rounded to bfloat16, to
+    nearest with ties to even (a NaN becomes the quiet NaN of its
+    sign), as ``ml_dtypes`` rounds."""
+    a = np.ascontiguousarray(a, np.float32)
+    u = a.view(np.uint32)
+    bits = ((u + (0x7FFF + ((u >> 16) & 1))) >> 16).astype(np.uint16)
+    nan = np.isnan(a)
+    if nan.any():
+        bits[nan] = np.where(np.signbit(a[nan]), 0xFFC0, 0x7FC0)
+    return bits
+
+
+def bank_f32(a, sv_dtype: str) -> np.ndarray:
+    """float32 values of a bank stored at ``sv_dtype`` (exact: every
+    fp16 and bf16 value is a float32)."""
+    if sv_dtype == "bf16":
+        return (np.asarray(a, np.uint16).astype(np.uint32) << 16).view(
+            np.float32)
+    return np.asarray(a, np.float32)
+
+
+def _store(a32: np.ndarray, sv_dtype: str) -> np.ndarray:
+    """float32 values at the storage dtype, rounded to nearest even."""
+    if sv_dtype == "bf16":
+        return bf16_bits(a32)
+    return np.asarray(a32, SV_DTYPES[sv_dtype])
+
+
+def _check_sv_dtype(sv_dtype: str) -> None:
+    if sv_dtype not in SV_DTYPES:
+        raise ValueError(f"unknown sv_dtype {sv_dtype!r}; expected one of "
+                         f"{sorted(SV_DTYPES)}")
 
 
 class TaskBucket(NamedTuple):
     """One serving bucket: tasks stacked at a common (padded) SV width;
-    padding rows carry ``sv_coef == 0``."""
+    padding rows carry ``sv_coef == 0``. ``sv_x`` / ``sv_coef`` are at
+    the pack's ``sv_dtype`` (``SV_DTYPES``), the rest float32 / int64."""
 
     task_ids: np.ndarray   # (T,)   int64 global task index per stacked row
-    sv_x: np.ndarray       # (T, w, d) float32 support vectors, zero-padded
-    sv_coef: np.ndarray    # (T, w) float32 alpha_i * y_i
+    sv_x: np.ndarray       # (T, w, d) support vectors, zero-padded
+    sv_coef: np.ndarray    # (T, w) alpha_i * y_i
     b: np.ndarray          # (T,)   float32 biases
     sv_counts: np.ndarray  # (T,)   int64 real SV count per stacked task
 
@@ -96,8 +143,10 @@ class PackedModel:
     feature_map: Optional[LowRankMap] = None
     linear_w: Optional[np.ndarray] = None   # (n_tasks, rank)
     linear_b: Optional[np.ndarray] = None   # (n_tasks,)
+    sv_dtype: str = "fp32"                  # sv_x / sv_coef storage dtype
 
     def __post_init__(self):
+        _check_sv_dtype(self.sv_dtype)
         if (self.kind, self.strategy) not in _KINDS:
             raise ValueError(f"unknown pack kind/strategy "
                              f"{self.kind}/{self.strategy}; expected one of "
@@ -110,6 +159,11 @@ class PackedModel:
             raise ValueError(f"a {self.strategy} pack needs its classes and "
                              f"a ({self.n_tasks}, 2) pairs table")
         if self.feature_map is not None:
+            if self.sv_dtype != "fp32":
+                raise ValueError(
+                    "sv_dtype quantization applies to SV banks; a "
+                    "low-rank pack has no SV bank (its artifact is "
+                    "already O(rank))")
             if self.buckets:
                 raise ValueError("a low-rank pack carries linear weights, "
                                  "not SV buckets; got both")
@@ -128,6 +182,13 @@ class PackedModel:
             raise ValueError(
                 f"buckets must cover task ids 0..{self.n_tasks - 1} "
                 f"exactly once, got {ids.tolist()}")
+        want = np.dtype(SV_DTYPES[self.sv_dtype])
+        for g in self.buckets:
+            if g.sv_x.dtype != want or g.sv_coef.dtype != want:
+                raise ValueError(
+                    f"an sv_dtype {self.sv_dtype!r} pack stores its banks "
+                    f"as {want}, got sv_x {g.sv_x.dtype} and sv_coef "
+                    f"{g.sv_coef.dtype}")
 
     @property
     def n_support(self) -> int:
@@ -215,31 +276,60 @@ def _pack_lowrank(model) -> PackedModel:
         linear_w=w, linear_b=bias)
 
 
-def pack(model) -> PackedModel:
+def quantize(model: PackedModel, sv_dtype: str) -> PackedModel:
+    """Re-store an SV-bank pack's ``sv_x`` / ``sv_coef`` at ``sv_dtype``
+    ("fp32" | "fp16" | "bf16"); biases, counts and routing stay as they
+    are. A quantized pack is re-rounded from its stored values (widening
+    gives them back exactly; keep the fp32 pack if you may need it)."""
+    _check_sv_dtype(sv_dtype)
+    if model.feature_map is not None:
+        raise ValueError("sv_dtype quantization applies to SV banks; a "
+                         "low-rank pack has no SV bank")
+    if sv_dtype == model.sv_dtype:
+        return model
+    buckets = tuple(
+        g._replace(sv_x=_store(bank_f32(g.sv_x, model.sv_dtype), sv_dtype),
+                   sv_coef=_store(bank_f32(g.sv_coef, model.sv_dtype),
+                                  sv_dtype))
+        for g in model.buckets)
+    return dataclasses.replace(model, buckets=buckets, sv_dtype=sv_dtype)
+
+
+def pack(model, *, sv_dtype: str = "fp32") -> PackedModel:
     """Compact a fitted ``SVC`` (binary or multiclass) or ``SVR`` into an
-    immutable PackedModel (duck-typed on the fitted attributes)."""
+    immutable PackedModel (duck-typed on the fitted attributes).
+    ``sv_dtype`` ("fp32", "fp16" | "bf16") quantizes the stored SV bank
+    (``quantize``); low-rank fits reject quantization."""
     if not getattr(model, "_fitted", False):
         raise ValueError("pack() needs a fitted model (call .fit first)")
     if getattr(model, "_feature_map", None) is not None:
+        if sv_dtype != "fp32":
+            raise ValueError("sv_dtype quantization applies to SV banks; "
+                             "a low-rank fit packs no SV bank")
         return _pack_lowrank(model)
     if hasattr(model, "beta_"):
-        return _pack_svr(model)
-    if not model._binary:
-        return _pack_multiclass_svc(model)
-    return PackedModel.from_numpy(kernel=model.kernel_params,
-                                  sv_x=model.support_vectors_,
-                                  sv_coef=model.dual_coef_, b=model.b_,
-                                  classes=model.classes_)
+        packed = _pack_svr(model)
+    elif not model._binary:
+        packed = _pack_multiclass_svc(model)
+    else:
+        packed = PackedModel.from_numpy(kernel=model.kernel_params,
+                                        sv_x=model.support_vectors_,
+                                        sv_coef=model.dual_coef_, b=model.b_,
+                                        classes=model.classes_)
+    return quantize(packed, sv_dtype) if sv_dtype != "fp32" else packed
 
 
 def save(path, model: PackedModel) -> None:
     """Write the .npz artifact (path or open file object): version 1 for
-    an SV-bank pack, 2 for a low-rank one. The path is written verbatim
-    (no ".npz" appended)."""
+    an fp32 SV-bank pack, 2 for a low-rank one, 3 for a quantized one
+    (``meta.sv_dtype``; a bf16 bank as its uint16 bits). The path is
+    written verbatim (no ".npz" appended)."""
     lowrank = model.feature_map is not None
+    quant = model.sv_dtype != "fp32"
     meta = {
         "schema": SCHEMA_NAME,
-        "version": SCHEMA_VERSION if lowrank else SCHEMA_VERSION_CLASSIC,
+        "version": (SCHEMA_VERSION_QUANT if quant else SCHEMA_VERSION
+                    if lowrank else SCHEMA_VERSION_CLASSIC),
         "kind": model.kind, "strategy": model.strategy,
         "decision": model.decision,
         "kernel": dataclasses.asdict(model.kernel),
@@ -248,6 +338,8 @@ def save(path, model: PackedModel) -> None:
     }
     if lowrank:
         meta["feature_map"] = model.feature_map.kind
+    if quant:
+        meta["sv_dtype"] = model.sv_dtype
     arrays = {"meta": np.array(json.dumps(meta, sort_keys=True))}
     if model.classes is not None:
         arrays["classes"] = model.classes
@@ -269,22 +361,21 @@ def save(path, model: PackedModel) -> None:
 
 
 def load(path) -> PackedModel:
-    """Read a schema-v1 or v2 artifact written by either package; strict
-    about the schema."""
+    """Read a schema v1, v2 or v3 artifact written by either package;
+    strict about the schema."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         if meta.get("schema") != SCHEMA_NAME:
             raise ValueError(f"not a {SCHEMA_NAME} artifact: "
                              f"schema={meta.get('schema')!r}")
-        version = meta.get("version")
-        if version in _LATER:
-            raise NotImplementedError(
-                f"{SCHEMA_NAME} version {version} is not ported yet; it "
-                f"comes with {_LATER[version]}")
-        if version not in SCHEMA_VERSIONS:
-            raise ValueError(f"unsupported {SCHEMA_NAME} version "
-                             f"{version!r} (this build reads versions "
-                             f"{list(SCHEMA_VERSIONS)})")
+        if meta.get("version") not in SCHEMA_VERSIONS:
+            raise ValueError(
+                f"unsupported {SCHEMA_NAME} version {meta.get('version')!r}"
+                f" (this build reads versions {list(SCHEMA_VERSIONS)})")
+        sv_dtype = meta.get("sv_dtype", "fp32")
+        if sv_dtype not in SV_DTYPES:
+            raise ValueError(f"unsupported sv_dtype {sv_dtype!r} "
+                             f"(this build reads {sorted(SV_DTYPES)})")
         buckets = tuple(
             TaskBucket(**{f: z[f"b{i}_{f}"] for f in TaskBucket._fields})
             for i in range(meta["n_buckets"]))
@@ -302,4 +393,5 @@ def load(path) -> PackedModel:
             decision=meta["decision"],
             classes=z["classes"] if "classes" in z else None,
             pairs=np.asarray(z["pairs"], np.int64) if "pairs" in z
-            else None, feature_map=fm, linear_w=w, linear_b=lb)
+            else None, feature_map=fm, linear_w=w, linear_b=lb,
+            sv_dtype=sv_dtype)

@@ -1,10 +1,19 @@
 """Batched serving engine: device-resident SV banks and one decide
 program per (bank signature, batch bucket).
 
-Mirrors ``repro/serve/predictor.py`` (fp32 banks):
+Mirrors ``repro/serve/predictor.py``:
 
 * the packed SV bank is moved to the device once, at construction, and
-  stays resident;
+  stays resident — at the pack's storage dtype: a quantized pack
+  (``sv_dtype`` "fp16" | "bf16", schema v3) keeps half the bytes of an
+  fp32 one on the device. With ``engine="pallas"`` the decision kernel
+  reads such a bank as it is (widening it to float32 as it stages it,
+  float32 accumulation), so no request copies it; the chunked config
+  upcasts it per call (it is the plain path). Only ``sv_coef``, 1/d of
+  the bank, is upcast once, at construction. Under bf16 compute
+  (``gram_dtype="bf16"``) a bf16 bank goes as is and an fp16 one is
+  rounded once to bf16 at construction (fp16 -> float32 is exact, then
+  to nearest even), which is what the reference computes;
 * a request is cut into slices of at most ``max_batch`` rows, and each
   slice is zero-padded up to the next power of two (capped at
   ``max_batch``), so arbitrary request sizes reuse a small warm set of
@@ -46,7 +55,7 @@ from repro_torch.core import approx
 from repro_torch.core import kernel_engine as KE
 from repro_torch.core import multiclass as MC
 from repro_torch.kernels import ops
-from repro_torch.serve.artifact import PackedModel
+from repro_torch.serve.artifact import PackedModel, bank_f32, bf16_bits
 
 
 def serving_config(engine: str | KE.EngineConfig) -> KE.EngineConfig:
@@ -85,11 +94,12 @@ class Predictor:
         # the cap is on-ladder and never exceeds what the caller asked
         self.max_batch = _pow2_floor(max_batch)
         self.engine_cfg = serving_config(engine)
-        # SV banks move to the device once and stay resident; task_ids
-        # stay on the host (they only scatter results into place)
+        # SV banks move to the device once and stay resident, at their
+        # storage dtype; task_ids stay on the host (they only scatter
+        # results into place)
         self._banks = tuple(
-            (torch.from_numpy(np.asarray(g.sv_x, np.float32)).to(self.device),
-             torch.from_numpy(np.asarray(g.sv_coef, np.float32))
+            (self._resident_bank(g.sv_x),
+             torch.from_numpy(bank_f32(g.sv_coef, model.sv_dtype))
              .to(self.device),
              torch.from_numpy(np.asarray(g.b, np.float32)).to(self.device),
              np.asarray(g.task_ids))
@@ -106,9 +116,23 @@ class Predictor:
         self._program_sigs: set = set()
         self._lock = threading.Lock()
 
+    def _resident_bank(self, sv_x: np.ndarray) -> torch.Tensor:
+        """A bank on the device at its storage dtype: float32, float16,
+        or bfloat16 viewed from its uint16 bits; an fp16 bank under bf16
+        compute rounded once to bf16."""
+        sv_dtype = self.model.sv_dtype
+        if sv_dtype == "fp16" and self.engine_cfg.gram_dtype == "bf16":
+            sv_x, sv_dtype = bf16_bits(np.asarray(sv_x, np.float32)), "bf16"
+        if sv_dtype == "bf16":
+            bits = np.ascontiguousarray(sv_x, np.uint16).view(np.int16)
+            return torch.from_numpy(bits).view(torch.bfloat16).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(sv_x)).to(self.device)
+
     # ---------------------------------------------------------- programs
     def _decide_stack(self, sv_x, sv_coef, b, z):
-        """(T, w, d) stacked bank x (B, d) batch -> (T, B) decisions."""
+        """(T, w, d) stacked bank x (B, d) batch -> (T, B) decisions. The
+        kernel reads the bank at its storage dtype; the chunked path
+        upcasts it for the call."""
         kp = self.model.kernel
         if self.engine_cfg.backend == "pallas" and kp.name == "rbf":
             return ops.multitask_decision(
@@ -116,7 +140,7 @@ class Predictor:
                 compute_dtype=self.engine_cfg.gram_dtype)
         return torch.stack([
             KE.make_engine(sv, kp, self.engine_cfg).decide(z, cf, bb)
-            for sv, cf, bb in zip(sv_x, sv_coef, b)])
+            for sv, cf, bb in zip(sv_x.to(torch.float32), sv_coef, b)])
 
     @property
     def n_programs(self) -> int:

@@ -27,6 +27,9 @@ so does a bucket's batched GD (its sums accumulate in float64). The
 GD loop on the card follows the CPU's to rtol 1e-4 / atol 1e-4 at a
 stable step; cascades certify at 1e-3 on the card, and one shard is the
 unsharded fit bit for bit.
+A quantized (fp16 / bf16) bank, read by the decision kernel at its
+storage dtype, gives the float32 kernel's bits on the upcast bank, and
+a row of a quantized pack served alone its bits in a batch.
 The row-range entries (one rank's block of rows, for the data-parallel
 SMO) give the whole call's slice bit for bit, and a sharded solve over
 two thread ranks on the card equals ``solve_qp`` there bit for bit.
@@ -492,15 +495,15 @@ def test_decision_kernels_match_plain(cuda, dtype):  # noqa: F811
             z.to(dt), sv[0].to(dt), cf[0], gamma=0.01), **DECISION_TOL)
 
 
-def _cancelling_bank(cuda, nt, w, d, gamma):  # noqa: F811
+def _cancelling_bank(cuda, nt, w, d, gamma, bank=torch.float32):  # noqa: F811
     """Decisions over 2 banks of w SVs whose coefficients are +1 for one
     class's rows, then -1 for the other's (as a compacted OvO task
-    stores them): the kernel within DECISION_TOL of its plain version,
-    and no further from a float64 evaluation than twice the plain
-    version is."""
+    stores them), the bank stored at ``bank``: the kernel within
+    DECISION_TOL of its plain version, and no further from a float64
+    evaluation (of the stored values) than twice the plain version is."""
     rng = np.random.default_rng(9)
     z = tt(rng.normal(size=(nt, d)), device=cuda)
-    sv = tt(rng.normal(size=(2, w, d)), device=cuda)
+    sv = tt(rng.normal(size=(2, w, d)), device=cuda).to(bank)
     cf = tt(np.repeat([[1.0] * (w // 2) + [-1.0] * (w - w // 2)], 2, 0),
             device=cuda)
     got = ops.multitask_decision(z, sv, cf, gamma=gamma)
@@ -617,6 +620,102 @@ def test_served_rows_alone_equal_the_batch(cuda, tmp_path):  # noqa: F811
     pred = serve.Predictor(packed, engine="pallas", device=cuda)
     z = np.resize(xte, (1024, d))
     df, labels = pred.decision_function(z), pred.predict(z)
+    for i in (0, 5, 500, 1023):
+        np.testing.assert_array_equal(pred.decision_function(z[i:i + 1]),
+                                      df[..., i:i + 1])   # (T, rows)
+        np.testing.assert_array_equal(pred.predict(z[i:i + 1]),
+                                      labels[i:i + 1])
+
+
+QUANT_BANKS = {"fp16": torch.float16, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("bank", ["fp16", "bf16"])
+@pytest.mark.parametrize("nt,tasks,w,d", [
+    (1024, 6, 986, 102),    # the overlapping OvO bank
+    (1024, 3, 3792, 102),   # the largest OvR bank
+    (65, 3, 700, 129),      # features in chunks of 64, 64 and 4
+    (200, 2, 257, 300),     # five chunks, ragged w
+    (37, 4, 70, 7),         # odd d: one element a load
+    (1, 1, 5, 3)])
+def test_quantized_bank_equals_fp32_kernel_on_upcast_bank(cuda, bank, nt,  # noqa: F811
+                                                          tasks, w, d):
+    """An fp16 / bf16 bank read at its storage dtype gives the float32
+    kernel's bits on the upcast bank (the widening is exact), under
+    64- and 128-row tiles, split and unsplit plans, both modes, and from
+    a bank whose rows are not 4-byte aligned; its launches count under
+    the bank's own name."""
+    rng = np.random.default_rng(nt + w + d)
+    z = tt(rng.normal(size=(nt, d)), device=cuda)
+    svq = tt(rng.normal(size=(tasks, w, d)), device=cuda).to(QUANT_BANKS[bank])
+    up = svq.float()
+    cf = tt(rng.normal(size=(tasks, w)), device=cuda)
+    gamma = 1.0 / d
+    lib = _build.library()
+    full = D.decision_plan(nt, tasks, w, d)
+    for rows in (64, 128):
+        for splits in sorted({1, 2, full.segments} & set(
+                range(1, full.segments + 1))):
+            plan = D.plan_with(nt, tasks, w, d, rows, splits)
+            part, tick = D.scratch(plan, tasks, nt, z.device,
+                                   current_stream())
+            outs = []
+            for sv in (svq, up):
+                out = torch.full((tasks, nt), float("nan"), device=cuda)
+                assert D.launch_multitask(lib, z, sv, cf, out, gamma=gamma,
+                                          mode="rbf", plan=plan, partial=part,
+                                          ticket=tick) == 0
+                outs.append(out)
+            assert torch.equal(outs[0], outs[1]), plan
+    shifted = torch.empty(svq.numel() + 1, dtype=svq.dtype, device=cuda)
+    shifted[1:] = svq.reshape(-1)
+    unaligned = shifted[1:].view(svq.shape)     # 2 bytes off 4
+    ops.reset_launches()
+    for mode in ("rbf", "linear"):
+        want = ops.multitask_decision(z, up, cf, gamma=gamma, mode=mode)
+        assert torch.equal(ops.multitask_decision(z, svq, cf, gamma=gamma,
+                                                  mode=mode), want)
+        assert torch.equal(ops.multitask_decision(z, unaligned, cf,
+                                                  gamma=gamma, mode=mode),
+                           want)
+    assert ops.launches[f"multitask_decision_{bank}_bank"] == 4
+    assert ops.launches["multitask_decision"] == 2
+
+
+@pytest.mark.parametrize("bank", ["fp16", "bf16"])
+@pytest.mark.parametrize("w", [1500, 3792])
+def test_quantized_bank_holds_decision_tol(cuda, bank, w):  # noqa: F811
+    """The cancelling banks of the float32 cases stored at fp16 / bf16
+    (the widest split over blocks): DECISION_TOL against the plain
+    version on the upcast bank, and no further from the float64 sum
+    than twice the plain version is."""
+    _cancelling_bank(cuda, 512, w, 102, 0.005, bank=QUANT_BANKS[bank])
+
+
+@pytest.mark.parametrize("sv_dtype", ["fp16", "bf16"])
+def test_quantized_served_rows_alone_equal_the_batch(cuda, tmp_path,  # noqa: F811
+                                                     sv_dtype):
+    """A v3 pack served from its storage dtype: rows served one at a time
+    give the bits and labels they get inside a 1,024-row request, equal
+    to the fp32 kernel's on the upcast pack, and the resident bank takes
+    half the fp32 bytes."""
+    x, y = load_pavia_like(n_per_class=600, n_classes=5, seed=7, noise=5.0)
+    xtr, ytr, xte, _ = train_test_split(normalize(x), y, test_frac=0.25)
+    clf = SVC(strategy="ovo", engine="pallas", device=cuda).fit(xtr, ytr)
+    serve.save(tmp_path / "q.npz", serve.pack(clf, sv_dtype=sv_dtype))
+    packed = serve.load(tmp_path / "q.npz")
+    pred = serve.Predictor(packed, engine="pallas", device=cuda)
+    upcast = serve.Predictor(serve.quantize(packed, "fp32"), engine="pallas",
+                             device=cuda)
+    for (sv, cf, _, _), (usv, _, _, _) in zip(pred._banks, upcast._banks):
+        assert sv.dtype == QUANT_BANKS[sv_dtype] and cf.dtype == torch.float32
+        assert 2 * sv.nbytes == usv.nbytes
+    z = np.resize(xte, (1024, xte.shape[1]))
+    ops.reset_launches()
+    df, labels = pred.decision_function(z), pred.predict(z)
+    assert ops.launches[f"multitask_decision_{sv_dtype}_bank"] > 0
+    assert ops.launches["multitask_decision"] == 0
+    np.testing.assert_array_equal(df, upcast.decision_function(z))
     for i in (0, 5, 500, 1023):
         np.testing.assert_array_equal(pred.decision_function(z[i:i + 1]),
                                       df[..., i:i + 1])   # (T, rows)

@@ -187,18 +187,22 @@ def test_unported_artifacts_raise(tmp_path):
     with np.load(path) as z:
         arrays = dict(z)
     import json
-    # quantized banks (schema v3) are the one unported artifact kind
-    for change, err in (({"version": 3}, NotImplementedError),
-                        ({"version": 3, "sv_dtype": "bf16"},
-                         NotImplementedError),
-                        ({"strategy": "cascade"}, ValueError),
-                        ({"kind": "svr", "strategy": "ovo"}, ValueError)):
+    # what the reference's load refuses, the port refuses with its error:
+    # an unknown bank dtype, a schema version past v3, an unknown kind
+    for change, match in (
+            ({"version": 3, "sv_dtype": "int8"}, "unsupported sv_dtype"),
+            ({"version": 4}, "unsupported repro.svm-pack version 4"),
+            ({"strategy": "cascade"}, "unknown pack kind/strategy"),
+            ({"kind": "svr", "strategy": "ovo"},
+             "unknown pack kind/strategy")):
         meta = json.loads(str(arrays["meta"]))
         meta.update(change)
         bad = tmp_path / "bad.npz"
         np.savez(bad, **{**arrays, "meta": np.array(json.dumps(meta))})
-        with pytest.raises(err, match="A.10" if err is NotImplementedError
-                           else "unknown pack kind/strategy"):
+        if "sv_dtype" in change or "version" in change:
+            with pytest.raises(ValueError, match=match):
+                jserve.load(bad)
+        with pytest.raises(ValueError, match=match):
             tserve.load(bad)
     meta = json.loads(str(arrays["meta"]))
     meta["schema"] = "something.else"
