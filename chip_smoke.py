@@ -150,6 +150,22 @@ then:
    quantized route (fp16 / bf16 bank, float32 rows) at the largest OvO
    and OvR banks beside the fp32 kernel in the same call, and lists
    ``multitask_decision``'s launches by bank dtype.
+13. after every path above ran its analytic launch plans: ``tune`` —
+   the launch-plan tuner (``kernels.autotune.tune(objective="wall",
+   budget=6)``) for ``rbf_gram`` (2,048 x 29,491 x 102), ``kkt_select``
+   (29,491), ``decision`` (3,277 x 17 x 102), ``multitask_decision`` (6 x
+   1,024 x 986 x 102) and ``rff_features`` (29,491 and 1,024 x 1,024 x
+   102): one line each with the default and tuned plans and their device
+   ms, every evaluated plan's output equal to the default's bit for bit;
+   the results pinned as the cache (``set_cache_path``), the ``ops``
+   wrappers launching the tuned plans with the same bits, the default
+   path restored; ``compile_guard`` — a warm ``Predictor`` over the
+   overlapping OvO pack serves 40 requests of 1..37 rows under
+   ``CompileGuard(budget=0)`` with no fresh program, and
+   ``multitask_decision`` at raw widths trips a budget of 2. The
+   data-parallel phase (11.) also runs ``sharded_svc_poly``: a poly
+   SVC on 2,048 rows over the 4 rank processes, bits equal to the
+   unsharded fit, certified.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -173,7 +189,9 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM rate and the
+# published H100 SXM peaks (NVIDIA data sheet; repro_torch.roofline.collect
+# has the same, which this module does not import before main: kernel_times
+# imports it and then the repro_torch of another checkout): HBM rate and the
 # non-tensor-core float32 rate the kernels' IEEE FMAs run at
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -2685,6 +2703,8 @@ SHARDED_RANKS = 4
 # two staged all_reduces across four ranks time-sharing the card, ~20 ms
 # (2,048 rows took 7,254 iterations, 144 s: PERF.md)
 SHARDED_SVR_ROWS = 512
+# the poly-kernel sharded SVC's rows (~100 iterations)
+SHARDED_POLY_ROWS = 2048
 COLLECTIVE_TIMEOUT_S = 60
 RANKS_TIMEOUT_S = 900        # the rank processes' whole run, at most
 
@@ -2786,7 +2806,22 @@ def job_ovr_data(mesh) -> dict:
                            KE.EngineConfig(backend="pallas", cache_slots=0))
 
 
-RANK_JOBS = {"svc": job_svc, "svr": job_svr, "ovo_task": job_ovo_task,
+def job_svc_poly(mesh) -> dict:
+    """A poly-kernel SVC on the exact SVC's split cut to
+    SHARDED_POLY_ROWS rows, sample-sharded: its rows by the plain Gram
+    function, each rank's block the whole call's slice."""
+    from repro_torch import data
+    from repro_torch.core.svm import SVC
+    xtr, ytr = (a[:SHARDED_POLY_ROWS] for a in binary_split(data)[:2])
+    return rank_fit(mesh, lambda: SVC(
+        kernel="poly", engine="pallas", shrink_every=4, mesh=mesh,
+        worker_axes=("shards",), shard="data", device=mesh.device), xtr, ytr,
+        lambda c: dict(alpha=c.alpha_, b=c.b_, n_iter=c.n_iter_,
+                       converged=c.converged_))
+
+
+RANK_JOBS = {"svc": job_svc, "svc_poly": job_svc_poly, "svr": job_svr,
+             "ovo_task": job_ovo_task,
              "ovr_data": job_ovr_data}
 
 
@@ -2962,6 +2997,44 @@ def phase_sharded_svc_nccl(ops, SVC, dev, split, base):
     return r["launches"]
 
 
+def phase_sharded_svc_poly(ops, data, smo, KE, SVC, dev, ranks):
+    """The poly-kernel SVC on SHARDED_POLY_ROWS rows over SHARDED_RANKS
+    rank processes (the sharded engine takes every kernel, ROADMAP A.11):
+    every rank's alphas, b and n_iter equal the unsharded fit's on the
+    card bit for bit, and its certificate holds."""
+    xtr, ytr = (a[:SHARDED_POLY_ROWS] for a in binary_split(data)[:2])
+    saved = dict(ops.launches)
+    t0 = time.perf_counter()
+    base = SVC(kernel="poly", engine="pallas", shrink_every=4,
+               device=dev).fit(xtr, ytr)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    kkt = svc_certificate(smo, KE, ranks[0]["alpha"], base, xtr, ytr, dev)
+    ops.launches.update(saved)
+    n_iter = ranks[0]["n_iter"]
+    launches = summed_launches(ranks)
+    equal = ranks_equal(ranks, dict(alpha=base.alpha_, b=base.b_,
+                                    n_iter=base.n_iter_))
+    emit(phase="sharded_svc_poly", ranks=SHARDED_RANKS, backend="gloo",
+         kernel="poly", gamma=base.kernel_params.gamma,
+         degree=base.kernel_params.degree, rows=SHARDED_POLY_ROWS,
+         reduced=f"{SHARDED_POLY_ROWS} of 29,491 rows",
+         n_iter=n_iter, n_iter_unsharded=base.n_iter_,
+         **collective_stats(ranks, n_iter), unsharded_fit_s=base_s,
+         n_support=int(np.sum(base.alpha_ > 0)),
+         kernels_per_iter_per_rank=per_rank_iter(launches, SHARDED_RANKS,
+                                                 n_iter),
+         launches=launches, equal_unsharded=equal, kkt_f64=kkt,
+         tol=base.smo_cfg.tol)
+    check(equal, "sharded_svc_poly: a rank's alphas / b / n_iter differ "
+          "from the unsharded fit")
+    check(all(r["converged"] for r in ranks) and kkt <= base.smo_cfg.tol,
+          f"sharded_svc_poly: f64 KKT {kkt} > tol")
+    check(launches["kkt_select"] > 0, "sharded_svc_poly launched no "
+          "kkt_select")
+    return launches
+
+
 def phase_sharded_svr(ops, data, smo, KE, SVR, dev, ranks):
     """epsilon-SVR on the SVR data cut to SHARDED_SVR_ROWS rows, its
     doubled axis sharded over SHARDED_RANKS rank processes in the default
@@ -3068,6 +3141,8 @@ def phase_data_parallel(ops, data, smo, KE, SVC, SVR, dev, binary, base,
                                          base, jobs["svc"], spawn),
         "svc_sharded_nccl": phase_sharded_svc_nccl(ops, SVC, dev, binary,
                                                    base),
+        "svc_sharded_poly": phase_sharded_svc_poly(ops, data, smo, KE, SVC,
+                                                   dev, jobs["svc_poly"]),
         "svr_sharded": phase_sharded_svr(ops, data, smo, KE, SVR, dev,
                                          jobs["svr"]),
         "svc_mesh_multiclass": phase_mesh_multiclass(
@@ -3725,6 +3800,177 @@ def quantized_bank_rows(ops, D, dev, fits, xte, launches) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------- tuner and compile guard
+# the tuner's shapes: the main path's (PERF.md §6), and the map's serving
+# batch
+TUNE_SHAPES = [("rbf_gram", (2048, 29491, 102)), ("kkt_select", (29491,)),
+               ("decision", (3277, 17, 102)),
+               ("multitask_decision", (6, 1024, 986, 102)),
+               ("rff_features", (29491, 1024, 102)),
+               ("rff_features", (1024, 1024, 102))]
+TUNE_BUDGET = 6
+# the launchers of the tunable kernels: (module name, function, the
+# keyword that carries the plan)
+TUNE_LAUNCHERS = (("rbf_gram", "launch_block", "plan"),
+                  ("feature_map", "launch", "plan"),
+                  ("decision", "launch_decision", "plan"),
+                  ("decision", "launch_multitask", "plan"),
+                  ("kkt_select", "launch", "blocks"))
+
+
+def out_bits(out) -> torch.Tensor:
+    """A wrapper's output as one tensor (kkt_select's four as float64,
+    which holds its values and indices exactly)."""
+    return out if isinstance(out, torch.Tensor) else torch.cat(
+        [t.reshape(-1).to(torch.float64) for t in out])
+
+
+class RecordedPlans:
+    """While active, the tunable kernels' launchers record the plan each
+    launch takes (and still launch)."""
+
+    def __enter__(self):
+        import importlib
+        self.plans, self.saved = [], []
+        for mod_name, fn_name, knob in TUNE_LAUNCHERS:
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            fn = getattr(mod, fn_name)
+            self.saved.append((mod, fn_name, fn))
+
+            def launch(*a, _fn=fn, _knob=knob, **kw):
+                self.plans.append(kw[_knob])
+                return _fn(*a, **kw)
+
+            setattr(mod, fn_name, launch)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, fn in self.saved:
+            setattr(mod, fn_name, fn)
+
+
+def phase_tune(ops, dev) -> dict:
+    """The launch-plan tuner (``kernels.autotune``) on the card:
+    ``tune(objective="wall", budget=TUNE_BUDGET)`` for each of its five
+    kernels at the main path's shapes, every evaluated plan's output equal
+    to the default plan's bit for bit; then the results in a temporary
+    cache pinned with ``set_cache_path``, the ``ops`` wrappers launching
+    the tuned plans with the default's bits, and the default path
+    restored. One line a (kernel, shape); the tuner's launches are the
+    path's."""
+    import tempfile
+    from repro_torch.kernels import autotune
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    card = autotune.device_kind(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cache, runs = autotune.TuningCache(), []
+    for kernel, shape in TUNE_SHAPES:
+        inputs = autotune.bench_inputs(kernel, shape, "fp32", dev, seed=SEED)
+        res = autotune.tune(kernel, shape, objective="wall",
+                            budget=TUNE_BUDGET, device=dev, inputs=inputs)
+        want = out_bits(autotune.run(kernel, inputs, "fp32",
+                                     res.default.config))
+        equal = {json.dumps(ev.config): bool(torch.equal(out_bits(
+            autotune.run(kernel, inputs, "fp32", ev.config)), want))
+            for ev in res.trace}
+        cache.put(autotune.cache_key(card, kernel, "fp32", shape), res)
+        runs.append((kernel, shape, inputs, want, res))
+        emit(phase="tune", kernel=kernel, shape=list(shape),
+             default=res.default.config,
+             default_device_ms=res.default.wall_s * 1e3,
+             tuned=res.best.config, tuned_device_ms=res.best.wall_s * 1e3,
+             evaluated=len(res.trace),
+             candidates=len(autotune.candidates(kernel, shape, "fp32", sms)),
+             plans=[dict(config=ev.config, device_ms=ev.wall_s * 1e3,
+                         roofline_us=ev.roofline_s * 1e6)
+                    for ev in res.trace],
+             bits_equal_default=all(equal.values()),
+             phase_s=time.perf_counter() - t0)
+        check(all(equal.values()), f"tune: {kernel} {shape}: a plan's "
+              f"output differs from the default plan's: {equal}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        cache.save(path)
+        autotune.set_cache_path(path)
+        try:
+            check(not autotune.runtime_cache().dropped,
+                  f"tune: entries dropped {autotune.runtime_cache().dropped}")
+            for kernel, shape, inputs, want, res in runs:
+                with RecordedPlans() as rec:
+                    got = out_bits(autotune.run(kernel, inputs, "fp32", {}))
+                check(autotune.config_of(kernel, rec.plans[-1])
+                      == res.best.config, f"tune: {kernel} {shape} launched "
+                      f"{rec.plans[-1]}, not the tuned {res.best.config}")
+                check(torch.equal(got, want), f"tune: {kernel} {shape}: "
+                      "the tuned launch's bits differ from the default's")
+        finally:
+            autotune.set_cache_path(None)
+    for kernel, shape, inputs, _, res in runs:   # the analytic plans again
+        with RecordedPlans() as rec:
+            autotune.run(kernel, inputs, "fp32", {})
+        check(rec.plans[-1] == autotune.plan(kernel, shape, "fp32", None,
+                                             sms),
+              f"tune: {kernel} {shape} kept a tuned plan after the cache "
+              "was unpinned")
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    emit(phase="tune_done", seconds=time.perf_counter() - t0,
+         pinned_cache_launched_tuned=True, launches=launches)
+    for k in ("rbf_gram", "kkt_select", "decision", "multitask_decision",
+              "rff_features"):
+        check(launches[k] > 0, f"tune launched no {k}")
+    return launches
+
+
+GUARD_REQUESTS = 40
+GUARD_RAW_WIDTHS = (1001, 1003, 1005, 1007, 1009)
+
+
+def phase_compile_guard(ops, serve_mod, dev, ovo_pack, xte) -> dict:
+    """The runtime compile guard (``analysis.CompileGuard``): a Predictor
+    over the overlapping OvO pack, warmed at the batch buckets 1..64,
+    serves GUARD_REQUESTS requests of 1..37 rows under budget 0 and makes
+    nothing new; then ``multitask_decision`` at raw (unbucketed) widths
+    over the same bank, a plan and a tuner resolution a width, trips a
+    budget of 2."""
+    from repro_torch.analysis import CompileBudgetExceeded, CompileGuard
+    t0 = time.perf_counter()
+    pred = serve_mod.Predictor(ovo_pack, engine="pallas", device=dev)
+    pred.warmup(tuple(1 << i for i in range(7)))
+    ops.reset_launches()
+    sizes = [1 + (7 * i) % 37 for i in range(GUARD_REQUESTS)]
+    with CompileGuard(budget=0, note="warm OvO predictor") as warm:
+        for i, size in enumerate(sizes):
+            pred.predict(xte[i:i + size])
+    sv, coef, b, _ = max(pred._banks, key=lambda bank: bank[0].numel())
+    z = torch.from_numpy(xte[:max(GUARD_RAW_WIDTHS)]).to(dev)
+    tripped = None
+    try:
+        with CompileGuard(budget=2, note="raw widths") as raw:
+            for w in GUARD_RAW_WIDTHS:
+                ops.multitask_decision(z[:w], sv, coef, b,
+                                       gamma=ovo_pack.kernel.gamma)
+    except CompileBudgetExceeded as e:
+        tripped = str(e)[:200]
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    emit(phase="compile_guard", seconds=time.perf_counter() - t0,
+         requests=GUARD_REQUESTS, sizes=sorted(set(sizes)),
+         warm_count=warm.count, warm_compiled=warm.compiled,
+         n_programs=pred.n_programs, raw_widths=list(GUARD_RAW_WIDTHS),
+         raw_count=raw.count, raw_compiled=raw.compiled[:4],
+         tripped=tripped, launches=launches)
+    check(warm.count == 0, f"compile_guard: the warm predictor made "
+          f"{warm.count} fresh programs: {warm.compiled}")
+    check(tripped is not None and raw.count >= len(GUARD_RAW_WIDTHS),
+          f"compile_guard: raw widths did not trip the guard "
+          f"({raw.count} events)")
+    check(launches["multitask_decision"] > 0,
+          "compile_guard launched no multitask_decision")
+    return launches
+
+
 def gram_info(G, entry: str, shape) -> dict:
     """The block route's launch plan for an (n, m, d) float32 call on
     this card, and what ptxas reported for the kernel it runs (the
@@ -3831,10 +4077,16 @@ def main() -> int:
                             fits, split)
     lm, lm_errs, lm_bf16 = phase_lm(ops, FA, SD, dev)
     check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
+    # the tuner and the compile guard, after every path ran its analytic
+    # plans
+    tuned = phase_tune(ops, dev)
+    guard = phase_compile_guard(ops, serve_mod, dev, fits["ovo"][2],
+                                split[2])
     paths = {"svc_exact": exact, "svc_linear": linear,
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
              "svr": svr, **mc_paths, **lowrank_paths, **new_paths,
-             **serving, "lm_kernels": lm}
+             **serving, "lm_kernels": lm, "tune": tuned,
+             "compile_guard": guard}
     launches = {k: sum(p[k] for p in paths.values()) for k in ops.KERNELS}
     emit(phase="launches", by_path=paths, total=launches)
     for k, v in launches.items():

@@ -7,6 +7,7 @@ checkout of this repository.
     python3 kernel_times.py --smo [--src DIR] [--smo-sweep] [--out FILE]
     python3 kernel_times.py --gram [--src DIR] [--gram-sweep] [--out FILE]
     python3 kernel_times.py --lm [--src DIR] [--lm-sweep] [--out FILE]
+    python3 kernel_times.py --host [--src DIR] [--out FILE]
 
 ``--packs`` holds what chip_smoke.py saves under ``chiprun_out/``: the
 exact binary SVC (``chip_smoke_model.npz``), the OvO and OvR models of
@@ -105,6 +106,23 @@ head groups and ring depths) and builds of ``csrc/flash_attn.cu`` and
 MMAs, no copies, one TF32 product (bf16: no low part of P), and for
 ssd_diag no score MMAs), diagnostics that are never shipped.
 
+``--host`` times the host side of the five wrappers whose launch plans
+the tuner resolves (``host`` lines; no packs; seeded inputs): the wall
+time of one call among HOST_ROUNDS x HOST_CALLS back to back
+(``host_us``, the median round; the calls' kernels are shorter than
+their enqueue, so this is the host's time a launch) of
+``ops.kkt_select`` at 29,491, ``ops.decision`` and
+``ops.multitask_decision`` over one row (the binary bank, 17 SVs; the
+OvO bank, 6 x 986), ``ops.rff_features`` over one row (1,024
+features) and ``ops.rbf_gram`` of one row against 1,024, all at 102
+features: what the per-shape memo of the plan resolution costs a
+launch, for any checkout (one without the tuner plans analytically).
+For a checkout with ``kernels.autotune`` it adds ``host_resolve`` lines:
+the µs of the memoised resolution a wrapper makes a launch
+(``autotune.resolve_*``, a hit) beside the µs of the analytic plan's own
+lookup it replaced, each the median of HOST_ROUNDS rounds of 100,000
+calls in one process.
+
 Two checkouts compare in one call of the chip tool, each run in its own
 process: parent, change, change, parent, and so on.
 """
@@ -130,6 +148,7 @@ DCD_PACKS = {"lowrank": "chip_smoke_lowrank.npz",
              "ovo_lowrank": "chip_smoke_ovo_lowrank.npz"}
 WARM_EPOCHS = 20
 HOST_CALLS = 500   # back-to-back calls a host_us reading averages
+HOST_ROUNDS = 9    # --host: rounds of HOST_CALLS, the median kept
 RANGE_RANKS = 4    # --gram: the row-range matvec of one rank of 4
 
 
@@ -147,9 +166,12 @@ def _args():
     p.add_argument("--gram-sweep", action="store_true")
     p.add_argument("--lm", action="store_true")
     p.add_argument("--lm-sweep", action="store_true")
+    p.add_argument("--host", action="store_true")
     args = p.parse_args()
-    if args.packs is None and not (args.smo or args.gram or args.lm):
-        p.error("--packs is required, except with --smo, --gram or --lm")
+    if args.packs is None and not (args.smo or args.gram or args.lm
+                                   or args.host):
+        p.error("--packs is required, except with --smo, --gram, --lm or "
+                "--host")
     return args
 
 
@@ -192,6 +214,9 @@ def main() -> int:
         return 0
     if args.lm:
         lm_times(cs, _build, ops, dev, emit, args.lm_sweep)
+        return 0
+    if args.host:
+        host_times(ops, dev, emit)
         return 0
     packs = {k: serve.load(os.path.join(args.packs, f))
              for k, f in PACKS.items()}
@@ -282,6 +307,86 @@ def main() -> int:
              library_device_ms=cs.device_ms(
                  lambda: scale * torch.cos(torch.addmm(ph, xs, om))))
     return 0
+
+
+def host_times(ops, dev, emit):
+    """The ``--host`` lines (see the module's docstring)."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.kernels import rbf_gram as G
+    rng = np.random.default_rng(7)
+
+    def t(shape, dt=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dt)
+
+    n, d = 29491, 102
+    f, alpha, y = t(n), t(n).abs(), t(n).sign()
+    lo, hi = torch.zeros(n, device=dev), torch.ones(n, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    z, sv1, cf1 = t((1, d)), t((17, d)), t(17)
+    sv6, cf6 = t((6, 986, d)), t((6, 986))
+    om, ph = t((d, 1024)), t(1024)
+    b = G.staged(t((1024, d)))
+    b2 = (b * b).sum(1)
+    calls = {
+        "kkt_select": ([n], lambda: ops.kkt_select(f, alpha, y, mask, lo,
+                                                   hi)),
+        "decision": ([1, 17, d], lambda: ops.decision(z, sv1, cf1,
+                                                      gamma=0.01)),
+        "multitask_decision": ([6, 1, 986, d], lambda: ops.multitask_decision(
+            z, sv6, cf6, gamma=0.01)),
+        "rff_features": ([1, 1024, d], lambda: ops.rff_features(
+            z, om, ph, scale=0.04)),
+        "rbf_gram": ([1, 1024, d], lambda: ops.rbf_gram(
+            z, b, gamma=0.01, b2=b2))}
+    for kernel, (shape, fn) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        rounds = []
+        for _ in range(HOST_ROUNDS):
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            rounds.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        emit(measure="host", kernel=kernel, shape=shape,
+             host_us=statistics.median(rounds), rounds_us=rounds)
+    try:
+        from repro_torch.kernels import autotune
+    except ImportError:   # a checkout without the tuner
+        return
+    import timeit
+    from repro_torch.kernels import decision as D
+    from repro_torch.kernels import feature_map as FM
+    from repro_torch.kernels import kkt_select as KS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    f32 = torch.float32
+    pairs = {
+        "kkt_select": (lambda: autotune.resolve_kkt(n, dev, None),
+                       lambda: KS.n_blocks(n)),
+        "decision": (lambda: autotune.resolve_decision(
+            "decision", 1, 1, 17, d, f32, dev, sms, None, None),
+            lambda: D.decision_plan(1, 1, 17, d, sms)),
+        "multitask_decision": (lambda: autotune.resolve_decision(
+            "multitask_decision", 1, 6, 986, d, f32, dev, sms, None, None),
+            lambda: D.decision_plan(1, 6, 986, d, sms)),
+        "rff_features": (lambda: autotune.resolve_rff(
+            1, 1024, d, f32, dev, sms, None),
+            lambda: FM.rff_plan(1, 1024, d, sms)),
+        "rbf_gram": (lambda: autotune.resolve_gram(
+            1, 1024, d, f32, dev, sms, None),
+            lambda: G.gram_plan(1, 1024, d, f32, sms=sms))}
+    for kernel, (resolve, plan) in pairs.items():
+        us = {}
+        for name, fn in (("resolve", resolve), ("plan", plan)):
+            fn()
+            us[name] = statistics.median(
+                timeit.timeit(fn, number=100_000) / 100_000 * 1e6
+                for _ in range(HOST_ROUNDS))
+        emit(measure="host_resolve", kernel=kernel, resolve_us=us["resolve"],
+             analytic_plan_us=us["plan"])
 
 
 def smo_times(cs, data, _build, ops, dev, emit, sweep=False):

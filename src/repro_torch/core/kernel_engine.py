@@ -333,13 +333,21 @@ class ShardedKernelEngine(ChunkedKernelEngine):
       cross(z)   -> (t, n_local) K(z, x_local)
       decide(..) -> (t,) the global decision (local partial + all_reduce)
 
-    ``full()`` is refused: there is no global Gram in this layout. Rows
-    and matvecs run on the ``rbf_gram`` kernels' row-range entries (RBF
-    and linear kernels only), decisions on ``decision``; on a CUDA tensor
+    ``full()`` is refused: there is no global Gram in this layout. RBF
+    and linear rows and matvecs run on the ``rbf_gram`` kernels'
+    row-range entries, RBF decisions on ``decision``; on a CUDA tensor
     each launches its kernel or raises, on the CPU it runs the plain
     version. A local row's bits are those of the same row of the whole
     call, so a sharded solve follows ``engine="pallas"``'s trajectory bit
-    for bit.
+    for bit. Other kernels (poly, sigmoid) take the plain Gram function,
+    as the pallas engine computes them (the reference computes them
+    outside any kernel too), and a local row or matvec block is the slice
+    of the whole call's rows: the plain product's bits depend on its row
+    count, so a row of K(x_local, x_i) alone could round apart from the
+    unsharded one. Each rank then computes a whole row (O(n d)) and the
+    matvec's row blocks that meet its range; such a solve too follows
+    ``engine="pallas"``'s trajectory bit for bit. ``cross`` and
+    ``block`` compute only what they are asked for.
     """
 
     backend = "sharded"
@@ -358,10 +366,6 @@ class ShardedKernelEngine(ChunkedKernelEngine):
             raise ValueError(
                 f"shard_axis {cfg.shard_axis!r} is not an axis of the mesh "
                 f"(mesh axes: {tuple(mesh.shape)})")
-        if kernel.name not in ("rbf", "linear"):
-            raise ValueError(
-                "the sharded backend runs on the rbf_gram kernels: kernel "
-                f"'rbf' or 'linear', got {kernel.name!r}")
         super().__init__(x, kernel, cfg)
         self.mesh = mesh
         self.n_global = n = self.n
@@ -371,7 +375,7 @@ class ShardedKernelEngine(ChunkedKernelEngine):
                   else -(-n // chunk) * ROW_CHUNK)
         self.row0 = mesh.rank * self.n
         self.valid = max(0, min(self.n, n - self.row0))  # rows inside X
-        self._mode = kernel.name
+        self._mode = kernel.name if kernel.name in ("rbf", "linear") else None
         self._xk = self.x.to(ops.tile_dtype(cfg.gram_dtype)).contiguous()
         self._x2 = K.sqnorms(self._xk)
         self._xs = staged(self._xk)
@@ -380,11 +384,21 @@ class ShardedKernelEngine(ChunkedKernelEngine):
         """(.., valid) -> (.., n_local), zero on the padding."""
         return torch.nn.functional.pad(t, (0, self.n - t.shape[-1]))
 
+    def _local(self, rows: torch.Tensor, first: int = 0) -> torch.Tensor:
+        """This rank's block of rows that start at global row ``first``,
+        zero-padded to (n_local,)."""
+        start = self.row0 - first
+        return self._pad(rows[start:start + self.valid])
+
     def _compute_row(self, i):
+        if self._mode is None:   # the whole row's slice, bit for bit
+            return self._local(super()._compute_row(i))
         return ops.gram_row(self._xk, self._x2, i, gamma=self.kernel.gamma,
                             mode=self._mode, row0=self.row0, count=self.n)
 
     def _cached_row(self, i, cache):
+        if self._mode is None:
+            return super()._cached_row(i, cache)
         return ops.gram_row_cached(
             self._xk, self._x2, i, cache.keys, cache.stamp, cache.rows,
             cache.clock, cache.hits, cache.misses, gamma=self.kernel.gamma,
@@ -398,7 +412,20 @@ class ShardedKernelEngine(ChunkedKernelEngine):
         full[self.row0:self.row0 + self.n] = v
         return self.mesh.all_reduce(full)[:self.n_global]
 
+    def _first_block(self) -> tuple[int, int]:
+        """(row step, first row) of the whole engine's chunk-row blocks
+        that meet this rank's range (the blocks the unsharded engine's
+        matvec and diag compute, so each entry has their bits)."""
+        step = min(self.cfg.chunk, max(self.n_global, 1))
+        return step, self.row0 // step * step
+
     def matvec(self, v):
+        if self._mode is None:
+            v = self.gather(v)
+            step, first = self._first_block()
+            rows = [self._gram_fn(self.x[s:s + step], self.x) @ v
+                    for s in range(first, self.row0 + self.valid, step)]
+            return self._local(torch.cat(rows) if rows else v[:0], first)
         return ops.gram_matvec(self._xs, self._x2, self.gather(v),
                                gamma=self.kernel.gamma, mode=self._mode,
                                chunk=self.cfg.chunk, row0=self.row0,
@@ -408,17 +435,17 @@ class ShardedKernelEngine(ChunkedKernelEngine):
         if self.kernel.name == "rbf":   # K(x, x) = exp(0) exactly
             return torch.ones((self.n,), dtype=torch.float32,
                               device=self.device)
-        # the whole engine's chunk-row blocks, so each entry has its bits
-        step = min(self.cfg.chunk, max(self.n_global, 1))
-        first = self.row0 // step * step
-        stop = self.row0 + self.valid
+        step, first = self._first_block()
         diag = [torch.diagonal(self._gram_fn(xb, xb))
-                for xb in (self.x[s:s + step] for s in range(first, stop,
-                                                             step))]
-        d = torch.cat(diag)[self.row0 - first:] if diag else self.x[:0, 0]
-        return self._pad(d[:self.valid])
+                for xb in (self.x[s:s + step] for s in range(
+                    first, self.row0 + self.valid, step))]
+        return self._local(torch.cat(diag) if diag else self.x[:0, 0], first)
 
     def cross(self, z):
+        if self._mode is None:
+            return self._pad(self._gram_fn(
+                z.to(torch.float32),
+                self.x[self.row0:self.row0 + self.valid]))
         lo, hi = self.row0, self.row0 + self.valid
         return self._pad(ops.rbf_gram(
             z, self._xs[lo:hi], gamma=self.kernel.gamma, mode=self._mode,
@@ -426,6 +453,8 @@ class ShardedKernelEngine(ChunkedKernelEngine):
 
     def block(self, rows, cols):
         """K(x_rows, x_cols) for GLOBAL index tensors."""
+        if self._mode is None:
+            return super().block(rows, cols)
         return ops.rbf_gram(self._xk[rows], self._xk[cols],
                             gamma=self.kernel.gamma, mode=self._mode,
                             compute_dtype=self.cfg.gram_dtype,

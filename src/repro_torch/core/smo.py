@@ -47,7 +47,8 @@ the ``rbf_gram`` row-range entries); selection is a per-rank
 scalars come in one more, and the f update runs over each rank's own
 samples. It is a collective call (SPMD: every rank calls it with the
 same arguments and gets the same full result), and its result is the
-unsharded ``solve_qp``'s with ``engine="pallas"``, bit for bit.
+unsharded ``solve_qp``'s with ``engine="pallas"``, bit for bit (RBF and
+linear kernels; poly and sigmoid reach its optimum within tol).
 
 ``kkt_violation`` is the solver-independent optimality certificate,
 computed in float64.
@@ -823,12 +824,14 @@ def sharded_solve_qp(x, y, p, lo, hi, mask=None, *,
     ``ShardedKernelEngine``); padded samples are masked and their alphas
     are 0. ``engine`` keeps its knobs
     (``cache_slots``, ``chunk``, ``gram_dtype``) and runs as the
-    ``sharded`` backend (RBF or linear kernels). The result equals
+    ``sharded`` backend. With an RBF or linear kernel the result equals
     ``solve_qp(..., engine=EngineConfig(backend="pallas", <same knobs>))``
     on the same device bit for bit: shrinking, ``selection="second"`` and
-    the unshrunk solve's float64 certificate as there. Host reads: one
-    pair of numbers a ``check_every`` block on every rank (replicated
-    values, so every rank takes the same branch)."""
+    the unshrunk solve's float64 certificate as there; a poly or sigmoid
+    kernel's rows are computed over each rank's block by the plain Gram
+    function, and its solve reaches the same optimum within tol. Host
+    reads: one pair of numbers a ``check_every`` block on every rank
+    (replicated values, so every rank takes the same branch)."""
     if cfg.selection not in ("first", "second"):
         raise ValueError(f"unknown selection {cfg.selection!r}; expected "
                          "'first' or 'second'")

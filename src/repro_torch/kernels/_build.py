@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+from repro_torch.analysis.compile_guard import record
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -155,6 +157,7 @@ def library() -> ctypes.CDLL:
             t0 = time.perf_counter()
             _compile(path)
             build_seconds.append(time.perf_counter() - t0)
+            record("kernel library build", path.name)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -16,13 +16,13 @@ a row's decision does not depend on the plan or on the batch it came in.
 """
 from __future__ import annotations
 
-import functools
 import math
 import threading
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.compile_guard import memoised
 from repro_torch.kernels.tile_f32 import H100_SMS, current_stream, \
     feature_chunk, row_stride
 
@@ -60,26 +60,31 @@ def _split_cost(blocks: int, splits: int, segments: int, seg: int,
             * (math.ceil(segments / splits) * seg + 0.5))
 
 
-@functools.lru_cache(maxsize=4096)
+@memoised
 def decision_plan(nt: int, n_tasks: int, w: int, d: int,
-                  sms: int = H100_SMS) -> DecisionPlan:
+                  sms: int = H100_SMS, rows: int | None = None,
+                  splits: int | None = None) -> DecisionPlan:
     """Tile and SV-axis split of the decision kernel for nt test rows
     against n_tasks banks of w SVs of d features on a card of ``sms``
     SMs. 128-row tiles for more than 64 rows once the grid, split to
     single SV tiles, could fill two blocks an SM; else 64. No split
     (splits = 1) when the (row tile x task) grid already gives every SM
     a block; else the count, at most one segment a split, that
-    ``_split_cost`` puts first (the fewest splits among equals)."""
+    ``_split_cost`` puts first (the fewest splits among equals). A given
+    ``rows`` or ``splits`` replaces that choice (``plan_with`` checks
+    it)."""
     sv_tiles = max(1, -(-w // SV_TILE))
     seg = segment_tiles(w)
     segments = -(-sv_tiles // seg)
-    rows = (128 if nt > 64 and -(-nt // 128) * n_tasks * sv_tiles >= 2 * sms
-            else 64)
-    blocks = -(-nt // rows) * n_tasks
-    splits = 1
-    if blocks < sms:
-        splits = min(range(1, segments + 1), key=lambda s: _split_cost(
-            blocks, s, segments, seg, sms))
+    if rows is None:
+        rows = (128 if nt > 64
+                and -(-nt // 128) * n_tasks * sv_tiles >= 2 * sms else 64)
+    if splits is None:
+        blocks = -(-nt // rows) * n_tasks
+        splits = 1
+        if blocks < sms:
+            splits = min(range(1, segments + 1), key=lambda s: _split_cost(
+                blocks, s, segments, seg, sms))
     return plan_with(nt, n_tasks, w, d, rows, splits)
 
 

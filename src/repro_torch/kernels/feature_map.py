@@ -12,15 +12,16 @@ shape and stages the feature axis as ``tile_f32`` lays it out.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.compile_guard import memoised
 from repro_torch.kernels.tile_f32 import H100_SMS, current_stream, \
     feature_chunk, row_stride
 
 COLS = 128          # columns of Phi a block computes (csrc/rff_features.cu)
+ROWS = (64, 128)    # the row tiles the kernel is built for
 
 
 class RffPlan(NamedTuple):
@@ -30,13 +31,18 @@ class RffPlan(NamedTuple):
     blocks: int      # grid size
 
 
-@functools.lru_cache(maxsize=4096)
-def rff_plan(n: int, k: int, d: int, sms: int = H100_SMS) -> RffPlan:
+@memoised
+def rff_plan(n: int, k: int, d: int, sms: int = H100_SMS,
+             rows: int | None = None) -> RffPlan:
     """Tile of ``rff_features`` for an (n, d) x (d, k) map: 128-row
     tiles, unless their grid would not give each of the card's ``sms``
-    SMs a block (serving batches), then 64-row ones."""
+    SMs a block (serving batches), then 64-row ones; or ``rows`` (64 or
+    128: a feature's bits do not depend on the tile)."""
     cols = -(-k // COLS)
-    rows = 128 if -(-n // 128) * cols >= sms else 64
+    if rows is None:
+        rows = 128 if -(-n // 128) * cols >= sms else 64
+    if rows not in ROWS:
+        raise ValueError(f"rff_plan: rows must be one of {ROWS}, got {rows}")
     chunk = feature_chunk(d)
     stages = 1 if -(-d // 4) * 4 <= chunk else 2
     smem = stages * (rows * row_stride(chunk) + chunk * COLS) * 4

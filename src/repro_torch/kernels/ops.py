@@ -14,6 +14,14 @@ through the kernels (``reset_launches`` zeroes the counts).
 
 Unlike ``repro/kernels/ops.py`` nothing is padded to tile multiples:
 the kernels mask their ragged edges themselves.
+
+The five tunable wrappers (``rbf_gram``, ``kkt_select``, ``decision``,
+``multitask_decision``, ``rff_features``) take their launch plan's knob
+(``rows=``, ``blocks=``, ``splits=``) as an optional argument, as
+``repro/kernels/ops.py`` takes block sizes: an explicit knob wins, else
+the tuned entry of the shape's bucket (``kernels.autotune``), else the
+analytic plan. The plain versions take no plan, so on the CPU the knobs
+change nothing.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch
 
 from repro_torch.core.kernels import COMPUTE_DTYPES, sqnorms
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune
 from repro_torch.kernels import dcd as _dcd
 from repro_torch.kernels import decision as _decision
 from repro_torch.kernels import feature_map as _fmap
@@ -119,11 +128,13 @@ def _check_mode(mode: str) -> None:
 def rbf_gram(a: torch.Tensor, b: torch.Tensor, *, gamma: float = 1.0,
              mode: str = "rbf", compute_dtype: str = "fp32",
              a2: torch.Tensor | None = None,
-             b2: torch.Tensor | None = None) -> torch.Tensor:
+             b2: torch.Tensor | None = None,
+             rows: int | None = None) -> torch.Tensor:
     """K(a, b): (n, m) float32 Gram block (rbf or linear). The operands
     are rounded to ``compute_dtype``; the squared norms are computed
     from the rounded values unless the caller passes them (a resident
-    engine keeps the training set's norms)."""
+    engine keeps the training set's norms). ``rows``: the launch's row
+    tile (``rbf_gram.ROWS``)."""
     _check_mode(mode)
     dt = tile_dtype(compute_dtype)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
@@ -144,8 +155,9 @@ def rbf_gram(a: torch.Tensor, b: torch.Tensor, *, gamma: float = 1.0,
     if out.numel() == 0:
         return out
     a, b = (t if _gram.copyable(t) else _gram.staged(t) for t in (a, b))
-    plan = _gram.gram_plan(a.shape[0], b.shape[0], a.shape[1], a.dtype,
-                           sms=_sm_count(a.device))
+    plan = autotune.resolve_gram(a.shape[0], b.shape[0], a.shape[1],
+                                 a.dtype, a.device, _sm_count(a.device),
+                                 rows)
     lib = _build.library()
     _count("rbf_gram")
     _raise_on_error("rbf_gram", _gram.launch_block(
@@ -324,11 +336,13 @@ def gram_row_cached(x: torch.Tensor, x2: torch.Tensor, i: torch.Tensor,
 
 # ------------------------------------------------------------- kkt_select
 def kkt_select(f: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor,
-               mask: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
+               mask: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
+               blocks: int | None = None):
     """Fused masked KKT selection: (b_up, i_up, b_low, i_low) on the
     operands' device (float32 values, int64 indices) — 0-d tensors for
     (n,) inputs; with the task axis, (T, n) inputs give four (T,)
-    tensors from one launch, each task selected on its own."""
+    tensors from one launch, each task selected on its own. ``blocks``:
+    the launch's blocks a task (1 .. ``kkt_select.MAX_BLOCKS``)."""
     shape = f.shape
     if f.ndim not in (1, 2) or shape[-1] == 0:
         raise ValueError(f"kkt_select: need non-empty (n,) or (T, n) "
@@ -351,10 +365,11 @@ def kkt_select(f: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor,
     out = torch.empty(3 * n_tasks, dtype=torch.int64, device=dev)
     idx = out[:2 * n_tasks].view((2,) + shape[:-1])
     vals = out[2 * n_tasks:].view(torch.float32).view((2,) + shape[:-1])
+    blocks = autotune.resolve_kkt(shape[-1], dev, blocks)
     lib = _build.library()
     _count("kkt_select")
     _raise_on_error("kkt_select", _kkt.launch(lib, f, alpha, y, mask, lo, hi,
-                                              vals, idx))
+                                              vals, idx, blocks=blocks))
     return vals[0], idx[0], vals[1], idx[1]
 
 
@@ -380,8 +395,11 @@ def _decision_operands(name, z, sv, coef, compute_dtype, *,
 
 def decision(z: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
              b: torch.Tensor | float = 0.0, *, gamma: float = 1.0,
-             compute_dtype: str = "fp32") -> torch.Tensor:
-    """f(z) = K(z, X) @ coef + b (RBF) for a batch of test rows."""
+             compute_dtype: str = "fp32", rows: int | None = None,
+             splits: int | None = None) -> torch.Tensor:
+    """f(z) = K(z, X) @ coef + b (RBF) for a batch of test rows.
+    ``rows`` / ``splits``: the launch's row tile (64 or 128) and SV-axis
+    split count (``decision.plan_with``)."""
     z, x, coef = _decision_operands("decision", z, x, coef, compute_dtype)
     if x.ndim != 2:
         raise ValueError("decision: x must be (n, d)")
@@ -392,8 +410,9 @@ def decision(z: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
         return torch.zeros((z.shape[0],), dtype=torch.float32,
                            device=z.device) + b
     out = torch.empty((z.shape[0],), dtype=torch.float32, device=z.device)
-    plan = _decision.decision_plan(z.shape[0], 1, x.shape[0], z.shape[1],
-                                   _sm_count(z.device))
+    plan = autotune.resolve_decision(
+        "decision", z.shape[0], 1, x.shape[0], z.shape[1], z.dtype,
+        z.device, _sm_count(z.device), rows, splits)
     stream = current_stream()
     partial, ticket = _decision.scratch(plan, 1, z.shape[0], z.device,
                                         stream)
@@ -408,13 +427,14 @@ def decision(z: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
 def multitask_decision(z: torch.Tensor, sv: torch.Tensor,
                        coef: torch.Tensor, b: torch.Tensor | None = None, *,
                        gamma: float = 1.0, mode: str = "rbf",
-                       compute_dtype: str = "fp32") -> torch.Tensor:
+                       compute_dtype: str = "fp32", rows: int | None = None,
+                       splits: int | None = None) -> torch.Tensor:
     """f_t(z) = K(z, SV_t) @ coef_t + b_t for a stacked (T, w, d) bank:
     (T, nt) float32. Under float32 compute a float16 or bfloat16 bank (a
     quantized pack's) is read at that dtype, not copied: its launches
     count under ``multitask_decision_fp16_bank`` / ``_bf16_bank``. A
     width-0 bank (no support vectors anywhere) short-circuits to the
-    broadcast bias."""
+    broadcast bias. ``rows`` / ``splits`` as ``decision`` takes them."""
     _check_mode(mode)
     if sv.ndim != 3:
         raise ValueError("multitask_decision: sv must be (T, w, d)")
@@ -434,8 +454,9 @@ def multitask_decision(z: torch.Tensor, sv: torch.Tensor,
     _check_contiguous("multitask_decision", z=z, sv=sv, coef=coef)
     out = torch.empty((n_tasks, z.shape[0]), dtype=torch.float32,
                       device=z.device)
-    plan = _decision.decision_plan(z.shape[0], n_tasks, w, z.shape[1],
-                                   _sm_count(z.device))
+    plan = autotune.resolve_decision(
+        "multitask_decision", z.shape[0], n_tasks, w, z.shape[1], z.dtype,
+        z.device, _sm_count(z.device), rows, splits)
     stream = current_stream()
     partial, ticket = _decision.scratch(plan, n_tasks, z.shape[0], z.device,
                                         stream)
@@ -457,11 +478,12 @@ _BANK_COUNTS = {(torch.float32, torch.float32): "multitask_decision",
 
 # ----------------------------------------------------------- rff_features
 def rff_features(x: torch.Tensor, omega: torch.Tensor, phase: torch.Tensor,
-                 *, scale: float, compute_dtype: str = "fp32") -> torch.Tensor:
+                 *, scale: float, compute_dtype: str = "fp32",
+                 rows: int | None = None) -> torch.Tensor:
     """``scale * cos(x @ omega + phase)``: (n, k) float32 random Fourier
     features of x (n, d), with omega (d, k) and phase (k,). x and omega
     are rounded to ``compute_dtype``; accumulation and the epilogue are
-    float32."""
+    float32. ``rows``: the launch's row tile (64 or 128)."""
     dt = tile_dtype(compute_dtype)
     if (x.ndim != 2 or omega.ndim != 2 or x.shape[1] != omega.shape[0]
             or phase.shape != (omega.shape[1],)):
@@ -477,8 +499,8 @@ def rff_features(x: torch.Tensor, omega: torch.Tensor, phase: torch.Tensor,
                       device=x.device)
     if out.numel() == 0:
         return out
-    plan = _fmap.rff_plan(x.shape[0], omega.shape[1], x.shape[1],
-                          _sm_count(x.device))
+    plan = autotune.resolve_rff(x.shape[0], omega.shape[1], x.shape[1],
+                                x.dtype, x.device, _sm_count(x.device), rows)
     lib = _build.library()
     _count("rff_features")
     _raise_on_error("rff_features", _fmap.launch(lib, x, omega, phase, out,

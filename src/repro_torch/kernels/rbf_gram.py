@@ -32,12 +32,12 @@ here assume checked inputs.
 """
 from __future__ import annotations
 
-import functools
 import threading
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.compile_guard import memoised
 from repro_torch.kernels.tile_f32 import H100_SMS, current_stream
 
 MODES = ("rbf", "linear")
@@ -182,7 +182,7 @@ def route_rows(d: int, dtype: torch.dtype, entry: str) -> tuple:
     return (128,) if route_of(d, dtype, entry) == "wgmma" else ROWS
 
 
-@functools.lru_cache(maxsize=4096)
+@memoised
 def gram_plan(n: int, m: int, d: int, dtype: torch.dtype = torch.float32,
               tasks: int = 1, entry: str = "block", sms: int = H100_SMS,
               rows: int | None = None) -> GramPlan:

@@ -26,6 +26,8 @@ Mirrors ``repro/serve/predictor.py``:
 * ``n_programs`` counts the distinct (bank signature, batch bucket)
   pairs served so far — the program shapes a captured-graph cache will
   hold (PyTorch runs eagerly, so nothing is compiled per entry yet);
+  each new one is reported to an active
+  ``analysis.compile_guard.CompileGuard``;
 * a low-rank pack (``PackedModel.feature_map``) keeps the feature map
   and the linear weights resident instead of an SV bank; a slice is
   one feature transform (the ``rff_features`` kernel for an RFF map on
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.analysis.compile_guard import record
 from repro_torch.core import approx
 from repro_torch.core import kernel_engine as KE
 from repro_torch.core import multiclass as MC
@@ -195,8 +198,11 @@ class Predictor:
                 out[task_ids, start:stop] = df.cpu().numpy()[:, :stop - start]
                 sigs.append((tuple(sv_x.shape), str(sv_x.dtype), bucket))
         with self._lock:
-            self._program_sigs.update(sigs)
+            new = set(sigs) - self._program_sigs
+            self._program_sigs.update(new)
             self.n_requests += nt
+        for sig in sorted(new, key=str):
+            record("predictor program", str(sig))
         return out
 
     def decode(self, df: np.ndarray, op: str = "predict") -> np.ndarray:

@@ -32,7 +32,14 @@ storage dtype, gives the float32 kernel's bits on the upcast bank, and
 a row of a quantized pack served alone its bits in a batch.
 The row-range entries (one rank's block of rows, for the data-parallel
 SMO) give the whole call's slice bit for bit, and a sharded solve over
-two thread ranks on the card equals ``solve_qp`` there bit for bit.
+two thread ranks on the card equals ``solve_qp`` there bit for bit; so
+does a sharded poly solve, whose rows (the plain Gram function's) are
+slices of the whole call's bit for bit.
+Every launch plan the tuner (``kernels.autotune``) may pick gives the
+default plan's bits for each of its five kernels, at two shapes each,
+through the ``ops`` wrappers with the knob forced; a tuned cache entry
+is the plan those wrappers launch, and a CUDA-graph capture counts in
+the compile guard.
 ``flash_attention`` and ``ssd_diag`` hold rtol 2e-4 / atol 2e-5 against
 their plain versions on the same operands (bfloat16 ones rounded before
 both; the kernel's float32 output for that check, its bfloat16 output
@@ -54,7 +61,8 @@ from repro_torch.core.svm import SVC, SVR
 from repro_torch.data import (load_breast_cancer_like, load_pavia_like,
                               make_synth_regression, normalize,
                               train_test_split)
-from repro_torch.kernels import _build
+from repro_torch.analysis import CompileGuard
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import dcd as DCD
 from repro_torch.kernels import decision as D
 from repro_torch.kernels import feature_map as FM
@@ -1532,3 +1540,139 @@ def test_sharded_smo_on_card_equals_solve_qp(cuda):  # noqa: F811
         assert torch.equal(r.alpha, want.alpha)
         assert float(r.b) == float(want.b)
         assert int(r.n_iter) == int(want.n_iter) and bool(r.converged)
+
+
+def test_sharded_poly_rows_are_slices_of_the_whole_call(cuda):  # noqa: F811
+    """The sharded engine's poly rows, matvec and diag (the plain Gram
+    function on the card) against the pallas engine's whole call: equal
+    bit for bit, and the sharded poly solve equals ``solve_qp`` there."""
+    from repro_torch.core import kernel_engine as KE
+    x, yl = load_breast_cancer_like(n_samples=261)
+    x = normalize(x)
+    y = np.where(yl == 1, 1.0, -1.0).astype(np.float32)
+    kp = K.KernelParams(name="poly", gamma=0.05, coef0=1.0)
+    xt = tt(x, device=cuda)
+    whole = KE.make_engine(xt, kp, KE.EngineConfig(backend="pallas",
+                                                   chunk=64))
+    v = tt(np.random.default_rng(0).normal(size=len(x)), device=cuda)
+    ecfg = KE.EngineConfig(backend="sharded", shard_axis="shards", chunk=64)
+
+    def rank(m):
+        eng = KE.make_engine(xt, kp, ecfg, mesh=m)
+        lo, hi = eng.row0, eng.row0 + eng.valid
+        pad = eng.n_shards * eng.n - len(x)
+        local = torch.nn.functional.pad(v, (0, pad))[lo:lo + eng.n]
+        for i in (0, 130, 260):
+            row, _ = eng.row(torch.tensor(i, device=cuda))
+            assert torch.equal(row[:hi - lo],
+                               whole.row(torch.tensor(i, device=cuda))[0][lo:hi])
+        assert torch.equal(eng.matvec(local)[:hi - lo], whole.matvec(v)[lo:hi])
+        assert torch.equal(eng.diag()[:hi - lo], whole.diag()[lo:hi])
+        return True
+
+    assert run_ranks(rank, 3, device=cuda) == [True] * 3
+    kw = dict(cfg=smo.SMOConfig(C=1.0), kernel=kp, engine="pallas")
+    want = smo.binary_smo(xt, tt(y, device=cuda), **kw)
+    got = run_ranks(lambda m: smo.sharded_binary_smo(x, y, mesh=m, **kw), 2,
+                    device=cuda)
+    for r in got:
+        assert torch.equal(r.alpha, want.alpha)
+        assert float(r.b) == float(want.b) and bool(r.converged)
+
+
+TUNE_SHAPES = [("rbf_gram", (2048, 3001, 102)), ("rbf_gram", (300, 700, 20)),
+               ("rff_features", (3001, 1024, 102)),
+               ("rff_features", (1024, 1024, 102)),
+               ("kkt_select", (29491,)), ("kkt_select", (5000,)),
+               ("decision", (3277, 17, 102)), ("decision", (37, 1413, 102)),
+               ("multitask_decision", (6, 1024, 986, 102)),
+               ("multitask_decision", (3, 1, 3792, 102))]
+
+
+def _bits(out):
+    return out if isinstance(out, torch.Tensor) else torch.cat(
+        [t.reshape(-1).to(torch.float64) for t in out])
+
+
+@pytest.mark.parametrize("kernel,shape,dtype", [
+    (k, s, dt) for k, s in TUNE_SHAPES for dt in ("fp32", "bf16")
+    if k != "kkt_select" or dt == "fp32"])   # kkt_select: float32 only
+def test_every_tuner_candidate_gives_the_default_bits(cuda, kernel, shape,  # noqa: F811
+                                                      dtype):
+    """The knobs the tuner may move do not move a bit: every candidate
+    plan through the ``ops`` wrapper equals the default plan's output."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    inputs = autotune.bench_inputs(kernel, shape, dtype, cuda)
+    default = autotune.default_config(kernel, shape, dtype, sms)
+    want = _bits(autotune.run(kernel, inputs, dtype, default))
+    cands = autotune.candidates(kernel, shape, dtype, sms)
+    assert len(cands) > 1
+    for cfg in cands:
+        got = _bits(autotune.run(kernel, inputs, dtype, cfg))
+        assert torch.equal(got, want), cfg
+
+
+def test_tuned_entry_is_the_plan_launched(cuda, tmp_path, monkeypatch):  # noqa: F811
+    """A cache entry for this card is what the wrappers launch (the
+    launchers wrapped to record their plan), with the default's bits;
+    ``reset`` after the cache is unpinned puts the analytic plan back."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seen = []
+
+    def recording(fn, knob):
+        def launch(*a, **kw):
+            seen.append(kw[knob])
+            return fn(*a, **kw)
+        return launch
+
+    for mod, name in ((G, "launch_block"), (FM, "launch"),
+                      (D, "launch_multitask")):
+        monkeypatch.setattr(mod, name, recording(getattr(mod, name), "plan"))
+    monkeypatch.setattr(KS, "launch", recording(KS.launch, "blocks"))
+    cases = [("rbf_gram", (300, 700, 20), {"rows": 32}),
+             ("rff_features", (1024, 1024, 102), {"rows": 128}),
+             ("kkt_select", (29491,), {"blocks": 64}),
+             ("multitask_decision", (6, 1024, 986, 102),
+              {"rows": 64, "splits": 4})]
+    cache = autotune.TuningCache()
+    inputs, want = {}, {}
+    for kernel, shape, cfg in cases:
+        assert cfg != autotune.default_config(kernel, shape, "fp32", sms)
+        inputs[kernel] = autotune.bench_inputs(kernel, shape, "fp32", cuda)
+        want[kernel] = _bits(autotune.run(kernel, inputs[kernel], "fp32",
+                                          {}))
+        cache.entries[autotune.cache_key(autotune.device_kind(cuda), kernel,
+                                         "fp32", shape)] = {"config": cfg}
+    path = str(tmp_path / "tuned.json")
+    cache.save(path)
+    autotune.set_cache_path(path)
+    try:
+        for kernel, shape, cfg in cases:
+            seen.clear()
+            got = _bits(autotune.run(kernel, inputs[kernel], "fp32", {}))
+            assert autotune.config_of(kernel, seen[-1]) == cfg
+            assert torch.equal(got, want[kernel]), kernel
+    finally:
+        autotune.set_cache_path(None)
+    for kernel, shape, _ in cases:
+        seen.clear()
+        autotune.run(kernel, inputs[kernel], "fp32", {})
+        assert seen[-1] == autotune.plan(kernel, shape, "fp32", None, sms)
+
+
+def test_cuda_graph_capture_counts_in_the_guard(cuda):  # noqa: F811
+    x = torch.zeros(8, device=cuda)
+    g = torch.cuda.CUDAGraph()
+    with CompileGuard(budget=1) as guard:
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            x.add_(1.0)       # warm the op outside the capture
+        torch.cuda.current_stream().wait_stream(s)
+        with torch.cuda.graph(g):
+            x.add_(1.0)
+    g.replay()
+    torch.cuda.synchronize()
+    assert guard.count == 1
+    assert guard.compiled[0].startswith("cuda graph capture")
+    assert float(x[0]) == 2.0   # the warm add, then the replay

@@ -21,6 +21,21 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def compile_guard():
+    """The port's runtime compile budget
+    (``repro_torch.analysis.compile_guard``). Import it into a test
+    module (``from torch_helpers import compile_guard``) and use it as a
+    factory, each test declaring its own budget::
+
+        def test_replay(compile_guard):
+            with compile_guard(budget=0, note="replay"):
+                svc.predict(...)   # a fresh program -> the test fails
+    """
+    from repro_torch.analysis.compile_guard import CompileGuard
+    return CompileGuard
+
+
 def tt(a, dtype=torch.float32, device="cpu"):
     """numpy -> torch tensor on ``device``."""
     return torch.from_numpy(np.array(a)).to(device, dtype)  # a writable copy
