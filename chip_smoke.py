@@ -166,6 +166,24 @@ then:
    data-parallel phase (11.) also runs ``sharded_svc_poly``: a poly
    SVC on 2,048 rows over the 4 rank processes, bits equal to the
    unsharded fit, certified.
+14. serves a language model through the port's LM substrate
+   (``repro_torch.models``; phase ``lm_serve``): zamba2_1p2b at its full
+   width and depth (38 Mamba2 layers, one shared attention block
+   applied 7 times, d_model 2,048, 1.1 B parameters from a seeded
+   generator), 4 prompts of 2,048 tokens from ``data.lm.token_batches``
+   prefilled, 32 greedy decode steps into caches of 2,080 positions,
+   then a teacher-forced ``forward`` over the 2,080 tokens. Each prefill
+   and forward launches 7 ``flash_attention`` (bf16, 4 x 2,048 x 32
+   heads x 64) and 38 ``ssd_diag`` (32 chunks x 64 heads x 256 x 64 x
+   64), a decode step neither; the prefill logits are held against the
+   same weights' prefill with the plain versions swapped in for the two
+   kernels (and the float64 evaluation's distance beside it), decode
+   against teacher forcing, at full depth and at 6 layers; prefill
+   tokens/s, ms a decode step, device kernels a step and the two
+   kernels' share of the prefill's device time (profiler). The
+   ``kernels`` line has both kernels at the operands of the model's
+   first attention and SSD calls (``*_zamba2`` rows, SDPA beside
+   attention).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -176,6 +194,7 @@ failed check exits non-zero. Without CUDA it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -335,7 +354,8 @@ def kernels_per_call(fn, calls: int = 20, tries: int = 3) -> float:
     torch.cuda.synchronize()
     counts = []
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
                 torch.cuda._sleep(100)
             for _ in range(calls):
@@ -1955,6 +1975,365 @@ def phase_lm(ops, FA, SD, dev):
         errs["ssd_diag"] = max(errs.get("ssd_diag", 0.0), max_err(got, want))
     ops.launches.update(launches)
     return launches, errs, bf16_launches
+
+
+# the LM serving path at zamba2_1p2b's full width and depth (the
+# reference's src/repro/configs/zamba2_1p2b.py): 4 prompts of 2,048
+# tokens (8 chunks of 256) from data.lm.token_batches, then 32 greedy
+# decode steps into caches of 2,080 positions
+LM_SERVE = dict(config="zamba2_1p2b", batch=4, prompt=2048, decode=32)
+# logits against logits, as a fraction of the second's largest
+# magnitude over the real vocab. A prefill with the two kernels against
+# the same weights' prefill with their plain versions, and decode against
+# a teacher-forced forward: at LM_SHALLOW_LAYERS layers of the full width
+# within LM_LOGIT_TOL (tests/test_torch_lm_model_*.py hold the port to
+# the reference at this bound); at the full 38 layers within LM_DEEP_TOL
+# with LM_DEEP_AGREE of the greedy tokens equal. Through 38 random-init
+# layers a float32 round-off in either kernel's output flips bf16
+# roundings downstream: evaluating the two functions exactly (float64)
+# moves the logits by ~3 % of their largest magnitude against the
+# float32 plain versions (reported beside the check as
+# ``float64_vs_plain``). LM_DEEP_TOL and LM_DEEP_AGREE are the bounds of
+# the reference's test_decode_matches_teacher_forced_forward (atol 0.15
+# on logits of largest magnitude ~1 at its reduced sizes, of which a
+# tenth of the largest magnitude is the tighter reading; >= 80 % of the
+# greedy tokens equal).
+LM_LOGIT_TOL = 3e-2
+LM_SHALLOW_LAYERS = 6
+LM_DEEP_TOL = 0.1
+LM_DEEP_AGREE = 0.8
+
+
+def logits_agreement(got: torch.Tensor, want: torch.Tensor, vocab: int,
+                     bound: float) -> dict:
+    """max |got - want| over the real vocab against ``bound`` times
+    want's largest magnitude; greedy tokens equal overall, and where
+    want's top-2 margin exceeds twice the bound (where they must)."""
+    g, w = got[..., :vocab].float(), want[..., :vocab].float()
+    scale = float(w.abs().max())
+    err = float((g - w).abs().max())
+    top2 = w.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * bound * scale
+    same = g.argmax(-1) == w.argmax(-1)
+    return {"max_abs_err": err, "scale": scale,
+            "rel_err": err / scale if scale else None,
+            "bound": bound, "greedy_agree": float(same.float().mean()),
+            "sure_positions": int(sure.sum()),
+            "sure_agree": bool(same[sure].all()),
+            "ok": bool(err <= bound * scale and same[sure].all())}
+
+
+def plain_lm_kernels(ops, FA, SD, exact: bool = False):
+    """Swap the two kernels' wrappers for their plain versions (restored
+    by calling the result): the same function, no launch; with
+    ``exact``, the plain versions evaluated in float64 and rounded to
+    the wrappers' output dtypes."""
+    real = ops.flash_attention, ops.ssd_diag
+    wide = (lambda t: t.double()) if exact else (lambda t: t)
+
+    def flash(q, k, v, *, causal=True, out_dtype=None):
+        out = out_dtype or q.dtype
+        return FA.flash_attention_plain(
+            wide(q), wide(k), wide(v), causal=causal,
+            out_dtype=torch.float64 if exact else out).to(out)
+
+    def ssd(cmat, bmat, x, dt, cs):
+        return SD.ssd_diag_plain(*map(wide, (cmat, bmat, x, dt, cs))).to(
+            torch.float32)
+    ops.flash_attention, ops.ssd_diag = flash, ssd
+
+    def restore():
+        ops.flash_attention, ops.ssd_diag = real
+    return restore
+
+
+def first_operands(ops):
+    """Record the first operands each kernel wrapper is called with
+    (restored by calling the result's second item)."""
+    real = ops.flash_attention, ops.ssd_diag
+    seen = {}
+
+    def flash(q, k, v, **kw):
+        seen.setdefault("flash_attention", (q, k, v, kw))
+        return real[0](q, k, v, **kw)
+
+    def ssd(*args):
+        seen.setdefault("ssd_diag", args)
+        return real[1](*args)
+    ops.flash_attention, ops.ssd_diag = flash, ssd
+
+    def restore():
+        ops.flash_attention, ops.ssd_diag = real
+    return seen, restore
+
+
+def lm_counts(ops) -> dict:
+    return {k: ops.launches[k] for k in ("flash_attention", "ssd_diag")}
+
+
+def serve_and_force(ops, model, cfg, prompt, n_dec, dev, profile_step=None):
+    """The serving path on ``prompt`` (B, S): prefill into caches of S +
+    n_dec positions and n_dec greedy decode steps, then the teacher-forced
+    forward over the S + n_dec tokens (padded to the SSD chunk with
+    tokens after the last compared position, which a causal model does
+    not see). Returns the prefill and decode logits (B, n_dec + 1, V),
+    the forward's at the same positions, the kernel launches of a
+    prefill, of the decode steps and of the forward, each decode step's
+    host ms (the ``profile_step``-th, under the profiler, left out) and
+    that step's device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    b, s = prompt.shape
+    ops.reset_launches()
+    caches = model.cache_init(b, s + n_dec)
+    logits, caches = model.prefill({"tokens": prompt}, caches)
+    torch.cuda.synchronize()
+    per_prefill = lm_counts(ops)
+    steps, step_ms, step_kernels = [logits], [], None
+    for i in range(n_dec):
+        tok = steps[-1].argmax(-1)
+        check(int(tok.max()) < cfg.vocab_size,
+              "lm_serve: a greedy token in the padded vocab")
+        t1 = time.perf_counter()
+        if i == profile_step:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                logits, caches = model.decode_step(tok, caches)
+                torch.cuda.synchronize()
+            step_kernels = sum(
+                e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        else:
+            logits, caches = model.decode_step(tok, caches)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        steps.append(logits)
+    check(model._cache_len(caches) == s + n_dec, "lm_serve: cache length")
+    decode = {k: ops.launches[k] - per_prefill[k] for k in per_prefill}
+    fed = torch.stack([st.argmax(-1) for st in steps[:-1]], 1)
+    total = -(-(s + n_dec) // cfg.ssm_chunk) * cfg.ssm_chunk
+    pad = torch.zeros((b, total - s - n_dec), dtype=torch.long, device=dev)
+    before = lm_counts(ops)
+    fwd, _ = model.forward({"tokens": torch.cat([prompt, fed, pad], 1)})
+    torch.cuda.synchronize()
+    per_forward = {k: ops.launches[k] - before[k] for k in before}
+    forced = fwd[:, s - 1:s + n_dec].clone()
+    return (torch.stack(steps, 1), forced, per_prefill, decode, per_forward,
+            step_ms, step_kernels)
+
+
+def phase_lm_serve(ops, FA, SD, dev):
+    """zamba2_1p2b served through the port's entry points: ``Model``,
+    ``init`` from a seeded generator, ``cache_init``, ``prefill``,
+    ``decode_step`` and a teacher-forced ``forward``. Checks: 7
+    ``flash_attention`` and 38 ``ssd_diag`` launches a prefill and a
+    forward, none a decode step; the prefill logits against the same
+    weights' prefill with the plain versions in place of the two
+    kernels, and the decode logits against the teacher-forced forward,
+    within LM_DEEP_TOL (LM_DEEP_AGREE of the greedy tokens equal); both
+    again at LM_SHALLOW_LAYERS layers of the full width, within
+    LM_LOGIT_TOL. Returns the path's launches and the kernels' recorded
+    operands."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import token_batches
+    from repro_torch.models import Model
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(LM_SERVE["config"])
+    b, s, n_dec = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["decode"]
+    n_attn = -(-cfg.n_layers // cfg.shared_attn_every)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.from_numpy(next(token_batches(
+        vocab_size=cfg.vocab_size, batch=b, seq_len=s, n_batches=1,
+        seed=SEED))["tokens"]).to(dev).long()
+
+    def prefill(m=None):
+        m = m or model
+        return m.prefill({"tokens": prompt}, m.cache_init(b, s + n_dec))[0]
+
+    def prefill_with(m, exact=False):
+        restore = plain_lm_kernels(ops, FA, SD, exact=exact)
+        try:
+            return prefill(m)
+        finally:
+            restore()
+
+    # ---- the path: prefill, 32 greedy decode steps, teacher forcing
+    torch.cuda.synchronize()
+    seen, restore = first_operands(ops)
+    try:
+        (steps, forced, per_prefill, decode_launches, per_forward, step_ms,
+         step_kernels) = serve_and_force(ops, model, cfg, prompt, n_dec, dev,
+                                         profile_step=n_dec // 2)
+    finally:
+        restore()
+    path = dict(ops.launches)
+    check(per_prefill == {"flash_attention": n_attn,
+                          "ssd_diag": cfg.n_layers},
+          f"lm_serve: a prefill launched {per_prefill}, not {n_attn} "
+          f"flash_attention and {cfg.n_layers} ssd_diag")
+    check(per_forward == per_prefill,
+          f"lm_serve: the forward launched {per_forward}")
+    check(not any(decode_launches.values()),
+          f"lm_serve: decode steps launched {decode_launches}")
+    deep = {"decode_vs_forward": logits_agreement(
+        steps, forced, cfg.vocab_size, LM_DEEP_TOL)}
+
+    # ---- the same weights' prefill with the plain versions (and exact)
+    plain_logits = prefill_with(model)
+    deep["kernels_vs_plain"] = logits_agreement(
+        steps[:, 0], plain_logits, cfg.vocab_size, LM_DEEP_TOL)
+    deep["float64_vs_plain"] = logits_agreement(
+        prefill_with(model, exact=True), plain_logits, cfg.vocab_size,
+        LM_DEEP_TOL)
+    for name in ("decode_vs_forward", "kernels_vs_plain"):
+        check(deep[name]["ok"] and deep[name]["greedy_agree"]
+              >= LM_DEEP_AGREE, f"lm_serve: {name} at full depth: "
+              f"{deep[name]}")
+    del steps, forced, plain_logits
+
+    # ---- timings (their launches do not count)
+    def timed_prefill():
+        caches = model.cache_init(b, s + n_dec)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        model.prefill({"tokens": prompt}, caches)
+        end.record()
+        end.synchronize()
+        return (time.perf_counter() - t1) * 1e3, start.elapsed_time(end)
+    runs = [timed_prefill() for _ in range(4)][1:]
+    prefill_ms = statistics.median(r[0] for r in runs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    mine = {name: sum(e.self_device_time_total for e in kernels
+                      if name in e.key)
+            for name in ("flash_kernel", "ssd_diag_kernel")}
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- decode against teacher forcing at a cut depth, same width
+    shallow_cfg = dataclasses.replace(cfg, n_layers=LM_SHALLOW_LAYERS)
+    shallow = Model(shallow_cfg, device=dev)
+    shallow.init(torch.Generator(device=dev).manual_seed(SEED))
+    steps, forced, *_ = serve_and_force(ops, shallow, shallow_cfg, prompt,
+                                        n_dec, dev)
+    cut = {"layers": LM_SHALLOW_LAYERS,
+           "decode_vs_forward": logits_agreement(
+               steps, forced, cfg.vocab_size, LM_LOGIT_TOL),
+           "kernels_vs_plain": logits_agreement(
+               steps[:, 0], prefill_with(shallow), cfg.vocab_size,
+               LM_LOGIT_TOL)}
+    for name in ("decode_vs_forward", "kernels_vs_plain"):
+        check(cut[name]["ok"], f"lm_serve: {name} at {LM_SHALLOW_LAYERS} "
+              f"layers: {cut[name]}")
+    del shallow, steps, forced
+    torch.cuda.empty_cache()
+    ops.launches.update(path)
+    emit(phase="lm_serve", config=cfg.name, params=n_params,
+         param_count=cfg.param_count(), init_s=init_s, batch=b, prompt=s,
+         decode_steps=n_dec, prefill_launches=per_prefill,
+         forward_launches=per_forward, decode_launches=decode_launches,
+         full_depth=dict(deep, greedy_agree_bound=LM_DEEP_AGREE),
+         cut_depth=cut,
+         prefill_ms=prefill_ms,
+         prefill_device_ms=statistics.median(r[1] for r in runs),
+         prefill_tokens_per_s=b * s / prefill_ms * 1e3,
+         decode_ms_per_step=statistics.median(step_ms),
+         decode_tokens_per_s=b / statistics.median(step_ms) * 1e3,
+         device_kernels_per_decode_step=step_kernels,
+         profiled_prefill={
+             "device_ms": dev_us / 1e3, "device_kernels": sum(
+                 e.count for e in kernels),
+             "flash_kernel_ms": mine["flash_kernel"] / 1e3,
+             "ssd_diag_kernel_ms": mine["ssd_diag_kernel"] / 1e3,
+             "kernels_share": (sum(mine.values()) / dev_us if dev_us
+                               else None),
+             "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                     for e in sorted(kernels, key=lambda e:
+                                     -e.self_device_time_total)[:10]]},
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return path, seen
+
+
+def lm_serve_rows(ops, FA, SD, dev, launches, seen):
+    """The two kernels at the operands the zamba2 prefill gave them
+    (its first attention and SSD calls): each against its plain version
+    (flash in float32 out at LM_TOL, its bf16 out the float32 one rounded
+    once; ssd_diag at LM_TOL), timed beside its bound and, for
+    attention, SDPA."""
+    q, k, v, _ = seen["flash_attention"]
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    got = ops.flash_attention(q, k, v, causal=True, out_dtype=torch.float32)
+    want = FA.flash_attention_plain(q, k, v, causal=True,
+                                    out_dtype=torch.float32)
+    ok = bool(torch.allclose(got, want, **LM_TOL))
+    rounded = bool(torch.equal(ops.flash_attention(q, k, v, causal=True),
+                               got.to(q.dtype)))
+    fa_err = max_err(got, want)
+    emit(phase="parity", kernel="flash_attention", case="zamba2_prefill",
+         dtype="bfloat16", shape=list(q.shape), kv_heads=hkv, causal=True,
+         max_abs_err=fa_err, bound=LM_TOL, ok=ok,
+         out_in_operand_dtype_equals_rounded_fp32=rounded)
+    check(ok and rounded, "flash_attention at zamba2's prefill disagrees "
+          "with its plain version")
+    cmat, bmat, x, dt, cs = seen["ssd_diag"]
+    y = ops.ssd_diag(cmat, bmat, x, dt, cs)
+    y_want = SD.ssd_diag_plain(cmat, bmat, x, dt, cs)
+    ok = bool(torch.allclose(y, y_want, **LM_TOL)) and bool(
+        torch.isfinite(y).all())
+    sd_err = max_err(y, y_want)
+    emit(phase="parity", kernel="ssd_diag", case="zamba2_prefill",
+         shape=list(x.shape), n_state=int(cmat.shape[2]),
+         max_abs_err=sd_err, bound=LM_TOL, ok=ok)
+    check(ok, "ssd_diag at zamba2's prefill disagrees with its plain "
+          "version")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = b * h * s * (s + 1) // 2
+    flops = 4.0 * pairs * d
+    n_bytes = 2 * (2 * b * s * h * d + 2 * b * s * hkv * d)
+    rows = [time_row(
+        ops, "flash_attention_bf16_zamba2", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:83",
+        lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: FA.flash_attention_plain(q, k, v, causal=True,
+                                         out_dtype=q.dtype),
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+        n_bytes, flops, launches["flash_attention"], fa_err,
+        bounds=lm_bounds(n_bytes, flops, BF16_FLOP_PER_S, flops, pairs,
+                         route_passes=1.5))]
+    rows[-1].update(dtype="bfloat16", path="lm_serve",
+                    **redesign_info("flash_attention",
+                                    (b, s, h, d, q.dtype)))
+    bc, q_len, n = cmat.shape
+    hs, p = x.shape[1], x.shape[3]
+    tri = q_len * (q_len + 1) // 2
+    ssd_bytes = 4 * (2 * bc * q_len * n + 2 * bc * hs * q_len * (p + 1))
+    ssd_flops = 2.0 * bc * tri * n + 2.0 * bc * hs * tri * p
+    fp32_ops = bc * tri * 2 * n + bc * hs * tri * (3 + 2 * p)
+    rows.append(time_row(
+        ops, "ssd_diag_zamba2", "ssd_diag.cu",
+        "src/repro/kernels/ssd_diag.py:51",
+        lambda: ops.ssd_diag(cmat, bmat, x, dt, cs),
+        lambda: SD.ssd_diag_plain(cmat, bmat, x, dt, cs), None,
+        ssd_bytes, fp32_ops, launches["ssd_diag"], sd_err,
+        bounds=lm_bounds(ssd_bytes, 3 * ssd_flops, TF32_FLOP_PER_S,
+                         fp32_ops, bc * hs * tri)))
+    rows[-1].update(path="lm_serve",
+                    **redesign_info("ssd_diag", (bc, hs, q_len, n, p)))
+    return rows
 
 
 def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma, counts):
@@ -4077,6 +4456,7 @@ def main() -> int:
                             fits, split)
     lm, lm_errs, lm_bf16 = phase_lm(ops, FA, SD, dev)
     check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
+    lm_serve, lm_seen = phase_lm_serve(ops, FA, SD, dev)
     # the tuner and the compile guard, after every path ran its analytic
     # plans
     tuned = phase_tune(ops, dev)
@@ -4085,7 +4465,8 @@ def main() -> int:
     paths = {"svc_exact": exact, "svc_linear": linear,
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
              "svr": svr, **mc_paths, **lowrank_paths, **new_paths,
-             **serving, "lm_kernels": lm, "tune": tuned,
+             **serving, "lm_kernels": lm, "lm_serve": lm_serve,
+             "tune": tuned,
              "compile_guard": guard}
     launches = {k: sum(p[k] for p in paths.values()) for k in ops.KERNELS}
     emit(phase="launches", by_path=paths, total=launches)
@@ -4116,7 +4497,8 @@ def main() -> int:
     kernels += phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi, yy,
                                     errs, launches, svr_state, svr,
                                     task_rows)
-    kernels += phase_timing_lm(ops, FA, SD, dev, errs, launches, lm_bf16)
+    kernels += phase_timing_lm(ops, FA, SD, dev, errs, lm, lm_bf16)
+    kernels += lm_serve_rows(ops, FA, SD, dev, lm_serve, lm_seen)
     kernels += phase_row_range(ops, K, G, dev, xtr, packed.kernel.gamma,
                                launches)
     kernels += quantized_bank_rows(ops, D, dev, fits, split[2], launches)

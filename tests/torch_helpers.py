@@ -36,6 +36,17 @@ def compile_guard():
     return CompileGuard
 
 
+# flash_attention calls a prefill or a forward makes on a card at the
+# reduced LM configs: one per eligible attention layer (gemma3's windowed
+# local layer and cross-attention never; MLA only where its v dim equals
+# its q / k dim, as at the reduced size, 32 and 16 + 16, and not at the
+# full one, 64 and 64 + 32), none a decode step
+FLASH_CALLS = {"phi4_mini_3p8b": 2, "gemma3_12b": 1, "minicpm3_4b": 2,
+               "mamba2_780m": 0, "zamba2_1p2b": 1, "whisper_medium": 4,
+               "deepseek_moe_16b": 2, "phi3_vision_4p2b": 2,
+               "qwen2_moe_a2p7b": 2, "deepseek_67b": 2}
+
+
 def tt(a, dtype=torch.float32, device="cpu"):
     """numpy -> torch tensor on ``device``."""
     return torch.from_numpy(np.array(a)).to(device, dtype)  # a writable copy
