@@ -61,7 +61,9 @@ then:
    non-causal S = 300 case, and ``ops.ssd_diag`` at mamba2_780m's chunk
    (Q = 256, N = 128, P = 64, 48 heads, 16 chunks), each against its
    plain version (``ssd_diag`` also with decays 40 times as steep, where
-   exp above the diagonal would overflow);
+   exp above the diagonal would overflow); and the gradient at phi4's
+   shape through the autograd Function (float32 and bfloat16), its
+   ``flash_attention_bwd`` against the plain backward;
 8. holds the task-axis row and selection kernels against their plain
    versions at the OvO and OvR bucket shapes (ragged widths masked), and
    ``multitask_decision`` at the largest OvO and OvR serving banks;
@@ -184,6 +186,24 @@ then:
    ``kernels`` line has both kernels at the operands of the model's
    first attention and SSD calls (``*_zamba2`` rows, SDPA beside
    attention).
+15. trains it (phase ``lm_train``): zamba2_1p2b at full width and depth
+   from a seeded generator, ``optim.adamw.AdamW(lr=3e-4)`` and
+   ``training.train.make_train_step``, 2 warm and 6 timed steps of 2 x
+   2,048 tokens (``data.lm.token_batches``, seed 1). Each step launches
+   7 ``flash_attention`` and 38 ``ssd_diag`` forward and 7
+   ``flash_attention_bwd`` and 38 ``ssd_diag_bwd`` (the wrappers' counts
+   and the profiler's); the losses are finite and fall; the backward
+   kernels are held against their plain versions at the operands of
+   the step's first attention and SSD calls with the dY of the real
+   backward (attention in bf16 and float32), two calls equal bit for
+   bit; the whole gradient at 6 layers of the full width against the
+   plain versions swapped in both ways (``PlainFlash``, ``PlainSsd``),
+   a float64 evaluation beside it. The line has step ms, tokens/s, peak
+   memory and the profiled step's device time by kernel; the
+   ``kernels`` line has ``flash_attention_bwd_zamba2`` (SDPA's autograd
+   backward beside it) and ``ssd_diag_bwd_zamba2``, and
+   ``flash_attention_bwd`` / ``_bf16`` at phi4's shape, whose gradient
+   the LM kernels' phase (item 7) takes through the autograd Function.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -1924,6 +1944,7 @@ def phase_lm(ops, FA, SD, dev):
     also with decays 40 times as steep."""
     attn, ragged, ssd = lm_inputs(dev)
     attn_bf16 = [t.to(torch.bfloat16) for t in attn]
+    errs = {}
     torch.cuda.synchronize()
     ops.reset_launches()
     out = ops.flash_attention(*attn, causal=True)
@@ -1932,13 +1953,46 @@ def phase_lm(ops, FA, SD, dev):
     out_b = ops.flash_attention(*attn_bf16, causal=True)
     bf16_launches = ops.launches["flash_attention"] - before
     y = ops.ssd_diag(*ssd)
+    # the gradient at phi4's shape through the autograd Function, float32
+    # and bf16 operands: the forward (with lse) and flash_attention_bwd
+    do = torch.randn(attn[0].shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    bwd = {}
+    for dt in (torch.float32, torch.bfloat16):
+        leaves = [t.detach().to(dt).requires_grad_() for t in attn]
+        before = dict(ops.launches)
+        grads = torch.autograd.grad(ops.flash_attention(*leaves, causal=True),
+                                    leaves, do.to(dt))
+        bwd[dt] = (leaves, grads, ops.launches["flash_attention_bwd"]
+                   - before["flash_attention_bwd"])
+        if dt == torch.bfloat16:
+            bf16_launches += (ops.launches["flash_attention"]
+                              - before["flash_attention"])
     torch.cuda.synchronize()
     launches = dict(ops.launches)
+    bwd_launches = {dt: n for dt, (_, _, n) in bwd.items()}
+    for dt, (leaves, grads, _) in bwd.items():
+        qkv = [t.detach() for t in leaves]
+        o, lse = ops.flash_attention_lse(*qkv, causal=True)
+        want = FA.flash_attention_bwd_plain(*qkv, o, lse, do.to(dt),
+                                            causal=True)
+        rel = [rel_err(g_, w_) for g_, w_ in zip(grads, want)]
+        ok = max(rel) <= BWD_TOL[dt] and all(
+            bool(torch.isfinite(g_).all()) for g_ in grads)
+        emit(phase="parity", kernel="flash_attention_bwd",
+             case="phi4_causal", dtype=str(dt).split(".")[1],
+             shape=list(qkv[0].shape), kv_heads=int(qkv[1].shape[2]),
+             rel_err_dq_dk_dv=rel, bound=BWD_TOL[dt], ok=ok)
+        check(ok, f"flash_attention_bwd phi4 {dt} disagrees with its plain "
+              "version")
+        errs["flash_attention_bwd" if dt == torch.float32
+             else "flash_attention_bwd_bf16"] = max(rel)
+        del want, grads
+    del bwd
     check(bool(torch.isfinite(out).all() and torch.isfinite(out_r).all()
                and torch.isfinite(out_b).all()
                and torch.isfinite(y).all()), "LM kernels gave non-finite "
           "values")
-    errs = {}
     for name, args, causal in (("phi4_causal", attn, True),
                                ("ragged_300_noncausal", ragged, False)):
         for dt in (torch.float32, torch.bfloat16):
@@ -1974,7 +2028,7 @@ def phase_lm(ops, FA, SD, dev):
               "version")
         errs["ssd_diag"] = max(errs.get("ssd_diag", 0.0), max_err(got, want))
     ops.launches.update(launches)
-    return launches, errs, bf16_launches
+    return launches, errs, bf16_launches, bwd_launches
 
 
 # the LM serving path at zamba2_1p2b's full width and depth (the
@@ -2023,22 +2077,66 @@ def logits_agreement(got: torch.Tensor, want: torch.Tensor, vocab: int,
             "ok": bool(err <= bound * scale and same[sure].all())}
 
 
-def plain_lm_kernels(ops, FA, SD, exact: bool = False):
-    """Swap the two kernels' wrappers for their plain versions (restored
-    by calling the result): the same function, no launch; with
-    ``exact``, the plain versions evaluated in float64 and rounded to
-    the wrappers' output dtypes."""
+class PlainFlash(torch.autograd.Function):
+    """``flash_attention`` by its plain versions both ways, on any
+    device: the forward, each row's log-sum-exp, and the explicit
+    backward formulas (what ``ops.FlashAttention`` runs on CPU
+    tensors). Autograd through the plain forward instead would take the
+    gradient of its softmax, not the backward kernel's function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, out_dtype):
+        from repro_torch.kernels import flash_attn as FA
+        o = FA.flash_attention_plain(q, k, v, causal=causal,
+                                     out_dtype=out_dtype)
+        ctx.save_for_backward(q, k, v, o,
+                              FA.attention_lse_plain(q, k, causal=causal))
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels import flash_attn as FA
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*FA.flash_attention_bwd_plain(q, k, v, o, lse, do.to(o.dtype),
+                                              causal=ctx.causal), None, None)
+
+
+class PlainSsd(torch.autograd.Function):
+    """``ssd_diag`` by its plain versions both ways. Autograd through
+    ``ssd_diag_plain`` would give NaN at the model's decays: above the
+    diagonal exp(cs_q - cs_k) overflows, and ``where``'s gradient
+    multiplies that inf by 0 (the reference's ``ssd_chunked`` forms L
+    the same way); the backward formulas never take that exp."""
+
+    @staticmethod
+    def forward(ctx, cmat, bmat, x, dt, cs):
+        from repro_torch.kernels import ssd_diag as SD
+        ctx.save_for_backward(cmat, bmat, x, dt, cs)
+        return SD.ssd_diag_plain(cmat, bmat, x, dt, cs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels import ssd_diag as SD
+        return SD.ssd_diag_bwd_plain(*ctx.saved_tensors, dy)
+
+
+def plain_lm_kernels(ops, exact: bool = False):
+    """Swap the two kernels' wrappers for their plain versions both ways
+    (``PlainFlash``, ``PlainSsd``; restored by calling the result): the
+    same function, no launch; with ``exact``, evaluated in float64 and
+    rounded to the wrappers' output dtypes."""
     real = ops.flash_attention, ops.ssd_diag
     wide = (lambda t: t.double()) if exact else (lambda t: t)
 
     def flash(q, k, v, *, causal=True, out_dtype=None):
         out = out_dtype or q.dtype
-        return FA.flash_attention_plain(
-            wide(q), wide(k), wide(v), causal=causal,
-            out_dtype=torch.float64 if exact else out).to(out)
+        return PlainFlash.apply(wide(q), wide(k), wide(v), causal,
+                                torch.float64 if exact else out).to(out)
 
     def ssd(cmat, bmat, x, dt, cs):
-        return SD.ssd_diag_plain(*map(wide, (cmat, bmat, x, dt, cs))).to(
+        return PlainSsd.apply(*(wide(t.to(torch.float32))
+                                for t in (cmat, bmat, x, dt, cs))).to(
             torch.float32)
     ops.flash_attention, ops.ssd_diag = flash, ssd
 
@@ -2113,7 +2211,8 @@ def serve_and_force(ops, model, cfg, prompt, n_dec, dev, profile_step=None):
     total = -(-(s + n_dec) // cfg.ssm_chunk) * cfg.ssm_chunk
     pad = torch.zeros((b, total - s - n_dec), dtype=torch.long, device=dev)
     before = lm_counts(ops)
-    fwd, _ = model.forward({"tokens": torch.cat([prompt, fed, pad], 1)})
+    with torch.inference_mode():   # the forward is trainable: no graph here
+        fwd, _ = model.forward({"tokens": torch.cat([prompt, fed, pad], 1)})
     torch.cuda.synchronize()
     per_forward = {k: ops.launches[k] - before[k] for k in before}
     forced = fwd[:, s - 1:s + n_dec].clone()
@@ -2155,7 +2254,7 @@ def phase_lm_serve(ops, FA, SD, dev):
         return m.prefill({"tokens": prompt}, m.cache_init(b, s + n_dec))[0]
 
     def prefill_with(m, exact=False):
-        restore = plain_lm_kernels(ops, FA, SD, exact=exact)
+        restore = plain_lm_kernels(ops, exact=exact)
         try:
             return prefill(m)
         finally:
@@ -2336,6 +2435,391 @@ def lm_serve_rows(ops, FA, SD, dev, launches, seen):
     return rows
 
 
+# the LM training path at zamba2_1p2b's full width and depth: 2 x 2,048
+# tokens a step from data.lm.token_batches (seed 1), AdamW(lr=3e-4), 2
+# warm steps and 6 timed ones through training.train.make_train_step
+LM_TRAIN = dict(config="zamba2_1p2b", batch=2, seq=2048, warm=2, timed=6,
+                lr=3e-4)
+PROFILED_STEPS = 3
+# the backward kernels against their plain versions at the model's
+# operands, as a fraction of the plain gradient's largest magnitude:
+# float32 operands 1e-4 (sums in another order); bf16 operands 1e-2 (P
+# and dS stay float32 in the kernel, so the gradients differ by their
+# rounding to bf16 only, one unit of 2^-8)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_BWD_TOL = 1e-4
+# the whole model's gradient with the kernels against the same weights'
+# with the plain versions swapped in, at LM_SHALLOW_LAYERS layers of the
+# full width: each tensor within LM_TRAIN_GRAD_TOL of the plain run's
+# largest gradient magnitude, the whole gradient's cosine at least
+# LM_TRAIN_COSINE. Each tensor's distance as a fraction of its own
+# largest magnitude is reported beside the same distance of a float64
+# evaluation of the two functions: through bf16 activations a float32
+# round-off moves a gradient that sums cancelling terms over every
+# position (a Mamba2 convolution's, a per-head vector's) by ~5 % of
+# itself (on an NVIDIA H100 80GB HBM3 at 700 W: float64 against float32
+# plain 4.7 %, kernels against plain 6.0 %, both at a conv_C).
+LM_TRAIN_GRAD_TOL = 5e-2
+LM_TRAIN_COSINE = 0.99
+LM_TRAIN_KERNELS = ("flash_attention", "ssd_diag", "flash_attention_bwd",
+                    "ssd_diag_bwd")
+# device kernels of one backward call of each entry (the ptxas names)
+BWD_DEVICE_KERNELS = {"flash_attention_bwd": ("flash_bwd_delta_kernel",
+                                              "flash_bwd_kv_kernel",
+                                              "flash_bwd_q_kernel"),
+                      "ssd_diag_bwd": ("ssd_bwd_kernel",
+                                       "ssd_bwd_reduce_kernel")}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over want's largest magnitude."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    return err / scale if scale else err
+
+
+def captured_operands(ops):
+    """Record the first operands of each LM kernel wrapper and, through a
+    hook on its output, the gradient the backward hands it (restored by
+    calling the result's second item)."""
+    real = ops.flash_attention, ops.ssd_diag
+    seen = {}
+
+    def flash(q, k, v, **kw):
+        out = real[0](q, k, v, **kw)
+        if "flash_attention" not in seen and out.requires_grad:
+            seen["flash_attention"] = (q.detach(), k.detach(), v.detach(),
+                                       kw)
+            out.register_hook(lambda g: seen.setdefault("flash_do", g))
+        return out
+
+    def ssd(*args):
+        out = real[1](*args)
+        if "ssd_diag" not in seen and out.requires_grad:
+            seen["ssd_diag"] = tuple(a.detach() for a in args)
+            out.register_hook(lambda g: seen.setdefault("ssd_dy", g))
+        return out
+    ops.flash_attention, ops.ssd_diag = flash, ssd
+
+    def restore():
+        ops.flash_attention, ops.ssd_diag = real
+    return seen, restore
+
+
+def train_batches(cfg, b: int, s: int, n: int, dev) -> list:
+    from repro_torch.data.lm import token_batches
+    return [{k: torch.from_numpy(v).to(dev).long() for k, v in nb.items()}
+            for nb in token_batches(vocab_size=cfg.vocab_size, batch=b,
+                                    seq_len=s, n_batches=n, seed=1)]
+
+
+def model_grads(model, batch) -> tuple[float, dict]:
+    """The loss and every parameter's gradient through the train step's
+    loss (``make_loss_fn``), by name."""
+    from repro_torch.training.train import make_loss_fn
+    total, _ = make_loss_fn(model)(batch)
+    named = dict(model.named_parameters())
+    got = torch.autograd.grad(total, list(named.values()), allow_unused=True)
+    return float(total.detach()), {
+        k: (g if g is not None else torch.zeros_like(p))
+        for (k, p), g in zip(named.items(), got)}
+
+
+def grads_agreement(got: dict, want: dict) -> dict:
+    """Per tensor max |got - want| against LM_TRAIN_GRAD_TOL of want's
+    largest magnitude over all tensors (NaN fails); the worst tensor as
+    a fraction of its own largest magnitude; the whole gradient's
+    cosine."""
+    scale = max(float(w.float().abs().max()) for w in want.values())
+    worst, fails, own = 0.0, [], {}
+    for name, w in want.items():
+        err = float((got[name].float() - w.float()).abs().max())
+        if not err <= LM_TRAIN_GRAD_TOL * scale:
+            fails.append([name, err])
+        worst = max(worst, err)
+        own[name] = rel_err(got[name], w)
+    own_worst = max(own, key=lambda k: own[k])
+    flat_g = torch.cat([got[k].float().flatten() for k in want])
+    flat_w = torch.cat([want[k].float().flatten() for k in want])
+    cos = float(torch.nn.functional.cosine_similarity(flat_g, flat_w, dim=0))
+    return {"max_abs_err": worst, "scale": scale,
+            "rel_err": worst / scale, "bound": LM_TRAIN_GRAD_TOL,
+            "worst_own_rel_err": own[own_worst],
+            "worst_own_tensor": own_worst, "cosine": cos,
+            "cosine_bound": LM_TRAIN_COSINE, "failures": fails[:5],
+            "ok": not fails and cos >= LM_TRAIN_COSINE}
+
+
+def profiled_lm_kernels(prof) -> dict:
+    """The device time of a profiled region, its device kernels, and by
+    LM entry (forward and backward) the device ms and the launches of
+    its first device kernel, with the top kernels by device time."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    names = {"flash_attention": ("flash_kernel",),
+             "ssd_diag": ("ssd_diag_kernel",), **BWD_DEVICE_KERNELS}
+    ms = {k: sum(e.self_device_time_total for e in kernels
+                 if any(n in e.key for n in ns)) / 1e3
+          for k, ns in names.items()}
+    launches = {k: sum(e.count for e in kernels if ns[0] in e.key)
+                for k, ns in names.items()}
+    return {"device_ms": total,
+            "device_kernels": sum(e.count for e in kernels),
+            "kernel_ms": ms, "kernel_launches": launches,
+            "kernels_share": {k: v / total if total else None
+                              for k, v in ms.items()},
+            "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                    for e in sorted(kernels, key=lambda e:
+                                    -e.self_device_time_total)[:12]]}
+
+
+def phase_lm_train(ops, FA, SD, dev):
+    """zamba2_1p2b trained through the port's entry points: ``Model``,
+    ``init`` from a seeded generator, ``optim.adamw.AdamW``,
+    ``training.train.make_train_step``. Checks: every loss finite and the
+    mean of the last two below the first; each step launches 7
+    ``flash_attention`` and 38 ``ssd_diag`` forward and as many
+    backward kernels (the wrappers' counts, and the profiler's over one
+    step); the backward kernels against their plain versions at the
+    operands of the model's first attention and SSD calls with the dY
+    of the real backward (bf16 and float32 attention operands); the
+    whole model's gradient at LM_SHALLOW_LAYERS layers against the plain
+    versions swapped in. Returns the path's launches and the operands."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.training.train import make_train_step
+    from torch.profiler import ProfilerActivity, profile
+    t = LM_TRAIN
+    cfg = get_config(t["config"])
+    b, s = t["batch"], t["seq"]
+    n_attn = -(-cfg.n_layers // cfg.shared_attn_every)
+    want_step = {"flash_attention": n_attn, "ssd_diag": cfg.n_layers,
+                 "flash_attention_bwd": n_attn, "ssd_diag_bwd": cfg.n_layers}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    opt = AdamW(lr=t["lr"])
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    batches = train_batches(cfg, b, s,
+                            t["warm"] + t["timed"] + PROFILED_STEPS, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # ---- the path: 2 warm and 6 timed steps
+    losses, step_ms, per_step = [], [], []
+    ops.reset_launches()
+    seen, restore = captured_operands(ops)
+    try:
+        for i in range(t["warm"] + t["timed"]):
+            before = {k: ops.launches[k] for k in LM_TRAIN_KERNELS}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, state, metrics = step(params, state, batches[i])
+            torch.cuda.synchronize()
+            if i >= t["warm"]:
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(metrics["loss"]))
+            per_step.append({k: ops.launches[k] - before[k]
+                             for k in LM_TRAIN_KERNELS})
+    finally:
+        restore()
+    path = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"lm_train: losses {losses}")
+    check(np.mean(losses[-2:]) < losses[0],
+          f"lm_train: the loss did not fall: {losses}")
+    check(all(c == want_step for c in per_step),
+          f"lm_train: steps launched {per_step}, not {want_step}")
+
+    # ---- steps under the profiler (their launches do not count). Late in
+    # a long process the profiler drops kernel records (``kernels_per_call``
+    # meets the same), so up to three profiled steps, each kernel's count
+    # the most one of them saw
+    counted = {}
+    for i in range(PROFILED_STEPS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, state, metrics = step(params, state,
+                                          batches[t["warm"] + t["timed"] + i])
+            torch.cuda.synchronize()
+        profiled = profiled_lm_kernels(prof)
+        counted = {k: max(counted.get(k, 0), n)
+                   for k, n in profiled["kernel_launches"].items()}
+        if counted == want_step:
+            break
+    profiled.update(profiled_steps=i + 1, kernel_launches_most=counted)
+    check(counted == want_step,
+          f"lm_train: the profiler counted {counted} a step, not "
+          f"{want_step}")
+    del model, params, state, opt, step, batches, metrics, prof
+    torch.cuda.empty_cache()
+
+    # ---- the backward kernels at the model's operands, dY of the real
+    # backward: bf16 attention as the model runs it, and float32
+    q, k, v, kw = seen["flash_attention"]
+    do = seen["flash_do"]
+    attn = {}
+    for dt in (torch.bfloat16, torch.float32):
+        qq, kk, vv, dd = (x.to(dt).contiguous() for x in (q, k, v, do))
+        o, lse = ops.flash_attention_lse(qq, kk, vv,
+                                         causal=kw["causal"])
+        got = ops.flash_attention_bwd(qq, kk, vv, o, lse, dd,
+                                      causal=kw["causal"])
+        want = FA.flash_attention_bwd_plain(qq, kk, vv, o, lse, dd,
+                                            causal=kw["causal"])
+        errs = [rel_err(g_, w_) for g_, w_ in zip(got, want)]
+        again = ops.flash_attention_bwd(qq, kk, vv, o, lse, dd,
+                                        causal=kw["causal"])
+        attn[str(dt).split(".")[1]] = {
+            "rel_err_dq_dk_dv": errs, "bound": BWD_TOL[dt],
+            "equal_bits_twice": all(torch.equal(x_, y_)
+                                    for x_, y_ in zip(got, again))}
+        check(max(errs) <= BWD_TOL[dt] and attn[str(dt).split(".")[1]][
+            "equal_bits_twice"], f"flash_attention_bwd {dt} at zamba2's "
+              f"operands: {attn}")
+        del got, want, again
+    ssd_ops, dy = seen["ssd_diag"], seen["ssd_dy"]
+    got = ops.ssd_diag_bwd(*ssd_ops, dy)
+    want = SD.ssd_diag_bwd_plain(*ssd_ops, dy)
+    again = ops.ssd_diag_bwd(*ssd_ops, dy)
+    ssd_errs = [rel_err(g_, w_) for g_, w_ in zip(got, want)]
+    ssd_bits = all(torch.equal(x_, y_) for x_, y_ in zip(got, again))
+    check(max(ssd_errs) <= SSD_BWD_TOL and ssd_bits,
+          f"ssd_diag_bwd at zamba2's operands: {ssd_errs}, equal bits "
+          f"{ssd_bits}")
+    del got, want, again
+    torch.cuda.empty_cache()
+
+    # ---- the whole gradient at LM_SHALLOW_LAYERS layers, full width
+    shallow_cfg = dataclasses.replace(cfg, n_layers=LM_SHALLOW_LAYERS)
+    shallow = Model(shallow_cfg, device=dev)
+    shallow.init(torch.Generator(device=dev).manual_seed(SEED))
+    batch = train_batches(cfg, b, s, 1, dev)[0]
+    loss_k, g_k = model_grads(shallow, batch)
+    losses_p, g_p = {}, {}
+    for exact in (False, True):
+        restore = plain_lm_kernels(ops, exact=exact)
+        try:
+            losses_p[exact], g_p[exact] = model_grads(shallow, batch)
+        finally:
+            restore()
+    cut = {"layers": LM_SHALLOW_LAYERS, "loss": loss_k,
+           "plain_loss": losses_p[False], "float64_loss": losses_p[True],
+           "kernels_vs_plain": grads_agreement(g_k, g_p[False]),
+           "float64_vs_plain": grads_agreement(g_p[True], g_p[False])}
+    del shallow, g_k, g_p, batch
+    torch.cuda.empty_cache()
+
+    ms = statistics.median(step_ms)
+    emit(phase="lm_train", config=cfg.name, batch=b, seq=s,
+         tokens_per_step=b * s, lr=t["lr"], remat=False, init_s=init_s,
+         losses=losses, step_ms=ms, step_ms_all=step_ms,
+         tokens_per_s=b * s / ms * 1e3, peak_memory_gb=peak_gb,
+         launches_per_step=per_step[-1],
+         profiled_step=profiled,
+         backward_parity={"flash_attention_bwd": attn,
+                          "ssd_diag_bwd": {"rel_err_dc_db_dx_ddt_dcs":
+                                           ssd_errs, "bound": SSD_BWD_TOL,
+                                           "equal_bits_twice": ssd_bits}},
+         cut_depth_gradient=cut)
+    check(cut["kernels_vs_plain"]["ok"]
+          and abs(loss_k - losses_p[False]) <= 1e-3 * abs(losses_p[False]),
+          f"lm_train: the gradient at {LM_SHALLOW_LAYERS} layers: {cut}")
+    ops.launches.update(path)
+    return path, seen
+
+
+def lm_train_rows(ops, FA, SD, dev, launches, seen):
+    """The two backward kernels at the operands (and dY) of the zamba2
+    train step's first attention and SSD calls, timed beside their
+    bounds, their plain versions and, for attention, the autograd
+    backward of SDPA on the same operands."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, kw = seen["flash_attention"]
+    do = seen["flash_do"].contiguous()
+    causal = kw["causal"]
+    o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    fa_err = max(rel_err(g_, w_) for g_, w_ in zip(got, want))
+    del got, want
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    pairs = b * h * s * (s + 1) // 2 if causal else b * h * s * s
+    # S, dP, dV, dK and dQ: five products of 2 D operations a pair
+    flops = 10.0 * pairs * d
+    elem = q.element_size()
+    n_bytes = (elem * (3 * b * s * h * d + 2 * b * s * hkv * d)   # q o dO k v
+               + 4 * b * h * s                                    # lse
+               + elem * (b * s * h * d + 2 * b * s * hkv * d))    # dq dk dv
+    rows = [time_row(
+        ops, "flash_attention_bwd_zamba2", "flash_attn_bwd.cu",
+        "no Pallas counterpart (the reference differentiates "
+        "src/repro/models/layers.py:119 by XLA autodiff)",
+        lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
+        lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=causal),
+        lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                    retain_graph=True),
+        n_bytes, flops, launches["flash_attention_bwd"], fa_err,
+        bounds=lm_bounds(n_bytes, flops, BF16_FLOP_PER_S, flops, 2 * pairs))]
+    rows[-1].update(dtype=str(q.dtype).split(".")[1], path="lm_train",
+                    device_kernels=list(
+                        BWD_DEVICE_KERNELS["flash_attention_bwd"]),
+                    ptxas=bwd_ptxas("flash_attention_bwd"),
+                    max_abs_err_reading="max |kernel - plain| over the "
+                    "plain gradient's largest magnitude, worst of dq dk dv")
+    del out, qt, kt, vt
+    cmat, bmat, x, dt, cs = seen["ssd_diag"]
+    dy = seen["ssd_dy"].contiguous()
+    got = ops.ssd_diag_bwd(cmat, bmat, x, dt, cs, dy)
+    want = SD.ssd_diag_bwd_plain(cmat, bmat, x, dt, cs, dy)
+    sd_err = max(rel_err(g_, w_) for g_, w_ in zip(got, want))
+    del got, want
+    bc, q_len, n = cmat.shape
+    hs, p = x.shape[1], x.shape[3]
+    tri = q_len * (q_len + 1) // 2
+    # per (chunk, head) dW and dX over the causal half; per chunk S, and
+    # dC and dB from dS summed over the heads
+    ssd_flops = 4.0 * bc * hs * tri * p + 6.0 * bc * tri * n
+    ssd_bytes = 4 * (2 * bc * q_len * n + 2 * bc * hs * q_len * p
+                     + 2 * bc * hs * q_len            # read C B x dY dt cs
+                     + 2 * bc * q_len * n + bc * hs * q_len * p
+                     + 2 * bc * hs * q_len)           # write dC dB dx ddt dcs
+    rows.append(time_row(
+        ops, "ssd_diag_bwd_zamba2", "ssd_diag_bwd.cu",
+        "no Pallas counterpart (the reference differentiates "
+        "src/repro/models/mamba2.py:88 by XLA autodiff)",
+        lambda: ops.ssd_diag_bwd(cmat, bmat, x, dt, cs, dy),
+        lambda: SD.ssd_diag_bwd_plain(cmat, bmat, x, dt, cs, dy), None,
+        ssd_bytes, ssd_flops, launches["ssd_diag_bwd"], sd_err,
+        bounds=lm_bounds(ssd_bytes, 3 * ssd_flops, TF32_FLOP_PER_S,
+                         ssd_flops, bc * hs * tri)))
+    rows[-1].update(path="lm_train", shape=[bc, hs, q_len, n, p],
+                    device_kernels=list(BWD_DEVICE_KERNELS["ssd_diag_bwd"]),
+                    ptxas=bwd_ptxas("ssd_diag_bwd"),
+                    max_abs_err_reading="max |kernel - plain| over the "
+                    "plain gradient's largest magnitude, worst of dC dB dx "
+                    "ddt dcs")
+    return rows
+
+
+def bwd_ptxas(entry: str) -> list:
+    """What ptxas reported for the backward entry's device kernels."""
+    from repro_torch.kernels import _build
+    return [r for name in BWD_DEVICE_KERNELS[entry]
+            for r in _build.ptxas_report(name)]
+
+
 def phase_task_axis(ops, K, G, KS, D, dist, dev, fits, xte, gamma, counts):
     """The task-axis row and selection kernels at the OvO and OvR bucket
     shapes of the multiclass fits (ragged tasks zero-padded and masked,
@@ -2510,7 +2994,8 @@ def bank_row(ops, D, dev, fit, strategy, xte, gamma,
     return row
 
 
-def phase_timing_lm(ops, FA, SD, dev, errs, launches, bf16_launches):
+def phase_timing_lm(ops, FA, SD, dev, errs, launches, bf16_launches,
+                    bwd_launches):
     """flash_attention (float32 and bfloat16) and ssd_diag at their model
     shapes, each with its plan, ptxas's report and its tensor-core bounds
     (``lm_bounds``)."""
@@ -2546,6 +3031,44 @@ def phase_timing_lm(ops, FA, SD, dev, errs, launches, bf16_launches):
         rows[-1].update(dtype=str(dt).split(".")[1],
                         **redesign_info("flash_attention",
                                         (b, s_len, h, d, dt)))
+    # the backward at the same operands: S, dP, dV, dK, dQ (five
+    # products of 2 D operations a causal pair); q, k, v, o, dO and lse
+    # read, dq, dk, dv written once
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    do32 = torch.randn(attn[0].shape, generator=g, device=dev)
+    for dt, name in ((torch.float32, "flash_attention_bwd"),
+                     (torch.bfloat16, "flash_attention_bwd_bf16")):
+        q, k, v, do = (t.to(dt) for t in (*attn, do32))
+        o, lse = ops.flash_attention_lse(q, k, v, causal=True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        elem = 2 if dt == torch.bfloat16 else 4
+        n_bytes = (elem * (4 * b * s_len * h * d + 4 * b * s_len * hkv * d)
+                   + 4 * b * h * s_len)
+        bflops = 10.0 * pairs * d
+        bounds = (lm_bounds(n_bytes, 3 * bflops, TF32_FLOP_PER_S, bflops,
+                            2 * pairs) if dt == torch.float32
+                  else lm_bounds(n_bytes, bflops, BF16_FLOP_PER_S, bflops,
+                                 2 * pairs))
+        rows.append(time_row(
+            ops, name, "flash_attn_bwd.cu",
+            "no Pallas counterpart (the reference differentiates "
+            "src/repro/models/layers.py:119 by XLA autodiff)",
+            lambda: ops.flash_attention_bwd(q, k, v, o, lse, do),
+            lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                 causal=True),
+            lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                        retain_graph=True),
+            n_bytes, bflops, bwd_launches[dt], errs[name], bounds=bounds))
+        rows[-1].update(dtype=str(dt).split(".")[1],
+                        device_kernels=list(
+                            BWD_DEVICE_KERNELS["flash_attention_bwd"]),
+                        max_abs_err_reading="max |kernel - plain| over the "
+                        "plain gradient's largest magnitude, worst of dq "
+                        "dk dv")
+        del out, qt, kt, vt
     # C and B once; x, dt, cs read and y written once
     ssd_bytes = 4 * (2 * bc * qs * n + 2 * bc * hs * qs * (p + 1))
     # scores once a chunk, the weighted sum once a head (causal halves)
@@ -4454,9 +4977,10 @@ def main() -> int:
     del base, mc_configs
     serving = phase_serving(ops, serve_mod, dev, out_dir, packed, (xte, yte),
                             fits, split)
-    lm, lm_errs, lm_bf16 = phase_lm(ops, FA, SD, dev)
+    lm, lm_errs, lm_bf16, lm_bwd = phase_lm(ops, FA, SD, dev)
     check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
     lm_serve, lm_seen = phase_lm_serve(ops, FA, SD, dev)
+    lm_train, lm_train_seen = phase_lm_train(ops, FA, SD, dev)
     # the tuner and the compile guard, after every path ran its analytic
     # plans
     tuned = phase_tune(ops, dev)
@@ -4466,6 +4990,7 @@ def main() -> int:
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
              "svr": svr, **mc_paths, **lowrank_paths, **new_paths,
              **serving, "lm_kernels": lm, "lm_serve": lm_serve,
+             "lm_train": lm_train,
              "tune": tuned,
              "compile_guard": guard}
     launches = {k: sum(p[k] for p in paths.values()) for k in ops.KERNELS}
@@ -4497,8 +5022,9 @@ def main() -> int:
     kernels += phase_timing_lowrank(ops, FM, DCD, dev, xtr, clf, phi, yy,
                                     errs, launches, svr_state, svr,
                                     task_rows)
-    kernels += phase_timing_lm(ops, FA, SD, dev, errs, lm, lm_bf16)
+    kernels += phase_timing_lm(ops, FA, SD, dev, errs, lm, lm_bf16, lm_bwd)
     kernels += lm_serve_rows(ops, FA, SD, dev, lm_serve, lm_seen)
+    kernels += lm_train_rows(ops, FA, SD, dev, lm_train, lm_train_seen)
     kernels += phase_row_range(ops, K, G, dev, xtr, packed.kernel.gamma,
                                launches)
     kernels += quantized_bank_rows(ops, D, dev, fits, split[2], launches)

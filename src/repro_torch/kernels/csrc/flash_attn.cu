@@ -64,6 +64,11 @@
 //   first.
 // * Bits depend only on the inputs: no atomics, no split over keys; a
 //   row's walk is the same whatever the plan's tile of rows.
+// * For the backward (flash_attn_bwd.cu) the kernel can also write each
+//   row's log-sum-exp, float32 (B, H, Sq) in natural log: (m + log2 l)
+//   ln 2 from the running max m and sum l it keeps anyway (+inf for a
+//   row with no key, so the backward's exp gives 0). The output's bits do
+//   not depend on whether it is written.
 #include "mma.cuh"
 #include "tile_f32.cuh"
 
@@ -74,6 +79,7 @@ namespace {
 using namespace svm;
 
 constexpr float NEG_BIG = -1e30f;  // the reference's NEG_INF
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int FA_KEYS = 64;        // keys of a key tile
 constexpr int FA_MAX_ROWS = 128;   // query rows of a block, at most
 constexpr int FA_MAX_STAGES = 3;   // K / V stages in the ring, at most
@@ -98,6 +104,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* out;
+  float* lse;         // (B, H, Sq) natural-log log-sum-exp, or null
   int sq, sk, h, hkv, d, kv_len;
   float scale_log2;   // d^-0.5 log2(e)
   int causal, f32_out;
@@ -413,6 +420,10 @@ flash_kernel(const __grid_constant__ FlashArgs p) {
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + g + 8 * h;
     if (row >= p.sq) continue;
+    if (p.lse != nullptr && t == 0)   // the quad's lanes hold the same m, l
+      p.lse[((int64_t)b * p.h + head) * p.sq + row] =
+          l[h] > 0.f ? __fmul_rn(__fadd_rn(m[h], log2f(l[h])), LN2)
+                     : __int_as_float(0x7f800000);
     const float den = fmaxf(l[h], 1e-20f);
     const int64_t base = ((int64_t)b * p.sq + row) * p.h * p.d +
                          (int64_t)head * p.d;
@@ -481,10 +492,12 @@ extern "C" {
 // float32 under f32_out. Needs d <= 128, h % hkv == 0, 1 <= kv_len <= sk
 // (the wrapper checks); scale_log2 = d^-0.5 log2(e); the plan of
 // flash_attn.flash_plan: query rows a block, ring stages, 8-column tiles
-// of the value width, shared memory.
+// of the value width, shared memory. lse, when not null, receives each
+// row's log-sum-exp (float32, (b, h, sq), natural log).
 int svm_flash_attention(const void* q, const void* k, const void* v,
-                        void* out, int b, int sq, int sk, int h, int hkv,
-                        int d, int kv_len, float scale_log2, int causal,
+                        void* out, float* lse, int b, int sq, int sk, int h,
+                        int hkv, int d, int kv_len, float scale_log2,
+                        int causal,
                         int bf16_in, int f32_out, int rows, int stages,
                         int d_tiles, int smem, void* stream) {
   const int elem = bf16_in ? 2 : 4;
@@ -496,6 +509,7 @@ int svm_flash_attention(const void* q, const void* k, const void* v,
   a.k = k;
   a.v = v;
   a.out = out;
+  a.lse = lse;
   a.sq = sq;
   a.sk = sk;
   a.h = h;

@@ -9,8 +9,13 @@ Everything inside is float32; the output is rounded once to its type.
 Both products run on the tensor cores (3xTF32 for float32 operands,
 bf16 with P split in two for bfloat16 ones); ``flash_plan`` is the
 launch plan, and the kernel refuses a plan whose shared memory differs
-from its own count. ``ops.flash_attention`` is the checked entry point;
-the functions here assume checked inputs.
+from its own count. The kernel can also write each row's log-sum-exp,
+which the backward kernel (``csrc/flash_attn_bwd.cu``, launch plan
+``bwd_plan``; no Pallas counterpart: the reference differentiates its
+attention by XLA's autodiff) reads to recompute P.
+``flash_attention_bwd_plain`` is its plain version.
+``ops.flash_attention`` is the checked entry point; the functions here
+assume checked inputs.
 """
 from __future__ import annotations
 
@@ -89,35 +94,142 @@ def key_tiles(q0: int, rows: int, sq: int, sk: int, causal: bool) -> int:
     return n
 
 
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic type: float32, or float64 for
+    float64 operands (the tests' exact evaluations)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _heads_first(q, k, v):
+    """q, k, v as (B, H, S, D) in the arithmetic type, kv heads repeated
+    to H (query head h reads kv head h // (H / Hkv))."""
+    h, hkv = q.shape[2], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    wide = _wide(q.dtype)
+    return (t.to(wide).transpose(1, 2) for t in (q, k, v))
+
+
+def _scores(qf, kf, causal: bool):
+    """Scaled scores (B, H, Sq, Sk), -inf where the causal mask (key >
+    row, by global position) hides a key."""
+    s = (qf @ kf.transpose(-1, -2)) * qf.shape[-1] ** -0.5
+    if not causal:
+        return s
+    sq, sk = qf.shape[2], kf.shape[2]
+    keep = (torch.arange(sk, device=qf.device)[None, :]
+            <= torch.arange(sq, device=qf.device)[:, None])
+    return torch.where(keep, s, -torch.inf)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool,
                           out_dtype: torch.dtype) -> torch.Tensor:
     """Softmax attention of q (B, Sq, H, D) over k, v (B, Sk, Hkv, D),
     kv heads repeated to H; (B, Sq, H, D) in ``out_dtype``. The whole
-    score matrix in float32, masked with -inf under ``causal`` (the
-    reference's oracle, ``repro/kernels/ref.py::flash_attention``)."""
-    h, d = q.shape[2], q.shape[3]
-    hkv = k.shape[2]
-    if hkv != h:
-        k = k.repeat_interleave(h // hkv, dim=2)
-        v = v.repeat_interleave(h // hkv, dim=2)
-    qf, kf, vf = (t.to(torch.float32).transpose(1, 2) for t in (q, k, v))
-    s = (qf @ kf.transpose(-1, -2)) * d ** -0.5            # (B, H, Sq, Sk)
-    if causal:
-        sq, sk = q.shape[1], k.shape[1]
-        keep = (torch.arange(sk, device=q.device)[None, :]
-                <= torch.arange(sq, device=q.device)[:, None])
-        s = torch.where(keep, s, -torch.inf)
+    score matrix in float32 (float64 for float64 operands), masked with
+    -inf under ``causal`` (the reference's oracle,
+    ``repro/kernels/ref.py::flash_attention``)."""
+    qf, kf, vf = _heads_first(q, k, v)
+    s = _scores(qf, kf, causal)
     out = torch.softmax(s, dim=-1) @ vf
     return out.transpose(1, 2).to(out_dtype)
 
 
-def launch(lib, q, k, v, out, *, causal: bool, plan: FlashPlan) -> int:
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                        causal: bool) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled, masked scores, (B, H, Sq) in
+    natural log, as the forward kernel writes it (+inf for a row that
+    sees no key)."""
+    qf, kf, _ = _heads_first(q, k, k)
+    s = _scores(qf, kf, causal)
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(lse == -torch.inf, torch.inf, lse)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool):
+    """The gradient (dq, dk, dv) of ``flash_attention_plain`` at q, k, v
+    given its output o, each row's log-sum-exp ``lse`` (B, H, Sq) and the
+    output's gradient do, in q's dtype; the explicit formulas of the
+    kernel (``csrc/flash_attn_bwd.cu``) in float32 (float64 for float64
+    operands): P = exp(scale Q K^T - lse) masked, D = rowsum(dO o O),
+    dS = P o (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q,
+    dV = P^T dO, dK and dV summed over each kv head's H / Hkv query
+    heads."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qf, kf, vf = _heads_first(q, k, v)
+    wide = qf.dtype
+    of, dof = (t.to(wide).transpose(1, 2) for t in (o, do))
+    # masked scores are -inf, and so is their exponent (lse is finite, or
+    # +inf for a row with no key): P is 0 there
+    p = torch.exp(_scores(qf, kf, causal) - lse.to(wide)[..., None])
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    scale = d ** -0.5
+    dq = scale * (ds @ kf)
+    dk = (scale * (ds.transpose(-1, -2) @ qf)).reshape(
+        b, hkv, h // hkv, sk, d).sum(2)
+    dv = (p.transpose(-1, -2) @ dof).reshape(b, hkv, h // hkv, sk, d).sum(2)
+    return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))
+
+
+def launch(lib, q, k, v, out, *, causal: bool, plan: FlashPlan,
+           lse: torch.Tensor | None = None) -> int:
+    """The forward kernel; ``lse`` (B, H, Sq) float32, when given,
+    receives each row's log-sum-exp for the backward."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     return lib.svm_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, sq, sk,
         h, hkv, d, sk, float(d ** -0.5 * LOG2E), int(causal),
         int(q.dtype == torch.bfloat16), int(out.dtype != q.dtype),
         plan.rows, plan.stages, plan.d_tiles, plan.smem_bytes,
         current_stream())
+
+
+# ------------------------------------------------------------- backward
+BWD_TILE = 64         # query rows / keys of a tile (csrc FB_TILE)
+
+
+class BwdPlan(NamedTuple):
+    width: int        # staged row width: d rounded up to 32, 64 or 128
+    smem_kv: int      # shared memory of the dK / dV launch
+    smem_q: int       # of the dQ launch
+    grid_kv: tuple    # (B x Hkv, key tiles)
+    grid_q: tuple     # (B x H, query tiles)
+
+
+def bwd_width(d: int) -> int:
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def bwd_plan(b: int, sq: int, sk: int, h: int, hkv: int, d: int) -> BwdPlan:
+    """The backward's launches (csrc/flash_attn_bwd.cu): 64-row tiles of
+    ``width + 1`` floats a row; the dK / dV launch holds K, V, Q, dO, P
+    and dS tiles, the dQ launch the same but P."""
+    w = bwd_width(d)
+    tiles = 4 * BWD_TILE * (w + 1)
+    sq_tiles, sk_tiles = math.ceil(sq / BWD_TILE), math.ceil(sk / BWD_TILE)
+    pds = BWD_TILE * (BWD_TILE + 1)
+    return BwdPlan(w, 4 * (tiles + 2 * pds + 2 * BWD_TILE),
+                   4 * (tiles + pds + 2 * BWD_TILE),
+                   (b * hkv, sk_tiles), (b * h, sq_tiles))
+
+
+def launch_bwd(lib, q, k, v, o, lse, do, dq, dk, dv, delta, *, causal: bool,
+               plan: BwdPlan) -> int:
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    return lib.svm_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), b, sq, sk, h, hkv, d,
+        float(d ** -0.5), float(d ** -0.5 * LOG2E), int(causal),
+        int(q.dtype == torch.bfloat16), int(o.dtype == torch.bfloat16),
+        plan.width, plan.smem_kv, plan.smem_q, current_stream())

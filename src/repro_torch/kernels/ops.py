@@ -15,6 +15,13 @@ through the kernels (``reset_launches`` zeroes the counts).
 Unlike ``repro/kernels/ops.py`` nothing is padded to tile multiples:
 the kernels mask their ragged edges themselves.
 
+``flash_attention`` and ``ssd_diag`` are differentiable
+(``FlashAttention``, ``SsdDiag``): their backward is the hand-written
+``flash_attention_bwd`` / ``ssd_diag_bwd`` on the card (counted apart),
+the plain backward formulas on CPU tensors. The reference's Pallas
+kernels have no gradient; its train step differentiates the XLA
+functions, whose gradient these compute.
+
 The five tunable wrappers (``rbf_gram``, ``kkt_select``, ``decision``,
 ``multitask_decision``, ``rff_features``) take their launch plan's knob
 (``rows=``, ``blocks=``, ``splits=``) as an optional argument, as
@@ -53,7 +60,8 @@ KERNELS = ("rbf_gram", "rbf_gram_matvec", "rbf_gram_row",
            "rbf_gram_row_range", "rbf_gram_row_cached_range", "kkt_select",
            "decision", "multitask_decision", "multitask_decision_fp16_bank",
            "multitask_decision_bf16_bank", "rff_features", "dcd_epoch",
-           "flash_attention", "ssd_diag")
+           "flash_attention", "ssd_diag", "flash_attention_bwd",
+           "ssd_diag_bwd")
 
 # the largest rank dcd_epoch takes: w must fit the 232,448 bytes of
 # shared memory a block may opt in to (csrc/dcd_epoch.cu, MAX_RANK)
@@ -633,8 +641,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     heads (k, v (B, Sk, Hkv, D), H a multiple of Hkv), scale D^-0.5, the
     causal mask by global position. The result is (B, Sq, H, D) in
     q's dtype, or float32 if ``out_dtype`` asks for it, computed in
-    float32 from operands of q's dtype (float32 or bfloat16). Nothing is padded: the
-    kernel masks its ragged edges."""
+    float32 from operands of q's dtype (float32 or bfloat16). Nothing is
+    padded: the kernel masks its ragged edges.
+
+    Differentiable (``FlashAttention``): where a gradient is wanted, the
+    forward also keeps each row's log-sum-exp and the backward is
+    ``flash_attention_bwd``."""
+    out_dtype = _check_flash(q, k, v, out_dtype)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, bool(causal), out_dtype, grad)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        out_dtype: torch.dtype | None = None):
+    """``flash_attention``'s output and each row's log-sum-exp (B, H, Sq)
+    float32 in natural log (+inf for a row that sees no key), as the
+    backward reads it; no gradient is tracked. The output's bits are
+    ``flash_attention``'s."""
+    out_dtype = _check_flash(q, k, v, out_dtype)
+    return _flash_forward(q.detach(), k.detach(), v.detach(), bool(causal),
+                          out_dtype, True)
+
+
+def _check_flash(q, k, v, out_dtype):
+    """The checks of ``flash_attention``; returns the output dtype."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: need q (B, S, H, D) and k, v "
                          f"(B, Sk, Hkv, D), got {tuple(q.shape)}, "
@@ -654,27 +686,102 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out_dtype not in (q.dtype, torch.float32):
         raise ValueError(f"flash_attention: out_dtype must be q's dtype "
                          f"{q.dtype} or torch.float32, got {out_dtype}")
-    if not _on_card("flash_attention", q, k, v):
-        return _flash.flash_attention_plain(q, k, v, causal=causal,
-                                            out_dtype=out_dtype)
-    _check_contiguous("flash_attention", q=q, k=k, v=v)
-    if d > FLASH_MAX_D:
-        raise ValueError(f"flash_attention: head dim {d} > {FLASH_MAX_D}, "
-                         "which the kernel holds in registers")
+    if _on_card("flash_attention", q, k, v):
+        _check_contiguous("flash_attention", q=q, k=k, v=v)
+        if d > FLASH_MAX_D:
+            raise ValueError(f"flash_attention: head dim {d} > "
+                             f"{FLASH_MAX_D}, which the kernel holds in "
+                             "registers")
+    return out_dtype
+
+
+def _flash_forward(q, k, v, causal: bool, out_dtype, with_lse: bool):
+    """(out, lse or None): the kernel, or on CPU tensors the plain
+    version (its log-sum-exp only ``with_lse``)."""
+    if not q.is_cuda:
+        out = _flash.flash_attention_plain(q, k, v, causal=causal,
+                                           out_dtype=out_dtype)
+        lse = (_flash.attention_lse_plain(q, k, causal=causal)
+               if with_lse else None)
+        return out, lse
+    b, sq, h, d = q.shape
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
-    plan = _flash.flash_plan(b, q.shape[1], h, d, q.dtype,
-                             sms=_sm_count(q.device))
+        return out, lse
+    plan = _flash.flash_plan(b, sq, h, d, q.dtype, sms=_sm_count(q.device))
     lib = _build.library()
     _count("flash_attention")
     _raise_on_error("flash_attention", _flash.launch(
-        lib, q, k, v, out, causal=causal, plan=plan))
-    return out
+        lib, q, k, v, out, causal=causal, plan=plan, lse=lse))
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: on the card the forward
+    kernel (keeping each row's log-sum-exp when a gradient is wanted) and
+    the backward kernel; on CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, out_dtype, grad):
+        out, lse = _flash_forward(q, k, v, causal, out_dtype, grad)
+        if grad:
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention`` at q, k, v (float32 or
+    bfloat16), given its output o and the output's gradient do (both of
+    o's dtype: q's or float32) and each row's log-sum-exp lse (B, H, Sq)
+    float32; gradients in q's dtype. On the card the hand-written kernel
+    (``csrc/flash_attn_bwd.cu``), on CPU tensors its plain version."""
+    do = do.to(o.dtype).contiguous()
+    if q.shape != o.shape or do.shape != o.shape:
+        raise ValueError(f"flash_attention_bwd: o and do must be q's shape "
+                         f"{tuple(q.shape)}, got {tuple(o.shape)} and "
+                         f"{tuple(do.shape)}")
+    b, sq, h, d = q.shape
+    if lse.shape != (b, h, sq):
+        raise ValueError(f"flash_attention_bwd: lse must be {(b, h, sq)}, "
+                         f"got {tuple(lse.shape)}")
+    if not _on_card("flash_attention_bwd", q, k, v, o, lse, do):
+        return _flash.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=causal)
+    if lse.dtype != torch.float32 or o.dtype not in (q.dtype,
+                                                     torch.float32):
+        raise ValueError(f"flash_attention_bwd: lse must be float32 and o "
+                         f"of q's dtype or float32, got {lse.dtype} and "
+                         f"{o.dtype}")
+    _check_contiguous("flash_attention_bwd", q=q, k=k, v=v, o=o, lse=lse,
+                      do=do)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    plan = _flash.bwd_plan(b, sq, k.shape[1], h, k.shape[2], d)
+    lib = _build.library()
+    _count("flash_attention_bwd")
+    _raise_on_error("flash_attention_bwd", _flash.launch_bwd(
+        lib, q, k, v, o, lse, do, dq, dk, dv, delta, causal=causal,
+        plan=plan))
+    return dq, dk, dv
 
 
 # --------------------------------------------------------------- ssd_diag
 SSD_MAX_N = 256     # csrc/ssd_diag.cu: the C tile stays in shared memory
+SSD_BWD_MAX_P = 128  # csrc/ssd_diag_bwd.cu: x and dY tiles in shared memory
 
 
 def ssd_diag(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
@@ -683,7 +790,9 @@ def ssd_diag(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
     x (BC, H, Q, P), dt and cs (BC, H, Q): per (chunk, head)
     ``Y = ((C B^T) * L * dt_k) x`` with ``L[q, k] = exp(cs_q - cs_k)``
     for k <= q, else 0. Operands are taken as float32, as the
-    reference's kernel casts them."""
+    reference's kernel casts them.
+
+    Differentiable (``SsdDiag``): the backward is ``ssd_diag_bwd``."""
     cmat, bmat, x, dt, cs = (t.to(torch.float32)
                              for t in (cmat, bmat, x, dt, cs))
     if cmat.ndim != 3 or bmat.shape != cmat.shape or x.ndim != 4:
@@ -698,19 +807,74 @@ def ssd_diag(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
         if t.shape != x.shape[:3]:
             raise ValueError(f"ssd_diag: {name} must be "
                              f"{tuple(x.shape[:3])}, got {tuple(t.shape)}")
-    if not _on_card("ssd_diag", cmat, bmat, x, dt, cs):
-        return _ssd.ssd_diag_plain(cmat, bmat, x, dt, cs)
-    _check_contiguous("ssd_diag", cmat=cmat, bmat=bmat, x=x, dt=dt, cs=cs)
-    if n > SSD_MAX_N:
-        raise ValueError(f"ssd_diag: state dim {n} > {SSD_MAX_N}, which "
-                         "the kernel's shared memory holds")
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    if _on_card("ssd_diag", cmat, bmat, x, dt, cs):
+        _check_contiguous("ssd_diag", cmat=cmat, bmat=bmat, x=x, dt=dt,
+                          cs=cs)
+        if n > SSD_MAX_N:
+            raise ValueError(f"ssd_diag: state dim {n} > {SSD_MAX_N}, which "
+                             "the kernel's shared memory holds")
+    return SsdDiag.apply(cmat, bmat, x, dt, cs)
+
+
+class SsdDiag(torch.autograd.Function):
+    """``ssd_diag`` with its gradient: on the card the forward and
+    backward kernels, on CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, cmat, bmat, x, dt, cs):
+        ctx.save_for_backward(cmat, bmat, x, dt, cs)
+        if not x.is_cuda:
+            return _ssd.ssd_diag_plain(cmat, bmat, x, dt, cs)
+        out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        if out.numel() == 0:
+            return out
+        bc, q, n = cmat.shape
+        plan = _ssd.ssd_plan(bc, x.shape[1], q, n, x.shape[3],
+                             sms=_sm_count(x.device))
+        lib = _build.library()
+        _count("ssd_diag")
+        _raise_on_error("ssd_diag", _ssd.launch(lib, cmat, bmat, x, dt, cs,
+                                                out, plan=plan))
         return out
-    plan = _ssd.ssd_plan(bc, x.shape[1], q, n, x.shape[3],
-                         sms=_sm_count(x.device))
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_diag_bwd(*ctx.saved_tensors, dy)
+
+
+def ssd_diag_bwd(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
+                 dt: torch.Tensor, cs: torch.Tensor, dy: torch.Tensor):
+    """(dC, dB, dx, ddt, dcs) of ``ssd_diag`` at its float32 operands,
+    given dY (BC, H, Q, P), all float32. On the card the hand-written
+    kernel (``csrc/ssd_diag_bwd.cu``), on CPU tensors its plain
+    version."""
+    dy = dy.to(x.dtype).contiguous()
+    if dy.shape != x.shape:
+        raise ValueError(f"ssd_diag_bwd: dy must be x's shape "
+                         f"{tuple(x.shape)}, got {tuple(dy.shape)}")
+    if not _on_card("ssd_diag_bwd", cmat, bmat, x, dt, cs, dy):
+        return _ssd.ssd_diag_bwd_plain(cmat, bmat, x, dt, cs, dy)
+    _check_contiguous("ssd_diag_bwd", cmat=cmat, bmat=bmat, x=x, dt=dt,
+                      cs=cs, dy=dy)
+    bc, q, n = cmat.shape
+    h, p = x.shape[1], x.shape[3]
+    plan = _ssd.bwd_plan(bc, h, q, n, p, sms=_sm_count(x.device))
+    if n > SSD_MAX_N or p > SSD_BWD_MAX_P or \
+            plan.smem_bytes > _ssd.SMEM_LIMIT:
+        raise ValueError(f"ssd_diag_bwd: N {n} (<= {SSD_MAX_N}), P {p} "
+                         f"(<= {SSD_BWD_MAX_P}) and Q {q} need "
+                         f"{plan.smem_bytes} bytes of shared memory, more "
+                         "than the kernel holds")
+    dc, db = torch.empty_like(cmat), torch.empty_like(bmat)
+    dx = torch.zeros_like(x)
+    ddt, dcs = torch.empty_like(dt), torch.empty_like(cs)
+    if dx.numel() == 0 or dc.numel() == 0:
+        return dc.zero_(), db.zero_(), dx, ddt.zero_(), dcs.zero_()
+    parts = torch.zeros((2, plan.groups, bc, q, n), dtype=torch.float32,
+                        device=x.device)
     lib = _build.library()
-    _count("ssd_diag")
-    _raise_on_error("ssd_diag", _ssd.launch(lib, cmat, bmat, x, dt, cs, out,
-                                            plan=plan))
-    return out
+    _count("ssd_diag_bwd")
+    _raise_on_error("ssd_diag_bwd", _ssd.launch_bwd(
+        lib, cmat, bmat, x, dt, cs, dy, parts[0], parts[1], dc, db, dx, ddt,
+        dcs, plan=plan))
+    return dc, db, dx, ddt, dcs

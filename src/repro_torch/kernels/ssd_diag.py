@@ -7,8 +7,11 @@ decay ``L[q, k] = exp(cs_q - cs_k)`` for k <= q and 0 above the
 diagonal, all in float32. A block computes its score rows once for a
 group of heads, on the tensor cores (3xTF32); ``ssd_plan`` is the launch
 plan, and the kernel refuses a plan whose shared memory differs from its
-own count. ``ops.ssd_diag`` is the checked entry point; the functions
-here assume checked inputs.
+own count. Its gradient is ``csrc/ssd_diag_bwd.cu`` (launch plan
+``bwd_plan``; no Pallas counterpart: the reference differentiates
+``ssd_chunked`` by XLA's autodiff), beside its plain version
+``ssd_diag_bwd_plain``. ``ops.ssd_diag`` is the checked entry point; the
+functions here assume checked inputs.
 """
 from __future__ import annotations
 
@@ -50,6 +53,33 @@ def ssd_diag_plain(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
     l_mat = torch.where(causal, torch.exp(seg), 0.0)
     w = scores[:, None] * l_mat * dt[:, :, None, :]
     return torch.einsum("chqk,chkp->chqp", w, x)
+
+
+def ssd_diag_bwd_plain(cmat: torch.Tensor, bmat: torch.Tensor,
+                       x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
+                       dy: torch.Tensor):
+    """The gradient (dC, dB, dx, ddt, dcs) of ``ssd_diag_plain`` at its
+    operands given dY (BC, H, Q, P): the explicit formulas of the kernel
+    (``csrc/ssd_diag_bwd.cu``), with S = C B^T, L the decay (0 above the
+    diagonal), W = S L dt_k: dW = dY x^T masked, dx = W^T dY, G = dW W,
+    dcs = rowsum(G) - colsum(G), ddt_k = sum_q dW S L, dS_h = dW L dt_k,
+    dC = sum_h dS_h B, dB = sum_h dS_h^T C; in the operands' type."""
+    scores = torch.einsum("cqn,ckn->cqk", cmat, bmat)
+    seg = cs[:, :, :, None] - cs[:, :, None, :]
+    q = cmat.shape[1]
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                   device=cmat.device))
+    l_mat = torch.where(causal, torch.exp(seg), 0.0)
+    w = scores[:, None] * l_mat * dt[:, :, None, :]
+    dw = torch.where(causal, torch.einsum("chqp,chkp->chqk", dy, x), 0.0)
+    dx = torch.einsum("chqk,chqp->chkp", w, dy)
+    g = dw * w
+    dcs = g.sum(-1) - g.sum(-2)
+    ddt = (dw * scores[:, None] * l_mat).sum(-2)
+    ds = (dw * l_mat * dt[:, :, None, :]).sum(1)           # (BC, Q, Q)
+    dc = torch.einsum("cqk,ckn->cqn", ds, bmat)
+    db = torch.einsum("cqk,cqn->ckn", ds, cmat)
+    return dc, db, dx, ddt, dcs
 
 
 def smem_bytes(n: int, stages: int) -> int:
@@ -113,4 +143,48 @@ def launch(lib, cmat, bmat, x, dt, cs, out, *, plan: SsdPlan) -> int:
         cmat.data_ptr(), bmat.data_ptr(), x.data_ptr(), dt.data_ptr(),
         cs.data_ptr(), out.data_ptr(), bc, h, q, n, p, plan.group,
         plan.stages, plan.smem_bytes,
+        current_stream())
+
+
+# ------------------------------------------------------------- backward
+BWD_TILE = 64         # rows / keys of a tile (csrc SB_TILE)
+
+
+class SsdBwdPlan(NamedTuple):
+    group: int        # heads a block walks (the last group may be short)
+    groups: int       # ceil(H / group): dC / dB partials, summed in order
+    smem_bytes: int   # dynamic shared memory a block takes
+    grid: tuple       # (BC x groups,)
+
+
+def bwd_smem_bytes(q: int, n: int, p: int) -> int:
+    """Shared memory of the backward (csrc sb_smem): x and dY tiles of P + 1
+    floats a row, B and C tiles of N + 1, the W and dS tiles, cs / dt of
+    the key tile and cs of the query tile, two 16 x 64 column-sum arrays
+    and the head's row sums, column sums and ddt over the chunk."""
+    t = BWD_TILE
+    return 4 * (2 * t * (p + 1) + 2 * t * (n + 1) + 2 * t * (t + 1)
+                + 3 * t + 2 * 16 * t + 3 * q)
+
+
+def bwd_plan(bc: int, h: int, q: int, n: int, p: int,
+             sms: int = H100_SMS) -> SsdBwdPlan:
+    """Heads a block: as many as leave at least two blocks an SM
+    (BC x groups >= 2 sms), so the grid fills the card and the head sum
+    of dC / dB has few partials."""
+    group = max(1, min(h, bc * h // (2 * sms)))
+    groups = math.ceil(h / group)
+    return SsdBwdPlan(group, groups, bwd_smem_bytes(q, n, p),
+                      (bc * groups,))
+
+
+def launch_bwd(lib, cmat, bmat, x, dt, cs, dy, dc_part, db_part, dc, db, dx,
+               ddt, dcs, *, plan: SsdBwdPlan) -> int:
+    bc, q, n = cmat.shape
+    h, p = x.shape[1], x.shape[3]
+    return lib.svm_ssd_diag_bwd(
+        cmat.data_ptr(), bmat.data_ptr(), x.data_ptr(), dt.data_ptr(),
+        cs.data_ptr(), dy.data_ptr(), dc_part.data_ptr(), db_part.data_ptr(),
+        dc.data_ptr(), db.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+        dcs.data_ptr(), bc, h, q, n, p, plan.group, plan.smem_bytes,
         current_stream())

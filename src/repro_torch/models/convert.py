@@ -13,6 +13,12 @@ returns a port ``Model`` holding exactly those values:
   stack by layer (``groups.0.local.1.attn.wq``);
 * zamba2's ``shared_attn`` is the one shared block, as it is there.
 
+``flatten`` maps ANY tree shaped like the reference's parameters —
+gradients, Adam moments — to ``{port_name: np.ndarray}``, so the tests
+compare them by name; ``to_reference`` is its inverse, from port names
+back to the reference's nested, stacked tree (the layout of a
+checkpoint either package can restore).
+
 Nothing here imports jax: the caller converts the arrays.
 """
 from __future__ import annotations
@@ -42,7 +48,8 @@ def _take(tree: dict, i: int) -> dict:
 
 
 def flatten(tree: dict, prefix: str = "") -> dict:
-    """The reference's parameter tree as ``state_dict`` names of the
+    """A tree shaped like the reference's parameters (the parameters, or
+    their gradients or Adam moments) as ``state_dict`` names of the
     port's ``Model`` -> numpy arrays, stacked axes split."""
     out = {}
     for key, val in tree.items():
@@ -81,3 +88,46 @@ def from_reference(cfg: ModelConfig, params: dict, *,
         for k, p in own.items():
             p.copy_(state[k])
     return model
+
+
+def _stack(children: list):
+    """Trees of equal structure -> one tree, leaves stacked on a new
+    leading axis."""
+    first = children[0]
+    if isinstance(first, dict):
+        return {k: _stack([c[k] for c in children]) for k in first}
+    return np.stack(children)
+
+
+def _nest(items: dict) -> dict:
+    """``{dotted name: array}`` -> nested dicts, the children of the
+    stacked subtrees (whose keys are layer indices) stacked in index
+    order."""
+    tree: dict = {}
+    for name, val in items.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+
+    def fold(key, node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: fold(k, v) for k, v in node.items()}
+        if key in STACKED and all(k.isdigit() for k in node):
+            return _stack([node[str(i)] for i in range(len(node))])
+        return node
+    return {k: fold(k, v) for k, v in tree.items()}
+
+
+def to_reference(named: dict) -> dict:
+    """The inverse of ``flatten``: ``{port_name: tensor or array}`` (a
+    model's ``named_parameters()``, their gradients, Adam moments) ->
+    the reference's nested tree of float32 numpy arrays, each stack's
+    layers on a leading axis."""
+    arrays = {k: (v.detach().to("cpu", torch.float32).numpy()
+                  if isinstance(v, torch.Tensor)
+                  else np.asarray(v, dtype=np.float32))
+              for k, v in named.items()}
+    return _nest(arrays)

@@ -42,10 +42,10 @@ F32 = torch.float32
 # ------------------------------------------------------------------- init
 
 def param(shape, device) -> nn.Parameter:
-    """An uninitialised float32 parameter; ``Model.init`` fills it. The
-    serving path takes no gradients, so none is tracked."""
-    return nn.Parameter(torch.empty(shape, dtype=F32, device=device),
-                        requires_grad=False)
+    """An uninitialised trainable float32 parameter; ``Model.init`` fills
+    it. The serving entry points (``prefill``, ``decode_step``) run under
+    ``torch.inference_mode`` and track no gradient."""
+    return nn.Parameter(torch.empty(shape, dtype=F32, device=device))
 
 
 def normal_(p: torch.Tensor, gen: torch.Generator, scale: float = 0.02):
@@ -459,7 +459,8 @@ class Embed(nn.Module):
             logits = xb @ w(self.table).T
         else:
             logits = xb @ w(self.unembed)
-        if cfg.padded_vocab != cfg.vocab_size:
-            logits[..., cfg.vocab_size:] = -1e9
+        if cfg.padded_vocab != cfg.vocab_size:   # out of place: autograd
+            pad = torch.arange(cfg.padded_vocab, device=x.device)
+            logits = logits.masked_fill(pad >= cfg.vocab_size, -1e9)
         return logits
 

@@ -1,12 +1,20 @@
 """Unified model: every architecture of ``configs`` behind one interface
-(the port of ``repro/models/model.py``; its serving half).
+(the port of ``repro/models/model.py``; its sharding specs aside).
 
     model = Model(cfg, device="cuda")        # parameters allocated
     params = model.init(generator)           # filled; name -> tensor
-    logits, aux = model.forward(batch)       # teacher-forced
+    logits, aux = model.forward(batch)       # teacher-forced, trainable
     caches = model.cache_init(batch_size, max_len)
     logits, caches = model.prefill(batch, caches)
     logits, caches = model.decode_step(token, caches)
+
+``forward`` tracks gradients of the (trainable float32) parameters;
+``prefill`` and ``decode_step`` run under ``torch.inference_mode`` and
+keep no graph. ``Model(cfg, remat=True)`` wraps each layer body of the
+teacher-forced forward in ``runtime.checkpoint_wrap`` (at the
+reference's sites: a layer, gemma3's group of ratio + 1 layers, zamba2's
+Mamba2 layer with the shared attention before it), so its activations
+are recomputed in the backward under ``runtime.REMAT_POLICY``.
 
 ``batch`` is a dict of ``tokens`` (B, S) and, by family,
 ``vision_embeds`` (B, V, d) or ``frames`` (B, F, d); numpy or tensors,
@@ -43,6 +51,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import runtime as RT
 from repro_torch.models.moe import MoE
 
 
@@ -192,9 +201,11 @@ class LocalGlobalGroup(nn.Module):
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.device = dev = resolve_device(device)
         self.embed = L.Embed(cfg, dev)
         self.final_norm = L.param((cfg.d_model,), dev)
@@ -293,59 +304,68 @@ class Model(nn.Module):
         positions = torch.arange(h.shape[1], device=self.device).expand(
             h.shape[0], h.shape[1])
         for lp in self.encoder:
-            h = lp(h, positions)
+            h = self._wrap(lp)(h, positions)
         return L.rmsnorm(h, self.enc_norm, cfg.norm_eps)
 
     # -------------------------------------------------------- backbones
+    def _wrap(self, body):
+        """A layer body of the teacher-forced forward, rematerialized
+        under ``remat`` (``runtime.checkpoint_wrap``)."""
+        return RT.checkpoint_wrap(body) if self.remat else body
+
     def _backbone(self, h, positions, *, enc_out=None, caches=None,
                   update_cache=False):
         """The family's stack over h; with ``caches``, each layer reads
-        and (``update_cache``) writes its cache. Returns (h, aux)."""
+        and (``update_cache``) writes its cache. Returns (h, aux).
+        Without caches (the teacher-forced forward) each layer body goes
+        through ``_wrap``."""
         cfg = self.cfg
         t = cfg.arch_type
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        wrap = self._wrap if caches is None else (lambda body: body)
+        kw = dict(update_cache=update_cache)
         if t in ("dense", "vlm") and cfg.local_global_ratio:
-            for g, grp in enumerate(self.groups):
-                gc = caches[g] if caches is not None else None
+            def group(x, grp, gc):   # ratio windowed layers + 1 global
                 for i, lp in enumerate(grp.local):
-                    h = lp(h, positions, window=cfg.sliding_window,
-                           cache=gc["local"][i] if gc else None,
-                           update_cache=update_cache)
-                h = grp.global_(h, positions,
-                                cache=gc["global"] if gc else None,
-                                update_cache=update_cache)
+                    x = lp(x, positions, window=cfg.sliding_window,
+                           cache=gc and gc["local"][i], **kw)
+                return grp.global_(x, positions, cache=gc and gc["global"],
+                                   **kw)
+            for g, grp in enumerate(self.groups):
+                h = wrap(group)(h, grp, _at(caches, g))
         elif t in ("dense", "vlm"):
             for i, lp in enumerate(self.layers):
-                h = lp(h, positions, cache=_at(caches, i),
-                       update_cache=update_cache)
+                h = wrap(lp)(h, positions, cache=_at(caches, i), **kw)
         elif t == "moe":
             for i, lp in enumerate(getattr(self, "dense_layers", ())):
-                h = lp(h, positions, cache=_at(caches and caches["dense"], i),
-                       update_cache=update_cache)
+                h = wrap(lp)(h, positions,
+                             cache=_at(caches and caches["dense"], i), **kw)
             for i, lp in enumerate(self.layers):
-                h, a_loss = lp(h, positions,
-                               cache=_at(caches and caches["moe"], i),
-                               update_cache=update_cache)
+                h, a_loss = wrap(lp)(h, positions,
+                                     cache=_at(caches and caches["moe"], i),
+                                     **kw)
                 aux = aux + a_loss
         elif t == "ssm":
             for i, lp in enumerate(self.layers):
-                h = lp(h, cache=_at(caches, i), update_cache=update_cache)
+                h = wrap(lp)(h, cache=_at(caches, i), **kw)
         elif t == "hybrid":
             k = cfg.shared_attn_every
-            for i, lp in enumerate(self.layers):
+
+            def hybrid(x, i, lp, attn_cache, cache):
                 if i % k == 0:   # the one shared block, cache slot i // k
-                    h = self.shared_attn(
-                        h, positions,
-                        cache=_at(caches and caches["attn"], i // k),
-                        update_cache=update_cache)
-                h = lp(h, cache=_at(caches and caches["mamba"], i),
-                       update_cache=update_cache)
+                    x = self.shared_attn(x, positions, cache=attn_cache,
+                                         **kw)
+                return lp(x, cache=cache, **kw)
+            for i, lp in enumerate(self.layers):
+                h = wrap(hybrid)(h, i, lp,
+                                 _at(caches and caches["attn"], i // k),
+                                 _at(caches and caches["mamba"], i))
         elif t == "audio":
             for i, lp in enumerate(self.layers):
-                h = lp(h, positions, enc_out,
-                       self_cache=_at(caches and caches["self"], i),
-                       cross_cache=_at(caches and caches["cross"], i),
-                       update_cache=update_cache)
+                h = wrap(lp)(h, positions, enc_out,
+                             self_cache=_at(caches and caches["self"], i),
+                             cross_cache=_at(caches and caches["cross"], i),
+                             **kw)
         else:
             raise ValueError(t)
         return h, aux
@@ -395,6 +415,7 @@ class Model(nn.Module):
                               for _ in range(cfg.n_layers)]}
         raise ValueError(t)
 
+    @torch.inference_mode()
     def prefill(self, batch: dict, caches):
         """The whole prompt, writing the caches; returns (last-position
         logits (B, V), caches)."""
@@ -405,6 +426,7 @@ class Model(nn.Module):
         h = L.rmsnorm(h[:, -1:], self.final_norm, cfg.norm_eps)
         return self.embed.unembed_apply(h)[:, 0], caches
 
+    @torch.inference_mode()
     def decode_step(self, token, caches):
         """One token (B,) + caches -> (logits (B, V), caches). The
         position is the caches' host-side length: no device read."""

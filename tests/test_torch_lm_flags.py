@@ -38,11 +38,14 @@ def pair(request):
 def test_set_flags_names_only_the_carried_switches(monkeypatch):
     defaults = {"SCORES_BF16": False, "CHUNKED_THRESHOLD": 8192,
                 "MLA_PAD_HEADS": False, "EMBED_ONEHOT": False,
-                "MOE_GROUPED": False}
+                "MOE_GROUPED": False, "REMAT_POLICY": "full",
+                "MICROBATCHES": 1}
     assert {k: getattr(TRT, k) for k in TRT.FLAGS} == defaults
     for k in defaults:          # restored after the test
         monkeypatch.setattr(TRT, k, getattr(TRT, k))
-    TRT.set_flags(scores_bf16=True, chunked_threshold=4)
+    TRT.set_flags(scores_bf16=True, chunked_threshold=4,
+                  remat_policy="dots")
     assert TRT.SCORES_BF16 is True and TRT.CHUNKED_THRESHOLD == 4
+    assert TRT.REMAT_POLICY == "dots"
     with pytest.raises(KeyError, match="unknown runtime flag"):
-        TRT.set_flags(remat_policy="dots")
+        TRT.set_flags(serve_pure_tp=True)

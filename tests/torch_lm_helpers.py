@@ -41,7 +41,7 @@ def batch(cfg, b: int, s: int, seed: int = 0) -> dict:
 
 def f32(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
-        return a.float().cpu().numpy()
+        return a.detach().float().cpu().numpy()
     return np.asarray(jnp.asarray(a, jnp.float32))
 
 
