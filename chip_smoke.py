@@ -2443,9 +2443,11 @@ LM_TRAIN = dict(config="zamba2_1p2b", batch=2, seq=2048, warm=2, timed=6,
 PROFILED_STEPS = 3
 # the backward kernels against their plain versions at the model's
 # operands, as a fraction of the plain gradient's largest magnitude:
-# float32 operands 1e-4 (sums in another order); bf16 operands 1e-2 (P
-# and dS stay float32 in the kernel, so the gradients differ by their
-# rounding to bf16 only, one unit of 2^-8)
+# float32 operands 1e-4 (3xTF32 products, sums in another order); bf16
+# operands 1e-2 (S and dP exact bf16 products summed in float32; P and dS
+# formed in float32 and split into a bf16 high part and the bf16 rounding
+# of the rest for the products they feed, ~16 bits of each kept, the
+# gradient rounded once to bf16, one unit of 2^-8)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_BWD_TOL = 1e-4
 # the whole model's gradient with the kernels against the same weights'
@@ -2463,12 +2465,14 @@ LM_TRAIN_GRAD_TOL = 5e-2
 LM_TRAIN_COSINE = 0.99
 LM_TRAIN_KERNELS = ("flash_attention", "ssd_diag", "flash_attention_bwd",
                     "ssd_diag_bwd")
-# device kernels of one backward call of each entry (the ptxas names)
+# device kernels of one backward call of each entry (the ptxas names; dK /
+# dV and dQ are templated on the staged type and width, the SSD backward
+# is its walk and its dC / dB launch)
 BWD_DEVICE_KERNELS = {"flash_attention_bwd": ("flash_bwd_delta_kernel",
                                               "flash_bwd_kv_kernel",
                                               "flash_bwd_q_kernel"),
                       "ssd_diag_bwd": ("ssd_bwd_kernel",
-                                       "ssd_bwd_reduce_kernel")}
+                                       "ssd_bwd_dcdb_kernel")}
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2773,6 +2777,8 @@ def lm_train_rows(ops, FA, SD, dev, launches, seen):
         n_bytes, flops, launches["flash_attention_bwd"], fa_err,
         bounds=lm_bounds(n_bytes, flops, BF16_FLOP_PER_S, flops, 2 * pairs))]
     rows[-1].update(dtype=str(q.dtype).split(".")[1], path="lm_train",
+                    plan=FA.bwd_plan(b, s, s, h, hkv, d, q.dtype,
+                                     o.dtype)._asdict(),
                     device_kernels=list(
                         BWD_DEVICE_KERNELS["flash_attention_bwd"]),
                     ptxas=bwd_ptxas("flash_attention_bwd"),
@@ -2805,6 +2811,10 @@ def lm_train_rows(ops, FA, SD, dev, launches, seen):
         bounds=lm_bounds(ssd_bytes, 3 * ssd_flops, TF32_FLOP_PER_S,
                          ssd_flops, bc * hs * tri)))
     rows[-1].update(path="lm_train", shape=[bc, hs, q_len, n, p],
+                    plan=SD.bwd_plan(bc, hs, q_len, n, p,
+                                     sms=torch.cuda.get_device_properties(
+                                         dev).multi_processor_count
+                                     )._asdict(),
                     device_kernels=list(BWD_DEVICE_KERNELS["ssd_diag_bwd"]),
                     ptxas=bwd_ptxas("ssd_diag_bwd"),
                     max_abs_err_reading="max |kernel - plain| over the "
@@ -3063,6 +3073,8 @@ def phase_timing_lm(ops, FA, SD, dev, errs, launches, bf16_launches,
                                         retain_graph=True),
             n_bytes, bflops, bwd_launches[dt], errs[name], bounds=bounds))
         rows[-1].update(dtype=str(dt).split(".")[1],
+                        plan=FA.bwd_plan(b, s_len, s_len, h, hkv, d, dt,
+                                         o.dtype)._asdict(),
                         device_kernels=list(
                             BWD_DEVICE_KERNELS["flash_attention_bwd"]),
                         max_abs_err_reading="max |kernel - plain| over the "

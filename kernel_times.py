@@ -7,6 +7,7 @@ checkout of this repository.
     python3 kernel_times.py --smo [--src DIR] [--smo-sweep] [--out FILE]
     python3 kernel_times.py --gram [--src DIR] [--gram-sweep] [--out FILE]
     python3 kernel_times.py --lm [--src DIR] [--lm-sweep] [--out FILE]
+    python3 kernel_times.py --lm-train [--src DIR] [--out FILE]
     python3 kernel_times.py --host [--src DIR] [--out FILE]
 
 ``--packs`` holds what chip_smoke.py saves under ``chiprun_out/``: the
@@ -99,12 +100,34 @@ lines; no packs; the inputs of ``chip_smoke.lm_inputs``):
 ragged non-causal S = 300 case, float32 and bfloat16 operands, each
 beside ``scaled_dot_product_attention`` on the same operands, and
 ``ops.ssd_diag`` at mamba2_780m's chunk: device time
-(``chip_smoke.device_ms``). ``--lm-sweep`` (this tree) adds the plans'
+(``chip_smoke.device_ms``); for a checkout with the backward kernels
+also ``lm_bwd`` lines: ``ops.flash_attention_bwd`` at zamba2_1p2b's and
+phi4_mini_3p8b's causal shapes (``BWD_ATTN``) beside SDPA's autograd
+backward, and ``ops.ssd_diag_bwd`` at zamba2's chunk (``BWD_SSD``).
+``--lm-sweep`` (this tree) adds the plans'
 alternatives (flash_attention's 64- and 128-row query tiles, ssd_diag's
 head groups and ring depths) and builds of ``csrc/flash_attn.cu`` and
 ``csrc/ssd_diag.cu`` cut by a regex (``LM_CUTS``: no exponential, no
 MMAs, no copies, one TF32 product (bf16: no low part of P), and for
-ssd_diag no score MMAs), diagnostics that are never shipped.
+ssd_diag no score MMAs), diagnostics that are never shipped. For the
+backward kernels it adds ``lm_bwd_sweep`` lines (ssd_diag_bwd's head
+groups at BWD_SSD's shape) and ``lm_bwd_cut`` builds of
+``csrc/flash_attn_bwd.cu`` and ``csrc/ssd_diag_bwd.cu``
+(``LM_BWD_CUTS``: no MMAs, no exponential, no tile copies, and one bf16
+pass of P and dS), diagnostics that are never shipped.
+
+``--lm-train`` times chip_smoke.py's training path (``lm_train`` lines;
+no packs): zamba2_1p2b at full width and depth (``chip_smoke.LM_TRAIN``:
+2 x 2,048 tokens a step, AdamW, seeded init and batches) through the
+checkout's entry points (``Model``, ``AdamW``, ``make_train_step``).
+Per timed step after the warm ones: the wall time and the host's part of
+it (``host_ms``: until the step's call returns, before the synchronize
+that ends the step; the time the host takes to issue the step's work,
+any wait for the device inside the step included); their medians,
+tokens/s and peak memory. Then one step under the profiler: its device
+time, and the device time of the backward kernels (device kernels whose
+names hold ``flash_bwd_`` or ``ssd_bwd_``) and of the rest; the
+device's idle share is 1 - device time / the median step's wall time.
 
 ``--host`` times the host side of the five wrappers whose launch plans
 the tuner resolves (``host`` lines; no packs; seeded inputs): the wall
@@ -150,6 +173,7 @@ WARM_EPOCHS = 20
 HOST_CALLS = 500   # back-to-back calls a host_us reading averages
 HOST_ROUNDS = 9    # --host: rounds of HOST_CALLS, the median kept
 RANGE_RANKS = 4    # --gram: the row-range matvec of one rank of 4
+LM_TRAIN_STEPS = 10  # --lm-train: timed steps after chip_smoke's warm ones
 
 
 def _args():
@@ -166,12 +190,14 @@ def _args():
     p.add_argument("--gram-sweep", action="store_true")
     p.add_argument("--lm", action="store_true")
     p.add_argument("--lm-sweep", action="store_true")
+    p.add_argument("--lm-train", action="store_true")
+    p.add_argument("--lm-train-steps", type=int, default=LM_TRAIN_STEPS)
     p.add_argument("--host", action="store_true")
     args = p.parse_args()
     if args.packs is None and not (args.smo or args.gram or args.lm
-                                   or args.host):
-        p.error("--packs is required, except with --smo, --gram, --lm or "
-                "--host")
+                                   or args.lm_train or args.host):
+        p.error("--packs is required, except with --smo, --gram, --lm, "
+                "--lm-train or --host")
     return args
 
 
@@ -214,6 +240,9 @@ def main() -> int:
         return 0
     if args.lm:
         lm_times(cs, _build, ops, dev, emit, args.lm_sweep)
+        return 0
+    if args.lm_train:
+        lm_train_times(cs, dev, emit, args.lm_train_steps)
         return 0
     if args.host:
         host_times(ops, dev, emit)
@@ -992,8 +1021,132 @@ def lm_times(cs, _build, ops, dev, emit, sweep=False):
     emit(measure="lm", kernel="ssd_diag", shape=list(ssd[2].shape),
          n_state=int(ssd[0].shape[2]),
          device_ms=cs.device_ms(lambda: ops.ssd_diag(*ssd), calls=20))
+    if hasattr(ops, "flash_attention_bwd"):
+        lm_bwd_times(cs, ops, dev, emit)
     if sweep:
         lm_sweep(cs, _build, dev, attn, ssd, emit)
+        lm_bwd_sweep(cs, _build, dev, emit)
+
+
+# the backward kernels' shapes: zamba2_1p2b's train step (2 x 2,048
+# tokens: 32 / 32 heads of 64, and chunks of 256 of 64 SSD heads, N 64,
+# P 64) and phi4_mini_3p8b's attention (1 x 4,096, 24 / 8 heads of 128)
+BWD_ATTN = {"zamba2": ((2, 2048, 32, 32, 64), ("bfloat16",)),
+            "phi4": ((1, 4096, 24, 8, 128), ("float32", "bfloat16"))}
+BWD_SSD = {"zamba2": (16, 64, 256, 64, 64)}
+
+
+def bwd_inputs(cs, dev):
+    """Seeded inputs of the backward kernels, the same for any checkout:
+    (case, dtype name, shape, (q, k, v, dO)) for every BWD_ATTN case and
+    dtype, and (case, shape, (C, B, x, dt, cs), dY) for every BWD_SSD case
+    (dt ~ U(1e-3, 0.1), A ~ -U(1, 8), cs the in-chunk cumsum of dt A)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    attn, ssd = [], []
+    for case, (shape, dtypes) in BWD_ATTN.items():
+        b, s, h, hkv, d = shape
+        base = [torch.randn(sh, generator=g, device=dev)
+                for sh in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
+                           (b, s, h, d))]
+        attn += [(case, name, shape,
+                  tuple(t.to(getattr(torch, name)) for t in base))
+                 for name in dtypes]
+    for case, (bc, h, q, n, p) in BWD_SSD.items():
+        dt = 0.001 + 0.099 * torch.rand((bc, h, q), generator=g, device=dev)
+        a = -(1 + 7 * torch.rand((h,), generator=g, device=dev))
+        fwd = (torch.randn((bc, q, n), generator=g, device=dev),
+               torch.randn((bc, q, n), generator=g, device=dev),
+               torch.randn((bc, h, q, p), generator=g, device=dev), dt,
+               torch.cumsum(dt * a[None, :, None], dim=2))
+        ssd.append((case, (bc, h, q, n, p), fwd,
+                    torch.randn((bc, h, q, p), generator=g, device=dev)))
+    return attn, ssd
+
+
+def lm_bwd_times(cs, ops, dev, emit):
+    """``lm_bwd`` lines: ``ops.flash_attention_bwd`` at BWD_ATTN's causal
+    shapes beside the autograd backward of scaled_dot_product_attention
+    on the same operands, and ``ops.ssd_diag_bwd`` at BWD_SSD's: device
+    time (``chip_smoke.device_ms``) on ``bwd_inputs``."""
+    import torch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attn, ssd = bwd_inputs(cs, dev)
+    for case, name, shape, (q, k, v, do) in attn:
+        o, lse = ops.flash_attention_lse(q, k, v, causal=True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        emit(measure="lm_bwd", kernel="flash_attention_bwd", case=case,
+             dtype=name, shape=list(shape), causal=True,
+             device_ms=cs.device_ms(
+                 lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=True)),
+             library_device_ms=cs.device_ms(
+                 lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                             retain_graph=True)))
+        del out, qt, kt, vt, o, lse
+    for case, shape, fwd, dy in ssd:
+        emit(measure="lm_bwd", kernel="ssd_diag_bwd", case=case,
+             shape=list(shape),
+             device_ms=cs.device_ms(lambda: ops.ssd_diag_bwd(*fwd, dy),
+                                    calls=20))
+
+
+def lm_train_times(cs, dev, emit, timed):
+    """The ``--lm-train`` line (see the module's docstring)."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.training.train import make_train_step
+    from torch.profiler import ProfilerActivity, profile
+    t = cs.LM_TRAIN
+    cfg = get_config(t["config"])
+    b, s, warm = t["batch"], t["seq"], t["warm"]
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(cs.SEED))
+    opt = AdamW(lr=t["lr"])
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    batches = cs.train_batches(cfg, b, s, warm + timed + 1, dev)
+    wall, host, losses = [], [], []
+    for i in range(warm + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batches[i])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        if i >= warm:
+            wall.append((time.perf_counter() - t0) * 1e3)
+            host.append((t1 - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, metrics = step(params, state, batches[-1])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_ms(name=""):
+        return sum(e.self_device_time_total for e in kernels
+                   if name in e.key) / 1e3
+
+    device = dev_ms()
+    bwd = {"flash_attention_bwd": dev_ms("flash_bwd_"),
+           "ssd_diag_bwd": dev_ms("ssd_bwd_")}
+    step_ms = statistics.median(wall)
+    emit(measure="lm_train", config=cfg.name, batch=b, seq=s, warm=warm,
+         step_ms=step_ms, step_ms_all=wall,
+         host_ms=statistics.median(host), host_ms_all=host,
+         tokens_per_s=b * s / step_ms * 1e3, losses=losses,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         device_ms=device, device_kernels=sum(e.count for e in kernels),
+         backward_kernels_ms=bwd, rest_device_ms=device - sum(bwd.values()),
+         idle_share=1 - device / step_ms)
 
 
 # --lm-sweep: copies of csrc/flash_attn.cu and csrc/ssd_diag.cu cut by a
@@ -1060,6 +1213,120 @@ LM_CUTS = {
                         (r"mma_tf32\(cc, wh\[j\], bl \+ 2 \* hh\);", "")],
     },
 }
+
+
+# copies of csrc/flash_attn_bwd.cu and csrc/ssd_diag_bwd.cu cut by a
+# regex, diagnostics that are never shipped: every MMA an empty asm that
+# keeps its operands, no exponential, no tile copies (the tiles hold what
+# shared memory held), and for the bf16 attention route one pass of P and
+# dS (their bf16 low parts dropped)
+_BWD_NOP = (r"namespace \{\n\nusing namespace svm;\n",
+            "namespace {\n\nusing namespace svm;\n"
+            "__device__ __forceinline__ void mma_nop(float* c, "
+            "const uint32_t* a, const uint32_t* b) {\n"
+            "  asm volatile(\"\" : \"+f\"(c[0]) : \"r\"(a[0]), \"r\"(a[1]), "
+            "\"r\"(a[2]), \"r\"(a[3]), \"r\"(b[0]), \"r\"(b[1]));\n}\n"
+            "__device__ __forceinline__ void mma3_nop(float* c, float* l, "
+            "const uint32_t* ah, const uint32_t* al, const uint32_t* bh, "
+            "const uint32_t* bl) {\n"
+            "  asm volatile(\"\" : \"+f\"(c[0]) : \"f\"(l[0]), \"r\"(ah[0]), "
+            "\"r\"(al[1]), \"r\"(bh[0]), \"r\"(bl[1]));\n}\n"
+            "__device__ __forceinline__ void mma3_nop(float* c, "
+            "const uint32_t* ah, const uint32_t* al, const uint32_t* bh, "
+            "const uint32_t* bl) {\n"
+            "  asm volatile(\"\" : \"+f\"(c[0]) : \"r\"(ah[0]), \"r\"(al[1]), "
+            "\"r\"(bh[0]), \"r\"(bl[1]));\n}\n")
+LM_BWD_CUTS = {
+    "flash_attn_bwd.cu": {
+        "shipped": [],
+        "no_mma": [_BWD_NOP, (r"mma_bf16\(", "mma_nop(", "all"),
+                   (r"mma_3xtf32\(", "mma3_nop(", "all")],
+        "one_pass_bf16": [(r"mma_bf16\(acc\[2 \* jp\], xl, y\);", ""),
+                          (r"mma_bf16\(acc\[2 \* jp \+ 1\], xl, y \+ 2\);",
+                           "")],
+        "no_exp": [(r"p = ex2\(", "p = (", 2)],
+        "no_copies": [(r"f32tile::cp_async<16>\(s \+ r \* LS \+ 4 \* c, "
+                       r"src, valid\);", "(void)src;"),
+                      (r"f32tile::cp_async<4>\(s \+ e, valid \? g \+ row0 "
+                       r"\+ e : g, valid\);", "(void)valid;")],
+    },
+    "ssd_diag_bwd.cu": {
+        "shipped": [],
+        "no_mma": [_BWD_NOP, (r"mma_3xtf32_2\(", "mma3_nop(", "all")],
+        "no_exp": [(r"ex2\(__fmul_rn\(__fsub_rn\(csq\[ql\], csk\[kl\]\), "
+                    r"LOG2E\)\)", "__fsub_rn(csq[ql], csk[kl])")],
+        "no_copies": [(r"f32tile::cp_async<16>\(\n\s+s \+ r \* ls \+ c,",
+                       "if (false) f32tile::cp_async<16>(s + r * ls + c,"),
+                      (r"f32tile::cp_async<4>\(s \+ e, valid",
+                       "if (false) f32tile::cp_async<4>(s + e, valid")],
+    },
+}
+
+
+def lm_bwd_sweep(cs, _build, dev, emit):
+    """The backward kernels' plan alternatives (the SSD head groups) and
+    LM_BWD_CUTS builds on ``bwd_inputs`` (``lm_bwd_sweep`` /
+    ``lm_bwd_cut`` lines)."""
+    import torch
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_diag as SD
+    attn, ssd = bwd_inputs(cs, dev)
+    args = {}
+    for case, name, shape, (q, k, v, do) in attn:
+        o, lse = ops.flash_attention_lse(q, k, v, causal=True)
+        args[case, name] = (q, k, v, o, lse, do,
+                            *(torch.empty_like(t) for t in (q, k, v)),
+                            torch.empty((shape[0], shape[2], shape[1]),
+                                        device=dev))
+
+    def flash_ms(lib, key, plan):
+        def run():
+            return FA.launch_bwd(lib, *args[key], causal=True, plan=plan)
+        assert run() == 0
+        return cs.device_ms(run)
+
+    def plan_of(shape, name):
+        b, s, h, hkv, d = shape
+        return FA.bwd_plan(b, s, s, h, hkv, d, getattr(torch, name))
+
+    def ssd_ms(lib, shape, fwd, dy, plan):
+        out = [torch.empty_like(t) for t in fwd]
+        part = torch.empty((plan.groups, shape[0], plan.pairs,
+                            SD.BWD_TILE ** 2), device=dev)
+
+        def run():
+            return SD.launch_bwd(lib, *fwd, dy, part, *out, plan=plan)
+        assert run() == 0
+        return cs.device_ms(run, calls=20)
+
+    lib = _build.library()
+    for case, shape, fwd, dy in ssd:
+        for group in (2, 4, 6, 8, 16):
+            try:
+                plan = SD.bwd_plan(*shape, group=group)
+            except ValueError:
+                continue
+            emit(measure="lm_bwd_sweep", kernel="ssd_diag_bwd", case=case,
+                 plan=plan._asdict(),
+                 device_ms=ssd_ms(lib, shape, fwd, dy, plan))
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for source, cuts in LM_BWD_CUTS.items():
+            export = ("svm_flash_attention_bwd" if source.startswith("flash")
+                      else "svm_ssd_diag_bwd")
+            for name, subs in cuts.items():
+                lib = variant_lib(_build, tmp, source,
+                                  f"{source[:-3]}_{name}", subs, export)
+                if source.startswith("flash"):
+                    row = {f"{case}_{dt}_device_ms": flash_ms(
+                        lib, (case, dt), plan_of(shape, dt))
+                        for case, dt, shape, _ in attn}
+                else:
+                    row = {f"{case}_device_ms": ssd_ms(
+                        lib, shape, fwd, dy, SD.bwd_plan(*shape))
+                        for case, shape, fwd, dy in ssd}
+                emit(measure="lm_bwd_cut", kernel=source[:-3], build=name,
+                     **row)
 
 
 def lm_sweep(cs, _build, dev, attn, ssd, emit):

@@ -55,11 +55,11 @@ SIGNATURES = {
                       _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "svm_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _I, _I, _I, _I, _I, _I, _I, _P],
-    "svm_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F, _F] + [_I] * 6
+    "svm_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F, _F] + [_I] * 7
                                + [_P],
     "svm_ssd_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
-    "svm_ssd_diag_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    "svm_ssd_diag_bwd": [_P] * 12 + [_I] * 7 + [_P],
     "svm_empty": [_P],
 }
 

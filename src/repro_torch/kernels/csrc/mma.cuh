@@ -1,7 +1,9 @@
 // Tensor-core and copy pieces shared by the port's Hopper (sm_90a)
-// kernels rbf_gram.cu, flash_attn.cu and ssd_diag.cu: shared-memory
-// addresses, mbarriers, TMA bulk copies and named barriers; ex2.approx;
-// the TF32 split, mma.sync (TF32 m16n8k8, bf16 m16n8k16) and ldmatrix;
+// kernels rbf_gram.cu, flash_attn.cu, ssd_diag.cu and the backward
+// kernels flash_attn_bwd.cu and ssd_diag_bwd.cu: shared-memory
+// addresses, mbarriers, TMA bulk copies and named barriers;
+// ex2.approx; the TF32 and bf16 splits, mma.sync (TF32 m16n8k8, 3xTF32,
+// bf16 m16n8k16) and ldmatrix;
 // the Gram block route's MMA step (Mma<>); and TMA tensor maps with the
 // 128-byte swizzle.
 #pragma once
@@ -138,6 +140,40 @@ __device__ __forceinline__ void split_tf32_trunc(uint32_t x, uint32_t& hi,
                                                  uint32_t& lo) {
   hi = x & 0xffffe000u;
   lo = __float_as_uint(__fsub_rn(__uint_as_float(x), __uint_as_float(hi)));
+}
+
+// c += a b as 3xTF32 from split operands: lo*hi, hi*lo, hi*hi
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4],
+                                           const uint32_t al[4],
+                                           const uint32_t bh[2],
+                                           const uint32_t bl[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// The same with the two small products summed apart from hi*hi (into
+// cl; the caller adds it to ch at the end): two chains of dependent MMAs
+// where there was one
+__device__ __forceinline__ void mma_3xtf32_2(float ch[4], float cl[4],
+                                             const uint32_t ah[4],
+                                             const uint32_t al[4],
+                                             const uint32_t bh[2],
+                                             const uint32_t bl[2]) {
+  mma_tf32(cl, al, bh);
+  mma_tf32(cl, ah, bl);
+  mma_tf32(ch, ah, bh);
+}
+
+// (x0, x1) ~ hi + lo as two bf16 pairs: hi the bf16 rounding, lo the bf16
+// rounding of the rest (~16 bits of each value kept)
+__device__ __forceinline__ void split_bf16x2(float x0, float x1,
+                                             uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      __fsub_rn(x0, __low2float(h)), __fsub_rn(x1, __high2float(h)));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // ---------------------------------------- tensor maps, 128-byte swizzle

@@ -95,7 +95,7 @@ inline int allow_max_smem(Kernel kern,
 }
 
 template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   const int n = valid ? BYTES : 0;   // 0 source bytes: zero-fill

@@ -12,7 +12,9 @@ launch plan, and the kernel refuses a plan whose shared memory differs
 from its own count. The kernel can also write each row's log-sum-exp,
 which the backward kernel (``csrc/flash_attn_bwd.cu``, launch plan
 ``bwd_plan``; no Pallas counterpart: the reference differentiates its
-attention by XLA's autodiff) reads to recompute P.
+attention by XLA's autodiff) reads to recompute P. Its products run on
+the tensor cores too: bf16 with P and dS split in two where the
+operands and o are bfloat16 (``bwd_route``), else 3xTF32.
 ``flash_attention_bwd_plain`` is its plain version.
 ``ops.flash_attention`` is the checked entry point; the functions here
 assume checked inputs.
@@ -194,32 +196,105 @@ def launch(lib, q, k, v, out, *, causal: bool, plan: FlashPlan,
 
 
 # ------------------------------------------------------------- backward
-BWD_TILE = 64         # query rows / keys of a tile (csrc FB_TILE)
+BWD_ROWS = 64         # query rows of a dQ block: 4 warps (csrc FB_ROWS)
+BWD_KT = 64           # keys of a dQ block's key tile (csrc FB_KT)
+BWD_RING = 2          # ring stages of each launch (csrc FB_RING)
 
 
 class BwdPlan(NamedTuple):
+    route: str        # "bf16" (q and o bfloat16) or "tf32x3"
     width: int        # staged row width: d rounded up to 32, 64 or 128
+    q_tile: int       # query rows of a dK / dV ring stage
+    kv_keys: int      # keys of a dK / dV block, 16 a warp
     smem_kv: int      # shared memory of the dK / dV launch
     smem_q: int       # of the dQ launch
-    grid_kv: tuple    # (B x Hkv, key tiles)
-    grid_q: tuple     # (B x H, query tiles)
+    grid_kv: tuple    # (B x Hkv, key tiles), key tile 0 (heaviest) first
+    grid_q: tuple     # (B x H, query tiles), the last (heaviest) first
 
 
 def bwd_width(d: int) -> int:
     return 32 if d <= 32 else 64 if d <= 64 else 128
 
 
-def bwd_plan(b: int, sq: int, sk: int, h: int, hkv: int, d: int) -> BwdPlan:
-    """The backward's launches (csrc/flash_attn_bwd.cu): 64-row tiles of
-    ``width + 1`` floats a row; the dK / dV launch holds K, V, Q, dO, P
-    and dS tiles, the dQ launch the same but P."""
+def bwd_q_tile(width: int) -> int:
+    """Query rows of a dK / dV tile: 32 at width 128, so a warp's dK and
+    dV rows stay in registers beside S^T and dP^T."""
+    return 32 if width == 128 else 64
+
+
+def bwd_kv_keys(elem: int) -> int:
+    """Keys of a dK / dV block (csrc fb_kv_warps): 8 warps of 16 on the
+    TF32 route (half the Q and dO tiles copied a key), 4 on the bf16 route
+    (eight were slower there: two 4-warp blocks share an SM)."""
+    return 128 if elem == 4 else 64
+
+
+def bwd_row_words(width: int, elem: int) -> int:
+    """32-bit words of a staged row: ``width`` elements of ``elem`` bytes
+    and 4 words of padding (a stride of 4 mod 8 words: ldmatrix's eight
+    rows hit 32 banks)."""
+    return width * elem // 4 + 4
+
+
+def bwd_smem_kv(width: int, elem: int) -> int:
+    """The dK / dV launch (csrc fb_kv_smem): K and V tiles of
+    ``bwd_kv_keys`` rows, then a ring of Q and dO tiles with their lse and
+    D rows."""
+    ls, qt = bwd_row_words(width, elem), bwd_q_tile(width)
+    return 4 * (2 * bwd_kv_keys(elem) * ls
+                + BWD_RING * (2 * qt * ls + 2 * qt))
+
+
+def bwd_smem_q(width: int, elem: int) -> int:
+    """The dQ launch (csrc fb_q_smem): Q and dO tiles of BWD_ROWS rows
+    with their lse and D, then a ring of K and V tiles of BWD_KT."""
+    ls = bwd_row_words(width, elem)
+    return 4 * (2 * BWD_ROWS * (ls + 1) + BWD_RING * 2 * BWD_KT * ls)
+
+
+def bwd_route(dtype: torch.dtype, o_dtype: torch.dtype | None = None) -> str:
+    """bf16 products (P and dS split in two) when the operands and o are
+    bfloat16; 3xTF32 otherwise (bf16 operands beside a float32 o are
+    widened as they are staged)."""
+    o_dtype = dtype if o_dtype is None else o_dtype
+    return ("bf16" if dtype == torch.bfloat16 and o_dtype == torch.bfloat16
+            else "tf32x3")
+
+
+def bwd_plan(b: int, sq: int, sk: int, h: int, hkv: int, d: int,
+             dtype: torch.dtype = torch.float32,
+             o_dtype: torch.dtype | None = None) -> BwdPlan:
+    """The backward's launches (csrc/flash_attn_bwd.cu) for operands of
+    ``dtype`` and an output o of ``o_dtype``."""
+    route = bwd_route(dtype, o_dtype)
+    elem = 2 if route == "bf16" else 4
     w = bwd_width(d)
-    tiles = 4 * BWD_TILE * (w + 1)
-    sq_tiles, sk_tiles = math.ceil(sq / BWD_TILE), math.ceil(sk / BWD_TILE)
-    pds = BWD_TILE * (BWD_TILE + 1)
-    return BwdPlan(w, 4 * (tiles + 2 * pds + 2 * BWD_TILE),
-                   4 * (tiles + pds + 2 * BWD_TILE),
-                   (b * hkv, sk_tiles), (b * h, sq_tiles))
+    keys = bwd_kv_keys(elem)
+    return BwdPlan(route, w, bwd_q_tile(w), keys, bwd_smem_kv(w, elem),
+                   bwd_smem_q(w, elem), (b * hkv, math.ceil(sk / keys)),
+                   (b * h, math.ceil(sq / BWD_ROWS)))
+
+
+def bwd_kv_walk(plan: BwdPlan, sq: int, key_tile: int, causal: bool,
+                group: int) -> list[tuple[int, int]]:
+    """(query head of the group, first query row) of every tile the dK /
+    dV block of ``key_tile`` walks, in its order, as the kernel computes
+    it: under the causal mask from the query tile holding the block's
+    first key on."""
+    first = key_tile * plan.kv_keys // plan.q_tile if causal else 0
+    tiles = range(first, math.ceil(sq / plan.q_tile))
+    return [(hh, i * plan.q_tile) for hh in range(group) for i in tiles]
+
+
+def bwd_q_walk(sq: int, sk: int, block_y: int, causal: bool
+               ) -> tuple[int, int]:
+    """(first query row, key tiles walked) of the dQ block at grid row
+    ``block_y``, as the kernel computes them: the last query tile first,
+    the keys up to its diagonal (or its last row) under the causal
+    mask."""
+    q0 = (math.ceil(sq / BWD_ROWS) - 1 - block_y) * BWD_ROWS
+    end = min(sk, sq, q0 + BWD_ROWS) if causal else sk
+    return q0, math.ceil(end / BWD_KT)
 
 
 def launch_bwd(lib, q, k, v, o, lse, do, dq, dk, dv, delta, *, causal: bool,
@@ -232,4 +307,5 @@ def launch_bwd(lib, q, k, v, o, lse, do, dq, dk, dv, delta, *, causal: bool,
         dv.data_ptr(), delta.data_ptr(), b, sq, sk, h, hkv, d,
         float(d ** -0.5), float(d ** -0.5 * LOG2E), int(causal),
         int(q.dtype == torch.bfloat16), int(o.dtype == torch.bfloat16),
-        plan.width, plan.smem_kv, plan.smem_q, current_stream())
+        plan.width, plan.q_tile, plan.smem_kv, plan.smem_q,
+        current_stream())

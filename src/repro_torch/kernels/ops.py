@@ -759,18 +759,33 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _on_card("flash_attention_bwd", q, k, v, o, lse, do):
         return _flash.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                 causal=causal)
+    if q.dtype not in _ATTN_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: q, k, v must share a dtype "
+                         f"of {_ATTN_DTYPES}, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
     if lse.dtype != torch.float32 or o.dtype not in (q.dtype,
                                                      torch.float32):
         raise ValueError(f"flash_attention_bwd: lse must be float32 and o "
                          f"of q's dtype or float32, got {lse.dtype} and "
                          f"{o.dtype}")
+    if k.ndim != 4 or v.shape != k.shape or k.shape[0] != b \
+            or k.shape[3] != d or k.shape[2] < 1 or h % k.shape[2]:
+        raise ValueError(f"flash_attention_bwd: k and v must be (B, Sk, "
+                         f"Hkv, D) with H {h} a multiple of Hkv, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if d > FLASH_MAX_D:
+        raise ValueError(f"flash_attention_bwd: head dim {d} > "
+                         f"{FLASH_MAX_D}, which the kernel holds in "
+                         "registers")
     _check_contiguous("flash_attention_bwd", q=q, k=k, v=v, o=o, lse=lse,
                       do=do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    if q.numel() == 0:
-        return dq, dk, dv
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    plan = _flash.bwd_plan(b, sq, k.shape[1], h, k.shape[2], d)
+    plan = _flash.bwd_plan(b, sq, k.shape[1], h, k.shape[2], d, q.dtype,
+                           o.dtype)
     lib = _build.library()
     _count("flash_attention_bwd")
     _raise_on_error("flash_attention_bwd", _flash.launch_bwd(
@@ -781,7 +796,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # --------------------------------------------------------------- ssd_diag
 SSD_MAX_N = 256     # csrc/ssd_diag.cu: the C tile stays in shared memory
-SSD_BWD_MAX_P = 128  # csrc/ssd_diag_bwd.cu: x and dY tiles in shared memory
+SSD_BWD_MAX_P = 128  # csrc/ssd_diag_bwd.cu: x and dY tiles of a ring stage
 
 
 def ssd_diag(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
@@ -854,27 +869,37 @@ def ssd_diag_bwd(cmat: torch.Tensor, bmat: torch.Tensor, x: torch.Tensor,
                          f"{tuple(x.shape)}, got {tuple(dy.shape)}")
     if not _on_card("ssd_diag_bwd", cmat, bmat, x, dt, cs, dy):
         return _ssd.ssd_diag_bwd_plain(cmat, bmat, x, dt, cs, dy)
+    bad = [k for k, t in (("cmat", cmat), ("bmat", bmat), ("x", x),
+                          ("dt", dt), ("cs", cs)) if t.dtype != torch.float32]
+    if bad:
+        raise ValueError(f"ssd_diag_bwd: operands must be float32, not "
+                         f"{bad}")
+    if cmat.ndim != 3 or bmat.shape != cmat.shape or x.ndim != 4 \
+            or x.shape[0] != cmat.shape[0] or x.shape[2] != cmat.shape[1] \
+            or dt.shape != x.shape[:3] or cs.shape != x.shape[:3]:
+        raise ValueError(f"ssd_diag_bwd: need C, B (BC, Q, N), x (BC, H, Q, "
+                         f"P), dt and cs (BC, H, Q), got {tuple(cmat.shape)}, "
+                         f"{tuple(bmat.shape)}, {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(cs.shape)}")
     _check_contiguous("ssd_diag_bwd", cmat=cmat, bmat=bmat, x=x, dt=dt,
                       cs=cs, dy=dy)
     bc, q, n = cmat.shape
     h, p = x.shape[1], x.shape[3]
-    plan = _ssd.bwd_plan(bc, h, q, n, p, sms=_sm_count(x.device))
-    if n > SSD_MAX_N or p > SSD_BWD_MAX_P or \
-            plan.smem_bytes > _ssd.SMEM_LIMIT:
-        raise ValueError(f"ssd_diag_bwd: N {n} (<= {SSD_MAX_N}), P {p} "
-                         f"(<= {SSD_BWD_MAX_P}) and Q {q} need "
-                         f"{plan.smem_bytes} bytes of shared memory, more "
-                         "than the kernel holds")
+    if n > SSD_MAX_N or p > SSD_BWD_MAX_P:
+        raise ValueError(f"ssd_diag_bwd: N {n} (<= {SSD_MAX_N}) and P {p} "
+                         f"(<= {SSD_BWD_MAX_P}) are more than the kernel's "
+                         "tiles hold")
     dc, db = torch.empty_like(cmat), torch.empty_like(bmat)
-    dx = torch.zeros_like(x)
+    dx = torch.empty_like(x)
     ddt, dcs = torch.empty_like(dt), torch.empty_like(cs)
     if dx.numel() == 0 or dc.numel() == 0:
-        return dc.zero_(), db.zero_(), dx, ddt.zero_(), dcs.zero_()
-    parts = torch.zeros((2, plan.groups, bc, q, n), dtype=torch.float32,
-                        device=x.device)
+        return dc.zero_(), db.zero_(), dx.zero_(), ddt.zero_(), dcs.zero_()
+    plan = _ssd.bwd_plan(bc, h, q, n, p, sms=_sm_count(x.device))
+    part = torch.empty((plan.groups, bc, plan.pairs, _ssd.BWD_TILE ** 2),
+                       dtype=torch.float32, device=x.device)
     lib = _build.library()
     _count("ssd_diag_bwd")
     _raise_on_error("ssd_diag_bwd", _ssd.launch_bwd(
-        lib, cmat, bmat, x, dt, cs, dy, parts[0], parts[1], dc, db, dx, ddt,
-        dcs, plan=plan))
+        lib, cmat, bmat, x, dt, cs, dy, part, dc, db, dx, ddt, dcs,
+        plan=plan))
     return dc, db, dx, ddt, dcs

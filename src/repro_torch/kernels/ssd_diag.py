@@ -9,9 +9,10 @@ group of heads, on the tensor cores (3xTF32); ``ssd_plan`` is the launch
 plan, and the kernel refuses a plan whose shared memory differs from its
 own count. Its gradient is ``csrc/ssd_diag_bwd.cu`` (launch plan
 ``bwd_plan``; no Pallas counterpart: the reference differentiates
-``ssd_chunked`` by XLA's autodiff), beside its plain version
-``ssd_diag_bwd_plain``. ``ops.ssd_diag`` is the checked entry point; the
-functions here assume checked inputs.
+``ssd_chunked`` by XLA's autodiff): 3xTF32 on the tensor cores, the
+scores once a head group and dC / dB once a chunk, beside its plain
+version ``ssd_diag_bwd_plain``. ``ops.ssd_diag`` is the checked entry
+point; the functions here assume checked inputs.
 """
 from __future__ import annotations
 
@@ -147,44 +148,105 @@ def launch(lib, cmat, bmat, x, dt, cs, out, *, plan: SsdPlan) -> int:
 
 
 # ------------------------------------------------------------- backward
-BWD_TILE = 64         # rows / keys of a tile (csrc SB_TILE)
+BWD_TILE = 64         # rows / keys of a tile (csrc SB_T)
+BWD_RING = 2          # ring stages of the walk (csrc SB_RING)
 
 
 class SsdBwdPlan(NamedTuple):
     group: int        # heads a block walks (the last group may be short)
-    groups: int       # ceil(H / group): dC / dB partials, summed in order
-    smem_bytes: int   # dynamic shared memory a block takes
-    grid: tuple       # (BC x groups,)
+    groups: int       # ceil(H / group): dS partials, summed in group order
+    tiles: int        # 64-row tiles of a chunk
+    pairs: int        # tile pairs (i >= j) of a chunk
+    smem_bytes: int   # dynamic shared memory of a walk block
+    smem_dcdb: int    # of a dC / dB block
+    grid: tuple       # (BC x groups,): the walks, full groups first
+    grid_dcdb: tuple  # (BC x tiles x 2,): dC, dB of a tile, a block each
 
 
-def bwd_smem_bytes(q: int, n: int, p: int) -> int:
-    """Shared memory of the backward (csrc sb_smem): x and dY tiles of P + 1
-    floats a row, B and C tiles of N + 1, the W and dS tiles, cs / dt of
-    the key tile and cs of the query tile, two 16 x 64 column-sum arrays
-    and the head's row sums, column sums and ddt over the chunk."""
+def bwd_p_width(p: int) -> int:
+    """Columns of x and dY a ring stage holds: P rounded up to 64 or 128."""
+    return 64 if p <= 64 else 128
+
+
+def bwd_smem_bytes(q: int, p: int, group: int) -> int:
+    """Shared memory of a walk block (csrc sb_smem): the ring (a stage:
+    x and dY tiles of 64 rows with a stride of width + 4 floats, or C's
+    and B's 64-column chunks, and cs / dt runs), the group's dX
+    accumulators (64 x width floats a head), the row sums of G over the
+    chunk, the column sums of G and ddt of a key tile (64 a head) and the
+    reduction scratch (4 x 64 floats for each of the three sums)."""
+    t, pw = BWD_TILE, bwd_p_width(p)
+    slot = 2 * t * (pw + 4) + 3 * t
+    return 4 * (BWD_RING * slot + group * t * pw + group * math.ceil(q / t) * t
+                + 2 * group * t + 12 * t)
+
+
+def bwd_dcdb_smem_bytes(n: int) -> int:
+    """A dC / dB block (csrc sb_dcdb_smem): a dS tile (64 x 72 floats) and
+    a B or C tile of N rounded up to 64 columns (stride + 4)."""
     t = BWD_TILE
-    return 4 * (2 * t * (p + 1) + 2 * t * (n + 1) + 2 * t * (t + 1)
-                + 3 * t + 2 * 16 * t + 3 * q)
+    return 4 * (t * 72 + t * (math.ceil(n / t) * t + 4))
 
 
-def bwd_plan(bc: int, h: int, q: int, n: int, p: int,
-             sms: int = H100_SMS) -> SsdBwdPlan:
-    """Heads a block: as many as leave at least two blocks an SM
-    (BC x groups >= 2 sms), so the grid fills the card and the head sum
-    of dC / dB has few partials."""
-    group = max(1, min(h, bc * h // (2 * sms)))
+def bwd_cost(bc: int, h: int, q: int, n: int, p: int, group: int,
+             sms: int = H100_SMS) -> float:
+    """The time a head group gives, in 64 x 64 x 64 products of one block
+    (one block an SM: a walk block takes most of its shared memory): every
+    tile pair takes ceil(N / 64) for S and, a head, ceil(P / 64) each for
+    dW and dX; the blocks run in waves over the SMs."""
+    tiles = math.ceil(q / BWD_TILE)
+    pairs = tiles * (tiles + 1) // 2
+    per_block = pairs * (math.ceil(n / 64)
+                         + 2 * min(group, h) * math.ceil(p / 64))
+    return math.ceil(bc * math.ceil(h / group) / sms) * per_block
+
+
+def bwd_plan(bc: int, h: int, q: int, n: int, p: int, sms: int = H100_SMS,
+             group: int | None = None) -> SsdBwdPlan:
+    """Launch plan of the backward (csrc/ssd_diag_bwd.cu): the head group
+    of least ``bwd_cost`` among those whose walk fits in shared memory
+    (ties: fewer groups, whose dS partials are fewer). dX, ddt and dcs of
+    a head do not depend on the plan; dC and dB sum the groups' partials,
+    so their last bits follow the group."""
+    fits = [g for g in range(1, h + 1)
+            if bwd_smem_bytes(q, p, g) <= SMEM_LIMIT]
+    if group is None:
+        if not fits:
+            raise ValueError(f"bwd_plan: Q {q}, P {p}: no head group fits "
+                             "in shared memory")
+        group = min(fits, key=lambda g: (bwd_cost(bc, h, q, n, p, g, sms),
+                                         math.ceil(h / g), g))
+    if not 1 <= group <= h or bwd_smem_bytes(q, p, group) > SMEM_LIMIT:
+        raise ValueError(f"bwd_plan: group {group} of {h} heads does not "
+                         f"fit in shared memory (Q {q}, P {p})")
+    tiles = math.ceil(q / BWD_TILE)
     groups = math.ceil(h / group)
-    return SsdBwdPlan(group, groups, bwd_smem_bytes(q, n, p),
-                      (bc * groups,))
+    return SsdBwdPlan(group, groups, tiles, tiles * (tiles + 1) // 2,
+                      bwd_smem_bytes(q, p, group),
+                      bwd_dcdb_smem_bytes(n), (bc * groups,),
+                      (bc * tiles * 2,))
 
 
-def launch_bwd(lib, cmat, bmat, x, dt, cs, dy, dc_part, db_part, dc, db, dx,
-               ddt, dcs, *, plan: SsdBwdPlan) -> int:
+def bwd_block_of(bc: int, i: int) -> tuple[int, int]:
+    """(chunk, head group) of walk block i of a plan's grid, as the kernel
+    computes it: every chunk's full groups first, a short last group after
+    them."""
+    return i % bc, i // bc
+
+
+def bwd_pairs(tiles: int) -> list[tuple[int, int]]:
+    """The tile pairs (i, j), i >= j, in a walk's order (key tile j, then
+    its query tiles): list index = the kernel's pair index (csrc
+    sb_pair)."""
+    return [(i, j) for j in range(tiles) for i in range(j, tiles)]
+
+
+def launch_bwd(lib, cmat, bmat, x, dt, cs, dy, part, dc, db, dx, ddt, dcs,
+               *, plan: SsdBwdPlan) -> int:
     bc, q, n = cmat.shape
     h, p = x.shape[1], x.shape[3]
     return lib.svm_ssd_diag_bwd(
         cmat.data_ptr(), bmat.data_ptr(), x.data_ptr(), dt.data_ptr(),
-        cs.data_ptr(), dy.data_ptr(), dc_part.data_ptr(), db_part.data_ptr(),
-        dc.data_ptr(), db.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        dcs.data_ptr(), bc, h, q, n, p, plan.group, plan.smem_bytes,
-        current_stream())
+        cs.data_ptr(), dy.data_ptr(), part.data_ptr(), dc.data_ptr(),
+        db.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dcs.data_ptr(), bc, h,
+        q, n, p, plan.group, plan.smem_bytes, current_stream())

@@ -97,10 +97,12 @@ def test_model_with_kernels_matches_plain_versions(cuda, arch,  # noqa: F811
 # ------------------------------------------------------------ backward
 # The two backward kernels against their plain versions on the card, at
 # the operands' dtype: each gradient within its bound of the plain
-# version's largest magnitude. float32 operands: 1e-4 (sums in another
-# order); bfloat16 operands: 1e-2 (the kernel computes P and dS in
-# float32, so the gradients differ from the plain version's by the
-# rounding of the result to bf16, one unit of 2^-8 at most).
+# version's largest magnitude. float32 operands: 1e-4 (3xTF32 products,
+# sums in another order). bfloat16 operands: 1e-2 (S and dP are exact
+# bf16 products summed in float32; P and dS are formed in float32 and
+# split into a bf16 high part and the bf16 rounding of the rest for the
+# three products they feed, so the kernel keeps ~16 bits of each, and the
+# result is rounded once to bf16, one unit of 2^-8).
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_BWD_TOL = 1e-4
 
@@ -117,8 +119,12 @@ def _attn_operands(dev, b, s, h, hkv, d, dtype, seed=0):
                           (b, s, h, d))]
 
 
+# (B, S, H, Hkv, D): 300, 130, 77 and 37 rows fill no whole tile; D 36
+# bf16 rows are not 16-byte multiples (staged by loads); phi4_mini_3p8b's
+# grouped-query shape; a ragged 300 at D 128
 ATTN_SHAPES = [(2, 37, 4, 2, 8), (1, 300, 4, 4, 64), (2, 130, 8, 2, 128),
-               (4, 256, 32, 32, 64)]
+               (4, 256, 32, 32, 64), (1, 4096, 24, 8, 128),
+               (2, 300, 8, 2, 128), (2, 77, 6, 3, 36)]
 
 
 @pytest.mark.parametrize("shape", ATTN_SHAPES)
@@ -160,8 +166,11 @@ def _ssd_operands(dev, bc, h, q, n, p, seed=0):
             torch.randn((bc, h, q, p), generator=g, device=dev))
 
 
+# (BC, H, Q, N, P): zamba2_1p2b's full shape last; Q 20, 100 and 200
+# fill no whole tile; N 18 and P 5 are staged by loads
 SSD_SHAPES = [(3, 2, 20, 8, 5), (2, 3, 100, 16, 72), (4, 64, 256, 64, 64),
-              (2, 8, 256, 128, 64)]
+              (2, 8, 256, 128, 64), (2, 5, 200, 18, 40),
+              (16, 64, 256, 64, 64)]
 
 
 @pytest.mark.parametrize("shape", SSD_SHAPES)
@@ -187,6 +196,47 @@ def test_backward_kernels_give_equal_bits_twice(cuda):  # noqa: F811
     *fwd, dy = _ssd_operands(cuda, 4, 64, 256, 64, 64)
     one, two = ops.ssd_diag_bwd(*fwd, dy), ops.ssd_diag_bwd(*fwd, dy)
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_flash_attention_bwd_of_a_float32_output_of_bf16_operands(
+        cuda):  # noqa: F811
+    q, k, v, do = _attn_operands(cuda, 2, 150, 8, 2, 64, torch.bfloat16)
+    for causal in (True, False):
+        o, lse = ops.flash_attention_lse(q, k, v, causal=causal,
+                                         out_dtype=torch.float32)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do.float(),
+                                      causal=causal)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do.float(),
+                                            causal=causal)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+            assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16], _rel_err(g, w)
+
+
+def _ssd_bwd_with(plan, fwd, dy):
+    from repro_torch.kernels import _build
+    cmat, bmat, x, dt, cs = fwd
+    out = [torch.empty_like(t) for t in (cmat, bmat, x, dt, cs)]
+    part = torch.empty((plan.groups, cmat.shape[0], plan.pairs,
+                        SD.BWD_TILE ** 2), device=x.device)
+    assert SD.launch_bwd(_build.library(), *fwd, dy, part, *out,
+                         plan=plan) == 0
+    return out
+
+
+def test_ssd_diag_bwd_bits_do_not_depend_on_the_plan(cuda):  # noqa: F811
+    """dx, ddt and dcs of a head are the same bits whatever the head
+    group; dC and dB sum the groups' partials in group order, so they
+    agree across groups within SSD_BWD_TOL."""
+    shape = (4, 8, 200, 64, 64)
+    *fwd, dy = _ssd_operands(cuda, *shape)
+    runs = {grp: _ssd_bwd_with(SD.bwd_plan(*shape, group=grp), fwd, dy)
+            for grp in (1, 3, 4)}
+    ref = runs[1]
+    for got in runs.values():
+        assert all(torch.equal(a, b) for a, b in zip(got[2:], ref[2:]))
+        for a, b in zip(got[:2], ref[:2]):
+            assert _rel_err(a, b) <= SSD_BWD_TOL
 
 
 # The train step's gradient with the kernels both ways against the same

@@ -284,3 +284,238 @@ def test_ssd_cost_model_at_mamba2():
     best = min(range(2, 49, 2),
                key=lambda g: SD.plan_cost(16, 48, 256, 128, 64, g))
     assert best == SD.ssd_plan(16, 48, 256, 128, 64).group == 12
+
+
+# --------------------------------------------------------------- backward
+# flash_attn.bwd_plan and ssd_diag.bwd_plan (csrc/flash_attn_bwd.cu,
+# csrc/ssd_diag_bwd.cu): shared memory, grids and walks as the kernels
+# compute them, and the wrappers' refusals, with the launchers stubbed.
+BWD_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("dtype,o_dtype", BWD_DTYPES)
+def test_flash_bwd_plan_fits_every_width(dtype, o_dtype):
+    """Every d <= 128 the wrapper accepts: both launches within the
+    232,448 bytes a block may take."""
+    for d in range(1, 129):
+        plan = FA.bwd_plan(2, 300, 300, 8, 2, d, dtype, o_dtype)
+        elem = 2 if plan.route == "bf16" else 4
+        assert plan.route == ("bf16" if o_dtype == dtype == torch.bfloat16
+                              else "tf32x3")
+        assert plan.width >= d and plan.width in (32, 64, 128)
+        assert plan.q_tile == (32 if plan.width == 128 else 64)
+        assert plan.smem_kv == FA.bwd_smem_kv(plan.width, elem) <= MAX_SMEM
+        assert plan.smem_q == FA.bwd_smem_q(plan.width, elem) <= MAX_SMEM
+
+
+def test_flash_bwd_rows_are_conflict_free_strides():
+    """A staged row is padded to 4 (mod 8) words, so ldmatrix's eight
+    rows of 16 bytes start in eight different groups of four banks."""
+    for width in (32, 64, 128):
+        for elem in (2, 4):
+            ls = FA.bwd_row_words(width, elem)
+            assert ls % 8 == 4
+            assert len({(r * ls) % 32 for r in range(8)}) == 8
+
+
+@pytest.mark.parametrize("b,s,h,hkv", [(2, 2048, 32, 32), (1, 4096, 24, 8),
+                                       (2, 300, 8, 2), (1, 1, 4, 1)])
+@pytest.mark.parametrize("d", [36, 64, 128])
+def test_flash_bwd_grids_cover_every_tile_once(b, s, h, hkv, d):
+    """The dK / dV grid holds every (batch, kv head, key block) once (128
+    keys a block on the TF32 route, 64 on bf16), the dQ grid every
+    (batch, head, query tile of 64) once, the last first."""
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = FA.bwd_plan(b, s, s, h, hkv, d, dtype)
+        assert plan.kv_keys == (128 if dtype == torch.float32 else 64)
+        assert plan.grid_kv == (b * hkv, math.ceil(s / plan.kv_keys))
+        assert plan.grid_q == (b * h, math.ceil(s / FA.BWD_ROWS))
+        firsts = [FA.bwd_q_walk(s, s, y, True)[0]
+                  for y in range(plan.grid_q[1])]
+        assert sorted(firsts) == [t * FA.BWD_ROWS
+                                  for t in range(plan.grid_q[1])]
+        assert firsts == sorted(firsts, reverse=True)
+
+
+@pytest.mark.parametrize("sq,sk", [(4096, 4096), (300, 300), (77, 300),
+                                   (300, 77), (1, 130), (129, 64)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_walks_equal_a_brute_force_count(sq, sk, d, causal, dtype):
+    """The dK / dV block of a key tile walks exactly the query tiles
+    (for each query head of its group) with a row that sees one of its
+    keys, and the dQ block of a query tile exactly the key tiles one of
+    its rows sees; the longest walks run first on both grids."""
+    group = 3
+    plan = FA.bwd_plan(1, sq, sk, 6, 2, d, dtype)
+    qt = plan.q_tile
+    rows, keys = torch.arange(sq), torch.arange(sk)
+    sees = ((keys[None, :] <= rows[:, None]) if causal
+            else torch.ones((sq, sk), dtype=torch.bool))
+    kv_walks = []
+    for kt in range(plan.grid_kv[1]):
+        block = sees[:, kt * plan.kv_keys:(kt + 1) * plan.kv_keys].any(1)
+        need = sorted(set((rows[block] // qt * qt).tolist()))
+        walk = FA.bwd_kv_walk(plan, sq, kt, causal, group)
+        assert walk == [(hh, q0) for hh in range(group) for q0 in need]
+        kv_walks.append(len(walk))
+    assert kv_walks == sorted(kv_walks, reverse=True)
+    q_walks = []
+    for y in range(plan.grid_q[1]):
+        q0, n = FA.bwd_q_walk(sq, sk, y, causal)
+        block = sees[q0:q0 + FA.BWD_ROWS].any(0)
+        need = sorted(set((keys[block] // FA.BWD_KT).tolist()))
+        assert need == list(range(n))
+        q_walks.append(n)
+    assert q_walks == sorted(q_walks, reverse=True)
+
+
+@pytest.mark.parametrize("q", [20, 64, 100, 200, 256, 1000, 4096])
+@pytest.mark.parametrize("p", [1, 5, 40, 64, 65, 72, 128])
+def test_ssd_bwd_plan_fits_every_state_size(q, p):
+    """Every P <= 128 and N <= 256 the wrapper accepts, at chunk lengths
+    up to 4,096: the walk and the dC / dB launch fit in shared memory; a
+    forced head group that does not fit is refused."""
+    for bc, h in ((16, 64), (2, 3), (1, 48)):
+        plan = SD.bwd_plan(bc, h, q, 64, p)
+        assert plan.smem_bytes == SD.bwd_smem_bytes(q, p,
+                                                    plan.group) <= MAX_SMEM
+        assert plan.tiles == math.ceil(q / SD.BWD_TILE)
+        assert plan.pairs == plan.tiles * (plan.tiles + 1) // 2
+    for n in range(1, 257):
+        assert SD.bwd_dcdb_smem_bytes(n) <= MAX_SMEM
+    if SD.bwd_smem_bytes(q, p, 64) <= MAX_SMEM:
+        assert SD.bwd_plan(16, 64, q, 64, p, group=64).group == 64
+    else:
+        with pytest.raises(ValueError):
+            SD.bwd_plan(16, 64, q, 64, p, group=64)
+
+
+@pytest.mark.parametrize("bc,h,q,n,p,group", [
+    (16, 64, 256, 64, 64, 8),    # zamba2_1p2b: 128 blocks, one wave
+    (16, 48, 256, 128, 64, 6),   # mamba2_780m: 8 groups
+    (4, 64, 256, 64, 64, 2),     # few chunks: smaller groups fill the card
+    (3, 2, 20, 8, 5, 1),
+    (2, 5, 200, 18, 40, 1)])
+def test_ssd_bwd_head_groups_cover_the_heads(bc, h, q, n, p, group):
+    """The head group of least cost; blocks (chunk, group) each once, the
+    full groups of every chunk first; the groups cover the heads once."""
+    plan = SD.bwd_plan(bc, h, q, n, p, sms=SMS)
+    assert plan.group == group
+    assert plan.groups == math.ceil(h / group)
+    assert plan.grid == (bc * plan.groups,)
+    assert plan.grid_dcdb == (bc * plan.tiles * 2,)
+    cells = [SD.bwd_block_of(bc, i) for i in range(plan.grid[0])]
+    assert sorted(cells) == [(c, g) for c in range(bc)
+                             for g in range(plan.groups)]
+    sizes = [min(group, h - g * group) for _, g in cells]
+    assert sizes == sorted(sizes, reverse=True)
+    heads = sorted(g * group + j for g in range(plan.groups)
+                   for j in range(min(group, h - g * group)))
+    assert heads == list(range(h))
+    best = min(range(1, h + 1),
+               key=lambda g: (SD.bwd_cost(bc, h, q, n, p, g, SMS)
+                              if SD.bwd_smem_bytes(q, p, g) <= MAX_SMEM
+                              else math.inf, math.ceil(h / g), g))
+    assert best == group
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 4, 16])
+def test_ssd_bwd_pairs_follow_the_walk(tiles):
+    """The walk's pairs (i >= j, key tile j outer) and the kernel's pair
+    index j T - j (j - 1) / 2 + i - j agree, every lower-triangle pair
+    once."""
+    pairs = SD.bwd_pairs(tiles)
+    assert sorted(pairs) == sorted((i, j) for i in range(tiles)
+                                   for j in range(i + 1))
+    for idx, (i, j) in enumerate(pairs):
+        assert idx == j * tiles - j * (j - 1) // 2 + (i - j)
+
+
+class _BwdLaunches:
+    """The backward wrappers' launchers replaced by recorders: the
+    wrappers take their card path on CPU tensors and hand their plan
+    here instead of launching."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.kernels import ops
+        self.ops, self.plans = ops, []
+        monkeypatch.setattr(ops, "_on_card", lambda *a: True)
+        monkeypatch.setattr(ops, "_sm_count", lambda dev: SMS)
+        monkeypatch.setattr(ops._build, "library", lambda: None)
+
+        def plan_of(*a, plan, **kw):
+            self.plans.append(plan)
+            return 0
+        monkeypatch.setattr(FA, "launch_bwd", plan_of)
+        monkeypatch.setattr(SD, "launch_bwd", plan_of)
+        ops.reset_launches()
+
+    def refused(self, fn, *args, **kw):
+        with pytest.raises(ValueError):
+            fn(*args, **kw)
+        return not self.plans and not any(self.ops.launches.values())
+
+
+def _attn(b=2, s=40, h=4, hkv=2, d=16, dtype=torch.float32):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((b, s, h, d), generator=g).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=g).to(dtype)
+            for _ in range(2))
+    o = torch.randn((b, s, h, d), generator=g).to(dtype)
+    return q, k, v, o, torch.zeros((b, h, s)), torch.randn_like(o)
+
+
+def test_flash_bwd_wrapper_refuses_what_the_kernel_cannot_run(monkeypatch):
+    rec = _BwdLaunches(monkeypatch)
+    fn = rec.ops.flash_attention_bwd
+    q, k, v, o, lse, do = _attn()
+    fn(q, k, v, o, lse, do)
+    assert rec.plans == [FA.bwd_plan(2, 40, 40, 4, 2, 16, torch.float32,
+                                     torch.float32)]
+    assert rec.ops.launches["flash_attention_bwd"] == 1
+    rec.plans.clear()
+    rec.ops.reset_launches()
+    wide = _attn(d=136)
+    assert rec.refused(fn, *wide)                              # D > 128
+    assert rec.refused(fn, q, k[:, :, :1].expand(-1, -1, 3, -1).contiguous(),
+                       v[:, :, :1].expand(-1, -1, 3, -1).contiguous(),
+                       o, lse, do)                             # H % Hkv
+    assert rec.refused(fn, q.double(), k.double(), v.double(), o.double(),
+                       lse, do)                                # float64
+    assert rec.refused(fn, q, k.bfloat16(), v, o, lse, do)     # mixed
+    assert rec.refused(fn, q, k, v[:, :20], o, lse, do)        # v's shape
+    assert rec.refused(fn, q, k, v, o, lse.double(), do)       # lse dtype
+    assert rec.refused(fn, q.transpose(1, 2).contiguous().transpose(1, 2),
+                       k, v, o, lse, do)                       # strides
+    qb, kb, vb, ob, _, dob = _attn(dtype=torch.bfloat16)
+    fn(qb, kb, vb, ob.float(), lse, dob)                       # f32 o: TF32
+    assert rec.plans[-1].route == "tf32x3"
+
+
+def test_ssd_bwd_wrapper_refuses_what_the_kernel_cannot_run(monkeypatch):
+    rec = _BwdLaunches(monkeypatch)
+    fn = rec.ops.ssd_diag_bwd
+    g = torch.Generator().manual_seed(0)
+
+    def operands(bc=2, h=3, q=100, n=16, p=8):
+        return [torch.randn(sh, generator=g) for sh in
+                ((bc, q, n), (bc, q, n), (bc, h, q, p), (bc, h, q),
+                 (bc, h, q), (bc, h, q, p))]
+    ops_ = operands()
+    fn(*ops_)
+    assert rec.plans == [SD.bwd_plan(2, 3, 100, 16, 8, sms=SMS)]
+    assert rec.ops.launches["ssd_diag_bwd"] == 1
+    rec.plans.clear()
+    rec.ops.reset_launches()
+    assert rec.refused(fn, *operands(n=257))                   # N > 256
+    assert rec.refused(fn, *operands(p=129))                   # P > 128
+    assert rec.refused(fn, *operands(q=1 << 16))               # no group fits
+    c, b, x, dt, cs, dy = operands()
+    assert rec.refused(fn, c.double(), b, x, dt, cs, dy)       # float64
+    assert rec.refused(fn, c, b[:, :50], x, dt, cs, dy)        # B's shape
+    assert rec.refused(fn, c, b, x, dt[:, :2], cs, dy)         # dt's shape
+    assert rec.refused(fn, c.transpose(1, 2).contiguous().transpose(1, 2),
+                       b, x, dt, cs, dy)                       # strides
