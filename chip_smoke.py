@@ -204,6 +204,18 @@ then:
    backward beside it) and ``ssd_diag_bwd_zamba2``, and
    ``flash_attention_bwd`` / ``_bf16`` at phi4's shape, whose gradient
    the LM kernels' phase (item 7) takes through the autograd Function.
+16. trains it sharded (phase ``lm_sharded``): the same model, seed,
+   batches and optimizer on a 1 x 1 ("data", "model") NCCL
+   ``DeviceMesh`` (one rank: one card), every parameter a DTensor placed
+   by the sharding rules (``sharding.place``) and the two kernels
+   entered through their ``local_map`` regions; 2 warm and 2 timed
+   steps. Each step launches what ``lm_train``'s does, and the losses
+   equal ``lm_train``'s first four within LM_SHARDED_LOSS_RTOL (bit
+   equality reported). Beside it, as a subprocess on the host,
+   ``python -m repro_torch.launch.dryrun --arch zamba2_1p2b --shape
+   train_4k``: the per-rank estimates of a 16 x 16 fake mesh, whose
+   FLOPs x 256 must fall within 1-3x of 6·N·D (line
+   ``lm_sharded_dryrun``).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -2735,7 +2747,143 @@ def phase_lm_train(ops, FA, SD, dev):
           and abs(loss_k - losses_p[False]) <= 1e-3 * abs(losses_p[False]),
           f"lm_train: the gradient at {LM_SHALLOW_LAYERS} layers: {cut}")
     ops.launches.update(path)
-    return path, seen
+    return path, seen, {"losses": losses, "step_ms": ms,
+                        "step_ms_all": step_ms, "peak_memory_gb": peak_gb}
+
+
+LM_SHARDED = dict(mesh=(1, 1), warm=2, timed=2)
+# the sharded step's losses against lm_train's (same weights, batches and
+# order of operations on one rank): relative bound
+LM_SHARDED_LOSS_RTOL = 1e-5
+LM_DRYRUN = ("zamba2_1p2b", "train_4k")
+LM_DRYRUN_RATIO = (1.0, 3.0)     # per-rank FLOPs x ranks over 6·N·D
+LM_DRYRUN_TIMEOUT_S = 900
+
+
+def start_dryrun():
+    """The dry run of LM_DRYRUN as a subprocess on the host (no card),
+    killed at exit if the run ends before it is read."""
+    import atexit
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    # files, not pipes: nothing reads the output until the phase
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         LM_DRYRUN[0], "--shape", LM_DRYRUN[1]], cwd=HERE, env=env,
+        stdout=out, stderr=err, text=True)
+    proc.files = out, err
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_dryrun(proc, card: str) -> dict:
+    """The dry run's record, its FLOPs beside 6·N·D."""
+    try:
+        proc.wait(timeout=LM_DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        check(False, f"lm_sharded_dryrun: no result in "
+              f"{LM_DRYRUN_TIMEOUT_S} s")
+    out, err = (f.seek(0) or f.read() for f in proc.files)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and bool(lines),
+          f"lm_sharded_dryrun: exit {proc.returncode}: {err[-2000:]}")
+    rec = json.loads(lines[-1])
+    lo, hi = LM_DRYRUN_RATIO
+    ratio = rec["flops_over_model_flops"]
+    emit(phase="lm_sharded_dryrun", card=card, record=rec,
+         flops_over_6nd=ratio, bound=list(LM_DRYRUN_RATIO),
+         reading="per-rank FLOPs x ranks over 6 N D: remat's second "
+         "forward (~4/3), the one shared attention block counted once in "
+         "N but applied 7 times a pass, and the plain attention's full "
+         "S x S scores on the fake CPU mesh")
+    check(rec["status"] == "ok" and lo <= ratio <= hi,
+          f"lm_sharded_dryrun: FLOPs / 6ND {ratio} outside {lo}-{hi}x")
+    return rec
+
+
+def phase_lm_sharded(ops, dev, train: dict, card: str, dryrun):
+    """zamba2_1p2b's train step on a 1 x 1 NCCL ``DeviceMesh`` through
+    the sharding slice (``launch.mesh.make_mesh``,
+    ``sharding.place.shard_params`` / ``shard_batch``): lm_train's model,
+    seed, batches and AdamW, every parameter a DTensor. Checks: each step
+    launches lm_train's kernels through the ``local_map`` regions, the
+    losses equal lm_train's first ones within LM_SHARDED_LOSS_RTOL, and
+    the 16 x 16 dry run's FLOPs / 6·N·D (``dryrun``: the subprocess of
+    ``start_dryrun``, started at the run's beginning so that its host
+    time hides behind the card's phases). Returns the path's launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.sharding.place import shard_batch, shard_params
+    from repro_torch.training.train import make_train_step
+    t, sh = LM_TRAIN, LM_SHARDED
+    cfg = get_config(t["config"])
+    b, s = t["batch"], t["seq"]
+    n_attn = -(-cfg.n_layers // cfg.shared_attn_every)
+    want_step = {"flash_attention": n_attn, "ssd_diag": cfg.n_layers,
+                 "flash_attention_bwd": n_attn, "ssd_diag_bwd": cfg.n_layers}
+    n_steps = sh["warm"] + sh["timed"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh(sh["mesh"], ("data", "model"), device_type="cuda")
+        model = Model(cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(SEED))
+        params = shard_params(model, mesh)
+        placements = sorted({str(p.placements) for p in params.values()})
+        opt = AdamW(lr=t["lr"])
+        state = opt.init(params)
+        step = make_train_step(model, opt)
+        batches = [shard_batch(bt, mesh) for bt in
+                   train_batches(cfg, b, s, n_steps, dev)]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        losses, step_ms, per_step = [], [], []
+        ops.reset_launches()
+        for i in range(n_steps):
+            before = {k: ops.launches[k] for k in LM_TRAIN_KERNELS}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, state, metrics = step(params, state, batches[i])
+            torch.cuda.synchronize()
+            if i >= sh["warm"]:
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(metrics["loss"]))
+            per_step.append({k: ops.launches[k] - before[k]
+                             for k in LM_TRAIN_KERNELS})
+        path = dict(ops.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del model, params, state, opt, step, batches, metrics
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want = train["losses"][:n_steps]
+    rel = [abs(a - w) / abs(w) for a, w in zip(losses, want)]
+    ms = statistics.median(step_ms)
+    emit(phase="lm_sharded", card=card, config=cfg.name, batch=b, seq=s,
+         mesh=dict(zip(("data", "model"), sh["mesh"])), backend="nccl",
+         placements=placements, init_s=init_s, losses=losses,
+         lm_train_losses=want, loss_rel_err=rel,
+         loss_bound=LM_SHARDED_LOSS_RTOL,
+         losses_equal_bits=losses == want, step_ms=ms, step_ms_all=step_ms,
+         lm_train_step_ms=train["step_ms"],
+         tokens_per_s=b * s / ms * 1e3, peak_memory_gb=peak_gb,
+         lm_train_peak_memory_gb=train["peak_memory_gb"],
+         launches_per_step=per_step[-1])
+    check(all(c == want_step for c in per_step),
+          f"lm_sharded: steps launched {per_step}, not {want_step}")
+    check(all(np.isfinite(losses)) and max(rel) <= LM_SHARDED_LOSS_RTOL,
+          f"lm_sharded: losses {losses} against lm_train's {want}")
+    finish_dryrun(dryrun, card)
+    return path
 
 
 def lm_train_rows(ops, FA, SD, dev, launches, seen):
@@ -4936,6 +5084,7 @@ def main() -> int:
     emit(phase="build", card=card, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
          nvcc_s=_build.build_seconds[0] if _build.build_seconds else None)
+    dryrun = start_dryrun()     # host work, read by the lm_sharded phase
 
     counts = phase_kernel_counts(ops, K, dev, n=29491, d=102)
     path = os.path.join(out_dir, "chip_smoke_model.npz")
@@ -4992,7 +5141,8 @@ def main() -> int:
     lm, lm_errs, lm_bf16, lm_bwd = phase_lm(ops, FA, SD, dev)
     check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
     lm_serve, lm_seen = phase_lm_serve(ops, FA, SD, dev)
-    lm_train, lm_train_seen = phase_lm_train(ops, FA, SD, dev)
+    lm_train, lm_train_seen, lm_train_run = phase_lm_train(ops, FA, SD, dev)
+    lm_sharded = phase_lm_sharded(ops, dev, lm_train_run, card, dryrun)
     # the tuner and the compile guard, after every path ran its analytic
     # plans
     tuned = phase_tune(ops, dev)
@@ -5002,7 +5152,7 @@ def main() -> int:
              "svc_lowrank": {k: lr_fit[k] + lr_serve[k] for k in ops.KERNELS},
              "svr": svr, **mc_paths, **lowrank_paths, **new_paths,
              **serving, "lm_kernels": lm, "lm_serve": lm_serve,
-             "lm_train": lm_train,
+             "lm_train": lm_train, "lm_sharded": lm_sharded,
              "tune": tuned,
              "compile_guard": guard}
     launches = {k: sum(p[k] for p in paths.values()) for k in ops.KERNELS}

@@ -35,6 +35,7 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.kernels import COMPUTE_DTYPES, sqnorms
 from repro_torch.kernels import _build
@@ -83,7 +84,13 @@ def _count(name: str) -> None:
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU ones; anything else, or a
-    mix of devices, raises."""
+    mix of devices, raises. A DTensor raises too: the kernels read raw
+    device pointers, which a DTensor does not have (a sharded caller
+    enters a kernel through a ``local_map`` region on local blocks)."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: a DTensor operand; call the kernel on "
+                        "local tensors (torch.distributed.tensor."
+                        "experimental.local_map)")
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices "

@@ -21,12 +21,20 @@ tensor is staged through host memory for the call and copied back (the
 paper's host-side MPI; the kernels still run on the card); under NCCL
 the call is stream-ordered and reads nothing on the host.
 
-``torch.distributed.DeviceMesh`` is not used: on "cuda" it implies NCCL.
-The LM substrate's ``make_production_mesh`` / ``set_mesh`` are not
-ported (ROADMAP A.14).
+``torch.distributed.DeviceMesh`` is not used for these: on "cuda" it
+implies NCCL.
+
+The LM substrate's meshes are ``DeviceMesh`` es with named axes, over
+the default process group: ``make_production_mesh`` (the reference's
+pod layouts: (data 16, model 16), or (pod 2, data 16, model 16)) and
+``make_mesh`` (any shape: the launcher's ``--mesh``, the tests').
+``set_mesh`` makes one the current mesh for a block (``current_mesh``),
+the counterpart of the reference's ``set_mesh``; the LM's DTensors carry
+their own mesh, so only the callers that place tensors read it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -98,3 +106,43 @@ def make_local_mesh(n_workers: int, axis: str = "workers", group=None,
     """1-D mesh of ``n_workers`` ranks for the task-parallel layer
     (``dist.fit_taskset``); ``n_workers`` must be the group's size."""
     return _mesh(n_workers, axis, group, device)
+
+
+# ------------------------------------------------------ the LM substrate's
+
+_CURRENT: list = []
+
+
+def make_mesh(shape, axes, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the
+    default process group (``init_process_group`` first; its world size
+    must be the product of ``shape``). Every rank calls it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's production layouts: 256 ranks as (data 16, model
+    16); with ``multi_pod`` 512 as (pod 2, data 16, model 16), the "pod"
+    axis carrying only data-parallel traffic. On one card these exist
+    only over a fake process group (``launch.dryrun``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """``mesh`` as the current mesh (``current_mesh``) for the block."""
+    _CURRENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _CURRENT.pop()
+
+
+def current_mesh():
+    """The innermost ``set_mesh`` mesh, or None."""
+    return _CURRENT[-1] if _CURRENT else None

@@ -12,7 +12,20 @@ the loss and writes a checkpoint at the end (``--ckpt``, in the
 reference's layout: ``convert.to_reference`` of the parameters). Runs on
 the card unless ``--device cpu``; ``--remat`` rematerializes each layer
 in the backward (``runtime.REMAT_POLICY``). Exits 0 when the mean loss
-of the last 5 steps is below that of the first 5.
+of the last 5 steps (of the last half, under 10 steps) is below that of
+the first.
+
+``--mesh DxM`` trains on a (data D, model M) ``DeviceMesh`` of D*M ranks,
+one process each, every parameter and the batch placed by the sharding
+rules (``sharding.place``):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh 1x2 \
+        --arch phi4_mini_3p8b --reduced --steps 3 --device cpu
+
+torchrun gives each process its rank and the group's address; gloo on
+the CPU, NCCL on the cards (rank r on card ``LOCAL_RANK``). A process
+group that is already initialized is used as it is. Rank 0 prints and
+writes the checkpoint.
 """
 from __future__ import annotations
 
@@ -42,9 +55,16 @@ def main(argv=None) -> int:
     ap.add_argument("--remat", action="store_true",
                     help="recompute each layer's activations in the "
                          "backward (runtime.REMAT_POLICY)")
+    ap.add_argument("--mesh", default="",
+                    help="DxM: a (data, model) mesh of D*M ranks, one "
+                         "process each (torchrun)")
     args = ap.parse_args(argv)
 
+    import contextlib
+    import os
+
     import torch
+    import torch.distributed as dist
 
     from repro_torch._device import resolve_device
     from repro_torch.checkpoint import ckpt as CK
@@ -56,6 +76,18 @@ def main(argv=None) -> int:
     from repro_torch.training.train import make_train_step
 
     dev = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.mesh:
+        from repro_torch.launch.mesh import make_mesh
+        d, m = (int(v) for v in args.mesh.split("x"))
+        if not dist.is_initialized():   # torchrun's env:// rendezvous
+            dist.init_process_group("nccl" if dev.type == "cuda"
+                                    else "gloo")
+        rank = dist.get_rank()
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+        mesh = make_mesh((d, m), ("data", "model"), device_type=dev.type)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
@@ -67,17 +99,43 @@ def main(argv=None) -> int:
     model = Model(cfg, device=dev, remat=args.remat)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     n_params = sum(p.numel() for p in params.values())
-    print(f"arch={cfg.name} params={n_params:,} device={dev}")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"arch={cfg.name} params={n_params:,} device={dev}"
+        + (f" mesh=data {d} x model {m}" if mesh is not None else ""))
+    if mesh is not None:
+        from repro_torch.launch.mesh import set_mesh
+        from repro_torch.sharding.place import shard_params
+        params = shard_params(model, mesh)
 
     opt = AdamW(lr=cosine_schedule(peak_lr=args.lr, warmup=20,
                                    total=args.steps))
     opt_state = opt.init(params)
     step_fn = make_train_step(model, opt)
 
-    losses = []
     t0 = time.time()
     it = token_batches(vocab_size=cfg.vocab_size, batch=args.batch,
                        seq_len=args.seq, n_batches=args.steps, seed=1)
+    with set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        losses = _train(args, cfg, dev, it, step_fn, params, opt_state,
+                        mesh, say, t0)
+
+    k = min(5, max(1, len(losses) // 2))
+    first = np.mean(losses[:k])
+    last = np.mean(losses[-k:])
+    say(f"loss first{k}={first:.4f} last{k}={last:.4f} "
+        f"improved={last < first}")
+    if args.ckpt:
+        named = {n: (p.full_tensor() if mesh is not None else p)
+                 for n, p in model.named_parameters()}
+        if rank == 0:
+            CK.save(args.ckpt, to_reference(named), step=args.steps)
+            say(f"checkpoint -> {args.ckpt}")
+    return 0 if last < first else 1
+
+
+def _train(args, cfg, dev, it, step_fn, params, opt_state, mesh, say, t0):
+    import torch
+    losses = []
     for i, nb in enumerate(it):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
         if cfg.arch_type == "vlm":
@@ -88,21 +146,16 @@ def main(argv=None) -> int:
             batch["frames"] = 0.02 * torch.ones(
                 (args.batch, cfg.encoder_frames, cfg.d_model),
                 dtype=torch.bfloat16, device=dev)
+        if mesh is not None:
+            from repro_torch.sharding.place import shard_batch
+            batch = shard_batch(batch)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         if i % args.log_every == 0 or i == args.steps - 1:
             dt = time.time() - t0
-            print(f"step {i:5d} loss {losses[-1]:.4f} "
-                  f"({dt / (i + 1):.3f}s/step)", flush=True)
-
-    first = np.mean(losses[:5])
-    last = np.mean(losses[-5:])
-    print(f"loss first5={first:.4f} last5={last:.4f} "
-          f"improved={last < first}")
-    if args.ckpt:
-        CK.save(args.ckpt, to_reference(params), step=args.steps)
-        print(f"checkpoint -> {args.ckpt}")
-    return 0 if last < first else 1
+            say(f"step {i:5d} loss {losses[-1]:.4f} "
+                f"({dt / (i + 1):.3f}s/step)", flush=True)
+    return losses
 
 
 if __name__ == "__main__":

@@ -19,9 +19,16 @@ no window, offset, softcap or valid length, v shaped as k, D <= 128 —
 at any length (the kernel is the online softmax ``chunked_attention``
 computes). Every other call, and every call on the CPU, follows the
 reference: ``full_attention`` below ``runtime.CHUNKED_THRESHOLD`` query
-positions, ``chunked_attention`` from it on. The sharding hint
-``wgather`` of the reference is the identity on one card and is left
-out.
+positions, ``chunked_attention`` from it on.
+
+Sharding (``sharding.place``): each module's ``SPECS`` names the logical
+axes of its parameters, as the reference's ``*_init`` return them, and
+``gqa_cache_specs`` / ``mla_cache_specs`` those of its caches. On a
+model whose parameters are DTensors the same code runs on DTensors;
+``w`` is the reference's ``wgather`` under ``runtime.GATHER_WEIGHTS``,
+``attention_any`` enters the attention (the flash kernel on the card)
+through a ``local_map`` region on whole heads, and ``write_rows``
+writes a cache's local block.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -59,15 +67,79 @@ def out_scale(cfg: ModelConfig) -> float:
 
 
 def w(p: torch.Tensor) -> torch.Tensor:
-    """A weight at its use: cast to the activation dtype."""
+    """A weight at its use: cast to the activation dtype. Under
+    ``runtime.GATHER_WEIGHTS`` a DTensor weight first takes its TP-only
+    placement (``gather_placements``, set by ``sharding.place``): the
+    fsdp dims all-gathered at the use, as the reference's ``wgather``
+    constrains them."""
+    gather = getattr(p, "gather_placements", None)
+    if RT.GATHER_WEIGHTS and gather is not None:
+        p = p.redistribute(p.device_mesh, gather)
     return p.to(ACT_DTYPE)
+
+
+def _replicate_partials(t):
+    if any(p.is_partial() for p in t.placements):
+        return t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return t.view_as(t)
+
+
+class _Settle(torch.autograd.Function):
+    """Identity whose result has no ``Partial`` placement (the pending
+    sums reduced) and whose gradient comes back in the result's own
+    layout."""
+
+    @staticmethod
+    def forward(ctx, t):
+        out = _replicate_partials(t)
+        ctx.placements = out.placements
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.placements != ctx.placements:
+            return g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def settle(t):
+    """A DTensor's pending sums (``Partial``, e.g. a contraction over a
+    sharded dim) reduced now, and its gradient brought back to the same
+    layout; a plain tensor as it is. Left to itself, DTensor may
+    reduce-scatter pending sums, or lay a gradient out, along any free
+    dim (the sequence), and a later merge of batch and sequence then
+    holds two shardings in one dim."""
+    return _Settle.apply(t) if isinstance(t, DTensor) else t
+
+
+def matmul(x, wt):
+    """``x @ wt`` for an activation and a weight at its use (``w``); on
+    DTensors with the activation's gradient and the product settled
+    (``settle``), and the product's placements on the data axes made the
+    activation's (the batch rows stay where they were, whichever operand
+    DTensor chose to move). The plain product on plain tensors."""
+    if not isinstance(x, DTensor) and not isinstance(wt, DTensor):
+        return x @ wt
+    out = settle(settle(x) @ wt)
+    keep = [x.placements[i] if i in _data_dims(x.device_mesh) else p
+            for i, p in enumerate(out.placements)]
+    if keep != list(out.placements):
+        out = out.redistribute(out.device_mesh, keep)
+    return out
+
+
+def _data_dims(mesh) -> tuple[int, ...]:
+    from repro_torch.sharding import rules as SR
+    names = SR.axis_names(mesh)
+    return tuple(names.index(a) for a in SR.dp_axes(mesh))
 
 
 # ------------------------------------------------------------------ norms
 
 def rmsnorm(x: torch.Tensor, w_: torch.Tensor, eps: float = 1e-5):
     xf = x.to(F32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = settle(torch.mean(xf * xf, dim=-1, keepdim=True))
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + w_)).to(x.dtype)
 
 
@@ -204,7 +276,83 @@ def flash(q, k, v, *, causal=True):
                                v.contiguous(), causal=bool(causal))
 
 
+def head_placements(mesh, batch: int, kv_heads: int) -> list:
+    """Placements of a (B, S, H, ...) operand of an attention region: B
+    over the data axes where they divide it, the heads over "model"
+    where it divides the kv heads (each rank then holds whole kv heads
+    with their query groups), else replicated on "model"."""
+    from repro_torch.sharding import rules as SR
+    return SR.placements(("dp", None, "tp"), mesh, (batch, 1, kv_heads))
+
+
+def attention_region(q, k, v, *, causal=True, fn=None, **kw):
+    """``attention_any`` (or ``fn``) on DTensor operands: a ``local_map``
+    region on whole heads (``head_placements``), so the flash kernel (on
+    the card) or the plain attention (on the CPU) runs on each rank's
+    local block of batch rows and kv-head groups and never on part of a
+    head."""
+    from torch.distributed.tensor.experimental import local_map
+    fn = attention_any if fn is None else fn
+    mesh = q.device_mesh
+    pl = head_placements(mesh, q.shape[0], k.shape[2])
+    # q, k and v share one placement: every gradient is its input's
+    return local_map(
+        lambda q_, k_, v_: fn(q_, k_, v_, causal=causal, **kw),
+        out_placements=pl, in_placements=(pl, pl, pl), device_mesh=mesh,
+        redistribute_inputs=True)(q, k, v)
+
+
+def split_heads(t, *shape):
+    """``t.reshape(*shape)``, the last dim split into (heads, head dim).
+    A DTensor whose last dim is sharded in blocks that are not whole
+    heads is first replicated on those mesh axes (the bytes a dry run
+    records); whole-head blocks stay sharded on the heads."""
+    if isinstance(t, DTensor):
+        t = _whole_heads(t, shape[-2])
+    return t.reshape(*shape)
+
+
+def _whole_heads(t, heads: int):
+    """t with its last dim replicated on every mesh axis that shards it
+    in blocks that are not whole heads."""
+    last = t.ndim - 1
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == last
+          and heads % t.device_mesh.size(i) else p
+          for i, p in enumerate(t.placements)]
+    if pl != list(t.placements):
+        return t.redistribute(t.device_mesh, pl)
+    return t.view_as(t)
+
+
+class _HeadsMerged(torch.autograd.Function):
+    """(..., H, D) -> (..., H * D), whose gradient arrives in whole heads
+    (``_whole_heads``) before it is split back."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.heads = t.shape[-2]
+        return t.reshape(*t.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads = ctx.heads
+        g = _whole_heads(g, heads) if isinstance(g, DTensor) else g
+        return g.reshape(*g.shape[:-1], heads, -1)
+
+
+def merge_heads(t):
+    """``t.reshape(..., H * D)`` of a (..., H, D) activation. On a DTensor
+    the gradient of the merged tensor (the next product's, sharded on its
+    columns) is first made whole heads where the heads do not divide the
+    mesh axis (24 heads over 16 ranks), so it splits back into heads."""
+    if not isinstance(t, DTensor):
+        return t.reshape(*t.shape[:-2], -1)
+    return _HeadsMerged.apply(t)
+
+
 def attention_any(q, k, v, *, causal=True, **kw):
+    if isinstance(q, DTensor):
+        return attention_region(q, k, v, causal=causal, **kw)
     if flash_eligible(q, k, v, **kw) and q.is_cuda:
         return flash(q, k, v, causal=causal)
     if q.shape[1] >= RT.CHUNKED_THRESHOLD and q.shape[1] == k.shape[1]:
@@ -217,6 +365,9 @@ def attention_any(q, k, v, *, causal=True, **kw):
 # ------------------------------------------------------------ GQA block
 
 class GQA(nn.Module):
+    SPECS = {"wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"),
+             "wv": ("fsdp", "tp"), "wo": ("tp", "fsdp")}
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.cfg = cfg
@@ -242,9 +393,9 @@ class GQA(nn.Module):
         b, sq, _ = x.shape
         h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         xb = x.to(ACT_DTYPE)
-        q = (xb @ w(self.wq)).reshape(b, sq, h, dh)
-        k = (xb @ w(self.wk)).reshape(b, sq, hkv, dh)
-        v = (xb @ w(self.wv)).reshape(b, sq, hkv, dh)
+        q = split_heads(matmul(xb, w(self.wq)), b, sq, h, dh)
+        k = split_heads(matmul(xb, w(self.wk)), b, sq, hkv, dh)
+        v = split_heads(matmul(xb, w(self.wv)), b, sq, hkv, dh)
         if cfg.rope_theta > 0:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -254,8 +405,9 @@ class GQA(nn.Module):
             cap = ck.shape[1]
             # the reference's dynamic_update_slice clamps the slot
             slot = min(cache_pos if window else cache["len"], cap - 1)
-            ck[:, slot] = k[:, 0]
-            cv[:, slot] = v[:, 0]
+            write_rows(ck, slot, k)
+            write_rows(cv, slot, v)
+            q = data_only(q)    # one token: whole heads beside the cache
             valid = min(cache["len"] + 1, cap)
             out = full_attention(q, ck, cv, causal=False, kv_valid_len=valid,
                                  softcap=cfg.logit_softcap)
@@ -270,14 +422,58 @@ class GQA(nn.Module):
                     # last cap keys land rolled by sq % cap so decode
                     # writes at slot len % cap stay consistent
                     shift = sq % cap
-                    cache["k"].copy_(torch.roll(k[:, -cap:], shift, 1))
-                    cache["v"].copy_(torch.roll(v[:, -cap:], shift, 1))
+                    for key, new in (("k", k), ("v", v)):
+                        last = new[:, -cap:]      # rolled by shift
+                        write_rows(cache[key], shift, last[:, :cap - shift])
+                        write_rows(cache[key], 0, last[:, cap - shift:])
                 else:
-                    cache["k"][:, :sq] = k
-                    cache["v"][:, :sq] = v
+                    write_rows(cache["k"], 0, k)
+                    write_rows(cache["v"], 0, v)
                 cache["len"] += sq
-        out = out.reshape(b, sq, h * dh) @ w(self.wo)
+        out = matmul(merge_heads(out), w(self.wo))
         return out.to(x.dtype), cache
+
+
+def write_rows(buf, start: int, rows) -> None:
+    """``buf[:, start:start + n] = rows`` in place (a cache's positions;
+    n = ``rows.shape[1]``). On a DTensor cache, whose sequence may be
+    sharded ("sp"), the rows take the cache's placements with the
+    sequence whole, and each rank writes the positions in its own block."""
+    n = rows.shape[1]
+    if not isinstance(buf, DTensor):
+        buf[:, start:start + n] = rows
+        return
+    from repro_torch.sharding import rules as SR
+    mesh = buf.device_mesh
+    whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+             for p in buf.placements]
+    local = rows.redistribute(mesh, whole).to_local()
+    lo, size = SR.local_block(buf.shape[1], mesh, buf.placements, 1)
+    a, b = max(start, lo), min(start + n, lo + size)
+    if a < b:
+        buf.to_local()[:, a - lo:b - lo] = local[:, a - start:b - start]
+
+
+def data_only(t):
+    """A DTensor activation replicated on every axis but the data axes
+    (its batch rows stay sharded); a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    keep = _data_dims(t.device_mesh)
+    pl = [p if i in keep else Replicate() for i, p in enumerate(t.placements)]
+    return t.redistribute(t.device_mesh, pl) if pl != list(t.placements) \
+        else t
+
+
+def gqa_cache_specs(window: bool = False) -> dict:
+    """Logical axes of a ``gqa_cache_init`` cache (``len`` is a host int):
+    the batch over dp, the sequence over "sp" for the long flat caches;
+    a window (ring) cache's sequence too under ``runtime.WINDOW_CACHE_SP``
+    (else each decode step gathers the whole cache, the new K / V rows
+    arriving model-sharded from the TP projections)."""
+    seq_ax = ("sp" if RT.WINDOW_CACHE_SP else None) if window else "sp"
+    return {"k": ("dp", seq_ax, None, None),
+            "v": ("dp", seq_ax, None, None)}
 
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -301,6 +497,11 @@ class MLA(nn.Module):
     """Multi-head latent attention: prefill expands per-head K / V from
     the compressed c_kv; decode takes the absorbed path against the
     compressed cache."""
+
+    SPECS = {"wq_a": ("fsdp", None), "q_norm": (None,),
+             "wq_b": ("fsdp", "tp"), "wkv_a": ("fsdp", None),
+             "kv_norm": (None,), "wkv_b": ("fsdp", "tp"),
+             "wo": ("tp", "fsdp")}
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -336,10 +537,10 @@ class MLA(nn.Module):
         h = mla_heads(cfg)
         dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
         xb = x.to(ACT_DTYPE)
-        q = rmsnorm(xb @ w(self.wq_a), self.q_norm, cfg.norm_eps)
-        q = (q @ w(self.wq_b)).reshape(b, s, h, dn + dr)
+        q = rmsnorm(matmul(xb, w(self.wq_a)), self.q_norm, cfg.norm_eps)
+        q = split_heads(matmul(q, w(self.wq_b)), b, s, h, dn + dr)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
-        kv = xb @ w(self.wkv_a)                              # (B,S,rkv+dr)
+        kv = matmul(xb, w(self.wkv_a))                       # (B,S,rkv+dr)
         c_kv = rmsnorm(kv[..., :cfg.kv_lora_rank], self.kv_norm,
                        cfg.norm_eps)
         k_rope = kv[..., cfg.kv_lora_rank:][:, :, None, :]   # (B,S,1,dr)
@@ -356,14 +557,16 @@ class MLA(nn.Module):
         rkv = cfg.kv_lora_rank
         scale = (dn + dr) ** -0.5
         q_nope, q_rope, c_kv, k_rope = self._qkr(x, positions)
-        wkv_b = w(self.wkv_b).reshape(rkv, h, dn + dv)
-        w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
 
         if cache is not None and sq == 1:  # ---- absorbed decode
+            wkv_b = split_heads(w(self.wkv_b), rkv, h, dn + dv)
+            w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
             slot = min(cache["len"], cache["ckv"].shape[1] - 1)
             ckv, krp = cache["ckv"], cache["krope"]
-            ckv[:, slot] = c_kv[:, 0]
-            krp[:, slot] = k_rope[:, 0, 0]
+            write_rows(ckv, slot, c_kv)
+            write_rows(krp, slot, k_rope[:, :, 0])
+            # one token: whole heads beside the sequence-sharded cache
+            q_nope, q_rope = data_only(q_nope), data_only(q_rope)
             q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
             s_c = torch.einsum("bqhr,bkr->bhqk", q_c.to(F32), ckv.to(F32))
             s_r = torch.einsum("bqhd,bkd->bhqk", q_rope.to(F32),
@@ -377,17 +580,21 @@ class MLA(nn.Module):
             out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
             cache["len"] += 1
         else:  # ---- train / prefill: expand per-head K and V
-            kv = torch.einsum("bkr,rhe->bkhe", c_kv, wkv_b)
+            kv = split_heads(matmul(c_kv, w(self.wkv_b)), b, sq, h, dn + dv)
             k_nope, v = kv[..., :dn], kv[..., dn:]
             k = torch.cat([k_nope, k_rope.expand(b, sq, h, dr)], -1)
             q = torch.cat([q_nope, q_rope], -1)
             out = attention_any(q, k, v, causal=True)
             if update_cache and cache is not None:
-                cache["ckv"][:, :sq] = c_kv
-                cache["krope"][:, :sq] = k_rope[:, :, 0]
+                write_rows(cache["ckv"], 0, c_kv)
+                write_rows(cache["krope"], 0, k_rope[:, :, 0])
                 cache["len"] += sq
-        out = out.reshape(b, sq, h * dv) @ w(self.wo)
+        out = matmul(merge_heads(out), w(self.wo))
         return out.to(x.dtype), cache
+
+
+def mla_cache_specs() -> dict:
+    return {"ckv": ("dp", "sp", None), "krope": ("dp", "sp", None)}
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int,
@@ -402,6 +609,9 @@ def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 # -------------------------------------------------------------------- FFN
 
 class FFN(nn.Module):
+    SPECS = {"w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"),
+             "w_in": ("fsdp", "tp"), "w_down": ("tp", "fsdp")}
+
     def __init__(self, cfg: ModelConfig, device, d_ff: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
@@ -423,15 +633,29 @@ class FFN(nn.Module):
     def forward(self, x):
         xb = x.to(ACT_DTYPE)
         if self.cfg.act == "swiglu":
-            h = F.silu(xb @ w(self.w_gate)) * (xb @ w(self.w_up))
+            h = F.silu(matmul(xb, w(self.w_gate))) * matmul(xb,
+                                                            w(self.w_up))
         else:   # jax.nn.gelu's default: the tanh approximation
-            h = F.gelu(xb @ w(self.w_in), approximate="tanh")
-        return (h @ w(self.w_down)).to(x.dtype)
+            h = F.gelu(matmul(xb, w(self.w_in)), approximate="tanh")
+        return matmul(h, w(self.w_down)).to(x.dtype)
 
 
 # -------------------------------------------------------- embed / unembed
 
+def one_hot(tokens, n: int):
+    """``F.one_hot``; on a DTensor of token rows, each rank's rows."""
+    if not isinstance(tokens, DTensor):
+        return F.one_hot(tokens, n)
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(tokens.placements)
+    return local_map(lambda t_: F.one_hot(t_, n), out_placements=pl,
+                     in_placements=(pl,),
+                     device_mesh=tokens.device_mesh)(tokens)
+
+
 class Embed(nn.Module):
+    SPECS = {"table": ("tp", "fsdp"), "unembed": ("fsdp", "tp")}
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.cfg = cfg
@@ -446,9 +670,13 @@ class Embed(nn.Module):
 
     def forward(self, tokens):
         if RT.EMBED_ONEHOT:
-            oh = F.one_hot(tokens.long(), self.table.shape[0]).to(ACT_DTYPE)
-            return oh @ w(self.table)
-        return F.embedding(tokens.long(), w(self.table))
+            oh = one_hot(tokens.long(), self.table.shape[0]).to(ACT_DTYPE)
+            return matmul(oh, w(self.table))
+        table = w(self.table)
+        if isinstance(table, DTensor):   # the lookup reads a whole table
+            table = table.redistribute(
+                table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+        return F.embedding(tokens.long(), table)
 
     def unembed_apply(self, x):
         """Logits over the PADDED vocab; padded columns masked to -1e9 so
@@ -456,9 +684,9 @@ class Embed(nn.Module):
         cfg = self.cfg
         xb = x.to(ACT_DTYPE)
         if cfg.tie_embeddings:
-            logits = xb @ w(self.table).T
+            logits = matmul(xb, w(self.table).T)
         else:
-            logits = xb @ w(self.unembed)
+            logits = matmul(xb, w(self.unembed))
         if cfg.padded_vocab != cfg.vocab_size:   # out of place: autograd
             pad = torch.arange(cfg.padded_vocab, device=x.device)
             logits = logits.masked_fill(pad >= cfg.vocab_size, -1e9)

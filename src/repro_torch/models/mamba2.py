@@ -11,7 +11,9 @@ decode. Discretization (per head h, state n, channel p):
 The intra-chunk term of ``ssd_chunked`` is ``kernels.ops.ssd_diag``: the
 hand-written kernel on the card, its plain version on the CPU. The chunk
 states, the recurrence across chunks and their contribution stay torch
-ops, as they are XLA ops in the reference.
+ops, as they are XLA ops in the reference. On DTensor operands the
+chunked scan (and with it the kernel) and the decode step run in
+``local_map`` regions on whole heads (``ssd_region``, ``decode_region``).
 """
 from __future__ import annotations
 
@@ -21,11 +23,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ACT_DTYPE, F32, normal_, out_scale,
-                                       param, rmsnorm, w)
+                                       matmul, merge_heads, param, rmsnorm,
+                                       split_heads, w)
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -36,6 +40,13 @@ N_GROUPS = 1   # B / C groups: one, as in the reference
 
 
 class Mamba2(nn.Module):
+    SPECS = {"w_z": ("fsdp", "tp"), "w_x": ("fsdp", "tp"),
+             "w_B": ("fsdp", None), "w_C": ("fsdp", None),
+             "w_dt": ("fsdp", "tp"), "dt_bias": ("tp",), "A_log": ("tp",),
+             "D": ("tp",), "conv_x": (None, "tp"), "conv_B": (None, None),
+             "conv_C": (None, None), "norm": ("tp",),
+             "w_out": ("tp", "fsdp")}
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.cfg = cfg
@@ -87,11 +98,11 @@ class Mamba2(nn.Module):
         pdim = di // h
         xb = x.to(ACT_DTYPE)
 
-        z = xb @ w(self.w_z)                                  # (B,S,di)
-        xs = xb @ w(self.w_x)
-        bs = xb @ w(self.w_B)                                 # (B,S,G*N)
-        cs_ = xb @ w(self.w_C)
-        dt_raw = (xb @ w(self.w_dt)).to(F32)
+        z = matmul(xb, w(self.w_z))                           # (B,S,di)
+        xs = matmul(xb, w(self.w_x))
+        bs = matmul(xb, w(self.w_B))                          # (B,S,G*N)
+        cs_ = matmul(xb, w(self.w_C))
+        dt_raw = matmul(xb, w(self.w_dt)).to(F32)
         dt = softplus(dt_raw + self.dt_bias)                  # (B,S,H)
         a = -torch.exp(self.A_log)                            # (H,)
 
@@ -104,27 +115,29 @@ class Mamba2(nn.Module):
                                 state=cache["conv_C"] if decode else None)
         xs, bs, cs_ = F.silu(xs), F.silu(bs), F.silu(cs_)
 
-        xh = xs.reshape(b, s, h, pdim)
+        xh = split_heads(xs, b, s, h, pdim)
         bmat = bs.reshape(b, s, N_GROUPS, n)
         cmat = cs_.reshape(b, s, N_GROUPS, n)
 
         if decode:
-            y, new_ssm = ssd_decode_step(xh[:, 0], dt[:, 0], a, bmat[:, 0],
-                                         cmat[:, 0], cache["ssm"])
+            step = (decode_region if isinstance(xh, DTensor)
+                    else ssd_decode_step)
+            y, new_ssm = step(xh[:, 0], dt[:, 0], a, bmat[:, 0],
+                              cmat[:, 0], cache["ssm"])
             y = y[:, None]                                    # (B,1,H,P)
             cache.update(conv_x=ncx, conv_B=ncb, conv_C=ncc, ssm=new_ssm)
         else:
             init = cache["ssm"] if cache is not None else None
-            y, final = ssd_chunked(xh, dt, a, bmat, cmat,
-                                   chunk=min(cfg.ssm_chunk, s),
-                                   init_state=init)
+            scan = ssd_region if isinstance(xh, DTensor) else ssd_chunked
+            y, final = scan(xh, dt, a, bmat, cmat,
+                            chunk=min(cfg.ssm_chunk, s), init_state=init)
             if update_cache and cache is not None:
                 cache.update(conv_x=ncx, conv_B=ncb, conv_C=ncc, ssm=final)
 
         y = y + xh.to(F32) * self.D[:, None]
-        y = y.reshape(b, s, di).to(ACT_DTYPE)
+        y = merge_heads(y).to(ACT_DTYPE)
         y = rmsnorm(y * F.silu(z), self.norm, cfg.norm_eps)
-        out = y @ w(self.w_out)
+        out = matmul(y, w(self.w_out))
         return out.to(x.dtype), cache
 
 
@@ -221,6 +234,55 @@ def ssd_chunked(x, dt, a, bmat, cmat, *, chunk: int,
     return y.to(x.dtype), carry
 
 
+def _head_placements(x):
+    """Placements of an SSD region over x (B, ..., H, P): x's (and dt's),
+    the state's (B, H, N, P), B's and C's (one group: replicated on
+    "model"), and the (H,) vector's. The batch goes over the data axes
+    where they divide it, the heads over "model" where it divides H."""
+    from repro_torch.sharding import rules as SR
+    mesh = x.device_mesh
+    b, h = x.shape[0], x.shape[-2]
+    mid = (None,) * (x.ndim - 3)
+    return (SR.placements(("dp",) + mid + ("tp",), mesh,
+                          (b,) + (1,) * len(mid) + (h,)),
+            SR.placements(("dp", "tp"), mesh, (b, h)),
+            SR.placements(("dp",), mesh, (b,)),
+            SR.placements(("tp",), mesh, (h,)))
+
+
+def ssd_region(x, dt, a, bmat, cmat, *, chunk: int, init_state=None):
+    """``ssd_chunked`` on DTensor operands, as a ``local_map`` region:
+    each rank scans its batch rows and whole heads (``ops.ssd_diag`` on
+    the local blocks). The chunk states and the recurrence are per head,
+    so nothing crosses ranks inside."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import rules as SR
+    heads, state, rows, vec = _head_placements(x)
+
+    def scan(x_, dt_, a_, b_, c_, *init):
+        return ssd_chunked(x_, dt_, a_, b_, c_, chunk=chunk,
+                           init_state=init[0] if init else None)
+    args, pls = (x, dt, a, bmat, cmat), (heads, heads, vec, rows, rows)
+    if init_state is not None:
+        args, pls = args + (init_state,), pls + (state,)
+    return local_map(scan, out_placements=(heads, state), in_placements=pls,
+                     in_grad_placements=SR.region_grads(pls),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def decode_region(x, dt, a, bvec, cvec, state):
+    """``ssd_decode_step`` on DTensor operands, per rank on its batch rows
+    and whole heads."""
+    from torch.distributed.tensor.experimental import local_map
+    heads, st, rows, vec = _head_placements(x)
+    return local_map(ssd_decode_step, out_placements=(heads, st),
+                     in_placements=(heads, heads, vec, rows, rows, st),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, dt, a, bvec, cvec, state)
+
+
 def ssd_decode_step(x, dt, a, bvec, cvec, state):
     """One recurrent step. x (B,H,P), dt (B,H), bvec / cvec (B,G,N),
     state (B,H,N,P) -> (y (B,H,P), new_state)."""
@@ -233,6 +295,11 @@ def ssd_decode_step(x, dt, a, bvec, cvec, state):
     new_state = state * dec[:, :, None, None] + bx
     y = torch.einsum("bhn,bhnp->bhp", ch, new_state)
     return y, new_state
+
+
+def mamba2_cache_specs() -> dict:
+    return {"conv_x": ("dp", None, "tp"), "conv_B": ("dp", None, None),
+            "conv_C": ("dp", None, None), "ssm": ("dp", "tp", None, None)}
 
 
 def mamba2_cache_init(cfg: ModelConfig, batch: int, device=None) -> dict:

@@ -1,5 +1,5 @@
 """Unified model: every architecture of ``configs`` behind one interface
-(the port of ``repro/models/model.py``; its sharding specs aside).
+(the port of ``repro/models/model.py``).
 
     model = Model(cfg, device="cuda")        # parameters allocated
     params = model.init(generator)           # filled; name -> tensor
@@ -7,6 +7,7 @@
     caches = model.cache_init(batch_size, max_len)
     logits, caches = model.prefill(batch, caches)
     logits, caches = model.decode_step(token, caches)
+    model.specs(), model.cache_specs()       # logical axes, by name
 
 ``forward`` tracks gradients of the (trainable float32) parameters;
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode`` and
@@ -36,12 +37,19 @@ vlm             dense decoder over [patch embeds | token embeds].
 The reference scans stacked layer axes; here each stack is an
 ``nn.ModuleList`` walked by a Python loop, and a cache is a list of
 per-layer dicts (``layers.gqa_cache_init`` ...), written in place, whose
-``len`` is a host int. The logical-axis ``specs`` trees of the
-reference belong to the sharding slice: ``init`` returns parameters
-only.
+``len`` is a host int. The reference's logical-axis ``specs`` trees are
+``specs()`` (parameter name -> logical tuple, the stacked layer axis
+dropped as the stacks are split) and ``cache_specs()`` (``cache_init``'s
+structure without ``len``); ``init`` returns parameters only.
+``sharding.place.shard_params`` makes every parameter a DTensor placed
+by them and sets ``mesh``; the entry points then run on DTensors, the
+plain tensors they make (positions, masks) implicitly replicated.
+``abstract_model`` builds a model whose tensors are fake: nothing is
+allocated.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -61,9 +69,25 @@ def _zero(*params: torch.Tensor) -> None:
             p.zero_()
 
 
+NORM_SPECS = {"ln1": (None,), "ln2": (None,), "lnx": (None,), "ln": (None,),
+              "final_norm": (None,), "enc_norm": (None,)}
+
+
+def abstract_model(cfg: ModelConfig, *, remat: bool = False):
+    """``(Model, FakeTensorMode)``: a CPU model whose parameters are fake
+    tensors (shapes and dtypes, no storage), for the dry run. Run what
+    uses it under the returned mode."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        return Model(cfg, device="cpu", remat=remat), mode
+
+
 class DenseLayer(nn.Module):
     """Pre-norm attention (GQA or MLA) + FFN. ``causal=False`` is
     whisper's encoder layer (bidirectional, the default norm eps)."""
+
+    SPECS = NORM_SPECS
 
     def __init__(self, cfg: ModelConfig, device, *, causal: bool = True):
         super().__init__()
@@ -102,6 +126,8 @@ def attn_apply(lp, x, positions, *, window=0, cache=None,
 
 
 class MoELayer(nn.Module):
+    SPECS = NORM_SPECS
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.cfg, self.eps = cfg, cfg.norm_eps
@@ -122,6 +148,8 @@ class MoELayer(nn.Module):
 
 
 class SSMLayer(nn.Module):
+    SPECS = NORM_SPECS
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.cfg = cfg
@@ -140,6 +168,8 @@ class SSMLayer(nn.Module):
 class XAttnLayer(nn.Module):
     """whisper's decoder layer: causal self-attention, cross-attention
     over the encoder output, FFN."""
+
+    SPECS = NORM_SPECS
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -171,17 +201,24 @@ class XAttnLayer(nn.Module):
         b, sq, _ = xn.shape
         hh, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         p = self.xattn
-        q = (xn.to(L.ACT_DTYPE) @ L.w(p.wq)).reshape(b, sq, hh, dh)
+        q = L.split_heads(L.matmul(xn.to(L.ACT_DTYPE), L.w(p.wq)), b, sq, hh,
+                          dh)
         if kv_src is None:
             ck, cv = cache["k"], cache["v"]
         else:
             src = kv_src.to(L.ACT_DTYPE)
-            ck = (src @ L.w(p.wk)).reshape(b, src.shape[1], hkv, dh)
-            cv = (src @ L.w(p.wv)).reshape(b, src.shape[1], hkv, dh)
+            ck = L.split_heads(L.matmul(src, L.w(p.wk)), b, src.shape[1],
+                               hkv, dh)
+            cv = L.split_heads(L.matmul(src, L.w(p.wv)), b, src.shape[1],
+                               hkv, dh)
             if cache is not None:
                 cache.update(k=ck, v=cv)
-        out = L.full_attention(q, ck, cv, causal=False)
-        out = out.reshape(b, sq, hh * dh) @ L.w(p.wo)
+        if isinstance(q, L.DTensor):
+            out = L.attention_region(q, ck, cv, causal=False,
+                                     fn=L.full_attention)
+        else:
+            out = L.full_attention(q, ck, cv, causal=False)
+        out = L.matmul(L.merge_heads(out), L.w(p.wo))
         return out.to(x.dtype)
 
 
@@ -201,11 +238,14 @@ class LocalGlobalGroup(nn.Module):
 
 
 class Model(nn.Module):
+    SPECS = NORM_SPECS
+
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
+        self.mesh = None        # set by sharding.place.shard_params
         self.device = dev = resolve_device(device)
         self.embed = L.Embed(cfg, dev)
         self.final_norm = L.param((cfg.d_model,), dev)
@@ -257,8 +297,76 @@ class Model(nn.Module):
                 m.init_(generator)
         return dict(self.named_parameters())
 
+    # ========================================================== sharding
+    def specs(self) -> dict:
+        """Logical axes of every parameter, by ``named_parameters()`` name:
+        the reference's ``init`` spec tree without the stacked layer axis.
+        Each module's ``SPECS`` names its own parameters."""
+        out = {}
+        for prefix, mod in self.named_modules():
+            for name, _ in mod.named_parameters(recurse=False):
+                out[f"{prefix}.{name}" if prefix else name] = \
+                    mod.SPECS[name]
+        return out
+
+    def cache_specs(self) -> Any:
+        """Logical axes of ``cache_init``'s caches, in its structure (lists
+        of per-layer dicts) without the host-int ``len``."""
+        cfg = self.cfg
+        t = cfg.arch_type
+
+        def gqa(n, window=False):
+            return [L.gqa_cache_specs(window=window) for _ in range(n)]
+
+        if t in ("dense", "vlm"):
+            if cfg.attention == "mla":
+                return [L.mla_cache_specs() for _ in range(cfg.n_layers)]
+            if cfg.local_global_ratio:
+                return [{"local": gqa(cfg.local_global_ratio, window=True),
+                         "global": L.gqa_cache_specs()}
+                        for _ in range(len(self.groups))]
+            return gqa(cfg.n_layers)
+        if t == "moe":
+            nd = cfg.first_k_dense
+            out = {"moe": gqa(cfg.n_layers - nd)}
+            if nd:
+                out["dense"] = gqa(nd)
+            return out
+        if t in ("ssm", "hybrid"):
+            mamba = [M.mamba2_cache_specs() for _ in range(cfg.n_layers)]
+            if t == "ssm":
+                return mamba
+            return {"mamba": mamba,
+                    "attn": gqa(-(-cfg.n_layers // cfg.shared_attn_every))}
+        if t == "audio":
+            cross = ("dp", None, None, None)
+            return {"self": gqa(cfg.n_layers),
+                    "cross": [{"k": cross, "v": cross}
+                              for _ in range(cfg.n_layers)]}
+        raise ValueError(t)
+
+    def _sharded(self):
+        """DTensor's implicit replication of the plain tensors an entry
+        point makes, when the parameters are DTensors."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+
+    @contextlib.contextmanager
+    def _serving(self):
+        """No graph for prefill / decode: ``inference_mode``, or on DTensor
+        parameters ``no_grad`` (a view of a DTensor parameter fails under
+        ``inference_mode``)."""
+        grad_off = (torch.inference_mode() if self.mesh is None
+                    else torch.no_grad())
+        with grad_off, self._sharded():
+            yield
+
     # ============================================================ inputs
     def _input(self, a, dtype=None) -> torch.Tensor:
+        if self.mesh is not None and hasattr(a, "device_mesh"):
+            return a if dtype is None else a.to(dtype)
         return torch.as_tensor(a, device=self.device, dtype=dtype)
 
     def _embed_inputs(self, batch: dict):
@@ -286,6 +394,10 @@ class Model(nn.Module):
     def forward(self, batch: dict):
         """Teacher-forced forward: (logits (B, S, V) over the padded
         vocab, aux_loss scalar)."""
+        with self._sharded():
+            return self._forward(batch)
+
+    def _forward(self, batch: dict):
         cfg = self.cfg
         s_text = batch["tokens"].shape[1]
         h, positions, enc_out = self._embed_inputs(batch)
@@ -415,10 +527,13 @@ class Model(nn.Module):
                               for _ in range(cfg.n_layers)]}
         raise ValueError(t)
 
-    @torch.inference_mode()
     def prefill(self, batch: dict, caches):
         """The whole prompt, writing the caches; returns (last-position
         logits (B, V), caches)."""
+        with self._serving():
+            return self._prefill(batch, caches)
+
+    def _prefill(self, batch: dict, caches):
         cfg = self.cfg
         h, positions, enc_out = self._embed_inputs(batch)
         h, _ = self._backbone(h, positions, enc_out=enc_out, caches=caches,
@@ -426,10 +541,13 @@ class Model(nn.Module):
         h = L.rmsnorm(h[:, -1:], self.final_norm, cfg.norm_eps)
         return self.embed.unembed_apply(h)[:, 0], caches
 
-    @torch.inference_mode()
     def decode_step(self, token, caches):
         """One token (B,) + caches -> (logits (B, V), caches). The
         position is the caches' host-side length: no device read."""
+        with self._serving():
+            return self._decode_step(token, caches)
+
+    def _decode_step(self, token, caches):
         cfg = self.cfg
         token = self._input(token, torch.long)
         b = token.shape[0]

@@ -21,9 +21,21 @@ Each defaults to the reference's paper-faithful baseline:
 * ``MICROBATCHES``: gradient-accumulation steps of a train step
   (``training.train.make_train_step``).
 
-The reference's sharding hints (``SERVE_PURE_TP``, ``WINDOW_CACHE_SP``,
-``GATHER_WEIGHTS``, ``MOE_XE_SHARD``) and ``UNROLL_SCANS`` (XLA's cost
-analysis) are not carried: on one card they change nothing.
+The sharding switches act only on a model whose parameters are DTensors
+(``sharding.place.shard_params``); on one device they change nothing:
+
+* ``SERVE_PURE_TP``: prefill / decode parameters TP-only, no fsdp dim
+  (read by ``launch.dryrun`` and the callers of ``shard_params``).
+* ``WINDOW_CACHE_SP``: sliding-window KV caches sharded on their
+  sequence axis over "model" too (``layers.gqa_cache_specs``).
+* ``GATHER_WEIGHTS``: a weight redistributed to its TP-only placement at
+  its use (``layers.w``): the fsdp dims all-gathered, never the
+  activations of a contraction reduced.
+* ``MOE_XE_SHARD``: the MoE dispatch buffer sharded, experts over
+  "model" and capacity rows over "data" (``moe._experts``).
+
+``UNROLL_SCANS`` (XLA's cost analysis counts a scan body once) is not
+carried: the port's stacks are Python loops.
 """
 from __future__ import annotations
 
@@ -36,9 +48,15 @@ EMBED_ONEHOT = False
 MOE_GROUPED = False
 REMAT_POLICY = "full"      # full | dots (save matmul outputs) | none
 MICROBATCHES = 1           # gradient accumulation steps per train step
+SERVE_PURE_TP = False      # prefill/decode: params TP-only (no fsdp dim)
+WINDOW_CACHE_SP = False    # shard sliding-window KV caches on seq (model)
+GATHER_WEIGHTS = False     # gather fsdp-sharded weights at their use
+MOE_XE_SHARD = False       # shard MoE dispatch buffers (E->model, cap->dp)
 
 FLAGS = ("SCORES_BF16", "CHUNKED_THRESHOLD", "MLA_PAD_HEADS",
-         "EMBED_ONEHOT", "MOE_GROUPED", "REMAT_POLICY", "MICROBATCHES")
+         "EMBED_ONEHOT", "MOE_GROUPED", "REMAT_POLICY", "MICROBATCHES",
+         "SERVE_PURE_TP", "WINDOW_CACHE_SP", "GATHER_WEIGHTS",
+         "MOE_XE_SHARD")
 REMAT_POLICIES = ("full", "dots", "none")
 
 

@@ -11,6 +11,11 @@ in place (``torch._foreach_*`` over slices of the tensors, so a step
 keeps few temporaries of a 1 B-parameter model alive) and returns them;
 the step count is a host int, so a step reads nothing back from the
 card.
+
+DTensor parameters (``sharding.place``) take the same arithmetic on
+their local blocks: the moments are DTensors placed as the parameters,
+each gradient comes placed as its parameter, and only the global norm
+crosses ranks (one all-reduce of the local sums of squares).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 # tensors a foreach pass takes at once: bounds the temporaries of a step
 _SLICE = 32
@@ -35,6 +41,12 @@ def _slices(*lists):
     n = len(lists[0])
     for i in range(0, n, _SLICE):
         yield tuple(x[i:i + _SLICE] for x in lists)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local block (a view: in-place updates reach the
+    DTensor), a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _zeros(params: dict) -> dict:
@@ -63,8 +75,9 @@ class AdamW:
         has every parameter's name."""
         names = list(params)
         g = [grads[k] for k in names]
+        gnorm = global_norm(g) if self.grad_clip else None
+        g = [_local(x) for x in g]
         if self.grad_clip:
-            gnorm = global_norm(g)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
             g = torch._foreach_mul(g, scale)
         step = state.step + 1
@@ -72,9 +85,9 @@ class AdamW:
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
         lr = self._lr(step)
-        mu = [state.mu[k] for k in names]
-        nu = [state.nu[k] for k in names]
-        ps = [params[k] for k in names]
+        mu = [_local(state.mu[k]) for k in names]
+        nu = [_local(state.nu[k]) for k in names]
+        ps = [_local(params[k]) for k in names]
         for gs, ms, vs, pp in _slices(g, mu, nu, ps):
             torch._foreach_mul_(ms, b1)                     # b1 m + (1 - b1) g
             torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - b1))
@@ -109,21 +122,40 @@ class SGD:
         if self.momentum:
             mu = state.mu
             for k in names:
-                mu[k].mul_(self.momentum).add_(grads[k])
+                _local(mu[k]).mul_(self.momentum).add_(_local(grads[k]))
         else:
             mu = {k: grads[k] for k in names}
         for k in names:
-            params[k].sub_(self.lr * mu[k])
+            _local(params[k]).sub_(self.lr * _local(mu[k]))
         return params, AdamWState(step=state.step + 1, mu=mu, nu=None)
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, leaves in
-    order (a dict's values, or a sequence), as a 0-d float32 tensor."""
+    order (a dict's values, or a sequence), as a 0-d float32 tensor.
+    DTensor leaves add their local blocks' sums, each divided by the
+    number of ranks that hold the same block, and one all-reduce over
+    the mesh sums the ranks; the result is the plain tensor every rank
+    holds."""
     leaves = list(tree.values()) if isinstance(tree, dict) else list(tree)
-    total = sum(torch.sum(torch.square(x.to(torch.float32)))
-                for x in leaves)
+    mesh = next((x.device_mesh for x in leaves if isinstance(x, DTensor)),
+                None)
+    total = sum(_sumsq(x) for x in leaves)
+    if mesh is not None:
+        from torch.distributed.tensor import Partial
+        total = DTensor.from_local(torch.as_tensor(total, dtype=torch.float32),
+                                   mesh, [Partial()] * mesh.ndim
+                                   ).full_tensor()
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def _sumsq(x: torch.Tensor) -> torch.Tensor:
+    if not isinstance(x, DTensor):
+        return torch.sum(torch.square(x.to(torch.float32)))
+    copies = math.prod(x.device_mesh.size(i)
+                       for i, p in enumerate(x.placements) if p.is_replicate())
+    local = torch.sum(torch.square(x.to_local().to(torch.float32)))
+    return local / copies if copies > 1 else local
 
 
 def cosine_schedule(*, peak_lr: float, warmup: int, total: int,
