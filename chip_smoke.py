@@ -216,6 +216,21 @@ then:
    train_4k``: the per-rank estimates of a 16 x 16 fake mesh, whose
    FLOPs x 256 must fall within 1-3x of 6·N·D (line
    ``lm_sharded_dryrun``).
+17. prices it (lines ``lm_roofline``, parts a–d): a second subprocess on
+   the host (``python3 chip_smoke.py --lm-roofline``), started with the
+   dry run, runs the port's roofline tools on zamba2_1p2b: (a)
+   ``roofline.differential.probe`` x train_4k on the fake 16 x 16 mesh,
+   the full-depth count (``corrected``) beside the reference's two-depth
+   extrapolation (``extrapolated``; 7 shared-attention applications
+   against 1 + 32 / 6), and their FLOP gap, which must be positive; (b)
+   ``roofline.report.analyze``'s three terms on the H100, the dominant
+   one and 6·N·D over the counted FLOPs, for that record and for
+   ``lm_sharded_dryrun``'s; (c) the same for ``lm_train``'s own step (2
+   x 2,048 tokens, no remat, a 1 x 1 mesh) beside the step ms and the
+   profiled step's device ms that ``lm_train`` measured in this run; (d)
+   ``roofline.inspect_hlo``'s 5 largest collectives of decode_32k at 2
+   layers, each with its ``models/`` source line. Estimates of a fake
+   mesh, not measurements; a failed subprocess fails the run.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -374,6 +389,15 @@ def l2_read_rate(dev) -> float:
     return (b.numel() - a.numel()) * 4 / ((tb - ta) * 1e-3)
 
 
+def spin_pad() -> None:
+    """Short spin kernels (``torch.cuda._sleep``) that take the place of
+    the first or last records of a profiled region, which the profiler
+    drops late in a long process; ``profiled_lm_kernels`` and
+    ``kernels_per_call`` do not count them."""
+    for _ in range(5):
+        torch.cuda._sleep(100)
+
+
 def kernels_per_call(fn, calls: int = 20, tries: int = 3) -> float:
     """Device kernels launched per call of ``fn``, counted by
     torch.profiler over ``calls`` calls between short spin kernels
@@ -388,12 +412,10 @@ def kernels_per_call(fn, calls: int = 20, tries: int = 3) -> float:
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                torch.cuda._sleep(100)
+            spin_pad()
             for _ in range(calls):
                 fn()
-            for _ in range(5):
-                torch.cuda._sleep(100)
+            spin_pad()
             torch.cuda.synchronize()
         counts.append(sum(
             e.count for e in prof.key_averages()
@@ -2571,7 +2593,8 @@ def profiled_lm_kernels(prof) -> dict:
     LM entry (forward and backward) the device ms and the launches of
     its first device kernel, with the top kernels by device time."""
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin" not in e.key.lower()]    # spin_pad's kernels
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     names = {"flash_attention": ("flash_kernel",),
              "ssd_diag": ("ssd_diag_kernel",), **BWD_DEVICE_KERNELS}
@@ -2654,14 +2677,19 @@ def phase_lm_train(ops, FA, SD, dev):
 
     # ---- steps under the profiler (their launches do not count). Late in
     # a long process the profiler drops kernel records (``kernels_per_call``
-    # meets the same), so up to three profiled steps, each kernel's count
-    # the most one of them saw
+    # meets the same; it dropped the step's first flash_attention record
+    # in three steps running without the spin pads), so each step between
+    # spin pads, and up to three profiled steps, each kernel's count the
+    # most one of them saw
     counted = {}
     for i in range(PROFILED_STEPS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            spin_pad()
+            torch.cuda.synchronize()
             params, state, metrics = step(params, state,
                                           batches[t["warm"] + t["timed"] + i])
+            spin_pad()
             torch.cuda.synchronize()
         profiled = profiled_lm_kernels(prof)
         counted = {k: max(counted.get(k, 0), n)
@@ -2748,6 +2776,7 @@ def phase_lm_train(ops, FA, SD, dev):
           f"lm_train: the gradient at {LM_SHALLOW_LAYERS} layers: {cut}")
     ops.launches.update(path)
     return path, seen, {"losses": losses, "step_ms": ms,
+                        "device_ms": profiled["device_ms"],
                         "step_ms_all": step_ms, "peak_memory_gb": peak_gb}
 
 
@@ -2760,36 +2789,48 @@ LM_DRYRUN_RATIO = (1.0, 3.0)     # per-rank FLOPs x ranks over 6·N·D
 LM_DRYRUN_TIMEOUT_S = 900
 
 
-def start_dryrun():
-    """The dry run of LM_DRYRUN as a subprocess on the host (no card),
-    killed at exit if the run ends before it is read."""
+def start_host_job(argv: list):
+    """``argv`` as a subprocess on the host (no card, one CPU thread:
+    the card's phases are host-bound), its output in files (nothing
+    reads it until its phase), killed at exit if the run ends before it
+    is read."""
     import atexit
     import tempfile
-    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-    # files, not pipes: nothing reads the output until the phase
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         LM_DRYRUN[0], "--shape", LM_DRYRUN[1]], cwd=HERE, env=env,
-        stdout=out, stderr=err, text=True)
+    proc = subprocess.Popen([sys.executable, *argv], cwd=HERE, env=env,
+                            stdout=out, stderr=err, text=True)
     proc.files = out, err
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc
 
 
-def finish_dryrun(proc, card: str) -> dict:
-    """The dry run's record, its FLOPs beside 6·N·D."""
+def start_dryrun():
+    """The dry run of LM_DRYRUN as a subprocess on the host."""
+    return start_host_job(["-m", "repro_torch.launch.dryrun", "--arch",
+                           LM_DRYRUN[0], "--shape", LM_DRYRUN[1]])
+
+
+def finish_host_job(proc, name: str, timeout: float) -> list[str]:
+    """The JSON lines a host subprocess printed; fails the run if it did
+    not end in ``timeout`` s or exited non-zero."""
     try:
-        proc.wait(timeout=LM_DRYRUN_TIMEOUT_S)
+        proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
-        check(False, f"lm_sharded_dryrun: no result in "
-              f"{LM_DRYRUN_TIMEOUT_S} s")
+        check(False, f"{name}: no result in {timeout} s")
     out, err = (f.seek(0) or f.read() for f in proc.files)
     lines = [ln for ln in out.splitlines() if ln.startswith("{")]
     check(proc.returncode == 0 and bool(lines),
-          f"lm_sharded_dryrun: exit {proc.returncode}: {err[-2000:]}")
+          f"{name}: exit {proc.returncode}: {err[-2000:]}")
+    return lines
+
+
+def finish_dryrun(proc, card: str) -> dict:
+    """The dry run's record, its FLOPs beside 6·N·D."""
+    lines = finish_host_job(proc, "lm_sharded_dryrun", LM_DRYRUN_TIMEOUT_S)
     rec = json.loads(lines[-1])
     lo, hi = LM_DRYRUN_RATIO
     ratio = rec["flops_over_model_flops"]
@@ -2882,8 +2923,109 @@ def phase_lm_sharded(ops, dev, train: dict, card: str, dryrun):
           f"lm_sharded: steps launched {per_step}, not {want_step}")
     check(all(np.isfinite(losses)) and max(rel) <= LM_SHARDED_LOSS_RTOL,
           f"lm_sharded: losses {losses} against lm_train's {want}")
-    finish_dryrun(dryrun, card)
-    return path
+    return path, finish_dryrun(dryrun, card)
+
+
+# the roofline tools on zamba2_1p2b (host subprocess, ``lm_roofline``)
+LM_ROOFLINE = dict(arch="zamba2_1p2b", shape="train_4k",
+                   decode="decode_32k", decode_layers=2, top=5)
+LM_ROOFLINE_TIMEOUT_S = 900
+
+
+def lm_roofline_job() -> int:
+    """The host side of ``lm_roofline`` (``python3 chip_smoke.py
+    --lm-roofline``): one JSON line for each of parts a, c and d, and the
+    full-depth record for part b. No card: fake meshes on the CPU."""
+    import logging
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.roofline import differential, inspect_hlo, report
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    r = LM_ROOFLINE
+    t0 = time.perf_counter()
+    rec = differential.probe(r["arch"], r["shape"], multi_pod=False)
+    full = rec.pop("full_depth")
+    print(json.dumps({"part": "a", "record": rec,
+                      "flops_gap": differential.gap(rec),
+                      "collective_gap": differential.gap(
+                          rec, "collective_total"),
+                      "host_s": time.perf_counter() - t0}), flush=True)
+    print(json.dumps({"part": "b", "row": report.analyze(full)}),
+          flush=True)
+    t = LM_TRAIN
+    own = DR.lower_combo(r["arch"], "lm_train",
+                         shape=InputShape("lm_train", t["seq"], t["batch"],
+                                          "train"),
+                         mesh_shape=(1, 1), remat=False)
+    print(json.dumps({"part": "c", "row": report.analyze(own)}), flush=True)
+    dec = DR.lower_combo(r["arch"], r["decode"], n_layers=r["decode_layers"],
+                         keep_collectives=True)
+    print(json.dumps({"part": "d", "n_ranks": dec["n_ranks"],
+                      "total_bytes": dec["collectives"]["total_bytes"],
+                      "top": inspect_hlo.top_collectives(
+                          dec.pop("_collectives"), r["top"]),
+                      "host_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def _terms_ms(row: dict) -> dict:
+    t = row["terms"]
+    return {"compute_ms": t["t_compute_s"] * 1e3,
+            "memory_ms": t["t_memory_s"] * 1e3,
+            "collective_ms": t["t_collective_s"] * 1e3,
+            "dominant": t["dominant"], "total_est_ms": t["t_total_est_s"] * 1e3,
+            "model_flops_over_counted": row["useful_ratio"],
+            "flops": row["flops"], "bytes_accessed": row["bytes_accessed"],
+            "collective_bytes": row["collectives"]["total_bytes"],
+            "n_ranks": row["n_ranks"]}
+
+
+def phase_lm_roofline(proc, train: dict, dryrun_rec: dict, card: str):
+    """The roofline tools' lines (a)–(d), read from ``lm_roofline_job``
+    (``proc``), beside ``lm_sharded_dryrun``'s record and ``lm_train``'s
+    measured step (``train``). Checks: the subprocess exited 0 with
+    every part; the full-depth FLOPs exceed the two-depth extrapolation
+    (zamba2's shared attention: 7 applications against 6.33); every term
+    finite; each collective attributed to a ``models/`` line."""
+    from repro_torch.roofline import report
+    parts = {}
+    for ln in finish_host_job(proc, "lm_roofline", LM_ROOFLINE_TIMEOUT_S):
+        rec = json.loads(ln)
+        parts[rec.pop("part")] = rec
+    check(set(parts) == {"a", "b", "c", "d"},
+          f"lm_roofline: parts {sorted(parts)}")
+    a, d = parts["a"], parts["d"]
+    rec = a["record"]
+    emit(phase="lm_roofline", part="a", card=card, arch=rec["arch"],
+         shape=rec["shape"], n_ranks=rec["n_ranks"],
+         n_layers=rec["n_layers"], depth_pair=rec["depth_pair"],
+         corrected=rec["corrected"], extrapolated=rec["extrapolated"],
+         flops_gap=a["flops_gap"], collective_gap=a["collective_gap"],
+         host_s=a["host_s"], estimate=rec["estimate"])
+    check(rec["status"] == "ok" and a["flops_gap"] > 0,
+          f"lm_roofline (a): full depth against the extrapolation: {a}")
+    rows = {"probe_full_depth": _terms_ms(parts["b"]["row"]),
+            "lm_sharded_dryrun": _terms_ms(report.analyze(dryrun_rec))}
+    emit(phase="lm_roofline", part="b", card=card, rows=rows,
+         rates=report.RATES)
+    c = _terms_ms(parts["c"]["row"])
+    emit(phase="lm_roofline", part="c", card=card, shape="2 x 2,048, no "
+         "remat, 1 x 1 mesh", terms=c, step_ms=train["step_ms"],
+         device_ms=train["device_ms"],
+         total_est_over_device=c["total_est_ms"] / train["device_ms"],
+         compute_over_device=c["compute_ms"] / train["device_ms"])
+    emit(phase="lm_roofline", part="d", card=card, shape=LM_ROOFLINE[
+        "decode"], layers=LM_ROOFLINE["decode_layers"], n_ranks=d["n_ranks"],
+         total_bytes=d["total_bytes"], top=d["top"], host_s=d["host_s"])
+    for row in (*rows.values(), c):
+        check(all(np.isfinite([row["compute_ms"], row["memory_ms"],
+                               row["collective_ms"]]))
+              and row["model_flops_over_counted"] > 0,
+              f"lm_roofline (b, c): terms {row}")
+    check(bool(d["top"]) and all(src.startswith("models/")
+                                 for *_, src in d["top"]),
+          f"lm_roofline (d): top collectives {d['top']}")
 
 
 def lm_train_rows(ops, FA, SD, dev, launches, seen):
@@ -5085,6 +5227,7 @@ def main() -> int:
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
          nvcc_s=_build.build_seconds[0] if _build.build_seconds else None)
     dryrun = start_dryrun()     # host work, read by the lm_sharded phase
+    roofline = start_host_job([__file__, "--lm-roofline"])  # lm_roofline
 
     counts = phase_kernel_counts(ops, K, dev, n=29491, d=102)
     path = os.path.join(out_dir, "chip_smoke_model.npz")
@@ -5142,7 +5285,9 @@ def main() -> int:
     check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
     lm_serve, lm_seen = phase_lm_serve(ops, FA, SD, dev)
     lm_train, lm_train_seen, lm_train_run = phase_lm_train(ops, FA, SD, dev)
-    lm_sharded = phase_lm_sharded(ops, dev, lm_train_run, card, dryrun)
+    lm_sharded, dryrun_rec = phase_lm_sharded(ops, dev, lm_train_run, card,
+                                              dryrun)
+    phase_lm_roofline(roofline, lm_train_run, dryrun_rec, card)
     # the tuner and the compile guard, after every path ran its analytic
     # plans
     tuned = phase_tune(ops, dev)
@@ -5204,4 +5349,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--lm-roofline"]:   # the host job of lm_roofline
+        sys.exit(lm_roofline_job())
     sys.exit(main())

@@ -74,7 +74,7 @@ def _sum(v: torch.Tensor) -> torch.Tensor:
     float64 and rounded once, so the bits do not depend on the layout
     (a lone vector or one row of a bucket) the device reduces over."""
     return torch.sum(v, dim=-1, keepdim=True,
-                     dtype=torch.float64).to(torch.float32)
+                     dtype=torch.float64).to(torch.float32)  # repro: noqa[R002] -- the sample sums' one float64 accumulation, rounded once: bits independent of the layout
 
 
 def _descend(matvec: Callable[[torch.Tensor], torch.Tensor],

@@ -244,15 +244,15 @@ def dcd_qp_tasks(phi: torch.Tensor, rows: Optional[Sequence],
         if not launch:
             got = []
         elif whole:
-            got = [float(ops.dcd_epoch(phi, cy, cp, clo, chi, cq, clive,
+            got = [float(ops.dcd_epoch(phi, cy, cp, clo, chi, cq, clive,  # repro: noqa[R001] -- the one read an epoch
                                        perm, beta, w_all[0], wb_all,
-                                       bias=bias))]   # the one read
+                                       bias=bias))]
         else:
             got = ops.dcd_epoch_tasks(
                 phi, all_rows, offsets, cy, cp, clo, chi, cq, clive, perm,
                 beta, w_all, wb_all,
                 tasks=torch.tensor(launch, dtype=torch.int64, device=dev),
-                bias=bias).tolist()   # the one read
+                bias=bias).tolist()  # repro: noqa[R001] -- the one read an epoch
         for t, v in zip(launch, got):
             viol[t] = v
             n_ep[t] += 1

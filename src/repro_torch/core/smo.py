@@ -168,7 +168,7 @@ def _shrink_active(f, alpha, y, mask, b_up, b_low, lo, hi, cfg: SMOConfig):
 def _kkt_bounds(alpha, y, f, lo, hi, tol: float = 0.0, mask=None):
     """(b_up, b_low) of ``kkt_violation``: float64 0-d tensors on
     ``alpha``'s device, +inf / -inf for empty sets."""
-    f64 = torch.float64
+    f64 = torch.float64  # repro: noqa[R002] -- kkt_violation's bounds: the float64 certificate itself
     dev = alpha.device if isinstance(alpha, torch.Tensor) else "cpu"
 
     def cast(v, dtype=f64):  # tensors move; anything else is copied in
@@ -392,7 +392,7 @@ def solve_qp(x: torch.Tensor,
                            cfg=cfg, diag=diag, shrink=shrink)
         conv_active = st.b_low <= st.b_up + two_tol
         conv, n_iter = torch.stack([conv_active.to(torch.int64),
-                                    st.n_iter]).tolist()  # the one read
+                                    st.n_iter]).tolist()  # repro: noqa[R001] -- the one read a check block
         if not shrink:
             if conv and n_iter != exact_at:
                 ok, f_exact = _certified(eng, st.alpha, y, p, lo, hi, mask,
@@ -409,7 +409,7 @@ def solve_qp(x: torch.Tensor,
             st.b_up, _, st.b_low, _ = _selection(st.f, st.alpha, y, mask,
                                                  lo, hi)
             st.active = mask
-            done = bool(st.b_low <= st.b_up + two_tol)
+            done = bool(st.b_low <= st.b_up + two_tol)  # repro: noqa[R001] -- once a converged check: the un-shrunk gap decides the stop
         elif checks % cfg.shrink_every == 0:
             st.active = _shrink_active(st.f, st.alpha, y, mask, st.b_up,
                                        st.b_low, lo, hi, cfg) & st.active
@@ -533,8 +533,8 @@ def solve_qp_tasks(x: torch.Tensor,
         conv = live & (st.b_low <= st.b_up + two_tol)
         check = conv & (st.n_iter != exact_at)
         frozen = frozen | conv | (st.n_iter >= cfg.max_iter)
-        flags = torch.cat([check, frozen.all().reshape(1)]).tolist()
-        all_frozen = bool(flags[-1])   # the one host read per block
+        flags = torch.cat([check, frozen.all().reshape(1)]).tolist()  # repro: noqa[R001] -- the one read a check block
+        all_frozen = bool(flags[-1])
         failed = []
         for t in (t for t, c in enumerate(flags[:-1]) if c):
             ok, f_t = _certified(eng.tasks[t], st.alpha[t], y[t], p[t],
@@ -546,7 +546,7 @@ def solve_qp_tasks(x: torch.Tensor,
             ids = torch.tensor(failed, device=dev)
             exact_at[ids] = st.n_iter[ids]
             frozen[ids] = st.n_iter[ids] >= cfg.max_iter
-            all_frozen = bool(frozen.all())
+            all_frozen = bool(frozen.all())  # repro: noqa[R001] -- once a block whose certificate failed: the refrozen tasks decide the stop
 
     b_up, _, b_low, _ = _selection(st.f, st.alpha, y, mask, lo, hi)
     return SMOResult(alpha=st.alpha * mask, b=-(b_up + b_low) / 2.0,
@@ -678,7 +678,7 @@ def _sharded_selection(f, alpha, y, mask, lo, hi, eng: KE.ShardedKernelEngine):
     (value, global index) pairs (float64 holds both exactly) and the
     replicated ``combine_selection``; returns GLOBAL indices."""
     b_up, i_up, b_low, i_low = _selection(f, alpha, y, mask, lo, hi)
-    f64 = torch.float64
+    f64 = torch.float64  # repro: noqa[R002] -- exact carrier of float32 values and int indices through one all_reduce
     buf = torch.zeros((eng.n_shards, 4), dtype=f64, device=f.device)
     buf[eng.mesh.rank] = torch.stack([
         b_up.to(f64), (i_up + eng.row0).to(f64),
@@ -735,7 +735,7 @@ def _sharded_iteration(st: _State, *, y, mask, lo, hi,
         gain = torch.where(sel_mask & in_low & (df > 0.0), df * df / eta_all,
                            -torch.inf)
         li = torch.argmax(gain)
-        f64 = torch.float64
+        f64 = torch.float64  # repro: noqa[R002] -- exact carrier of a float32 gain and an int index through one all_reduce
         buf = torch.zeros((eng.n_shards, 2), dtype=f64, device=f.device)
         buf[eng.mesh.rank] = torch.stack([KE.take(gain, li).to(f64),
                                           (li + eng.row0).to(f64)])
@@ -878,7 +878,7 @@ def sharded_solve_qp(x, y, p, lo, hi, mask=None, *,
                                cfg=cfg, diag=diag, shrink=shrink)
         conv_active = st.b_low <= st.b_up + two_tol
         conv, n_iter = torch.stack([conv_active.to(torch.int64),
-                                    st.n_iter]).tolist()  # the one read
+                                    st.n_iter]).tolist()  # repro: noqa[R001] -- the one read a check block
         if not shrink:
             if conv and n_iter != exact_at:
                 ok, f_exact = _sharded_certified(eng, st.alpha, y, p, lo, hi,
@@ -893,7 +893,7 @@ def sharded_solve_qp(x, y, p, lo, hi, mask=None, *,
             st.b_up, _, st.b_low, _ = _sharded_selection(
                 st.f, st.alpha, y, mask, lo, hi, eng)
             st.active = mask
-            done = bool(st.b_low <= st.b_up + two_tol)
+            done = bool(st.b_low <= st.b_up + two_tol)  # repro: noqa[R001] -- once a converged check: the un-shrunk gap decides the stop
         elif checks % cfg.shrink_every == 0:
             st.active = _shrink_active(st.f, st.alpha, y, mask, st.b_up,
                                        st.b_low, lo, hi, cfg) & st.active

@@ -99,7 +99,7 @@ def key_tiles(q0: int, rows: int, sq: int, sk: int, causal: bool) -> int:
 def _wide(dtype: torch.dtype) -> torch.dtype:
     """The plain versions' arithmetic type: float32, or float64 for
     float64 operands (the tests' exact evaluations)."""
-    return torch.float64 if dtype == torch.float64 else torch.float32
+    return torch.float64 if dtype == torch.float64 else torch.float32  # repro: noqa[R002] -- the plain versions follow a float64 caller (exact evaluations); the kernels take float32 / bf16
 
 
 def _heads_first(q, k, v):

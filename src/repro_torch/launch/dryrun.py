@@ -7,6 +7,8 @@ production mesh would run it (the port of ``repro/launch/dryrun.py``).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \
         qwen2_moe_a2p7b --shape train_4k --flag MOE_XE_SHARD
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \
+        mamba2_780m --shape train_4k --reduced --mesh 2x4   # seconds
 
 The reference lowers and compiles each combo for 512 forced host devices
 and reads XLA's per-device analyses. Here one process joins a FAKE
@@ -23,8 +25,16 @@ group return at once. What rank 0 ran is recorded as one JSON line:
     (``RankCounter.peak_bytes``), and the peak with the arguments;
   * per-rank FLOPs: the local matrix products (``roofline.collect.
     RankCounter``), beside ``model_flops``' 6·N·D (or 2·N·D) per rank;
-  * per-kind collective result bytes and counts;
+  * per-rank bytes accessed: every local op's input and output bytes,
+    unfused (an upper estimate of the HBM traffic);
+  * per-kind collective result bytes and counts (with
+    ``keep_collectives``, each collective's record too, under
+    ``_collectives``: ``roofline.inspect_hlo``);
   * trace seconds.
+
+``roofline.report`` turns the records into the three roofline terms,
+``roofline.differential`` checks them against the reference's two-depth
+extrapolation.
 
 Every number is a per-rank ESTIMATE from a fake mesh on the CPU, not a
 measurement: no device ran the program. Run it as its own process (it
@@ -99,23 +109,17 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
                 cfg_overrides: dict | None = None,
                 shape: InputShape | None = None,
                 mesh_shape: tuple | None = None,
-                reduced: bool = False) -> dict:
+                reduced: bool = False,
+                keep_collectives: bool = False) -> dict:
     """Trace one combo on a fake mesh; returns its record (or raises).
 
     ``shape`` replaces ``INPUT_SHAPES[shape_name]``, ``mesh_shape`` a
     (data, model) mesh the production one and ``reduced`` the config its
     smoke variant (the tests' small combos); ``n_layers`` cuts the
-    depth, as the reference's roofline probes do."""
-    cfg = get_config(arch)
-    if reduced:
-        cfg = reduced_config(cfg)
-    if n_layers:
-        kw = {"n_layers": n_layers}
-        if cfg.arch_type == "audio":
-            kw["encoder_layers"] = n_layers
-        cfg = dataclasses.replace(cfg, **kw)
-    if cfg_overrides:
-        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    depth, as the reference's roofline probes do; ``keep_collectives``
+    keeps each collective's record (the reference's ``keep_hlo``)."""
+    cfg = combo_config(arch, n_layers=n_layers, cfg_overrides=cfg_overrides,
+                       reduced=reduced)
     shape = INPUT_SHAPES[shape_name] if shape is None else shape
     if not supports_shape(cfg, shape):
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
@@ -128,8 +132,30 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
         mesh = (make_production_mesh(multi_pod=multi_pod, device_type="cpu")
                 if mesh_shape is None else
                 make_mesh(mesh_shape, ("data", "model"), device_type="cpu"))
-        return _trace(cfg, shape, mesh, arch=arch, shape_name=shape_name,
-                      multi_pod=multi_pod, remat=remat, tag=extra_tag)
+        res = _trace(cfg, shape, mesh, arch=arch, shape_name=shape_name,
+                     multi_pod=multi_pod, remat=remat, tag=extra_tag)
+    records = res.pop("_collectives")
+    if keep_collectives:
+        res["_collectives"] = records
+    return res
+
+
+def combo_config(arch: str, *, n_layers: int = 0,
+                 cfg_overrides: dict | None = None, reduced: bool = False):
+    """The config ``lower_combo`` traces: the smoke variant under
+    ``reduced``, cut to ``n_layers`` (the encoder too, for audio), then
+    ``cfg_overrides``."""
+    cfg = get_config(arch)
+    if reduced:
+        cfg = reduced_config(cfg)
+    if n_layers:
+        kw = {"n_layers": n_layers}
+        if cfg.arch_type == "audio":
+            kw["encoder_layers"] = n_layers
+        cfg = dataclasses.replace(cfg, **kw)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    return cfg
 
 
 def _trace(cfg, shape, mesh, *, arch, shape_name, multi_pod, remat, tag):
@@ -183,14 +209,35 @@ def _trace(cfg, shape, mesh, *, arch, shape_name, multi_pod, remat, tag):
                    "temp_bytes": counter.peak_bytes,
                    "peak_bytes": args + counter.peak_bytes},
         "flops": counter.flops,
+        "bytes_accessed": counter.bytes_accessed,
         "model_flops_per_rank": mf / n_ranks,
         "flops_over_model_flops": (counter.flops * n_ranks / mf
                                    if mf else None),
         "collectives": counter.collectives(),
+        "_collectives": counter.records,
         "parameters_placed": sum(hasattr(p, "placements")
                                  for p in params.values()),
         "parameters": len(params),
     }
+
+
+def add_combo_args(ap: argparse.ArgumentParser) -> None:
+    """The small-combo flags every dry-run CLI takes (``--reduced``: the
+    config's smoke variant; ``--mesh DxM``: a (data, model) mesh in
+    place of the production one), for small combos on a CPU."""
+    ap.add_argument("--reduced", action="store_true",
+                    help="the config's smoke variant (tiny widths)")
+    ap.add_argument("--mesh", default="",
+                    help="DxM (data x model) ranks in place of the "
+                         "production 16x16 / 2x16x16 mesh")
+
+
+def combo_kwargs(args) -> dict:
+    """``lower_combo`` keywords of ``add_combo_args``' flags."""
+    mesh = tuple(int(v) for v in args.mesh.split("x")) if args.mesh else None
+    if mesh is not None and len(mesh) != 2:
+        raise ValueError(f"--mesh {args.mesh!r}: expected DxM")
+    return {"reduced": args.reduced, "mesh_shape": mesh}
 
 
 def main(argv=None) -> int:
@@ -207,6 +254,7 @@ def main(argv=None) -> int:
     ap.add_argument("--flag", action="append", default=[],
                     help="a switch of models.runtime to turn on for every "
                          "combo (repeatable), e.g. MOE_XE_SHARD")
+    add_combo_args(ap)
     args = ap.parse_args(argv)
     RT.set_flags(**{f: True for f in args.flag})
     # DTensor warns at each multi-axis reduction of the mesh
@@ -227,7 +275,8 @@ def main(argv=None) -> int:
         label = f"{arch} x {shp} x {'2x16x16' if mp else '16x16'}"
         try:
             res = lower_combo(arch, shp, multi_pod=mp,
-                              remat=not args.no_remat, extra_tag=args.tag)
+                              remat=not args.no_remat, extra_tag=args.tag,
+                              **combo_kwargs(args))
             if res["status"].startswith("skip"):
                 n_skip += 1
                 print(f"SKIP {label}: {res['status']}", flush=True)

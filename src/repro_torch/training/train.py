@@ -89,17 +89,33 @@ def make_loss_fn(model: Model):
 
 def _split(batch: dict, micro: int) -> list[dict]:
     """``micro`` batches of equal rows, in order (the reference's reshape
-    to (micro, B / micro, ...))."""
+    to (micro, B / micro, ...)). A DTensor whose rows are sharded is split
+    on each rank's own block, so that every microbatch keeps the batch's
+    placements: microbatch i holds the i-th part of every rank's rows (a
+    slice of the global rows would be gathered, and every rank would run
+    rows of the others)."""
     out = [dict() for _ in range(micro)]
     for k, v in batch.items():
-        rows = v.shape[0]
+        rows = v.to_local().shape[0] if _rows_sharded(v) else v.shape[0]
         if rows % micro:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{micro} microbatches")
         step = rows // micro
         for i in range(micro):
-            out[i][k] = v[i * step:(i + 1) * step]
+            if _rows_sharded(v):
+                part = v.to_local()[i * step:(i + 1) * step]
+                out[i][k] = DTensor.from_local(
+                    part, v.device_mesh, v.placements, run_check=False,
+                    shape=(v.shape[0] // micro, *v.shape[1:]),
+                    stride=part.stride())
+            else:
+                out[i][k] = v[i * step:(i + 1) * step]
     return out
+
+
+def _rows_sharded(v) -> bool:
+    return isinstance(v, DTensor) and any(
+        p.is_shard(0) for p in v.placements)
 
 
 def make_train_step(model: Model, opt):

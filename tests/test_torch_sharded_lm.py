@@ -15,6 +15,9 @@ reference, on (data 1, model 2) and (data 2, model 1) meshes.
   prefill and greedy decode against the full forward.
 * The launcher: ``launch.train --mesh 1x2 --device cpu --reduced --steps
   3`` on the two ranks, whose loss falls.
+* ``MICROBATCHES = 2`` on a (data 2, model 1) mesh: reduced phi4's step,
+  its batch rows sharded over "data", against the unsharded port's
+  microbatched step.
 
 Bounds (bf16 compute in both runs; a sharded run sums the same products
 in another order and rounds partial sums of a split contraction to bf16
@@ -43,21 +46,23 @@ from repro_torch.optim.adamw import SGD
 from repro_torch.training.train import make_train_step
 from torch_lm_helpers import LOGIT_TOL, assert_logits_close, compiled, f32
 from torch_lm_train_helpers import GRAD_TOL, LOSS_RTOL, SSM_HEAD_GRAD_TOL
-from torch_shard_helpers import MESHES, spawn
+from torch_shard_helpers import MESHES, port_model, spawn
 
 ARCHS = ["phi4_mini_3p8b", "mamba2_780m", "zamba2_1p2b"]
 SSM_HEAD = ("mamba.A_log", "mamba.dt_bias", "mamba.D")
 B, S = 2, 32
 WINDOW = dict(arch="gemma3_12b", seed=3, tokens=12, prefill=6, max_len=16)
+# a microbatched step whose batch rows are sharded over "data"
+MICRO = dict(arch="phi4_mini_3p8b", seed=5, batch=4, micro=2)
 LAUNCHER = ["--mesh", "1x2", "--device", "cpu", "--reduced", "--steps", "3",
             "--arch", "mamba2_780m", "--batch", "2", "--seq", "32",
             "--lr", "0.1", "--log-every", "1"]
 
 
-def _batch(cfg, seed=0) -> dict:
+def _batch(cfg, seed=0, b=B) -> dict:
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)),
-            "labels": rng.integers(0, cfg.vocab_size, (B, S))}
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, S)),
+            "labels": rng.integers(0, cfg.vocab_size, (b, S))}
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +102,13 @@ def runs():
         ("window_decode", dict(cfg=wcfg, arrays=warrays, tokens=wtokens,
                                prefill=WINDOW["prefill"],
                                max_len=WINDOW["max_len"])),
-        ("launcher", dict(argv=LAUNCHER))])
+        ("launcher", dict(argv=LAUNCHER)),
+        ("microbatched_step", dict(cfg=cfgs[MICRO["arch"]],
+                                   arrays=arrays[MICRO["arch"]],
+                                   batch=_batch(cfgs[MICRO["arch"]],
+                                                MICRO["seed"],
+                                                MICRO["batch"]),
+                                   micro=MICRO["micro"]))])
     return {"cfgs": cfgs, "arrays": arrays, "ref": ref, "port": port,
             "ranks": ranks}
 
@@ -160,3 +171,35 @@ def test_launcher_mesh_loss_falls(runs):
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert losses[-1] < losses[0], losses
     assert got["rc"] == 0
+
+
+def test_sharded_microbatches_match_unsharded(runs, monkeypatch):
+    """``MICROBATCHES = 2`` on a batch whose rows are sharded over "data"
+    (each rank splits its own rows, so every microbatch keeps the
+    batch's placements) against the unsharded port's microbatched step
+    on the same weights and batch: the same loss and gradient (each
+    microbatch holds other rows than the unsharded split's, and the
+    mean over them all is the same)."""
+    from repro_torch.models import runtime as RT
+    arch = MICRO["arch"]
+    got = runs["ranks"]["microbatched_step"]
+    assert "Shard(dim=0)" in got["rows_sharded"]
+    cfg = runs["cfgs"][arch]
+    batch = _batch(cfg, MICRO["seed"], MICRO["batch"])
+    model = port_model(cfg, runs["arrays"][arch])
+    named = dict(model.named_parameters())
+    monkeypatch.setattr(RT, "MICROBATCHES", MICRO["micro"])
+    opt = SGD(lr=1.0)
+    named, _, metrics = make_train_step(model, opt)(
+        named, opt.init(named),
+        {k: torch.as_tensor(v) for k, v in batch.items()})
+    np.testing.assert_allclose(got["loss"], float(metrics["loss"]),
+                               rtol=LOSS_RTOL)
+    before = runs["arrays"][arch]
+    for name, p in named.items():
+        g_want = before[name] - f32(p)
+        g_got = before[name] - got["params"][name]
+        scale = float(np.abs(g_want).max())
+        ulp = float(np.spacing(np.abs(before[name]).max()))
+        err = float(np.abs(g_got - g_want).max())
+        assert err <= GRAD_TOL * scale + 2 * ulp, (name, err, scale, ulp)

@@ -87,6 +87,30 @@ def sharded_lm(cfgs: dict, arrays: dict, batches: dict) -> dict:
     return out
 
 
+def microbatched_step(cfg, arrays: dict, batch: dict, micro: int) -> dict:
+    """One ``SGD(lr=1)`` train step with ``runtime.MICROBATCHES = micro``
+    on a (data 2, model 1) mesh, the batch's rows sharded over "data":
+    its loss and parameters, gathered whole."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import runtime as RT
+    from repro_torch.optim.adamw import SGD
+    from repro_torch.sharding.place import shard_batch, shard_params
+    from repro_torch.training.train import make_train_step
+    mesh = make_mesh((2, 1), ("data", "model"), device_type="cpu")
+    model = port_model(cfg, arrays)
+    params = shard_params(model, mesh)
+    RT.set_flags(microbatches=micro)
+    try:
+        step = make_train_step(model, SGD(lr=1.0))
+    finally:
+        RT.set_flags(microbatches=1)
+    sharded = shard_batch(batch, mesh)
+    params, _, metrics = step(params, SGD(lr=1.0).init(params), sharded)
+    return {"loss": float(metrics["loss"]),
+            "rows_sharded": str(sharded["tokens"].placements),
+            "params": {k: _numpy(p) for k, p in params.items()}}
+
+
 def window_decode(cfg, arrays: dict, tokens: np.ndarray, prefill: int,
                   max_len: int) -> dict:
     """gemma3's windowed caches sequence-sharded over "model"
@@ -132,4 +156,4 @@ def launcher(argv: list) -> dict:
 
 
 JOBS = {"sharded_lm": sharded_lm, "window_decode": window_decode,
-        "launcher": launcher}
+        "launcher": launcher, "microbatched_step": microbatched_step}
