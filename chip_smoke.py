@@ -231,6 +231,15 @@ then:
    ``roofline.inspect_hlo``'s 5 largest collectives of decode_32k at 2
    layers, each with its ``models/`` source line. Estimates of a fake
    mesh, not measurements; a failed subprocess fails the run.
+18. traces every (architecture, shape) of the reference's dry run (line
+   ``lm_dryrun_all``): a third subprocess on the host (``python3
+   chip_smoke.py --lm-dryrun-all``), started with the other two, runs
+   ``launch.dryrun.kinds_sweep`` on the fake 16 x 16 mesh: the 10
+   architectures at train_4k / prefill_32k / decode_32k and the three
+   long-context ones at long_500k, each at the fewest layers that run
+   every layer kind of its architecture (``kinds_depth``), on this
+   machine's torch. The line has each combo's status, per-rank FLOPs
+   and argument bytes; a combo that fails fails the run.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -576,7 +585,8 @@ def redesign_info(kernel: str, shape, bank: str = "fp32") -> dict:
         plan = SD.ssd_plan(*shape, sms=sms)
         name = "ssd_diag_kernel"
     else:   # the float32-rows instantiation at the bank's dtype
-        plan = D.decision_plan(*shape, sms=sms)
+        plan = D.decision_plan(*shape, sms=sms, bank=QUANT_DTYPES.get(
+            bank, torch.float32))
         elem = {"fp32": "f", "fp16": "6__half", "bf16": "13__nv_bfloat16"}
         name = f"decision_kernelIf{elem[bank]}Li{plan.rows // 16}E"
     found = _build.ptxas_report(name)
@@ -2969,6 +2979,51 @@ def lm_roofline_job() -> int:
     return 0
 
 
+# every (arch, shape) of the reference's dry run on the fake 16 x 16
+# mesh, each at the fewest layers that run all its layer kinds (host
+# subprocess, ``lm_dryrun_all``); ~3 s a combo on one core
+LM_DRYRUN_ALL_TIMEOUT_S = 600
+
+
+def lm_dryrun_all_job() -> int:
+    """The host side of ``lm_dryrun_all`` (``python3 chip_smoke.py
+    --lm-dryrun-all``): ``launch.dryrun.kinds_sweep``, one JSON line a
+    combo, a failure's with its message. No card."""
+    import logging
+
+    from repro_torch.launch import dryrun as DR
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    for row in DR.kinds_sweep():
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+def phase_lm_dryrun_all(proc, card: str) -> None:
+    """The ``lm_dryrun_all`` line, read from ``lm_dryrun_all_job``
+    (``proc``): each combo's status, per-rank FLOPs and argument bytes
+    (estimates of the fake mesh). Fails unless every combo of
+    ``kinds_combos`` traced."""
+    from repro_torch.launch import dryrun as DR
+    rows = [json.loads(ln) for ln in finish_host_job(
+        proc, "lm_dryrun_all", LM_DRYRUN_ALL_TIMEOUT_S)]
+    failed = [r for r in rows if r["status"] != "ok"]
+    want = DR.kinds_combos()
+    emit(phase="lm_dryrun_all", card=card, torch=torch.__version__,
+         mesh={"data": 16, "model": 16}, n_combos=len(rows),
+         n_ok=len(rows) - len(failed), host_s=sum(
+             r.get("trace_s", 0.0) for r in rows),
+         combos=[{k: v for k, v in r.items() if k != "trace"}
+                 for r in rows],
+         failures=[{"arch": r["arch"], "shape": r["shape"],
+                    "trace": r.get("trace")} for r in failed],
+         reading="per-rank estimates from a fake process group on the "
+         "host: no device ran them")
+    check([(r["arch"], r["shape"]) for r in rows] == want and not failed,
+          f"lm_dryrun_all: {len(failed)} of {len(rows)} combos failed "
+          f"({[(r['arch'], r['shape']) for r in failed]}), "
+          f"{len(want)} wanted")
+
+
 def _terms_ms(row: dict) -> dict:
     t = row["terms"]
     return {"compute_ms": t["t_compute_s"] * 1e3,
@@ -5228,6 +5283,7 @@ def main() -> int:
          nvcc_s=_build.build_seconds[0] if _build.build_seconds else None)
     dryrun = start_dryrun()     # host work, read by the lm_sharded phase
     roofline = start_host_job([__file__, "--lm-roofline"])  # lm_roofline
+    dryrun_all = start_host_job([__file__, "--lm-dryrun-all"])
 
     counts = phase_kernel_counts(ops, K, dev, n=29491, d=102)
     path = os.path.join(out_dir, "chip_smoke_model.npz")
@@ -5288,6 +5344,7 @@ def main() -> int:
     lm_sharded, dryrun_rec = phase_lm_sharded(ops, dev, lm_train_run, card,
                                               dryrun)
     phase_lm_roofline(roofline, lm_train_run, dryrun_rec, card)
+    phase_lm_dryrun_all(dryrun_all, card)
     # the tuner and the compile guard, after every path ran its analytic
     # plans
     tuned = phase_tune(ops, dev)
@@ -5351,4 +5408,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--lm-roofline"]:   # the host job of lm_roofline
         sys.exit(lm_roofline_job())
+    if sys.argv[1:] == ["--lm-dryrun-all"]:   # the host job of lm_dryrun_all
+        sys.exit(lm_dryrun_all_job())
     sys.exit(main())

@@ -34,6 +34,23 @@ One JSON line each:
 the multi-task banks (a checkout whose ``decision.py`` has
 ``plan_with``), each checked bit for bit against the planned launch.
 
+``--quant`` (with ``--packs``) times only the quantized route of
+``multitask_decision`` (``quant`` lines): an fp16 and a bf16 bank (the
+served coef rounded as a quantized pack stores it) at the largest served
+OvO and OvR banks over 1,024 held-out rows, each beside the float32
+kernel on the upcast bank in the same process (device time, kernel
+first, then float32, then the kernel again), with the bits against that
+float32 launch and ptxas's registers and spills of the instantiation the
+plan takes. With ``--sweep`` it adds each row tile and split of the
+quantized banks (``quant_sweep`` lines; a checkout whose ``plan_with``
+takes the bank's dtype sizes its 16-bit stage), each checked bit for bit
+against the float32 kernel, and for such a checkout a build of a copy of
+``csrc/decision.cu`` cut by a regex (``QUANT_LANDING``; ``quant_landing``
+lines, a diagnostic that is never shipped): the SV norm pass also writes
+each 16-bit tile widened into a float32 stage, which the contraction
+reads (the float32 plan's shared memory), at 128-row tiles and the
+plan's split and 16.
+
 ``--dcd`` times ``dcd_epoch`` alone (``dcd`` lines, no serving): at the
 binary low-rank fit's shape (the training rows through
 ``chip_smoke_lowrank.npz``'s map, 29,491 x 1,024) and the OvO low-rank
@@ -174,6 +191,20 @@ HOST_CALLS = 500   # back-to-back calls a host_us reading averages
 HOST_ROUNDS = 9    # --host: rounds of HOST_CALLS, the median kept
 RANGE_RANKS = 4    # --gram: the row-range matvec of one rank of 4
 LM_TRAIN_STEPS = 10  # --lm-train: timed steps after chip_smoke's warm ones
+# --quant --sweep: csrc/decision.cu widening each 16-bit SV tile once as
+# it lands, into a float32 work stage after the two 16-bit ones
+QUANT_LANDING = [
+    (r"(TS\* ss = reinterpret_cast<TS\*>\(run \+ 4 \* BM\);.*\n)",
+     r"\1  float* sw = reinterpret_cast<float*>(ss + 2 * SV_TILE * ld);\n"),
+    (r"ssq = fmaf\(v, v, ssq\);",
+     "ssq = fmaf(v, v, ssq);\n      if (sizeof(TS) == 2) sw[nr * ld + c] = v;"),
+    (r"(#pragma unroll 1\n    for \(int kk = 0; kk < cw; kk \+= 4\))",
+     r"if (sizeof(TS) == 2) __syncthreads();\n\1"),
+    (r"b\[j\] = ld4w\(sb \+ \(tx \+ 16 \* j\) \* ld \+ kk\);",
+     "b[j] = sizeof(TS) == 2 ? ld4(sw + (tx + 16 * j) * ld + kk)"
+     " : ld4w(sb + (tx + 16 * j) * ld + kk);"),
+    (r"smem_bytes\(BM, pl\.chunk, nch, sizeof\(TS\)\)",
+     "smem_bytes(BM, pl.chunk, nch, 4)")]
 
 
 def _args():
@@ -181,6 +212,7 @@ def _args():
     p.add_argument("--packs")
     p.add_argument("--src", default=os.path.join(HERE, "src"))
     p.add_argument("--sweep", action="store_true")
+    p.add_argument("--quant", action="store_true")
     p.add_argument("--out", default=None)
     p.add_argument("--dcd", action="store_true")
     p.add_argument("--dcd-sweep", action="store_true")
@@ -246,6 +278,9 @@ def main() -> int:
         return 0
     if args.host:
         host_times(ops, dev, emit)
+        return 0
+    if args.quant:
+        quant_times(args, cs, data, serve, _build, ops, D, dev, emit)
         return 0
     packs = {k: serve.load(os.path.join(args.packs, f))
              for k, f in PACKS.items()}
@@ -336,6 +371,102 @@ def main() -> int:
              library_device_ms=cs.device_ms(
                  lambda: scale * torch.cos(torch.addmm(ph, xs, om))))
     return 0
+
+
+def quant_times(args, cs, data, serve, _build, ops, D, dev, emit):
+    """``--quant``: the quantized bank route against the float32 kernel
+    on the upcast bank (see the module's docstring)."""
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        _quant_times(args, cs, data, serve, _build, ops, D, dev, emit, tmp)
+
+
+def _quant_times(args, cs, data, serve, _build, ops, D, dev, emit, tmp):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.tile_f32 import current_stream
+    xte = cs.pavia_split(data, cs.PAVIA_NOISE["overlapping"])[2]
+    z = torch.from_numpy(np.ascontiguousarray(xte[:1024])).to(dev)
+    nt = z.shape[0]
+    # a checkout whose plan sizes a 16-bit SV stage takes the bank dtype
+    typed = "bank" in inspect.signature(D.plan_with).parameters
+    elem = {torch.float16: "6__half", torch.bfloat16: "13__nv_bfloat16"}
+    lib = _build.library()
+    landing = (variant_lib(_build, tmp, "decision.cu", "decision_landing",
+                           QUANT_LANDING, "svm_multitask_decision")
+               if args.sweep and typed else None)
+    for model in ("ovo", "ovr"):
+        packed = serve.load(os.path.join(args.packs, PACKS[model]))
+        gamma = packed.kernel.gamma
+        sv_np, cf_np = cs.serving_bank(packed)
+        sv32 = torch.from_numpy(np.ascontiguousarray(sv_np)).to(dev)
+        cf32 = torch.from_numpy(np.ascontiguousarray(cf_np)).to(dev)
+        n_tasks, w, d = sv32.shape
+        for name, dt in (("fp16", torch.float16), ("bf16", torch.bfloat16)):
+            svq = sv32.to(dt)
+            up, cf = svq.float(), cf32.to(dt).float()
+            bank = {"bank": dt} if typed else {}
+
+            def kern():
+                return ops.multitask_decision(z, svq, cf, gamma=gamma)
+
+            def fp32():
+                return ops.multitask_decision(z, up, cf, gamma=gamma)
+
+            want = fp32()
+            plan = D.decision_plan(nt, n_tasks, w, d, **bank)
+            ptx = _build.ptxas_report(
+                f"decision_kernelIf{elem[dt]}Li{plan.rows // 16}E")
+            emit(measure="quant", bank=model, bank_dtype=name,
+                 shape=[n_tasks, nt, w, d], plan=plan._asdict(),
+                 bits_equal_fp32_kernel=bool(torch.equal(kern(), want)),
+                 device_ms=cs.device_ms(kern),
+                 fp32_device_ms=cs.device_ms(fp32),
+                 device_ms_repeat=cs.device_ms(kern), ptxas=ptx)
+            if not args.sweep:
+                continue
+            out = torch.empty_like(want)
+            for rows in (64, 128):
+                for sp in sorted({1, 2, 4, 5, 8, 12, 16, plan.segments}):
+                    if sp > plan.segments:
+                        continue
+                    p_ = D.plan_with(nt, n_tasks, w, d, rows, sp, **bank)
+                    part, tick = D.scratch(p_, n_tasks, nt, dev,
+                                           current_stream())
+
+                    def fn():
+                        return D.launch_multitask(
+                            lib, z, svq, cf, out, gamma=gamma, mode="rbf",
+                            plan=p_, partial=part, ticket=tick)
+
+                    rc = fn()
+                    emit(measure="quant_sweep", bank=model, bank_dtype=name,
+                         shape=[n_tasks, nt, w, d], plan=p_._asdict(),
+                         rc=rc, equal_to_fp32=bool(torch.equal(out, want)),
+                         device_ms=cs.device_ms(fn) if rc == 0 else None)
+            if landing is None:
+                continue
+            for sp in sorted({plan.splits, 16} & set(
+                    range(1, plan.segments + 1))):
+                p32 = D.plan_with(nt, n_tasks, w, d, 128, sp)
+                part, tick = D.scratch(p32, n_tasks, nt, dev,
+                                       current_stream())
+                runs = {"landing": (landing, svq, p32),
+                        "shipped": (lib, svq, D.plan_with(
+                            nt, n_tasks, w, d, 128, sp, dt)),
+                        "fp32": (lib, up, p32)}
+                row, bits = {}, True
+                for tag, (lb, sv_, p_) in runs.items():
+                    def fn(lb=lb, sv_=sv_, p_=p_):
+                        return D.launch_multitask(
+                            lb, z, sv_, cf, out, gamma=gamma, mode="rbf",
+                            plan=p_, partial=part, ticket=tick)
+                    rc = fn()
+                    bits = bits and rc == 0 and bool(torch.equal(out, want))
+                    row[f"{tag}_device_ms"] = (cs.device_ms(fn) if rc == 0
+                                               else None)
+                emit(measure="quant_landing", bank=model, bank_dtype=name,
+                     shape=[n_tasks, nt, w, d], rows=128, splits=sp,
+                     equal_to_fp32=bits, **row)
 
 
 def host_times(ops, dev, emit):

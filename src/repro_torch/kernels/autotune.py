@@ -179,11 +179,11 @@ def plan(kernel: str, shape: tuple[int, ...], dtype: str = "fp32",
     if kernel == "decision":
         t, n, d = shape
         return D.decision_plan(t, 1, n, d, sms, cfg.get("rows"),
-                               cfg.get("splits"))
+                               cfg.get("splits"), _TILE_DTYPES[dtype])
     if kernel == "multitask_decision":
         tasks, t, w, d = shape
         return D.decision_plan(t, tasks, w, d, sms, cfg.get("rows"),
-                               cfg.get("splits"))
+                               cfg.get("splits"), _TILE_DTYPES[dtype])
     raise ValueError(f"unknown tunable kernel {kernel!r}; expected one of "
                      f"{sorted(KNOBS)}")
 
@@ -737,14 +737,18 @@ def resolve_kkt(n: int, device: torch.device,
 def resolve_decision(kernel: str, nt: int, n_tasks: int, w: int, d: int,
                      dtype: torch.dtype, device: torch.device, sms: int,
                      rows: Optional[int] = None,
-                     splits: Optional[int] = None) -> D.DecisionPlan:
+                     splits: Optional[int] = None,
+                     bank: Optional[torch.dtype] = None) -> D.DecisionPlan:
     """The decision kernel's plan for ``kernel`` ("decision": one bank,
-    or "multitask_decision"): each of ``rows`` / ``splits`` if given,
-    else tuned, else ``decision_plan``'s own."""
+    or "multitask_decision") over rows of ``dtype`` and a bank of
+    ``bank`` (default ``dtype``; a quantized bank's 16-bit stage): each
+    of ``rows`` / ``splits`` if given, else tuned (the tuner's entry of
+    the rows' dtype), else ``decision_plan``'s own."""
     if rows is None or splits is None:
         shape = ((nt, w, d) if kernel == "decision"
                  else (n_tasks, nt, w, d))
         tuned = _tuned(kernel, shape, _dtype_name(dtype), device, sms)
         rows = tuned.get("rows") if rows is None else rows
         splits = tuned.get("splits") if splits is None else splits
-    return D.decision_plan(nt, n_tasks, w, d, sms, rows, splits)
+    return D.decision_plan(nt, n_tasks, w, d, sms, rows, splits,
+                           dtype if bank is None else bank)

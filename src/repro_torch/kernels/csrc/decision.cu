@@ -34,16 +34,24 @@
 //   (row tile x task) grid cannot fill the card (`decision_plan`,
 //   kernels/decision.py): split s takes a contiguous run of SV tiles
 //   (whole segments, below).
-// * a quantized bank (fp16 or bf16, from a schema-v3 pack) is read at
-//   its storage dtype, half the bytes, against float32 test rows: its
-//   SV tiles are widened to float32 as they land in shared memory
-//   (tile_f32.cuh's 16-bit stage; loads, not cp.async, so the bank's
-//   copies no longer run ahead of the contraction), and everything after
-//   staging is the float32 kernel's. The widening is exact, so a
-//   quantized bank's decisions are the float32 kernel's on the upcast
-//   bank, bit for bit. The test rows and the bank therefore have types
-//   of their own (TZ, TS): float32 rows with a float32, fp16 or bf16
-//   bank, or bf16 rows with a bf16 bank (bf16 compute).
+// * a 16-bit bank (fp16 or bf16: a schema-v3 pack's quantized bank, or
+//   the bank of bf16 compute) stays 16-bit until it reaches registers:
+//   its SV tiles are copied as stored into a 16-bit ring (cp.async, 8
+//   or 4 bytes a copy as the rows' alignment allows; loads for rows of
+//   odd d), the next tile's copies in flight during the contraction as
+//   for a float32 bank, at half its shared memory. The inner loop reads
+//   four features of an SV as one 8-byte load and widens them in
+//   registers (tile_f32.cuh's ld4w), then runs the float32 kernel's four
+//   FMAs in its order; the SV norms are summed from the widened values
+//   in the float32 kernel's order. The widening is exact, so a quantized
+//   bank's decisions are the float32 kernel's on the upcast bank, bit
+//   for bit. (Widening each tile once as it lands, into a float32 stage
+//   written by the norm pass, read up to 2 % faster at the served plans
+//   but 15 % slower at 16 splits of the OvR bank: kernel_times.py
+//   --quant --sweep, PERF.md.) The test
+//   rows and the bank therefore have types of their own (TZ, TS):
+//   float32 rows with a float32, fp16 or bf16 bank, or bf16 rows
+//   (widened as they are staged) with a bf16 bank.
 // A row's decision does not depend on the plan, its batch or its place
 // in it: the sum is folded in an order fixed by the bank alone. A task's
 // terms cancel (coef = alpha y of both signs, often one class's rows
@@ -76,12 +84,15 @@ using namespace svm::f32tile;
 constexpr int NT = 256;       // threads a block: 16 (ty) x 16 (tx)
 constexpr int SV_TILE = 64;   // SVs a ring stage holds
 
-// floats of dynamic shared memory: the test-row tile (one, or a ring of
-// two when the features come in chunks), two SV stages, the norms, and
-// four running sums a test row (segment and block pairs)
-__host__ __device__ constexpr int smem_floats(int bm, int chunk, int nch) {
-  return (nch == 1 ? 1 : 2) * bm * row_stride(chunk) +
-         2 * SV_TILE * row_stride(chunk) + bm + SV_TILE + 4 * bm;
+// bytes of dynamic shared memory: the float32 test-row tile (one, or a
+// ring of two when the features come in chunks), two SV stages at the
+// bank's element size (sv_bytes: 4, or 2 for a 16-bit bank), the norms,
+// and four running sums a test row (segment and block pairs)
+__host__ __device__ constexpr int smem_bytes(int bm, int chunk, int nch,
+                                             int sv_bytes) {
+  return 4 * ((nch == 1 ? 1 : 2) * bm * row_stride(chunk) + bm + SV_TILE +
+              4 * bm) +
+         2 * SV_TILE * row_stride(chunk) * sv_bytes;
 }
 
 template <typename TZ, typename TS, int RM>   // RM rows a thread: BM = 16 RM
@@ -108,10 +119,10 @@ decision_kernel(const TZ* __restrict__ z, int nt, const TS* __restrict__ sv,
   const int ld = row_stride(chunk);
   const bool resident = nch == 1;   // the test rows are staged once
   float* zs = smem;
-  float* ss = zs + (resident ? 1 : 2) * BM * ld;
-  float* zn = ss + 2 * SV_TILE * ld;
+  float* zn = zs + (resident ? 1 : 2) * BM * ld;
   float* sn = zn + BM;
   float* run = sn + SV_TILE;   // a row's segment pair, then its block pair
+  TS* ss = reinterpret_cast<TS*>(run + 4 * BM);   // 16-byte aligned
   for (int e = tid; e < 4 * BM; e += NT) run[e] = 0.f;
   const int items = (tile1 - tile0) * nch;   // (SV tile, feature chunk)
 
@@ -142,7 +153,7 @@ decision_kernel(const TZ* __restrict__ z, int nt, const TS* __restrict__ sv,
     }
     __syncthreads();
     const float* za = zs + (resident ? 0 : st) * BM * ld;
-    const float* sb = ss + st * SV_TILE * ld;
+    const TS* sb = ss + st * SV_TILE * ld;
     if (ch == 0) {
       ssq = 0.f;
 #pragma unroll
@@ -154,7 +165,7 @@ decision_kernel(const TZ* __restrict__ z, int nt, const TS* __restrict__ sv,
         for (int p = 0; p < PASSES; ++p) zsq[p] = 0.f;
     }
     for (int c = nq; c < cw; c += 4) {
-      const float v = sb[nr * ld + c];
+      const float v = ld1w(sb + nr * ld + c);
       ssq = fmaf(v, v, ssq);
     }
     if (it < nch)   // the test rows' norms, over the split's first tile
@@ -168,7 +179,7 @@ decision_kernel(const TZ* __restrict__ z, int nt, const TS* __restrict__ sv,
     for (int kk = 0; kk < cw; kk += 4) {
       float4 b[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ld4(sb + (tx + 16 * j) * ld + kk);
+      for (int j = 0; j < 4; ++j) b[j] = ld4w(sb + (tx + 16 * j) * ld + kk);
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const float4 a = ld4(za + (ty + 16 * i) * ld + kk);
@@ -301,7 +312,7 @@ int launch(const TZ* z, const TS* sv, const float* coef, float* out, int nt,
            float2* partial, int* ticket, int vz, int vs, cudaStream_t s) {
   constexpr int BM = 16 * RM;
   const int nch = (round4(d) + pl.chunk - 1) / pl.chunk;
-  const int smem = smem_floats(BM, pl.chunk, nch) * 4;
+  const int smem = smem_bytes(BM, pl.chunk, nch, sizeof(TS));
   if (smem != pl.smem_bytes)   // the host's plan sizes the tile otherwise
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = decision_kernel<TZ, TS, RM>;
@@ -364,7 +375,7 @@ int svm_multitask_decision(const void* z, const void* sv, const float* coef,
     if (sv_dtype != BANK_BF16) return static_cast<int>(cudaErrorInvalidValue);
     const auto* zb = static_cast<const __nv_bfloat16*>(z);
     return dispatch(zb, sb, coef, out, nt, ntasks, w, d, gamma, rbf, pl, p,
-                    tk, copy_width16(zb, d), copy_width16(sb, d), s);
+                    tk, copy_width16(zb, d), copy_width_raw16(sb, d), s);
   }
   const int vz = copy_width(z, d);
   switch (sv_dtype) {
@@ -374,10 +385,10 @@ int svm_multitask_decision(const void* z, const void* sv, const float* coef,
                       copy_width(sv, d), s);
     case BANK_FP16:
       return dispatch(zf, sh, coef, out, nt, ntasks, w, d, gamma, rbf, pl, p,
-                      tk, vz, copy_width16(sh, d), s);
+                      tk, vz, copy_width_raw16(sh, d), s);
     case BANK_BF16:
       return dispatch(zf, sb, coef, out, nt, ntasks, w, d, gamma, rbf, pl, p,
-                      tk, vz, copy_width16(sb, d), s);
+                      tk, vz, copy_width_raw16(sb, d), s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,6 +25,13 @@
 //   bf16 or fp16 values are exact and accumulate in float32. The
 //   widening is exact, so a 16-bit operand gives the bits its float32
 //   upcast gives.
+// * Or a 16-bit operand is staged as it is stored (stage_raw16: copies of
+//   8 or 4 bytes, loads where a row's pairs are not 4-byte aligned) at
+//   the same row stride in elements, and widened in registers where it
+//   is read (ld4w: four features, one 8-byte load). A stride whose
+//   quarter is odd keeps 16 rows read at one offset on 32 different
+//   banks; the 16-byte copies a copy of 8 features would take need
+//   16-byte aligned rows, which put those rows two to a bank.
 //
 // All products are IEEE float32 fmaf (no TF32: the parity bounds against
 // the float32 reference do not allow it).
@@ -159,6 +166,18 @@ __device__ __forceinline__ float2 widen2(const __half* p) {
   return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
+// Widest copy (in elements: 4, 2 or 1) of a row-major 16-bit matrix with
+// rows of `len` elements for stage_raw16: 8 bytes where every row's
+// quads are 8-byte aligned, 4 where its pairs are 4-byte aligned, else
+// single elements (loads).
+template <typename H>
+inline int copy_width_raw16(const H* p, int len) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (a % 8 == 0 && len % 4 == 0) return 4;
+  if (a % 4 == 0 && len % 2 == 0) return 2;
+  return 1;
+}
+
 // A 16-bit operand: loads of VEC elements (1, or 2 when the rows' pairs
 // are aligned: copy_width16), BATCH of them issued a thread before any
 // is widened and stored, so the loads overlap.
@@ -222,6 +241,114 @@ __device__ __forceinline__ void stage(float* s, int ld, const __half* g,
                                       int rows, int width, int vec) {
   stage16<NT>(s, ld, g, len, row0, nrows, col0, rows, width, vec);
 }
+
+// A 16-bit tile staged as stored: asynchronous copies of VEC elements
+// (VEC = 4 or 2: 8 or 4 bytes; the caller commits and waits), entries
+// past either edge zero-filled.
+template <int NT, int VEC, typename H>
+__device__ __forceinline__ void stage_raw16_copy(H* s, int ld, const H* g,
+                                                 int len, int row0,
+                                                 int nrows, int col0,
+                                                 int rows, int width) {
+  const int per = width / VEC;
+  for (int e = threadIdx.x; e < rows * per; e += NT) {
+    const int r = e / per, c = (e - r * per) * VEC;
+    const int gr = row0 + r, gc = col0 + c;
+    const bool valid = gr < nrows && gc < len;  // VEC divides len and gc
+    cp_async<2 * VEC>(s + r * ld + c,
+                      valid ? g + (size_t)gr * len + gc : g, valid);
+  }
+}
+
+// Rows whose pairs are not 4-byte aligned: element loads, BATCH of them
+// issued a thread before any is stored.
+template <int NT, typename H>
+__device__ __forceinline__ void stage_raw16_load(H* s, int ld, const H* g,
+                                                 int len, int row0,
+                                                 int nrows, int col0,
+                                                 int rows, int width) {
+  constexpr int BATCH = 8;
+  const int total = rows * width;
+  for (int e0 = threadIdx.x; e0 < total; e0 += NT * BATCH) {
+    H v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int e = e0 + u * NT;
+      const int r = e / width, c = e - r * width;
+      const int gr = row0 + r, gc = col0 + c;
+      v[u] = H(0.f);
+      if (e < total && gr < nrows && gc < len)
+        v[u] = g[(size_t)gr * len + gc];
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int e = e0 + u * NT;
+      if (e >= total) break;
+      const int r = e / width;
+      s[r * ld + e - r * width] = v[u];
+    }
+  }
+}
+
+// Stage rows [row0, row0 + rows) x columns [col0, col0 + width) of a
+// row-major (nrows, len) 16-bit matrix into s[r * ld + c] at its own
+// dtype; entries past either edge are 0. `vec` from copy_width_raw16;
+// `width` a multiple of 4.
+template <int NT, typename H>
+__device__ __forceinline__ void stage_raw16(H* s, int ld, const H* g,
+                                            int len, int row0, int nrows,
+                                            int col0, int rows, int width,
+                                            int vec) {
+  if (vec == 4)
+    stage_raw16_copy<NT, 4>(s, ld, g, len, row0, nrows, col0, rows, width);
+  else if (vec == 2)
+    stage_raw16_copy<NT, 2>(s, ld, g, len, row0, nrows, col0, rows, width);
+  else
+    stage_raw16_load<NT>(s, ld, g, len, row0, nrows, col0, rows, width);
+}
+
+template <int NT>
+__device__ __forceinline__ void stage(__nv_bfloat16* s, int ld,
+                                      const __nv_bfloat16* g, int len,
+                                      int row0, int nrows, int col0, int rows,
+                                      int width, int vec) {
+  stage_raw16<NT>(s, ld, g, len, row0, nrows, col0, rows, width, vec);
+}
+
+template <int NT>
+__device__ __forceinline__ void stage(__half* s, int ld, const __half* g,
+                                      int len, int row0, int nrows, int col0,
+                                      int rows, int width, int vec) {
+  stage_raw16<NT>(s, ld, g, len, row0, nrows, col0, rows, width, vec);
+}
+
+// Four consecutive features of a staged row as float32: a float4 load,
+// or one 8-byte load of four 16-bit values widened in registers (exact:
+// a bf16 value is the high half of its float32, an fp16 value converts
+// without rounding).
+__device__ __forceinline__ float4 ld4w(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4w(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 ld4w(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// One staged feature as float32.
+__device__ __forceinline__ float ld1w(const float* p) { return *p; }
+__device__ __forceinline__ float ld1w(const __nv_bfloat16* p) {
+  return widen(*p);
+}
+__device__ __forceinline__ float ld1w(const __half* p) { return widen(*p); }
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);

@@ -6,8 +6,9 @@ kernel block K(z, SV) is contracted with coef on the fly and never
 stored. Operands come at the compute precision (float32 or bfloat16),
 coef in float32; the bias is added by the caller. Under float32 compute
 the multitask kernel also reads a quantized (float16 or bfloat16) bank
-at its storage dtype, widening it as it is staged, with the float32
-kernel's bits on the upcast bank; the plain version upcasts it.
+at its storage dtype, staging it 16-bit and widening it in registers,
+with the float32 kernel's bits on the upcast bank; the plain version
+upcasts it.
 ``ops.decision`` / ``ops.multitask_decision`` are the checked entry
 points. ``decision_plan`` picks the kernel's tile and how many blocks
 share a task's SV axis; ``scratch`` holds what split launches need.
@@ -42,6 +43,14 @@ class DecisionPlan(NamedTuple):
     blocks: int      # grid size
 
 
+def bank_bytes(bank: torch.dtype) -> int:
+    """Bytes of a staged SV element: a 16-bit bank (float16, bfloat16)
+    is staged as stored, a float32 one as float32."""
+    if bank not in BANK_DTYPES:
+        raise ValueError(f"no decision kernel for a {bank} bank")
+    return 4 if bank == torch.float32 else 2
+
+
 def segment_tiles(w: int) -> int:
     """SV tiles in one segment of a bank of w SVs: the fewest that keep
     the segments at most MAX_SEGMENTS. The kernel adds a row's tiles
@@ -63,11 +72,13 @@ def _split_cost(blocks: int, splits: int, segments: int, seg: int,
 @memoised
 def decision_plan(nt: int, n_tasks: int, w: int, d: int,
                   sms: int = H100_SMS, rows: int | None = None,
-                  splits: int | None = None) -> DecisionPlan:
+                  splits: int | None = None,
+                  bank: torch.dtype = torch.float32) -> DecisionPlan:
     """Tile and SV-axis split of the decision kernel for nt test rows
-    against n_tasks banks of w SVs of d features on a card of ``sms``
-    SMs. 128-row tiles for more than 64 rows once the grid, split to
-    single SV tiles, could fill two blocks an SM; else 64. No split
+    against n_tasks banks of w SVs of d features (of dtype ``bank``,
+    which sizes the SV stages) on a card of ``sms`` SMs. 128-row tiles
+    for more than 64 rows once the grid, split to single SV tiles, could
+    fill two blocks an SM; else 64. No split
     (splits = 1) when the (row tile x task) grid already gives every SM
     a block; else the count, at most one segment a split, that
     ``_split_cost`` puts first (the fewest splits among equals). A given
@@ -85,13 +96,15 @@ def decision_plan(nt: int, n_tasks: int, w: int, d: int,
         if blocks < sms:
             splits = min(range(1, segments + 1), key=lambda s: _split_cost(
                 blocks, s, segments, seg, sms))
-    return plan_with(nt, n_tasks, w, d, rows, splits)
+    return plan_with(nt, n_tasks, w, d, rows, splits, bank)
 
 
 def plan_with(nt: int, n_tasks: int, w: int, d: int, rows: int,
-              splits: int) -> DecisionPlan:
+              splits: int, bank: torch.dtype = torch.float32
+              ) -> DecisionPlan:
     """The plan of a launch with a given row tile and split count (what
-    ``decision_plan`` chose, or another for a sweep or a test)."""
+    ``decision_plan`` chose, or another for a sweep or a test), for a
+    bank of dtype ``bank``."""
     seg = segment_tiles(w)
     segments = -(-max(1, -(-w // SV_TILE)) // seg)
     if rows not in (64, 128) or not 1 <= splits <= segments:
@@ -99,9 +112,11 @@ def plan_with(nt: int, n_tasks: int, w: int, d: int, rows: int,
                          f"{segments} segments")
     chunk = feature_chunk(d)
     z_tiles = 1 if -(-d // 4) * 4 <= chunk else 2
-    # the test-row tile(s), two SV stages, the norms, 4 running sums a row
-    smem = ((z_tiles * rows + 2 * SV_TILE) * row_stride(chunk) + rows
-            + SV_TILE + 4 * rows) * 4
+    # the float32 test-row tile(s), the norms, 4 running sums a row, and
+    # two SV stages at the bank's element size
+    smem = ((z_tiles * rows * row_stride(chunk) + rows + SV_TILE
+             + 4 * rows) * 4
+            + 2 * SV_TILE * row_stride(chunk) * bank_bytes(bank))
     return DecisionPlan(rows, splits, seg, segments, chunk, smem,
                         -(-nt // rows) * n_tasks * splits)
 

@@ -427,7 +427,7 @@ def decision(z: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
     out = torch.empty((z.shape[0],), dtype=torch.float32, device=z.device)
     plan = autotune.resolve_decision(
         "decision", z.shape[0], 1, x.shape[0], z.shape[1], z.dtype,
-        z.device, _sm_count(z.device), rows, splits)
+        z.device, _sm_count(z.device), rows, splits, x.dtype)
     stream = current_stream()
     partial, ticket = _decision.scratch(plan, 1, z.shape[0], z.device,
                                         stream)
@@ -471,7 +471,7 @@ def multitask_decision(z: torch.Tensor, sv: torch.Tensor,
                       device=z.device)
     plan = autotune.resolve_decision(
         "multitask_decision", z.shape[0], n_tasks, w, z.shape[1], z.dtype,
-        z.device, _sm_count(z.device), rows, splits)
+        z.device, _sm_count(z.device), rows, splits, sv.dtype)
     stream = current_stream()
     partial, ticket = _decision.scratch(plan, n_tasks, z.shape[0], z.device,
                                         stream)

@@ -158,6 +158,46 @@ def combo_config(arch: str, *, n_layers: int = 0,
     return cfg
 
 
+def kinds_depth(cfg) -> int:
+    """The fewest layers at which every layer kind of ``cfg`` runs once:
+    a whole local:global group (gemma3), the leading dense layers and
+    one MoE layer (deepseek_moe), else one (zamba2's first layer applies
+    its shared block; ``combo_config`` cuts whisper's encoder too)."""
+    if cfg.local_global_ratio:
+        return cfg.local_global_ratio + 1
+    if cfg.arch_type == "moe":
+        return cfg.first_k_dense + 1
+    return 1
+
+
+def kinds_combos() -> list[tuple[str, str]]:
+    """Every (arch, shape) the reference's dry run traces: each
+    architecture at every shape it supports (long_500k only for
+    ``LONG_CONTEXT_ARCHS``)."""
+    return [(a, s) for a in ARCH_NAMES for s in INPUT_SHAPES
+            if supports_shape(get_config(a), INPUT_SHAPES[s])]
+
+
+def kinds_sweep(combos=None, **kw):
+    """``lower_combo`` of each combo (default ``kinds_combos()``) at its
+    ``kinds_depth``, on the production mesh unless ``kw`` says
+    otherwise: yields one summary a combo (status, per-rank FLOPs,
+    argument bytes, trace seconds), a failure's as its message."""
+    for arch, shape in combos or kinds_combos():
+        n = kinds_depth(get_config(arch))
+        row = {"arch": arch, "shape": shape, "n_layers": n}
+        try:
+            res = lower_combo(arch, shape, n_layers=n, **kw)
+        except Exception as e:   # reported, and the caller fails on it
+            row.update(status=f"FAIL: {type(e).__name__}: {e}"[:400],
+                       trace=traceback.format_exc()[-1500:])
+        else:
+            row.update(status=res["status"], flops=res["flops"],
+                       argument_bytes=res["memory"]["argument_bytes"],
+                       trace_s=res["trace_s"])
+        yield row
+
+
 def _trace(cfg, shape, mesh, *, arch, shape_name, multi_pod, remat, tag):
     train = shape.kind == "train"
     t0 = time.perf_counter()

@@ -118,10 +118,14 @@ def matmul(x, wt):
     DTensors with the activation's gradient and the product settled
     (``settle``), and the product's placements on the data axes made the
     activation's (the batch rows stay where they were, whichever operand
-    DTensor chose to move). The plain product on plain tensors."""
+    DTensor chose to move). Those are read from the settled activation,
+    which holds no ``Partial``: a ``redistribute`` to a ``Partial``
+    target is refused by some torch releases (2.11). The plain product
+    on plain tensors."""
     if not isinstance(x, DTensor) and not isinstance(wt, DTensor):
         return x @ wt
-    out = settle(settle(x) @ wt)
+    x = settle(x)
+    out = settle(x @ wt)
     keep = [x.placements[i] if i in _data_dims(x.device_mesh) else p
             for i, p in enumerate(out.placements)]
     if keep != list(out.placements):

@@ -76,10 +76,11 @@ class MoE(nn.Module):
 
         # ---- router (float32; only the real experts get logits)
         probs = torch.softmax(matmul(xt.to(F32), self.router), -1)
-        if e != e_real:  # zero columns: top-k never picks them
-            probs = F.pad(probs, (0, e - e_real))
-        route = _route_region if isinstance(probs, DTensor) else _route
-        gate_w, gate_i, assign = route(probs, k, t)            # (T, K)
+        if isinstance(probs, DTensor):   # padded on each rank's rows
+            probs, gate_w, gate_i, assign = _route_region(probs, e, k, t)
+        else:
+            probs = _pad_experts(probs, e)
+            gate_w, gate_i, assign = _route(probs, k, t)       # (T, K)
 
         # ---- load-balance auxiliary loss (Switch-style)
         me = probs.mean(0)                                     # (E,)
@@ -133,18 +134,32 @@ def _route(probs, k: int, t: int):
     return gate_w, gate_i, assign
 
 
-def _route_region(probs, k: int, t: int):
-    """``_route`` on a DTensor of token rows: each rank routes its rows
-    (``local_map``); its assignment shares sum over the data axes
-    (``Partial``)."""
+def _pad_experts(probs, e: int):
+    """The router probabilities (T, E_real) with zero columns up to the
+    padded bank's E: top-k never picks them (ties go to the lower
+    index), and they add nothing to the load-balance loss."""
+    e_real = probs.shape[-1]
+    return probs if e == e_real else F.pad(probs, (0, e - e_real))
+
+
+def _route_region(probs, e: int, k: int, t: int):
+    """The padding (``_pad_experts``) and ``_route`` of a DTensor of
+    token rows on each rank's own rows (``local_map``): the padded
+    probabilities and the routes stay on the rows, the assignment
+    shares sum over the data axes (``Partial``). A pad of the DTensor
+    itself is a DTensor op, whose redistribution some torch releases
+    (2.11) refuse."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
     from repro_torch.sharding import rules as SR
     mesh = probs.device_mesh
     rows = SR.dp_placements(mesh, probs.shape)
     share = [Partial() if p.is_shard() else p for p in rows]
-    return local_map(lambda p_: _route(p_, k, t),
-                     out_placements=(rows, rows, share),
+
+    def route(p_):
+        p_ = _pad_experts(p_, e)
+        return (p_, *_route(p_, k, t))
+    return local_map(route, out_placements=(rows, rows, rows, share),
                      in_placements=(rows,), device_mesh=mesh,
                      redistribute_inputs=True)(probs)
 

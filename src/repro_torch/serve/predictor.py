@@ -24,10 +24,10 @@ Mirrors ``repro/serve/predictor.py``:
   decisions from that one launch; the chunked config runs
   ``KernelEngine.decide`` per task (the plain reference path);
 * ``n_programs`` counts the distinct (bank signature, batch bucket)
-  pairs served so far — the program shapes a captured-graph cache will
-  hold (PyTorch runs eagerly, so nothing is compiled per entry yet);
-  each new one is reported to an active
-  ``analysis.compile_guard.CompileGuard``;
+  pairs served so far: the launch shapes a warm predictor has planned
+  (each a launch plan the kernel wrappers resolve once). Nothing is
+  captured or compiled for them (PyTorch runs eagerly); each new one is
+  reported to an active ``analysis.compile_guard.CompileGuard``;
 * a low-rank pack (``PackedModel.feature_map``) keeps the feature map
   and the linear weights resident instead of an SV bank; a slice is
   one feature transform (the ``rff_features`` kernel for an RFF map on

@@ -645,14 +645,17 @@ QUANT_BANKS = {"fp16": torch.float16, "bf16": torch.bfloat16}
     (65, 3, 700, 129),      # features in chunks of 64, 64 and 4
     (200, 2, 257, 300),     # five chunks, ragged w
     (37, 4, 70, 7),         # odd d: one element a load
+    (300, 2, 130, 64),      # d % 4 == 0: 8-byte copies
+    (129, 1, 64, 36),       # T = 1, one whole SV tile
     (1, 1, 5, 3)])
 def test_quantized_bank_equals_fp32_kernel_on_upcast_bank(cuda, bank, nt,  # noqa: F811
                                                           tasks, w, d):
-    """An fp16 / bf16 bank read at its storage dtype gives the float32
-    kernel's bits on the upcast bank (the widening is exact), under
-    64- and 128-row tiles, split and unsplit plans, both modes, and from
-    a bank whose rows are not 4-byte aligned; its launches count under
-    the bank's own name."""
+    """An fp16 / bf16 bank read at its storage dtype (staged 16-bit,
+    widened in registers) gives the float32 kernel's bits on the upcast
+    bank (the widening is exact), under 64- and 128-row tiles, split and
+    unsplit plans (each sized for its bank's dtype), both modes, and
+    from a bank whose rows are not 4-byte aligned; its launches count
+    under the bank's own name."""
     rng = np.random.default_rng(nt + w + d)
     z = tt(rng.normal(size=(nt, d)), device=cuda)
     svq = tt(rng.normal(size=(tasks, w, d)), device=cuda).to(QUANT_BANKS[bank])
@@ -664,11 +667,11 @@ def test_quantized_bank_equals_fp32_kernel_on_upcast_bank(cuda, bank, nt,  # noq
     for rows in (64, 128):
         for splits in sorted({1, 2, full.segments} & set(
                 range(1, full.segments + 1))):
-            plan = D.plan_with(nt, tasks, w, d, rows, splits)
-            part, tick = D.scratch(plan, tasks, nt, z.device,
-                                   current_stream())
             outs = []
             for sv in (svq, up):
+                plan = D.plan_with(nt, tasks, w, d, rows, splits, sv.dtype)
+                part, tick = D.scratch(plan, tasks, nt, z.device,
+                                       current_stream())
                 out = torch.full((tasks, nt), float("nan"), device=cuda)
                 assert D.launch_multitask(lib, z, sv, cf, out, gamma=gamma,
                                           mode="rbf", plan=plan, partial=part,
@@ -688,6 +691,31 @@ def test_quantized_bank_equals_fp32_kernel_on_upcast_bank(cuda, bank, nt,  # noq
                            want)
     assert ops.launches[f"multitask_decision_{bank}_bank"] == 4
     assert ops.launches["multitask_decision"] == 2
+
+
+@pytest.mark.parametrize("bank", ["fp16", "bf16"])
+@pytest.mark.parametrize("nt,w,d", [(1024, 986, 102), (65, 700, 129),
+                                    (37, 70, 7)])
+def test_quantized_bank_one_task_is_the_single_task_entry(cuda, bank, nt,  # noqa: F811
+                                                          w, d):
+    """T = 1 over a quantized bank is ``ops.decision`` on the upcast
+    bank bit for bit (one device function, the widening exact), and a
+    bf16 bank under bf16 compute (bf16 rows widened as they are staged)
+    is the single-task bf16 entry bit for bit."""
+    rng = np.random.default_rng(w + d)
+    z = tt(rng.normal(size=(nt, d)), device=cuda)
+    svq = tt(rng.normal(size=(1, w, d)), device=cuda).to(QUANT_BANKS[bank])
+    cf = tt(rng.normal(size=(1, w)), device=cuda)
+    gamma = 1.0 / d
+    one = ops.multitask_decision(z, svq, cf, gamma=gamma)
+    assert torch.equal(one[0], ops.decision(z, svq[0].float(), cf[0],
+                                            gamma=gamma))
+    if bank == "bf16":
+        one = ops.multitask_decision(z, svq, cf, gamma=gamma,
+                                     compute_dtype="bf16")
+        assert torch.equal(one[0], ops.decision(z, svq[0], cf[0],
+                                                gamma=gamma,
+                                                compute_dtype="bf16"))
 
 
 @pytest.mark.parametrize("bank", ["fp16", "bf16"])

@@ -115,6 +115,58 @@ def test_decision_shared_memory_fits(d, chunk):
         assert plan.smem_bytes <= MAX_SMEM
 
 
+def _cuda_smem_bytes(bm: int, chunk: int, nch: int, sv_bytes: int) -> int:
+    """``smem_bytes`` of csrc/decision.cu, mirrored: the float32 test-row
+    tile (two when the features come in chunks), the norms, four running
+    sums a row, and two SV stages at the bank's element size."""
+    ld = tile_f32.row_stride(chunk)
+    return (4 * ((1 if nch == 1 else 2) * bm * ld + bm + D.SV_TILE + 4 * bm)
+            + 2 * D.SV_TILE * ld * sv_bytes)
+
+
+BANKS = {torch.float32: 4, torch.float16: 2, torch.bfloat16: 2}
+
+
+@pytest.mark.parametrize("bank", list(BANKS), ids=["fp32", "fp16", "bf16"])
+@pytest.mark.parametrize("d", [3, 7, 36, 64, 102, 128, 129, 300])
+def test_decision_shared_memory_is_the_cuda_count(bank, d):
+    """Whatever the bank's dtype, tile and split, the plan's shared
+    memory is the kernel's own count (it refuses any other) and fits an
+    H100 block; a 16-bit bank's SV stages take half a float32 bank's."""
+    for nt, tasks, w in ((1, 6, 986), (1024, 6, 986), (1024, 3, 3792),
+                         (29491, 1, 17)):
+        for rows in (64, 128):
+            plan = D.plan_with(nt, tasks, w, d, rows, 1, bank)
+            nch = math.ceil(math.ceil(d / 4) * 4 / plan.chunk)
+            assert plan.smem_bytes == _cuda_smem_bytes(rows, plan.chunk,
+                                                       nch, BANKS[bank])
+            assert plan.smem_bytes <= MAX_SMEM
+            fp32 = D.plan_with(nt, tasks, w, d, rows, 1)
+            assert fp32.smem_bytes - plan.smem_bytes == (
+                2 * D.SV_TILE * tile_f32.row_stride(plan.chunk)
+                * (4 - BANKS[bank]))
+            assert plan._replace(smem_bytes=0) == fp32._replace(smem_bytes=0)
+
+
+@pytest.mark.parametrize("nt,tasks,w,rows,splits,smem", [
+    (1024, 6, 986, 128, 8, 113408),    # the largest served OvO bank
+    (1024, 3, 3792, 128, 5, 113408),   # the largest served OvR bank
+    (1, 6, 986, 64, 16, 84480)])       # one served row
+def test_float32_decision_plan_is_unchanged_at_served_banks(
+        nt, tasks, w, rows, splits, smem):
+    """A float32 bank's plan at the served shapes (102 features) is the
+    one the float32 kernel always took; a 16-bit bank's takes the same
+    tile and split with 27,648 bytes less (two 64 x 108 stages)."""
+    plan = D.decision_plan(nt, tasks, w, 102)
+    assert (plan.rows, plan.splits, plan.chunk, plan.smem_bytes) == (
+        rows, splits, 104, smem)
+    for bank in (torch.float16, torch.bfloat16):
+        half = D.decision_plan(nt, tasks, w, 102, bank=bank)
+        assert half == plan._replace(smem_bytes=smem - 27648)
+    with pytest.raises(ValueError, match="no decision kernel"):
+        D.decision_plan(nt, tasks, w, 102, bank=torch.float64)
+
+
 def test_decision_plans_cover_split_and_unsplit():
     """The shapes test_torch_cuda.py runs the decision kernel at take
     both tiles, split and unsplit grids and the chunked feature path."""

@@ -9,6 +9,10 @@ reference, on (data 1, model 2) and (data 2, model 1) meshes.
   by ``models.convert.from_reference``) and batch. The step is
   ``SGD(lr=1)``, so a parameter's change is its gradient. The unsharded
   port is held to the reference's forward too.
+* Reduced qwen2_moe_a2p7b (4 experts padded to 16: the router's pad and
+  routes run on each rank's rows in a ``local_map`` region): the sharded
+  forward's logits and one train step's loss against the unsharded
+  port's.
 * The counterpart of ``test_perf_variants.py::
   test_window_cache_sp_decode_consistency``: gemma3_12b reduced with
   ``WINDOW_CACHE_SP``, its window caches sequence-sharded over "model",
@@ -49,6 +53,7 @@ from torch_lm_train_helpers import GRAD_TOL, LOSS_RTOL, SSM_HEAD_GRAD_TOL
 from torch_shard_helpers import MESHES, port_model, spawn
 
 ARCHS = ["phi4_mini_3p8b", "mamba2_780m", "zamba2_1p2b"]
+MOE = "qwen2_moe_a2p7b"   # forward and loss only
 SSM_HEAD = ("mamba.A_log", "mamba.dt_bias", "mamba.D")
 B, S = 2, 32
 WINDOW = dict(arch="gemma3_12b", seed=3, tokens=12, prefill=6, max_len=16)
@@ -70,7 +75,7 @@ def runs():
     """The reference's weights for each architecture, the reference's and
     the unsharded port's results, and the two ranks' results."""
     cfgs, arrays, batches, ref, port = {}, {}, {}, {}, {}
-    for i, arch in enumerate(ARCHS):
+    for i, arch in enumerate(ARCHS + [MOE]):
         jm = JModel(jreduced(jget_config(arch)))
         params, _ = jm.init(jax.random.PRNGKey(i + 1))
         tree = jax.tree.map(np.asarray, params)
@@ -150,6 +155,17 @@ def test_sharded_train_step_matches_unsharded(runs, arch, shape):
         # a gradient read back from p - g carries p's float32 rounding
         ulp = float(np.spacing(np.abs(before[name]).max()))
         assert err <= tol * scale + 2 * ulp, (name, err, scale, ulp)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=["1x2", "2x1"])
+def test_sharded_moe_forward_and_loss_match_unsharded(runs, shape):
+    cfg = runs["cfgs"][MOE]
+    assert cfg.padded_experts > cfg.n_experts
+    got = runs["ranks"]["sharded_lm"][(shape, MOE)]
+    want = runs["port"][MOE]
+    assert_logits_close(got["logits"], want["logits"], cfg.vocab_size,
+                        f"{MOE} {shape} sharded forward")
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
 
 
 def test_window_cache_sp_decode_consistency(runs):
