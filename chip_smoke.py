@@ -241,6 +241,22 @@ then:
    machine's torch. The line has each combo's status, per-rank FLOPs
    and argument bytes; a combo that fails fails the run.
 
+19. holds the exact solver's CUDA graphs against its eager loop (lines
+   ``smo_graph``): the exact SVC at full width, the overlapping OvO
+   fit's widest bucket (36 tasks) and the exact SVR at 4,096 rows with
+   shrinking and unshrunk, each solved with every check block after the
+   first replayed from one captured graph and again eagerly
+   (``smo.CUDA_GRAPHS`` off), in this process: alpha, b, n_iter,
+   n_active, the row caches' hits and misses and the launch counts
+   equal, one capture in the graph run, none in the eager one, and both
+   runs' seconds. Every other exact fit runs with its graphs: the
+   ``fit``, ``svr``, ``svr_default_config``, ``multiclass`` and cascade
+   lines carry ``graph`` (captures, seconds issuing and instantiating
+   them, replays); the exact ``svr``, ``svr_default_config`` and
+   ``multiclass`` lines a ``profile`` of a window of 20 check blocks
+   after the capture (busy share, device kernels an iteration;
+   ``block_profile``), the ``fit`` line one of its whole warm fit.
+
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
 
@@ -250,6 +266,7 @@ failed check exits non-zero. Without CUDA it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -904,6 +921,132 @@ def warm_profile(fit_once, n_iter):
     return warm_s, busy
 
 
+PROFILE_SKIP_BLOCKS = 2   # a solve's eager first block and its capture
+PROFILE_BLOCKS = 20
+
+
+class WindowDone(Exception):
+    """Ends a profiled fit once its window of check blocks closed."""
+
+
+def graph_stats() -> dict:
+    """A copy of the exact solver's CUDA-graph counts
+    (``smo.graph_stats``: captures, seconds issuing and instantiating
+    them, replays)."""
+    from repro_torch.core import smo
+    return dict(smo.graph_stats)
+
+
+def graph_since(before: dict) -> dict:
+    now = graph_stats()
+    return {k: now[k] - before[k] for k in before}
+
+
+@contextlib.contextmanager
+def block_hook(smo, on_block):
+    """``on_block()`` at the start of every check block of the exact
+    solver in ``smo`` (sharded solves excepted): through ``smo._Block``
+    where the checkout has it, else at every ``check_every``-th
+    ``_smo_iteration`` (a checkout from before the check block became a
+    graph; a block always runs all its iterations)."""
+    if hasattr(smo, "_Block"):
+        cls, call = smo._Block, smo._Block.__call__
+
+        def hooked(self):
+            on_block()
+            return call(self)
+
+        cls.__call__ = hooked
+        try:
+            yield
+        finally:
+            cls.__call__ = call
+        return
+    iterate, calls = smo._smo_iteration, [0]
+
+    def counted(st, **kw):
+        if calls[0] % kw["cfg"].check_every == 0:
+            on_block()
+        calls[0] += 1
+        return iterate(st, **kw)
+
+    smo._smo_iteration = counted
+    try:
+        yield
+    finally:
+        smo._smo_iteration = iterate
+
+
+def block_profile(smo, fit_once, check_every: int = 32,
+                  skip: int = PROFILE_SKIP_BLOCKS,
+                  blocks: int = PROFILE_BLOCKS) -> dict:
+    """``fit_once()`` again under torch.profiler, recording a window of
+    ``blocks`` whole check blocks of the exact solver after its first
+    ``skip`` (the eager block and the capture), and ending the fit when
+    the window closes; a fit with fewer blocks is recorded to its end.
+    A whole fit's profile is out of reach at the SVR's size (~70,000
+    iterations of ~80 kernels). The window's wall time, device busy time
+    and share, device kernels an iteration (``check_every`` a block), the
+    five kernels with most device time. A block's window starts after the
+    host read that ends the block before it, so the device is idle
+    there."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    marks = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=skip, warmup=1, active=blocks,
+                                   repeat=1)) as prof:
+        def on_block():
+            marks.append(time.perf_counter())
+            prof.step()
+            if len(marks) == skip + 1 + blocks:
+                raise WindowDone
+
+        with block_hook(smo, on_block), contextlib.suppress(WindowDone):
+            fit_once()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    # marks: the start of every block, then the end of the fit
+    n_blocks = min(blocks, len(marks) - 1 - skip)
+    if n_blocks < 1:
+        return {"window_blocks": 0}
+    wall = marks[skip + n_blocks] - marks[skip]
+    # device kernels only: the schedule's steps also appear on the
+    # device's timeline, as "ProfilerStep#k" annotations a step long
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")
+               and not getattr(e, "is_user_annotation", False)]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    launched = sum(e.count for e in kernels)
+    iters = n_blocks * check_every
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"window_blocks": n_blocks, "window_wall_s": wall,
+            "device_busy_s": dev_us / 1e6, "busy_share": dev_us / 1e6 / wall,
+            "device_s_per_block": dev_us / 1e6 / n_blocks,
+            "device_kernels": launched,
+            "device_kernels_per_iter": launched / iters,
+            "top": [[e.key[:60], e.count, e.self_device_time_total]
+                    for e in top]}
+
+
+@contextlib.contextmanager
+def counting_blocks(smo):
+    """A one-item list that counts the exact solver's check blocks."""
+    n = [0]
+    with block_hook(smo, lambda: n.__setitem__(0, n[0] + 1)):
+        yield n
+
+
+def fit_busy_share(profile: dict, blocks: int, fit_s: float):
+    """The share of an unprofiled fit's wall time the device is busy: its
+    check blocks (``counting_blocks``) at the window's device seconds a
+    block. The profiler slows the host's issue (and a graph's launch),
+    so the window's own share reads low."""
+    if not profile.get("window_blocks"):
+        return None
+    return profile["device_s_per_block"] * blocks / fit_s
+
+
 def binary_split(data):
     """(xtr, ytr, xte, yte) of the exact binary SVC: 32,768 Pavia-like
     rows of 102 bands, a tenth held out."""
@@ -937,11 +1080,13 @@ def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
     xtr, ytr, xte, yte = binary_split(data)
     torch.cuda.synchronize()
     ops.reset_launches()
+    g0 = graph_stats()
     t0 = time.perf_counter()
     clf = SVC(engine="pallas", shrink_every=4, device=dev).fit(xtr, ytr)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches = dict(ops.launches)
+    graph = graph_since(g0)
     warm_s, busy = warm_fit_profile(SVC, dev, xtr, ytr, clf.n_iter_,
                                     engine="pallas", shrink_every=4)
     # held-out margins through the engine path (the decision kernel)
@@ -970,13 +1115,15 @@ def phase_fit(ops, data, smo, KE, serve_mod, SVC, dev, path):
     emit(phase="fit", n=int(xtr.shape[0]), d=int(xtr.shape[1]),
          n_iter=clf.n_iter_, converged=clf.converged_, kkt_f64=kkt,
          tol=clf.smo_cfg.tol, n_support=clf.n_support_, fit_s=fit_s,
-         fit_s_warm=warm_s, profile=busy,
+         fit_s_warm=warm_s, profile=busy, graph=graph,
          gamma=clf.kernel_params.gamma, launches=fit_launches,
          launches_per_iter={k: v / max(clf.n_iter_, 1)
                             for k, v in fit_launches.items()},
          heldout_check_launches=check_launches, heldout_acc=acc)
     check(clf.converged_, "SMO fit did not converge")
     check(kkt <= clf.smo_cfg.tol, f"f64 KKT {kkt} > tol {clf.smo_cfg.tol}")
+    check(graph["captures"] == 1, f"the exact SVC fit captured "
+          f"{graph['captures']} CUDA graphs, not one")
     for k in ("rbf_gram_row_cached", "kkt_select"):
         check(fit_launches[k] > 0, f"fit launched no {k}")
     check(check_launches["decision"] > 0, "held-out check launched no "
@@ -1201,11 +1348,14 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
             kw["shrink_every"] = 4
         torch.cuda.synchronize()
         ops.reset_launches()
+        g0 = graph_stats()
         t0 = time.perf_counter()
-        reg = SVR(**kw, device=dev).fit(xtr, ytr)
-        torch.cuda.synchronize()
+        with counting_blocks(smo) as blocks:
+            reg = SVR(**kw, device=dev).fit(xtr, ytr)
+            torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         fit_launches = dict(ops.launches)
+        graph = graph_since(g0)
         warm = {}
         if engine == "rff":   # the low-rank fit's wall time warm, busy share
             warm_s, busy = warm_profile(
@@ -1219,6 +1369,12 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
                                   reg.dcd_cfg.bias)
         else:
             kkt = exact_kkt(reg)
+            # busy share over a window of check blocks of the same fit
+            busy = block_profile(smo,
+                                 lambda: SVR(**kw, device=dev).fit(xtr, ytr))
+            warm = dict(profile=busy, blocks=blocks[0],
+                        busy_share_fit=fit_busy_share(busy, blocks[0],
+                                                      fit_s))
         ops.launches.update(fit_launches)   # the check is not the path
         values = reg._predict_engine(xte)
         path = os.path.join(out_dir, f"chip_smoke_svr_{engine}.npz")
@@ -1234,7 +1390,7 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
              d=int(xtr.shape[1]), rank=kw.get("rank"),
              n_iter=reg.n_iter_, converged=reg.converged_, kkt_f64=kkt,
              tol=1e-3, n_support=reg.n_support_, fit_s=fit_s, **warm,
-             heldout_r2=r2, launches=launches,
+             graph=graph, heldout_r2=r2, launches=launches,
              max_abs_err_served_vs_engine=float(np.abs(served
                                                        - values).max()),
              served_matches_engine=ok)
@@ -1252,21 +1408,159 @@ def phase_svr(ops, data, smo, KE, serve_mod, SVR, dev, out_dir):
     # solver certifies a recomputed f before it stops (ROADMAP C, fixed),
     # so the certificate is required; launches here are not the path's
     saved = dict(ops.launches)
+    g0 = graph_stats()
     t0 = time.perf_counter()
-    reg = SVR(engine="pallas", epsilon=eps, C=C, tol=1e-3,
-              device=dev).fit(xtr, ytr)
-    torch.cuda.synchronize()
+    with counting_blocks(smo) as blocks:
+        reg = SVR(engine="pallas", epsilon=eps, C=C, tol=1e-3,
+                  device=dev).fit(xtr, ytr)
+        torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    graph = graph_since(g0)
     kkt = exact_kkt(reg)
+    busy = block_profile(smo, lambda: SVR(engine="pallas", epsilon=eps, C=C,
+                                          tol=1e-3, device=dev).fit(xtr, ytr))
     ops.launches.update(saved)
     emit(phase="svr_default_config", engine="pallas", shrink_every=0,
          qp_variables=2 * n, n_iter=reg.n_iter_, converged=reg.converged_,
-         kkt_f64=kkt, tol=1e-3, certified=kkt <= 1e-3, fit_s=fit_s)
+         kkt_f64=kkt, tol=1e-3, certified=kkt <= 1e-3, fit_s=fit_s,
+         profile=busy, blocks=blocks[0],
+         busy_share_fit=fit_busy_share(busy, blocks[0], fit_s), graph=graph)
     check(reg.converged_, "SVR(pallas), default configuration, did not "
           "converge")
     check(kkt <= 1e-3, f"SVR(pallas), default configuration: f64 KKT "
           f"{kkt} > tol 1e-3")
     return total, lowrank, r2s
+
+
+SMO_GRAPH_SVR_ROWS = 4096
+
+
+def graph_and_eager(ops, smo, solve) -> dict:
+    """``solve()`` eager (``smo.CUDA_GRAPHS`` off), then with each check
+    block after the first replayed from its CUDA graph, launch counts
+    from 0 each time: per mode the host result, wall seconds, launches,
+    CUDA-graph captures (``CompileGuard``) and ``smo.graph_stats``'
+    counts. Not a path: the launch counts are restored after."""
+    from repro_torch.analysis import CompileGuard
+    saved, runs = dict(ops.launches), {}
+    try:
+        for mode in ("eager", "graph"):
+            smo.CUDA_GRAPHS = mode == "graph"
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            before = graph_stats()
+            with CompileGuard(budget=10_000) as guard:
+                t0 = time.perf_counter()
+                out = solve()
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+            runs[mode] = dict(
+                out=out, fit_s=fit_s, launches=dict(ops.launches),
+                captures=sum(e.startswith("cuda graph capture")
+                             for e in guard.compiled),
+                graph=graph_since(before))
+    finally:
+        smo.CUDA_GRAPHS = True
+        ops.launches.update(saved)
+    return runs
+
+
+def solve_result(r, caches=()) -> dict:
+    """An SMOResult on the host, with the row caches' hits and misses."""
+    out = {k: getattr(r, k).cpu().numpy() for k in
+           ("alpha", "b", "n_iter", "n_active", "converged")}
+    out["cache_hits_misses"] = np.array(
+        [[int(c.hits), int(c.misses)] for c in caches if c is not None])
+    return out
+
+
+def tapped_engine(KE, x, kernel):
+    """A pallas engine whose row caches are kept (``caches``), so that a
+    solve's hits and misses can be read after it."""
+    eng = KE.make_engine(x, kernel, "pallas")
+    caches, init = [], eng.init_cache
+
+    def keep():
+        caches.append(init())
+        return caches[-1]
+
+    eng.init_cache = keep
+    return eng, caches
+
+
+def phase_smo_graph(ops, data, smo, KE, K, MC, dist, dev, binary, base,
+                    ovo_clf, overlapping):
+    """The exact solver's check block as a CUDA graph against the eager
+    loop, each case solved both ways in this process: the exact SVC at
+    full width (the ``fit`` phase's problem and configuration), the
+    overlapping OvO fit's widest bucket (36 tasks at full width) and the
+    exact SVR at SMO_GRAPH_SVR_ROWS rows, with shrinking and unshrunk.
+    alpha, b, n_iter, n_active, the row caches' hits and misses and the
+    launch counts must be equal bit for bit, the graph run must capture
+    once a solve of several blocks and the eager run never."""
+    xtr, ytr = binary[:2]
+    x = torch.from_numpy(xtr).to(dev)
+    yy = torch.from_numpy(np.where(ytr == base.classes_[1], 1.0, -1.0)
+                          .astype(np.float32)).to(dev)
+
+    def svc():
+        eng, caches = tapped_engine(KE, x, base.kernel_params)
+        return solve_result(smo.binary_smo(
+            x, yy, cfg=base.smo_cfg, kernel=base.kernel_params,
+            engine=eng), caches)
+
+    taskset = MC.get_strategy("ovo").build_taskset(*overlapping[:2])
+    bucket = MC.build_schedule(taskset.sizes).buckets[0]
+    xb, yb, mb = (torch.from_numpy(a).to(dev)
+                  for a in dist._bucket_arrays(taskset, bucket)[:3])
+
+    def ovo():
+        eng = KE.TaskKernelEngine(xb, ovo_clf.kernel_params, "pallas")
+        return solve_result(smo.binary_smo_tasks(
+            xb, yb, mb, cfg=ovo_clf.smo_cfg, kernel=ovo_clf.kernel_params,
+            engine=eng))
+
+    xs, ys = svr_split(data, SMO_GRAPH_SVR_ROWS)[:2]
+    xs = torch.from_numpy(xs).to(dev)
+    s, p, lo, hi = smo._svr_spec(torch.from_numpy(ys).to(dev), 0.1, 1.0)
+    x2 = torch.cat([xs, xs])
+    kp_svr = K.resolve_gamma(K.KernelParams(gamma=-1.0), xs)
+
+    def svr(shrink):
+        def solve():
+            eng, caches = tapped_engine(KE, x2, kp_svr)
+            return solve_result(smo.solve_qp(
+                x2, s, p, lo, hi, cfg=smo.SMOConfig(
+                    C=1.0, tol=1e-3, shrink_every=shrink),
+                kernel=kp_svr, engine=eng), caches)
+        return solve
+
+    cases = {"svc_exact": (svc, "29,491 x 102, shrink_every=4"),
+             "ovo_bucket": (ovo, f"{tuple(xb.shape)}, overlapping"),
+             "svr_shrink": (svr(4), f"{SMO_GRAPH_SVR_ROWS} rows (2 x "
+                            f"{len(xs)} variables), shrink_every=4"),
+             "svr_unshrunk": (svr(0), f"{SMO_GRAPH_SVR_ROWS} rows, no "
+                              "shrinking (certified restarts)")}
+    for name, (solve, shape) in cases.items():
+        runs = graph_and_eager(ops, smo, solve)
+        g, e = runs["graph"], runs["eager"]
+        equal = {k: bool(np.array_equal(g["out"][k], e["out"][k]))
+                 for k in g["out"]}
+        n_iter = int(np.max(g["out"]["n_iter"]))
+        emit(phase="smo_graph", case=name, shape=shape, n_iter=n_iter,
+             blocks=-(-n_iter // 32), equal=equal,
+             launches_equal=g["launches"] == e["launches"],
+             captures={"graph": g["captures"], "eager": e["captures"]},
+             graph=g["graph"], fit_s={"graph": g["fit_s"],
+                                      "eager": e["fit_s"]},
+             launches=g["launches"])
+        check(all(equal.values()), f"smo_graph {name}: the graph run's "
+              f"result differs from the eager run's {equal}")
+        check(g["launches"] == e["launches"], f"smo_graph {name}: launch "
+              "counts differ between the graph and the eager run")
+        check(n_iter > 32 and g["captures"] == 1 and e["captures"] == 0,
+              f"smo_graph {name}: {g['captures']} captures in the graph "
+              f"run, {e['captures']} eager, over {n_iter} iterations")
 
 
 def dcd_state(phi, s, p, beta0, perm):
@@ -1632,15 +1926,20 @@ def phase_multiclass(ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev,
     for strategy in ("ovo", "ovr"):
         torch.cuda.synchronize()
         ops.reset_launches()
+        g0 = graph_stats()
         t0 = time.perf_counter()
         clf = SVC(strategy=strategy, **kw, device=dev).fit(xtr, ytr)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         fit_launches = dict(ops.launches)
+        graph = graph_since(g0)
         t0 = time.perf_counter()
-        SVC(strategy=strategy, **kw, device=dev).fit(xtr, ytr)
-        torch.cuda.synchronize()
+        with counting_blocks(smo) as blocks:
+            SVC(strategy=strategy, **kw, device=dev).fit(xtr, ytr)
+            torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
+        busy = block_profile(smo, lambda: SVC(strategy=strategy, **kw,
+                                              device=dev).fit(xtr, ytr))
         ops.launches.update(fit_launches)   # the warm fit is not the path
         kkt = task_certificates(ops, smo, KE, clf, dev)
         df_engine = clf._decision_function_engine(xte)   # decision kernel
@@ -1683,7 +1982,10 @@ def phase_multiclass(ops, data, smo, KE, MC, dist, D, serve_mod, SVC, dev,
              serving_banks=[list(g.sv_x.shape) for g in packed.buckets],
              bank_parity=banks, bank_parity_bound=dict(
                  **DECISION_TOL, vs_f64="kernel <= 2 x plain + 2e-6"),
-             fit_s=fit_s, fit_s_warm=warm_s,
+             fit_s=fit_s, fit_s_warm=warm_s, profile=busy,
+             blocks=blocks[0],
+             busy_share_fit=fit_busy_share(busy, blocks[0], warm_s),
+             graph=graph,
              launches=fit_launches,
              launches_per_iter={k: v / max(int(iters.max()), 1)
                                 for k, v in fit_launches.items() if v},
@@ -3850,8 +4152,10 @@ def phase_cascade_svc(ops, cascade, SVC, dev, split, base, base_acc):
     ``base`` of phase_fit, bit for bit."""
     xtr, ytr, xte, yte = split
     kw = dict(shard="cascade", engine="pallas", shrink_every=4)
+    g0 = graph_stats()
     clf, fit_s, fit_launches = timed_fit(ops, lambda: SVC(
         cascade_shards=CASCADE_SHARDS, **kw, device=dev), xtr, ytr)
+    graph = graph_since(g0)
     labels, serve_launches = serve_heldout(ops, clf, xte)
     acc = float(np.mean(labels == yte))
     saved = dict(ops.launches)
@@ -3865,7 +4169,8 @@ def phase_cascade_svc(ops, cascade, SVC, dev, split, base, base_acc):
          converged=clf.converged_, n_iter=clf.n_iter_,
          n_support=clf.n_support_, fit_s=fit_s, heldout_acc=acc,
          unsharded_heldout_acc=base_acc, one_shard_equals_unsharded=same,
-         launches=fit_launches, heldout_launches=serve_launches)
+         graph=graph, launches=fit_launches,
+         heldout_launches=serve_launches)
     check(clf.converged_ and clf.cascade_kkt_ <= 1e-3,
           f"cascade SVC: certificate {clf.cascade_kkt_} > 1e-3")
     check(abs(acc - base_acc) <= 0.01, f"cascade SVC accuracy {acc} not "
@@ -3928,9 +4233,11 @@ def phase_cascade_svr(ops, data, SVR, dev):
                      ("svr_cascade_lowrank", dict(engine="rff", rank=RANK))):
         rows = CASCADE_SVR_ROWS[name]
         xtr, ytr, xte, yte = svr_split(data, rows)
+        g0 = graph_stats()
         reg, fit_s, fit_launches = timed_fit(ops, lambda: SVR(
             shard="cascade", cascade_shards=CASCADE_SHARDS, **kw,
             device=dev), xtr, ytr)
+        graph = graph_since(g0)
         values, serve_launches = serve_heldout(ops, reg, xte)
         emit(phase="cascade_svr", path=name, engine=kw["engine"],
              rows=rows, reduced=(f"{rows} of 16,384 rows: 5-6 rounds of "
@@ -3941,7 +4248,7 @@ def phase_cascade_svr(ops, data, SVR, dev):
              history=list(reg.cascade_history_),
              cascade_kkt=reg.cascade_kkt_, tol=reg.smo_cfg.tol,
              converged=reg.converged_, n_iter=reg.n_iter_,
-             n_support=reg.n_support_, fit_s=fit_s,
+             n_support=reg.n_support_, fit_s=fit_s, graph=graph,
              heldout_r2=r2_score(yte, values), launches=fit_launches,
              heldout_launches=serve_launches)
         check(reg.converged_ and reg.cascade_kkt_ <= 1e-3,
@@ -5320,6 +5627,8 @@ def main() -> int:
         lowrank_fits[strategy] = (mclf, mphi, path_launches)
     # the paper's GD baseline and the cascade, beside the SMO fits above
     binary = (xtr, ytr, xte, yte)
+    phase_smo_graph(ops, data, smo, KE, K, MC, dist, dev, binary, base,
+                    fits["ovo"][0], split)
     lam, gd_path = phase_gd(ops, gd, KE, SVC, dev, binary, acc)
     new_paths = {
         "svc_gd": gd_path,

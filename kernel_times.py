@@ -76,11 +76,17 @@ buckets of the overlapping multiclass split (``pavia_split``);
 time (``chip_smoke.device_ms``), the wall time of one call among 500
 back to back (``host_us``) and the device kernels a call (profiler);
 beside them the device time of an empty kernel launched as the kernels
-are (a checkout whose library has ``svm_empty``). Then the exact SVC
-(``SVC(engine="pallas", shrink_every=4)`` on the binary split) and the
-exact OvO fit (overlapping split), each fitted once, then warm: wall
-seconds, and under the profiler device busy share and kernels an
-iteration (``chip_smoke.warm_profile``). ``--smo-sweep`` (this tree)
+are (a checkout whose library has ``svm_empty``). Then the exact fits
+(``smo_fit`` lines, ``smo_fits``): the exact SVC (``SVC(engine="pallas",
+shrink_every=4)`` on the binary split), OvO and OvR (overlapping split)
+and the exact SVR at 16,384 rows with shrinking and in its default
+configuration, each after a fit of its shape cut to 2 blocks; for a
+checkout whose solver replays its check block from a CUDA graph, with
+the graph and with the eager loop (``smo.CUDA_GRAPHS``): wall seconds,
+launches an iteration, the graphs' capture and instantiation seconds,
+and under the profiler a window of 20 check blocks
+(``chip_smoke.block_profile``) for the busy share and device kernels an
+iteration. ``--smo-sweep`` (this tree)
 adds the cached row call at the binary shape for builds of copies of
 ``csrc/rbf_gram.cu`` cut by a regex, diagnostics that are never
 shipped: without the ticket (the lookup warp never writes the cache's
@@ -556,7 +562,6 @@ def smo_times(cs, data, _build, ops, dev, emit, sweep=False):
     from repro_torch.core import dist, kernel_engine as KE
     from repro_torch.core import kernels as K
     from repro_torch.core import multiclass as MC
-    from repro_torch.core.svm import SVC
     from repro_torch.kernels.tile_f32 import current_stream
 
     def host_us(fn, calls=HOST_CALLS):
@@ -671,23 +676,66 @@ def smo_times(cs, data, _build, ops, dev, emit, sweep=False):
                   "kkt_select_task_axis", strategy=strategy)
     del xb, x2
 
-    fits = (("svc_exact", xtr, ytr, dict(engine="pallas", shrink_every=4)),
-            ("ovo_exact", xm, ym, dict(strategy="ovo", decision="vote",
-                                       engine="pallas", C=1.0, tol=1e-3)))
     stack.close()
-    for case, xf, yf, kw in fits:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        clf = SVC(**kw, device=dev).fit(xf, yf)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        iters = (int(clf.n_iter_) if "strategy" not in kw
-                 else int(clf._fit.n_iter.max()))
-        warm_s, busy = cs.warm_profile(
-            lambda: SVC(**kw, device=dev).fit(xf, yf), iters)
-        busy.pop("top")
-        emit(measure="smo", case=case, n_iter=iters, fit_s=fit_s,
-             fit_s_warm=warm_s, **busy)
+    smo_fits(cs, data, ops, dev, emit, (xtr, ytr), (xm, ym))
+
+
+def smo_fits(cs, data, ops, dev, emit, binary, overlapping):
+    """The exact fits of ``--smo`` (``smo_fit`` lines): the exact SVC,
+    OvO and OvR (overlapping split) and SVR (shrinking, and the default
+    configuration) at chip_smoke.py's sizes; for a checkout whose solver
+    captures its check block (``smo.CUDA_GRAPHS``), each with the graph
+    and again with the eager loop, else as the checkout runs it. Each
+    after a fit of the same shape cut to 2 blocks (plans, allocator), its
+    wall seconds, iterations, launches an iteration (the wrappers'
+    counts), the CUDA graphs' captures and seconds issuing and
+    instantiating them, and under the profiler a window of check blocks
+    (``chip_smoke.block_profile``): busy share and device kernels an
+    iteration, and the fit's busy share: its check blocks at the window's
+    device seconds a block (``chip_smoke.fit_busy_share``)."""
+    import torch
+    from repro_torch.core import smo
+    from repro_torch.core.svm import SVC, SVR
+    xs, ys = cs.svr_split(data, 16384)[:2]
+    svr = dict(engine="pallas", epsilon=0.1, C=1.0, tol=1e-3)
+    mc = dict(decision="vote", engine="pallas", C=1.0, tol=1e-3)
+    fits = (("svc_exact", SVC, binary, dict(engine="pallas",
+                                            shrink_every=4)),
+            ("ovo_exact", SVC, overlapping, dict(strategy="ovo", **mc)),
+            ("ovr_exact", SVC, overlapping, dict(strategy="ovr", **mc)),
+            ("svr_exact", SVR, (xs, ys), dict(**svr, shrink_every=4)),
+            ("svr_default_config", SVR, (xs, ys), svr))
+    modes = ({"graph": True, "eager": False}
+             if hasattr(smo, "CUDA_GRAPHS") else {"checkout": None})
+    for case, model, (xf, yf), kw in fits:
+        for mode, graphs in modes.items():
+            if graphs is not None:
+                smo.CUDA_GRAPHS = graphs
+            model(**kw, max_iter=64, device=dev).fit(xf, yf)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            g0 = dict(getattr(smo, "graph_stats", {}))
+            t0 = time.perf_counter()
+            with cs.counting_blocks(smo) as blocks:
+                fit = model(**kw, device=dev).fit(xf, yf)
+                torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            graph = {k: v - g0[k] for k, v in
+                     getattr(smo, "graph_stats", {}).items()}
+            launches = {k: v for k, v in ops.launches.items() if v}
+            iters = (int(fit._fit.n_iter.max()) if "strategy" in kw
+                     else int(fit.n_iter_))
+            busy = cs.block_profile(smo, lambda: model(**kw, device=dev)
+                                    .fit(xf, yf))
+            emit(measure="smo_fit", case=case, mode=mode, n_iter=iters,
+                 fit_s=fit_s, graph=graph,
+                 blocks=blocks[0],
+                 busy_share_fit=cs.fit_busy_share(busy, blocks[0], fit_s),
+                 launches_per_iter={k: v / iters
+                                    for k, v in launches.items()},
+                 **busy)
+    if "graph" in modes:
+        smo.CUDA_GRAPHS = True
 
 
 def gram_times(cs, data, _build, ops, dev, emit, sweep=False):

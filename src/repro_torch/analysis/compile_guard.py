@@ -9,7 +9,9 @@ per new shape are these, each counted as one event with a name:
   ``counters["stats"]["unique_graphs"]``, read on entry and on exit,
   named by dynamo's compilation records of the region;
 * a CUDA-graph capture: every ``torch.cuda.CUDAGraph.capture_begin``
-  (which ``torch.cuda.graph`` calls), named by the capturing code;
+  (which ``torch.cuda.graph`` calls), named by the capturing code and by
+  the ``capture_label`` it runs under (the SMO solvers label theirs
+  ``solve_qp`` / ``solve_qp_tasks``);
 * a new ``serve.Predictor`` program: a (bank signature, batch bucket)
   pair that predictor had not served, the entries of ``n_programs``;
 * a new launch plan or tuner resolution: a miss of a function
@@ -33,6 +35,7 @@ a ``compile_guard`` fixture that hands tests this class.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import sys
@@ -42,6 +45,7 @@ from typing import Optional
 _recorders: list = []    # the event lists of the active guards
 _lock = threading.Lock()
 _hooked: list = []       # the CUDAGraph class once its capture is wrapped
+_label = threading.local()   # .name: what this thread's captures are of
 
 
 class CompileBudgetExceeded(AssertionError):
@@ -86,6 +90,18 @@ def _caller() -> str:
     return f"{code.co_name} {code.co_filename}:{frame.f_lineno}"
 
 
+@contextlib.contextmanager
+def capture_label(name: str):
+    """Name the CUDA-graph captures this thread begins inside the block
+    (``"cuda graph capture <name> (<caller>)"``)."""
+    prev = getattr(_label, "name", None)
+    _label.name = name
+    try:
+        yield
+    finally:
+        _label.name = prev
+
+
 def _hook_graph_capture() -> None:
     """Wrap ``torch.cuda.CUDAGraph.capture_begin`` once so every capture
     is recorded (the wrapper stays: with no guard active it passes
@@ -99,7 +115,9 @@ def _hook_graph_capture() -> None:
 
         @functools.wraps(begin)
         def capture_begin(self, *args, **kwargs):
-            record("cuda graph capture", _caller())
+            name = getattr(_label, "name", None)
+            record("cuda graph capture",
+                   _caller() if name is None else f"{name} ({_caller()})")
             return begin(self, *args, **kwargs)
 
         cls.capture_begin = capture_begin

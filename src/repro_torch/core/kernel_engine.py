@@ -544,6 +544,9 @@ class TaskKernelEngine:
             self._gram = gram.to(device=self.device, dtype=torch.float32)
             self.tasks = [DenseKernelEngine(xt, kernel, self.cfg, gram=g)
                           for xt, g in zip(self.x, self._gram)]
+            # made once: a row call allocates nothing of its own (a
+            # captured SMO block would take it from the graph's pool)
+            self._task_ids = torch.arange(self.n_tasks, device=self.device)
             return
         self.tasks = [_BACKENDS[backend](xt, kernel, self.cfg)
                       for xt in self.x]
@@ -558,8 +561,7 @@ class TaskKernelEngine:
     def row(self, i: torch.Tensor, cache=None):
         """((T, w) rows K(X_t, x_t[i_t]), None) for the (T,) indices."""
         if self._gram is not None:
-            tasks = torch.arange(self.n_tasks, device=self.device)
-            return self._gram[tasks, i], cache
+            return self._gram[self._task_ids, i], cache
         if self._xk is not None:
             return ops.gram_row(self._xk, self._x2, i,
                                 gamma=self.kernel.gamma,

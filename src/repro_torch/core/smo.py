@@ -13,22 +13,26 @@ the doubled variables [alpha; alpha*] (p = [eps - y; eps + y], per-
 sample signs [+1; -1]).
 
 The reference runs the whole solve on the device (``lax.while_loop``
-around ``fori_loop``). Here the loop is eager PyTorch, built so that it
-does not wait for the host on every iteration: the working pair, every
-scalar of the pair update and the ``step_live`` flag stay 0-d tensors
-on the device, the kernel-row cache decides hit or miss on the device,
-and the host reads one pair of numbers (converged?, n_iter) per block
-of ``check_every`` iterations — the paper's "convergence checks on the
-host for every set of iterations on the device". As in the reference,
-a block always runs all its iterations (a step after convergence is a
-no-op), ``n_iter`` counts only live steps, and ``max_iter`` is tested
-per block. Without shrinking, a check whose gap says converged also
-recomputes f once and stops only if the float64 ``kkt_violation`` of
-that f is <= tol (the reference stops on its float32 gap alone, which
-~60k float32 f updates can leave past tol); a certified state is
-returned as the cached f gives it, bit for bit the reference's. On the
-card, selection is the ``kkt_select`` kernel and the two kernel rows per
-iteration come from the ``rbf_gram`` cached row kernel
+around ``fori_loop``). Here the loop does not wait for the host on any
+iteration: the working pair, every scalar of the pair update and the
+``step_live`` flag stay 0-d tensors on the device, the kernel-row cache
+decides hit or miss on the device, and the host reads one pair of
+numbers (converged?, n_iter) per block of ``check_every`` iterations —
+the paper's "convergence checks on the host for every set of iterations
+on the device". The solve's state lives in buffers allocated once and
+written in place, so on the card a block is a device program of its
+own: the first block runs eagerly, the second is captured as a CUDA
+graph, and that block and every later one is one replay of it
+(``_Block``; ``CUDA_GRAPHS`` switches the capture off). As in the
+reference, a block always runs all its iterations (a step after
+convergence is a no-op), ``n_iter`` counts only live steps, and
+``max_iter`` is tested per block. Without shrinking, a check whose gap
+says converged also recomputes f once and stops only if the float64
+``kkt_violation`` of that f is <= tol (the reference stops on its
+float32 gap alone, which ~60k float32 f updates can leave past tol); a
+certified state is returned as the cached f gives it, bit for bit the
+reference's. On the card, selection is the ``kkt_select`` kernel and the
+two kernel rows per iteration come from the ``rbf_gram`` cached row kernel
 (``engine="pallas"``: one launch a row, the LRU lookup included).
 
 ``solve_qp_tasks`` / ``binary_smo_tasks`` solve the T problems of a
@@ -55,14 +59,24 @@ computed in float64.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import NamedTuple, Optional
+import threading
+import time
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis import compile_guard
 from repro_torch.core import kernel_engine as KE
 from repro_torch.core import kernels as K
 from repro_torch.kernels import ops
+
+# On the card, solve_qp and solve_qp_tasks run each check block after the
+# first as one replay of a CUDA graph captured once per solve (``_Block``);
+# False runs every block eagerly. The two give the same bits: tests and
+# chip_smoke.py set it to compare them. The CPU never captures.
+CUDA_GRAPHS = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,7 +222,9 @@ def kkt_violation(alpha, y, f, lo, hi, tol: float = 0.0, mask=None,
 
 def _smo_iteration(st: _State, *, y, mask, lo, hi, engine, cfg: SMOConfig,
                    diag=None, shrink: bool = False, live=None) -> None:
-    """One working-set pair update + f-cache refresh, in place on ``st``.
+    """One working-set pair update + f-cache refresh, in place on ``st``:
+    every field is written into its buffer and never rebound, so that a
+    CUDA graph of a block of iterations replays on the solve's state.
 
     selection="first": maximal violating pair (the paper's GPU solver).
     selection="second" (WSS2, Fan et al. 2005): i = argmin_{I_up} f,
@@ -231,6 +247,9 @@ def _smo_iteration(st: _State, *, y, mask, lo, hi, engine, cfg: SMOConfig,
 
     j = i_up
     row_j, cache = engine.row(j, st.cache)
+    if cache is not st.cache:
+        raise TypeError(f"{type(engine).__name__}.row returned a new row "
+                        "cache: an engine updates its cache in place")
     k_jj = _gather(row_j, j)
 
     if cfg.selection == "second":
@@ -251,7 +270,7 @@ def _smo_iteration(st: _State, *, y, mask, lo, hi, engine, cfg: SMOConfig,
     lo_i, lo_j = lo.gather(-1, ij).unbind(-1)
     hi_i, hi_j = hi.gather(-1, ij).unbind(-1)
 
-    row_i, cache = engine.row(i, cache)
+    row_i, _ = engine.row(i, cache)
     k_ii = _gather(row_i, i)
     k_ij = _gather(row_i, j)
     a_i_new, a_j_new = _pair_update(a_i, a_j, y_i, y_j, f_i, f_j,
@@ -268,15 +287,18 @@ def _smo_iteration(st: _State, *, y, mask, lo, hi, engine, cfg: SMOConfig,
     # compiles its multiply-adds into FMAs — fma(c_j, row_j, fma(c_i,
     # row_i, f)), and for the shrinking update fma(c_i, row_i, c_j row_j)
     # — and addcmul is the same fused multiply-add, so the two packages
-    # round alike and follow the same SMO trajectory.
+    # round alike and follow the same SMO trajectory. Each result is
+    # written into f's buffer by ``out=`` (the kernel's own store: the
+    # bits of the out-of-place call).
     c_i, c_j = (d_i * y_i).unsqueeze(-1), (d_j * y_j).unsqueeze(-1)
     if shrink:
         upd = torch.addcmul(c_j * row_j, row_i, c_i)
-        st.f = torch.where(st.active, f + upd, f)
+        torch.where(st.active, f + upd, f, out=f)
     else:
-        st.f = torch.addcmul(torch.addcmul(f, row_i, c_i), row_j, c_j)
-    st.n_iter = st.n_iter + step_live.to(torch.int64)
-    st.b_up, st.b_low, st.cache = b_up, b_low, cache
+        torch.addcmul(torch.addcmul(f, row_i, c_i), row_j, c_j, out=f)
+    st.n_iter.add_(step_live.to(torch.int64))
+    st.b_up.copy_(b_up)
+    st.b_low.copy_(b_low)
 
 
 def _certified(eng, alpha, y, p, lo, hi, mask, tol: float):
@@ -289,6 +311,108 @@ def _certified(eng, alpha, y, p, lo, hi, mask, tol: float):
     just recomputed and took no step since stops as it is."""
     f = eng.matvec(alpha * y) + y * p
     return float(kkt_violation(alpha, y, f, lo, hi, mask=mask)) <= tol, f
+
+
+# what the solves' CUDA graphs cost, summed over the process: captures,
+# seconds issuing and instantiating them, replays (a caller reads the
+# difference of two copies)
+graph_stats = {"captures": 0, "capture_s": 0.0, "instantiate_s": 0.0,
+               "replays": 0}
+_stats_lock = threading.Lock()
+_streams: dict = {}   # (device, thread) -> the stream its solves capture on
+_streams_lock = threading.Lock()
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The side stream this thread's solves capture on (a capture cannot
+    run on the default stream); one a thread, so two threads never
+    capture on one stream."""
+    key = (dev, threading.get_ident())
+    with _streams_lock:
+        if key not in _streams:
+            _streams[key] = torch.cuda.Stream(dev)
+        return _streams[key]
+
+
+class _Block:
+    """One check block of a solve: ``iters`` calls of ``step``, a closure
+    over the solve's state buffers that steps them in place.
+
+    On the CPU, or with ``CUDA_GRAPHS`` off, every call issues the block
+    eagerly. On the card the first call is eager too: it resolves the
+    launch plans and builds the kernel library, and a solve that stops
+    after it captures nothing (the cascade makes many such solves). The
+    second call captures one block as a CUDA graph, and it and every
+    later call replays it: one launch a block where the eager block
+    issues ~80 kernels an iteration. A graph is exactly one block, since
+    ``max_iter`` and ``shrink_every`` count checks; the host still reads
+    one pair of numbers a block, and the certificate and the shrink /
+    un-shrink passes run eagerly between replays.
+
+    The capture goes through ``torch.cuda.CUDAGraph`` on a side stream of
+    its own, not through ``torch.cuda.graph``, whose context synchronizes
+    the card, runs the garbage collector and empties the allocator's
+    cache at every capture; the graph's temporaries come from its private
+    pool, freed with the graph when the solve returns. The kernels'
+    per-stream scratch (``kkt_select``'s keys and tickets, the cached row
+    entry's ticket) is made and zeroed on the capture stream before the
+    capture, and the graph keeps it alive. A capture, instantiation or
+    replay that fails raises; nothing falls back to the eager loop.
+    ``ops.launches`` counts each replay as the launches of the captured
+    block, so a graphed solve counts what the eager one does."""
+
+    def __init__(self, step: Callable[[], None], iters: int,
+                 device: torch.device, solver: str, *, n: int, tasks: int):
+        self.step, self.iters, self.device = step, iters, device
+        self.solver, self.n, self.tasks = solver, n, tasks
+        self.graphed = device.type == "cuda" and CUDA_GRAPHS
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.calls = 0
+        self.launches: dict = {}
+        self._keep: tuple = ()
+
+    def __call__(self) -> None:
+        self.calls += 1
+        if not self.graphed or self.calls == 1:
+            for _ in range(self.iters):
+                self.step()
+            return
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        ops.add_launches(self.launches)
+        with _stats_lock:
+            graph_stats["replays"] += 1
+
+    def _capture(self) -> None:
+        dev = self.device
+        side, caller = _capture_stream(dev), torch.cuda.current_stream(dev)
+        side.wait_stream(caller)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(ops.launches)
+        with torch.cuda.stream(side):
+            self._keep = ops.block_scratch(dev, n=self.n, tasks=self.tasks)
+            t0 = time.perf_counter()
+            with compile_guard.capture_label(self.solver):
+                graph.capture_begin(capture_error_mode="global")
+            try:
+                for _ in range(self.iters):
+                    self.step()
+            except BaseException:
+                # end the broken capture, then raise what broke it
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            t1 = time.perf_counter()
+            graph.capture_end()    # instantiates the graph
+            t2 = time.perf_counter()
+        caller.wait_stream(side)
+        self.launches = ops.take_launches(before)
+        self.graph = graph
+        with _stats_lock:
+            graph_stats["captures"] += 1
+            graph_stats["capture_s"] += t1 - t0
+            graph_stats["instantiate_s"] += t2 - t1
 
 
 def _start(alpha0, lo, hi, mask) -> torch.Tensor:
@@ -375,21 +499,26 @@ def solve_qp(x: torch.Tensor,
         a0 = _start(torch.as_tensor(alpha0, dtype=torch.float32,
                                     device=dev), lo, hi, mask)
         f0 = eng.matvec(a0 * y) + y * p
-    st = _State(alpha=a0.contiguous(), f=f0,
+    # the state's buffers, each allocated here once and written in place
+    # from now on (the captured block replays on them)
+    st = _State(alpha=a0.contiguous(), f=f0.contiguous(),
                 n_iter=torch.zeros((), dtype=torch.int64, device=dev),
                 b_up=torch.tensor(-1.0, device=dev),
                 b_low=torch.tensor(1.0, device=dev),
-                active=mask, cache=eng.init_cache())
+                active=mask.clone(), cache=eng.init_cache())
     diag = eng.diag() if cfg.selection == "second" else None
     two_tol = 2.0 * cfg.tol
 
+    def step():
+        _smo_iteration(st, y=y, mask=mask, lo=lo, hi=hi, engine=eng,
+                       cfg=cfg, diag=diag, shrink=shrink)
+
+    # paper Fig. 3: `check_every` device iterations between checks
+    block = _Block(step, cfg.check_every, dev, "solve_qp", n=n, tasks=1)
     done, n_iter, checks = False, 0, 0
     exact_at = -1   # n_iter at which st.f was last recomputed
     while not done and n_iter < cfg.max_iter:
-        # paper Fig. 3: `check_every` device iterations between checks
-        for _ in range(cfg.check_every):
-            _smo_iteration(st, y=y, mask=mask, lo=lo, hi=hi, engine=eng,
-                           cfg=cfg, diag=diag, shrink=shrink)
+        block()
         conv_active = st.b_low <= st.b_up + two_tol
         conv, n_iter = torch.stack([conv_active.to(torch.int64),
                                     st.n_iter]).tolist()  # repro: noqa[R001] -- the one read a check block
@@ -398,21 +527,23 @@ def solve_qp(x: torch.Tensor,
                 ok, f_exact = _certified(eng, st.alpha, y, p, lo, hi, mask,
                                          cfg.tol)
                 if not ok:
-                    st.f, exact_at, conv = f_exact, n_iter, False
+                    st.f.copy_(f_exact)
+                    exact_at, conv = n_iter, False
             done = bool(conv)
             continue
         checks += 1
         if conv:
             # exact gradient for ALL samples, then the un-shrunk KKT
             # re-check; resume on the full set if it does not survive
-            st.f = eng.matvec(st.alpha * y) + y * p
-            st.b_up, _, st.b_low, _ = _selection(st.f, st.alpha, y, mask,
-                                                 lo, hi)
-            st.active = mask
+            st.f.copy_(eng.matvec(st.alpha * y) + y * p)
+            b_up, _, b_low, _ = _selection(st.f, st.alpha, y, mask, lo, hi)
+            st.b_up.copy_(b_up)
+            st.b_low.copy_(b_low)
+            st.active.copy_(mask)
             done = bool(st.b_low <= st.b_up + two_tol)  # repro: noqa[R001] -- once a converged check: the un-shrunk gap decides the stop
         elif checks % cfg.shrink_every == 0:
-            st.active = _shrink_active(st.f, st.alpha, y, mask, st.b_up,
-                                       st.b_low, lo, hi, cfg) & st.active
+            st.active &= _shrink_active(st.f, st.alpha, y, mask, st.b_up,
+                                        st.b_low, lo, hi, cfg)
 
     # final selection for the reported gap / bias, on the UN-shrunk set
     f_final = eng.matvec(st.alpha * y) + y * p if shrink else st.f
@@ -512,7 +643,9 @@ def solve_qp_tasks(x: torch.Tensor,
         a0 = _start(vec(alpha0), lo, hi, mask)
         f0 = eng.matvec(a0 * y) + y * p
     n_tasks = shape[0]
-    st = _State(alpha=a0.contiguous(), f=f0,
+    # the state's buffers, allocated once and written in place (as
+    # solve_qp's); no shrinking, so ``active`` stays the mask
+    st = _State(alpha=a0.contiguous(), f=f0.contiguous(),
                 n_iter=torch.zeros((n_tasks,), dtype=torch.int64, device=dev),
                 b_up=torch.full((n_tasks,), -1.0, device=dev),
                 b_low=torch.full((n_tasks,), 1.0, device=dev),
@@ -521,18 +654,24 @@ def solve_qp_tasks(x: torch.Tensor,
     two_tol = 2.0 * cfg.tol
 
     frozen = st.n_iter >= cfg.max_iter
+    live = ~frozen
     exact_at = torch.full((n_tasks,), -1, dtype=torch.int64, device=dev)
+
+    def step():
+        _smo_iteration(st, y=y, mask=mask, lo=lo, hi=hi, engine=eng,
+                       cfg=cfg, diag=diag, live=live)
+
+    block = _Block(step, cfg.check_every, dev, "solve_qp_tasks",
+                   n=shape[1], tasks=n_tasks)
     all_frozen = bool(frozen.all())
     while not all_frozen:
-        live = ~frozen
-        for _ in range(cfg.check_every):
-            _smo_iteration(st, y=y, mask=mask, lo=lo, hi=hi, engine=eng,
-                           cfg=cfg, diag=diag, live=live)
+        torch.logical_not(frozen, out=live)
+        block()
         # as solve_qp: a task whose gap closes is certified on a
         # recomputed f before it freezes, else goes on from that f
         conv = live & (st.b_low <= st.b_up + two_tol)
         check = conv & (st.n_iter != exact_at)
-        frozen = frozen | conv | (st.n_iter >= cfg.max_iter)
+        frozen |= conv | (st.n_iter >= cfg.max_iter)
         flags = torch.cat([check, frozen.all().reshape(1)]).tolist()  # repro: noqa[R001] -- the one read a check block
         all_frozen = bool(flags[-1])
         failed = []
@@ -831,7 +970,12 @@ def sharded_solve_qp(x, y, p, lo, hi, mask=None, *,
     kernel's rows are computed over each rank's block by the plain Gram
     function, and its solve reaches the same optimum within tol. Host
     reads: one pair of numbers a ``check_every`` block on every rank
-    (replicated values, so every rank takes the same branch)."""
+    (replicated values, so every rank takes the same branch).
+
+    Every block runs eagerly: unlike ``solve_qp``'s, it is never captured
+    as a CUDA graph. Its collectives cannot be: gloo stages each
+    all_reduce through host memory, and NCCL, whose collectives a graph
+    could hold, runs one rank where there is a single card."""
     if cfg.selection not in ("first", "second"):
         raise ValueError(f"unknown selection {cfg.selection!r}; expected "
                          "'first' or 'second'")

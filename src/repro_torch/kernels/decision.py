@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.analysis.compile_guard import memoised
 from repro_torch.kernels.tile_f32 import H100_SMS, current_stream, \
-    feature_chunk, row_stride
+    feature_chunk, refuse_in_capture, row_stride
 
 SV_TILE = 64        # SVs a ring stage of csrc/decision.cu holds
 MAX_SEGMENTS = 64   # partial sums a (task, row) a split launch keeps
@@ -163,6 +163,9 @@ def scratch(plan: DecisionPlan, n_tasks: int, nt: int,
     key = (device, stream)
     with _scratch_lock:
         partial, ticket = _scratch.get(key, (None, None))
+        if (partial is None or partial.numel() < need_p or ticket is None
+                or ticket.numel() < need_t):
+            refuse_in_capture("decision")
         if partial is None or partial.numel() < need_p:
             partial = torch.empty(max(need_p, 65536), dtype=torch.float32,
                                   device=device)

@@ -13,7 +13,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels.tile_f32 import current_stream
+from repro_torch.kernels.tile_f32 import current_stream, refuse_in_capture
 
 THREADS = 256       # csrc/kkt_select.cu KKT_THREADS
 MAX_BLOCKS = 128
@@ -60,6 +60,9 @@ def scratch(blocks: int, n_tasks: int, device: torch.device, stream: int):
     key = (device, stream)
     with _scratch_lock:
         keys, tickets = _scratch.get(key, (None, None))
+        if (keys is None or keys.numel() < 2 * n_tasks * blocks
+                or tickets is None or tickets.numel() < n_tasks):
+            refuse_in_capture("kkt_select")
         if keys is None or keys.numel() < 2 * n_tasks * blocks:
             keys = torch.empty(max(2 * n_tasks * blocks, 4096),
                                dtype=torch.int64, device=device)

@@ -82,6 +82,37 @@ def _count(name: str) -> None:
         launches[name] += 1
 
 
+def take_launches(before: dict) -> dict:
+    """The launches counted since ``before`` (a copy of ``launches``),
+    taken back out of the counts: what a CUDA graph capture issued
+    without running it. Each replay of the graph adds them
+    (``add_launches``), so a replayed block counts as its eager run."""
+    with _count_lock:
+        delta = {k: launches[k] - before.get(k, 0) for k in KERNELS}
+        for k in KERNELS:
+            launches[k] -= delta[k]
+    return {k: v for k, v in delta.items() if v}
+
+
+def add_launches(counts: dict) -> None:
+    with _count_lock:
+        for k, v in counts.items():
+            launches[k] += v
+
+
+def block_scratch(device: torch.device, *, n: int, tasks: int) -> tuple:
+    """Make, on the current stream, the per-stream scratch that an SMO
+    block's kernels take at n samples and ``tasks`` tasks: ``kkt_select``'s
+    keys and tickets and the cached row entry's ticket, zeroed as they are
+    made. A CUDA graph captured on that stream afterwards finds them made
+    (a capture refuses to make them: ``tile_f32.refuse_in_capture``) and
+    keeps the returned tensors alive while it replays."""
+    stream = current_stream()
+    return (*_kkt.scratch(autotune.resolve_kkt(n, device), tasks, device,
+                          stream),
+            _gram.ticket(device, stream))
+
+
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU ones; anything else, or a
     mix of devices, raises. A DTensor raises too: the kernels read raw

@@ -38,7 +38,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.analysis.compile_guard import memoised
-from repro_torch.kernels.tile_f32 import H100_SMS, current_stream
+from repro_torch.kernels.tile_f32 import (H100_SMS, current_stream,
+                                         refuse_in_capture)
 
 MODES = ("rbf", "linear")
 ENTRIES = ("block", "matvec")
@@ -289,6 +290,7 @@ def ticket(device: torch.device, stream: int) -> torch.Tensor:
     key = (device, stream)
     with _tickets_lock:
         if key not in _tickets:
+            refuse_in_capture("rbf_gram_row_cached")
             _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
         return _tickets[key]
 

@@ -3,7 +3,8 @@
 ``feature_map.rff_plan`` and ``decision.decision_plan``. A plan's
 ``smem_bytes`` goes to the launch, and the kernel refuses one that
 differs from what the C++ side computes, so the two stay in step.
-Also the stream handle their launches take.
+Also the stream handle their launches take, and the check that keeps
+their per-stream scratch out of a CUDA graph capture.
 """
 from __future__ import annotations
 
@@ -28,6 +29,20 @@ def current_stream() -> int:
     costs several microseconds, a real share of a one-row serving
     call."""
     return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
+def refuse_in_capture(what: str) -> None:
+    """Raise if the current stream is capturing a CUDA graph: a stream's
+    scratch made there would come from the graph's private pool, and its
+    zeroing would be a graph node that no eager launch waits for. The
+    capturing code makes the scratch on its stream first
+    (``ops.block_scratch``). Without an initialized CUDA context
+    nothing captures."""
+    if torch.cuda.is_initialized() and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what}: a stream's scratch would be made "
+                           "inside a CUDA graph capture; make it on the "
+                           "capture stream before the capture")
 
 
 def feature_chunk(d: int) -> int:
