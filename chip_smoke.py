@@ -143,7 +143,8 @@ then:
    one-request-a-call server, at 0.5, 1.5 and 4.0 x the warm OvO
    predictor's batch-1 capacity, then a mixed-size run over the three
    models: p50 / p99 ms, sustained rows/s, rows a batch, flushes, the
-   host ms of each decision call and the collector's pauses; every
+   host ms of each decision call and the collector's pauses (the
+   longest one's generation and objects collected); every
    response equal to its rows served alone (values bit for bit, labels),
    dynamic >= 1.3 x per-request at 4 x; ``registry`` —
    ``max_resident=2`` over four packs: the LRU order, re-admitted models
@@ -256,6 +257,21 @@ then:
    ``multiclass`` lines a ``profile`` of a window of 20 check blocks
    after the capture (busy share, device kernels an iteration;
    ``block_profile``), the ``fit`` line one of its whole warm fit.
+20. holds the ``Predictor``'s decide programs as CUDA graphs against the
+   same programs run eagerly (line ``serve_graph``): the exact binary
+   SVC, SVR, the overlapping OvO and OvR packs, the OvO pack quantized
+   to fp16 and bf16, and the RFF binary and OvO packs, each served by a
+   predictor whose programs replay a graph a batch bucket and by one
+   with ``predictor.CUDA_GRAPHS`` off, both warmed at the 11 buckets of
+   the ladder, in this process: decisions bit for bit at a request a
+   bucket and one past ``max_batch``, equal launches, one capture a
+   bucket and none eager (the requests under a compile budget of 0),
+   capture and instantiation ms a bucket, the memory a warmed predictor
+   holds beyond an unwarmed one, rows/s and µs a call at 1, 37, 256 and
+   1,024 rows in both modes. Every other serving phase (``serve``,
+   ``lowrank_serve``, ``svr``, multiclass serving, ``serve_quantized``,
+   ``serving_load``, ``registry``, ``compile_guard``) serves through the
+   graphs.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line sums them over the paths.
@@ -5025,6 +5041,7 @@ class ReplayProbe:
 
     def __init__(self, preds):
         self.preds, self.calls, self.gcs, self._gc_t0 = preds, [], [], None
+        self.gc_info = []   # (generation, objects collected) a pause
 
     def __enter__(self):
         import gc
@@ -5046,6 +5063,7 @@ class ReplayProbe:
             self._gc_t0 = time.perf_counter()
         elif self._gc_t0 is not None:
             self.gcs.append((time.perf_counter() - self._gc_t0) * 1e3)
+            self.gc_info.append((info["generation"], info["collected"]))
 
     def __exit__(self, *exc):
         import gc
@@ -5062,6 +5080,11 @@ class ReplayProbe:
                 "call_ms_total": float(calls.sum()),
                 "gc_pauses": len(self.gcs),
                 "gc_ms_max": max(self.gcs, default=0.0),
+                # the longest pause's generation and objects collected:
+                # a pause that frees an earlier phase's cyclic garbage
+                # collects many, one over a live heap few
+                "gc_max_generation_collected": list(self.gc_info[
+                    int(np.argmax(self.gcs))]) if self.gcs else None,
                 "gc_ms_total": float(sum(self.gcs))}
 
 
@@ -5294,6 +5317,116 @@ def phase_serving(ops, serve_mod, dev, out_dir, binary_pack, binary_test,
             ops, serve_mod, dev, {"binary": binary_pack, "ovo": ovo,
                                   "ovo_fp16": serve_mod.quantize(ovo, "fp16"),
                                   "ovr": ovr}, pools)}
+
+
+# the Predictor's batch ladder at max_batch 1,024 (11 buckets) and the
+# request sizes of serve_graph's bit comparison: one a bucket, and one
+# past max_batch (slices of 1,024, 1,024 and 452 -> bucket 512)
+SERVE_LADDER = tuple(1 << k for k in range(11))
+SERVE_GRAPH_SIZES = (1, 2, 3, 5, 9, 17, 33, 65, 129, 257, 513, 1024, 2500)
+SERVE_RATE_SIZES = (1, 37, 256, 1024)
+
+
+def rows_per_s(pred, x, sizes=SERVE_RATE_SIZES) -> dict:
+    """A warm predictor's rows/s by request size (up to 2,048 rows a
+    size, in requests of that size) and host µs a call at each size."""
+    rates, host_us = {}, {}
+    for size in sizes:
+        starts = range(0, len(x) - size + 1, size)[:max(1, 2048 // size)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in starts:
+            pred.decision_values(x[s:s + size])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates[str(size)] = len(starts) * size / dt
+        host_us[str(size)] = dt / len(starts) * 1e6
+    return {"rows_per_s": rates, "us_per_call": host_us}
+
+
+def graph_and_eager_serving(ops, serve_mod, pred_mod, dev, pack, x):
+    """One pack served by a Predictor(engine="pallas") with its programs
+    as CUDA graphs and by one running them eagerly
+    (``predictor.CUDA_GRAPHS`` off), each warmed at every bucket of the
+    ladder: per mode the decisions at SERVE_GRAPH_SIZES (under a compile
+    budget of 0), their launches, the captures, the memory a warmed
+    predictor holds beyond an unwarmed one, and rows/s."""
+    from repro_torch.analysis import CompileGuard
+    runs = {}
+    for mode in ("graph", "eager"):
+        pred_mod.CUDA_GRAPHS = mode == "graph"
+        try:
+            pred, built = constructed(lambda: serve_mod.Predictor(
+                pack, engine="pallas", device=dev))
+        finally:
+            pred_mod.CUDA_GRAPHS = True
+        torch.cuda.synchronize()
+        r0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        with CompileGuard(budget=10 ** 6) as warm:
+            _, warmed = constructed(lambda: pred.warmup(SERVE_LADDER))
+        warm_s = time.perf_counter() - t0
+        reserved = torch.cuda.memory_reserved() - r0
+        ops.reset_launches()
+        with CompileGuard(budget=0, note=f"warm {mode} predictor"):
+            dfs = [pred.decision_values(x[:n]) for n in SERVE_GRAPH_SIZES]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches.items() if v}
+        stats = pred.graph_stats
+        runs[mode] = dict(
+            dfs=dfs, launches=launches, stats=stats,
+            captures=sum(e.startswith("cuda graph capture")
+                         for e in warm.compiled),
+            out=dict(memory_allocated_construction=built,
+                     memory_allocated_warmup=warmed,
+                     memory_reserved_warmup=reserved, warmup_s=warm_s,
+                     n_programs=pred.n_programs, **rows_per_s(pred, x)))
+        del pred
+    g, e = runs["graph"], runs["eager"]
+    stats = g["stats"]
+    caps = max(stats["captures"], 1)
+    return dict(
+        bits_equal=all(np.array_equal(a, b)
+                       for a, b in zip(g["dfs"], e["dfs"])),
+        launches_equal=g["launches"] == e["launches"],
+        launches=g["launches"], captures=g["captures"],
+        eager_captures=e["captures"], graph_stats=stats,
+        capture_ms_per_bucket=stats["capture_s"] / caps * 1e3,
+        instantiate_ms_per_bucket=stats["instantiate_s"] / caps * 1e3,
+        graph=g["out"], eager=e["out"],
+        speedup_rows_per_s={k: g["out"]["rows_per_s"][k]
+                            / e["out"]["rows_per_s"][k]
+                            for k in g["out"]["rows_per_s"]})
+
+
+def phase_serve_graph(ops, serve_mod, dev, packs) -> dict:
+    """The Predictor's decide programs as CUDA graphs against the same
+    programs run eagerly, in this process, for each pack kind (``packs``:
+    name -> (pack, request rows)): decisions bit for bit at a request a
+    bucket and one past max_batch, equal launches, one capture a bucket
+    in the graph run and none in the eager one, capture and instantiation
+    ms a bucket, a warmed predictor's memory, rows/s and µs a call by
+    request size in both modes. The graph runs' launches are the path's."""
+    from repro_torch.serve import predictor as pred_mod
+    entries, path = [], []
+    for name, (pack, x) in packs.items():
+        entry = graph_and_eager_serving(ops, serve_mod, pred_mod, dev, pack,
+                                        x)
+        path.append(entry["launches"])
+        entries.append(dict(pack=name, **entry))
+        check(entry["bits_equal"], f"serve_graph {name}: a replay's "
+              "decisions differ from the eager program's")
+        check(entry["launches_equal"], f"serve_graph {name}: the graph run "
+              f"counts other launches than the eager run")
+        check(entry["captures"] == entry["graph_stats"]["captures"]
+              == len(SERVE_LADDER) and entry["eager_captures"] == 0,
+              f"serve_graph {name}: {entry['captures']} captures at warmup, "
+              f"want one a bucket of {len(SERVE_LADDER)}, none eager")
+        check(any(entry["launches"].values()), f"serve_graph {name}: the "
+              "path launched no kernel")
+    emit(phase="serve_graph", ladder=list(SERVE_LADDER),
+         sizes=list(SERVE_GRAPH_SIZES), packs=entries)
+    return {k: sum(c.get(k, 0) for c in path) for k in ops.KERNELS}
 
 
 def quantized_bank_rows(ops, D, dev, fits, xte, launches) -> list[dict]:
@@ -5646,6 +5779,19 @@ def main() -> int:
     del base, mc_configs
     serving = phase_serving(ops, serve_mod, dev, out_dir, packed, (xte, yte),
                             fits, split)
+    svr_pack = serve_mod.load(os.path.join(out_dir,
+                                           "chip_smoke_svr_pallas.npz"))
+    svr_rows = np.random.default_rng(SEED).normal(
+        0.0, 1.0, (4096, svr_pack.n_features)).astype(np.float32)
+    serving["serve_graph"] = phase_serve_graph(ops, serve_mod, dev, {
+        "binary": (packed, xte), "svr": (svr_pack, svr_rows),
+        "ovo": (fits["ovo"][2], split[2]), "ovr": (fits["ovr"][2], split[2]),
+        "ovo_fp16": (serve_mod.quantize(fits["ovo"][2], "fp16"), split[2]),
+        "ovo_bf16": (serve_mod.quantize(fits["ovo"][2], "bf16"), split[2]),
+        "rff": (serve_mod.load(os.path.join(out_dir,
+                                            "chip_smoke_lowrank.npz")), xte),
+        "ovo_rff": (serve_mod.load(os.path.join(
+            out_dir, "chip_smoke_ovo_lowrank.npz")), split[2])})
     lm, lm_errs, lm_bf16, lm_bwd = phase_lm(ops, FA, SD, dev)
     check(lm_bf16 > 0, "main path launched no bfloat16 flash_attention")
     lm_serve, lm_seen = phase_lm_serve(ops, FA, SD, dev)

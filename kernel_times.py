@@ -9,6 +9,7 @@ checkout of this repository.
     python3 kernel_times.py --lm [--src DIR] [--lm-sweep] [--out FILE]
     python3 kernel_times.py --lm-train [--src DIR] [--out FILE]
     python3 kernel_times.py --host [--src DIR] [--out FILE]
+    python3 kernel_times.py --serving-load --packs DIR [--src DIR]
 
 ``--packs`` holds what chip_smoke.py saves under ``chiprun_out/``: the
 exact binary SVC (``chip_smoke_model.npz``), the OvO and OvR models of
@@ -18,8 +19,14 @@ its overlapping configuration (``chip_smoke_ovo_overlapping.npz``,
 again as chip_smoke.py makes them (``binary_split``, ``pavia_split``).
 One JSON line each:
 
-* ``serve``: each of the three classifiers through ``serve.Predictor``,
-  rows/s by request size (``chip_smoke.serve_rates``);
+* ``serve``: the three classifiers, the OvO pack quantized to fp16 and
+  bf16, and the RFF SVC through ``serve.Predictor``, warmed at the
+  batch ladder: rows/s by request size (``chip_smoke.serve_rates``),
+  rows/s and host µs a call of ``decision_values`` at 1, 37, 256 and
+  1,024 rows, a warmed predictor's memory; for a checkout whose
+  predictor replays a CUDA graph a batch bucket, with the graphs and
+  eagerly (``predictor.CUDA_GRAPHS``), each with its captures and
+  capture / instantiation seconds;
 * ``kernel``: the device time (``chip_smoke.device_ms``) of
   ``ops.decision`` over all binary held-out rows, of
   ``ops.multitask_decision`` at the binary bank (T = 1), the largest
@@ -50,6 +57,11 @@ lines, a diagnostic that is never shipped): the SV norm pass also writes
 each 16-bit tile widened into a float32 stage, which the contraction
 reads (the float32 plan's shared memory), at 128-row tiles and the
 plan's split and 16.
+
+``--serving-load`` (with ``--packs``) runs ``chip_smoke.py``'s
+``serving_load`` phase alone on the checkout, in a fresh process (a
+``serving_load`` line with its gate's outcome): batch-1 capacity, p50 /
+p99, sustained rows/s and the dynamic / per-request ratio.
 
 ``--dcd`` times ``dcd_epoch`` alone (``dcd`` lines, no serving): at the
 binary low-rank fit's shape (the training rows through
@@ -231,6 +243,7 @@ def _args():
     p.add_argument("--lm-train", action="store_true")
     p.add_argument("--lm-train-steps", type=int, default=LM_TRAIN_STEPS)
     p.add_argument("--host", action="store_true")
+    p.add_argument("--serving-load", action="store_true")
     args = p.parse_args()
     if args.packs is None and not (args.smo or args.gram or args.lm
                                    or args.lm_train or args.host):
@@ -288,6 +301,9 @@ def main() -> int:
     if args.quant:
         quant_times(args, cs, data, serve, _build, ops, D, dev, emit)
         return 0
+    if args.serving_load:
+        serving_load_times(args, cs, data, serve, ops, dev, emit)
+        return 0
     packs = {k: serve.load(os.path.join(args.packs, f))
              for k, f in PACKS.items()}
     xtr_b, _, xte_b, _ = cs.binary_split(data)
@@ -305,11 +321,7 @@ def main() -> int:
     def cuda(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    for model, xte in (("binary", xte_b), ("ovo", xte_m), ("ovr", xte_m)):
-        pred = serve.Predictor(packs[model], engine="pallas", device=dev)
-        emit(measure="serve", model=model,
-             banks=[list(g.sv_x.shape) for g in packs[model].buckets],
-             rows_per_s=cs.serve_rates(pred, xte)[0])
+    serve_times(cs, serve, packs, xte_b, xte_m, dev, emit)
 
     gamma = packs["binary"].kernel.gamma
     g = packs["binary"].buckets[0]
@@ -377,6 +389,75 @@ def main() -> int:
              library_device_ms=cs.device_ms(
                  lambda: scale * torch.cos(torch.addmm(ph, xs, om))))
     return 0
+
+
+def serve_times(cs, serve, packs, xte_b, xte_m, dev, emit):
+    """``serve`` lines: the binary, OvO, OvR, fp16 / bf16 OvO and RFF
+    packs through ``serve.Predictor(engine="pallas")``, warmed at the
+    whole batch ladder; for a checkout whose predictor replays a CUDA
+    graph a bucket (``predictor.CUDA_GRAPHS``), once with the graphs and
+    once eagerly, else as it runs. Each: rows/s of ``predict`` by request
+    size (``chip_smoke.serve_rates``), rows/s and host µs a call of
+    ``decision_values`` at 1, 37, 256 and 1,024 rows
+    (``chip_smoke.rows_per_s``), and the graphs' captures and capture /
+    instantiation seconds."""
+    import torch
+    from repro_torch.serve import predictor
+    modes = ("graph", "eager") if hasattr(predictor, "CUDA_GRAPHS") \
+        else (None,)
+    models = {"binary": (packs["binary"], xte_b),
+              "ovo": (packs["ovo"], xte_m), "ovr": (packs["ovr"], xte_m),
+              "ovo_fp16": (serve.quantize(packs["ovo"], "fp16"), xte_m),
+              "ovo_bf16": (serve.quantize(packs["ovo"], "bf16"), xte_m),
+              "rff": (packs["lowrank"], xte_b)}
+    for model, (pack, xte) in models.items():
+        for mode in modes:
+            if mode is not None:
+                predictor.CUDA_GRAPHS = mode == "graph"
+            try:
+                pred = serve.Predictor(pack, engine="pallas", device=dev)
+            finally:
+                if mode is not None:
+                    predictor.CUDA_GRAPHS = True
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            pred.warmup(cs.SERVE_LADDER)
+            torch.cuda.synchronize()
+            warmed = torch.cuda.memory_allocated() - m0
+            emit(measure="serve", model=model, mode=mode,
+                 banks=[list(g.sv_x.shape) for g in pack.buckets],
+                 rows_per_s=cs.serve_rates(pred, xte)[0],
+                 decision_values=cs.rows_per_s(pred, xte),
+                 memory_allocated_warmup=warmed,
+                 graph_stats=getattr(pred, "graph_stats", None))
+            del pred
+
+
+def serving_load_times(args, cs, data, serve, ops, dev, emit):
+    """``serving_load`` line: ``chip_smoke.phase_serving_load`` (the
+    open-loop replay against a ServingService and a one-request-a-call
+    server over a registry of the binary, OvO and OvO-bf16 packs) run on
+    this checkout in a fresh process, its line re-emitted with ``gate``:
+    True, or the failed check's message (the phase's gates are
+    chip_smoke.py's; here they are read, not enforced)."""
+    binary = serve.load(os.path.join(args.packs, PACKS["binary"]))
+    ovo = serve.load(os.path.join(args.packs, PACKS["ovo"]))
+    xte_b = cs.binary_split(data)[2]
+    xte_m = cs.pavia_split(data, cs.PAVIA_NOISE["overlapping"])[2]
+    lines, out_line, gate = [], cs.out_line, True
+    cs.out_line = lines.append
+    try:
+        cs.phase_serving_load(
+            ops, serve, dev, {"binary": binary, "ovo": ovo,
+                              "ovo_bf16": serve.quantize(ovo, "bf16")},
+            {"binary": xte_b, "ovo": xte_m, "ovo_bf16": xte_m})
+    except cs.SmokeFailure as e:
+        gate = str(e)
+    finally:
+        cs.out_line = out_line
+    for line in lines:
+        emit(measure="serving_load", gate=gate,
+             **{k: v for k, v in line.items() if k != "phase"})
 
 
 def quant_times(args, cs, data, serve, _build, ops, D, dev, emit):

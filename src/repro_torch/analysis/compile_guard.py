@@ -2,8 +2,9 @@
 than it declared.
 
 The counterpart of ``repro/analysis/compile_guard.py``. There a fresh
-program is an XLA compilation; the port runs eagerly, and what it makes
-per new shape are these, each counted as one event with a name:
+program is an XLA compilation; the port runs eagerly or replays CUDA
+graphs, and what it makes per new shape are these, each counted as one
+event with a name:
 
 * a ``torch.compile`` graph: dynamo's
   ``counters["stats"]["unique_graphs"]``, read on entry and on exit,
@@ -11,7 +12,8 @@ per new shape are these, each counted as one event with a name:
 * a CUDA-graph capture: every ``torch.cuda.CUDAGraph.capture_begin``
   (which ``torch.cuda.graph`` calls), named by the capturing code and by
   the ``capture_label`` it runs under (the SMO solvers label theirs
-  ``solve_qp`` / ``solve_qp_tasks``);
+  ``solve_qp`` / ``solve_qp_tasks``, a ``serve.Predictor`` a bucket's
+  ``predictor program`` with its (bank signature, bucket) pairs);
 * a new ``serve.Predictor`` program: a (bank signature, batch bucket)
   pair that predictor had not served, the entries of ``n_programs``;
 * a new launch plan or tuner resolution: a miss of a function

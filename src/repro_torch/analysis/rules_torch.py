@@ -8,7 +8,11 @@ R001 has two parts.
   data fed to ``jnp`` without the pow2 ladder, or a ``jax.jit`` minted per
   call, because XLA compiles one program per distinct shape. Here the
   same leak is a ``torch.compile(...)`` built inside a hot-path function
-  (a fresh graph and its guards per call), or a launch-plan resolver
+  (a fresh graph and its guards per call), a CUDA graph captured there
+  (``torch.cuda.CUDAGraph()`` / ``torch.cuda.graph(...)``) in a function
+  that shows no pow2 / pad / bucket discipline (a capture and a memory
+  pool per call or per width, where the ``serve.Predictor`` captures
+  once a batch bucket), or a launch-plan resolver
   (``*_plan``, ``autotune.plan``, ``autotune.resolve_*``) fed a
   request-derived argument in a function that shows no pow2 / pad /
   bucket discipline: a plan (and a tuner-cache entry) per distinct
@@ -53,6 +57,8 @@ _R001_EXEMPT_FUNCS = ("__init__", "warmup")
 _R001_MARKERS = ("pow2", "pad", "bucket")
 _R001_SOLVERS = ("core/smo.py", "core/linear.py", "core/gd.py",
                  "core/cascade.py")
+# CUDA graph captures: the torch meaning of a jax.jit minted per call
+_GRAPH_CAPTURES = ("torch.cuda.CUDAGraph", "torch.cuda.graph")
 _HOST_METHODS = ("item", "tolist", "cpu", "numpy")
 _HOST_CASTS = ("float", "int", "bool")
 
@@ -205,9 +211,9 @@ def _loop_bodies(fn):
 @register
 class TorchHotPath(Rule):
     name = "R001"
-    summary = ("serving/dist hot path builds a torch.compile or a launch "
-               "plan per request width; or a solver reads the device "
-               "from the host inside its inner loop")
+    summary = ("serving/dist hot path builds a torch.compile, a CUDA "
+               "graph or a launch plan per request width; or a solver "
+               "reads the device from the host inside its inner loop")
 
     def check(self, src: SourceFile, project: Project) -> list[Finding]:
         out: list[Finding] = []
@@ -237,6 +243,18 @@ class TorchHotPath(Rule):
                                  f"builds a fresh graph and its guards "
                                  f"(recompile per call); hoist it to "
                                  f"__init__ / module scope")))
+                    continue
+                if name in _GRAPH_CAPTURES:
+                    if not padded:
+                        out.append(Finding(
+                            rule=self.name, path=src.path, line=node.lineno,
+                            col=node.col_offset,
+                            message=(f"`{name}` capture inside hot-path "
+                                     f"function `{fn.name}` without pow2 "
+                                     f"padding-bucket discipline — a CUDA "
+                                     f"graph (and its memory pool) per "
+                                     f"call or per distinct width; capture "
+                                     f"once a batch bucket and replay")))
                     continue
                 if padded or not _is_plan_call(name):
                     continue

@@ -319,19 +319,6 @@ def _certified(eng, alpha, y, p, lo, hi, mask, tol: float):
 graph_stats = {"captures": 0, "capture_s": 0.0, "instantiate_s": 0.0,
                "replays": 0}
 _stats_lock = threading.Lock()
-_streams: dict = {}   # (device, thread) -> the stream its solves capture on
-_streams_lock = threading.Lock()
-
-
-def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
-    """The side stream this thread's solves capture on (a capture cannot
-    run on the default stream); one a thread, so two threads never
-    capture on one stream."""
-    key = (dev, threading.get_ident())
-    with _streams_lock:
-        if key not in _streams:
-            _streams[key] = torch.cuda.Stream(dev)
-        return _streams[key]
 
 
 class _Block:
@@ -386,11 +373,10 @@ class _Block:
 
     def _capture(self) -> None:
         dev = self.device
-        side, caller = _capture_stream(dev), torch.cuda.current_stream(dev)
+        side, caller = ops.capture_stream(dev), torch.cuda.current_stream(dev)
         side.wait_stream(caller)
         graph = torch.cuda.CUDAGraph()
-        before = dict(ops.launches)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), ops.captured_launches() as launches:
             self._keep = ops.block_scratch(dev, n=self.n, tasks=self.tasks)
             t0 = time.perf_counter()
             with compile_guard.capture_label(self.solver):
@@ -407,7 +393,7 @@ class _Block:
             graph.capture_end()    # instantiates the graph
             t2 = time.perf_counter()
         caller.wait_stream(side)
-        self.launches = ops.take_launches(before)
+        self.launches = launches
         self.graph = graph
         with _stats_lock:
             graph_stats["captures"] += 1

@@ -17,6 +17,7 @@ a row's decision does not depend on the plan or on the batch it came in.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 from typing import NamedTuple
@@ -154,8 +155,17 @@ def scratch(plan: DecisionPlan, n_tasks: int, nt: int,
     stream and grown when a launch needs more; (None, None) without a
     split. Launches on one stream run in order and the kernel leaves its
     tickets at 0, so a stream's buffers serve every launch on it, and
-    the tickets are zeroed only when they are made: a serving call
-    allocates and launches nothing besides the kernel."""
+    the tickets are zeroed only when they are made: an eager serving call
+    allocates and launches nothing besides the kernel.
+
+    A CUDA graph bakes in the pointers it was captured with, so a
+    stream's buffers must not serve a capture: a later growth would free
+    them under the graph, and two graphs sharing them would race on the
+    tickets when replayed at once. A capturing ``serve.Predictor`` owns
+    its scratch instead (``own_scratch``), made once at the most any plan
+    of its banks takes and installed for the stream only while it
+    captures (``installed``); growing a stream's buffers inside a
+    capture raises (``refuse_in_capture``)."""
     if plan.splits == 1:
         return None, None
     need_p = 2 * n_tasks * plan.segments * nt
@@ -174,6 +184,41 @@ def scratch(plan: DecisionPlan, n_tasks: int, nt: int,
                                  device=device)
         _scratch[key] = (partial, ticket)
     return partial, ticket
+
+
+def own_scratch(banks, rows: int, device: torch.device) -> tuple:
+    """New (partial, ticket) buffers, shared with no stream, with room
+    for a launch of any plan over any of ``banks`` ((n_tasks, w) pairs)
+    at up to ``rows`` test rows: the bank's segments (a function of w
+    alone) and 64-row tiles are the most any split and row tile ask
+    for. The tickets are zeroed on the current stream."""
+    need_p = need_t = 0
+    for n_tasks, w in banks:
+        segments = -(-max(1, -(-w // SV_TILE)) // segment_tiles(w))
+        need_p = max(need_p, 2 * n_tasks * segments * rows)
+        need_t = max(need_t, n_tasks * -(-rows // 64))
+    return (torch.empty(need_p, dtype=torch.float32, device=device),
+            torch.zeros(need_t, dtype=torch.int32, device=device))
+
+
+@contextlib.contextmanager
+def installed(buffers: tuple, stream: int):
+    """Make ``buffers`` (``own_scratch``) the scratch of ``stream`` inside
+    the block, and restore the stream's own buffers after it. The key is
+    the buffers' own device (with its index, as a launch's operands
+    give it)."""
+    key = (buffers[0].device, stream)
+    with _scratch_lock:
+        prev = _scratch.get(key)
+        _scratch[key] = buffers
+    try:
+        yield
+    finally:
+        with _scratch_lock:
+            if prev is None:
+                _scratch.pop(key, None)
+            else:
+                _scratch[key] = prev
 
 
 def _ptr(t) -> int:

@@ -32,6 +32,7 @@ change nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -69,6 +70,7 @@ KERNELS = ("rbf_gram", "rbf_gram_matvec", "rbf_gram_row",
 DCD_MAX_RANK = (232448 - 64) // 4
 launches = {k: 0 for k in KERNELS}
 _count_lock = threading.Lock()
+_captured = threading.local()   # .counts: this thread's capture's launches
 
 
 def reset_launches() -> None:
@@ -80,24 +82,50 @@ def reset_launches() -> None:
 def _count(name: str) -> None:
     with _count_lock:
         launches[name] += 1
+    counts = getattr(_captured, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
 
 
-def take_launches(before: dict) -> dict:
-    """The launches counted since ``before`` (a copy of ``launches``),
-    taken back out of the counts: what a CUDA graph capture issued
-    without running it. Each replay of the graph adds them
-    (``add_launches``), so a replayed block counts as its eager run."""
-    with _count_lock:
-        delta = {k: launches[k] - before.get(k, 0) for k in KERNELS}
-        for k in KERNELS:
-            launches[k] -= delta[k]
-    return {k: v for k, v in delta.items() if v}
+@contextlib.contextmanager
+def captured_launches():
+    """Count apart the launches this thread issues inside the block, and
+    take them back out of ``launches`` when it ends: what a CUDA graph
+    capture issued without running it (other threads' launches meanwhile
+    stay counted). Yields the dict, filled as the block runs; each
+    replay of the graph adds it (``add_launches``), so a replay counts as
+    its eager run."""
+    counts: dict = {}
+    _captured.counts = counts
+    try:
+        yield counts
+    finally:
+        _captured.counts = None
+        with _count_lock:
+            for k, v in counts.items():
+                launches[k] -= v
 
 
 def add_launches(counts: dict) -> None:
     with _count_lock:
         for k, v in counts.items():
             launches[k] += v
+
+
+_streams: dict = {}   # (device, thread) -> the stream its captures run on
+_streams_lock = threading.Lock()
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream this thread's CUDA graph captures run on (a capture
+    cannot run on the default stream): one a thread, so two threads never
+    capture on one stream. The SMO solvers' check blocks and the
+    ``serve.Predictor``'s programs are captured on it."""
+    key = (device, threading.get_ident())
+    with _streams_lock:
+        if key not in _streams:
+            _streams[key] = torch.cuda.Stream(device)
+        return _streams[key]
 
 
 def block_scratch(device: torch.device, *, n: int, tasks: int) -> tuple:
@@ -111,6 +139,23 @@ def block_scratch(device: torch.device, *, n: int, tasks: int) -> tuple:
     return (*_kkt.scratch(autotune.resolve_kkt(n, device), tasks, device,
                           stream),
             _gram.ticket(device, stream))
+
+
+def serving_scratch(device: torch.device, banks, rows: int) -> tuple:
+    """A predictor's own split-launch scratch of ``multitask_decision``,
+    made on the current stream: room for a launch of any plan over each
+    of ``banks`` ((n_tasks, w) pairs) at up to ``rows`` rows, the
+    tickets zeroed. The predictor captures its programs inside
+    ``using_scratch`` and keeps the tensors alive with its graphs; no
+    stream shares them (``decision.scratch``)."""
+    return _decision.own_scratch(banks, rows, device)
+
+
+def using_scratch(buffers: tuple):
+    """Context: ``buffers`` (``serving_scratch``) serve the current
+    stream's ``multitask_decision`` launches inside the block; the
+    stream's own scratch is back after it."""
+    return _decision.installed(buffers, current_stream())
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:

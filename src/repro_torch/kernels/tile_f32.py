@@ -36,8 +36,8 @@ def refuse_in_capture(what: str) -> None:
     scratch made there would come from the graph's private pool, and its
     zeroing would be a graph node that no eager launch waits for. The
     capturing code makes the scratch on its stream first
-    (``ops.block_scratch``). Without an initialized CUDA context
-    nothing captures."""
+    (``ops.block_scratch``), or brings its own (``ops.serving_scratch``).
+    Without an initialized CUDA context nothing captures."""
     if torch.cuda.is_initialized() and \
             torch.cuda.is_current_stream_capturing():
         raise RuntimeError(f"{what}: a stream's scratch would be made "

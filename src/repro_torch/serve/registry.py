@@ -12,11 +12,13 @@ concerns:
   ``serve.Predictor`` for the name, admitting it (bank upload and
   warmup) on first use and evicting the least recently used resident
   model once ``max_resident`` is reached. Eviction drops the predictor,
-  and with it the only references to its device banks, so their memory
-  returns to the allocator (``torch.cuda.memory_allocated`` falls by the
-  bank's bytes); the host arrays stay registered, so re-admission is a
-  re-upload and re-warm, not a reload from disk, and serves the same
-  bits (same pack, same kernels).
+  and with it the only references to its device banks, its programs'
+  static and pinned buffers, its CUDA graphs and their memory pool, so
+  that memory returns to the allocator (``torch.cuda.memory_allocated``
+  falls by at least the bank's bytes); the host arrays stay registered,
+  so re-admission is a
+  re-upload and re-warm (and, on the card, new captures), not a reload
+  from disk, and serves the same bits (same pack, same kernels).
 
 All public methods are thread-safe (one registry lock); admission work
 (upload and warmup) happens under the lock, so concurrent ``get`` calls

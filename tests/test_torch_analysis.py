@@ -233,6 +233,58 @@ def test_r001_serving_clean_and_out_of_scope(tmp_path):
     assert code == 0
 
 
+R001_CAPTURE_BAD = """\
+import torch
+
+def handle(fn, request_rows):
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(request_rows)
+    graph.replay()
+    return out
+"""
+
+R001_CAPTURE_CLEAN = """\
+import torch
+
+class Server:
+    def __init__(self, fn):
+        self.fn, self.graphs = fn, {}
+
+    def warmup(self, rows):
+        graph = torch.cuda.CUDAGraph()   # exempt: captured before traffic
+        with torch.cuda.graph(graph):
+            self.fn(rows)
+
+    def handle(self, request_rows):
+        bucket = 1 << (len(request_rows) - 1).bit_length()
+        if bucket not in self.graphs:
+            self.graphs[bucket] = torch.cuda.CUDAGraph()
+        self.graphs[bucket].replay()
+"""
+
+
+@pytest.mark.parametrize("case,findings", [("bad", 2), ("clean", 0)])
+def test_r001_serving_cuda_graph_capture(tmp_path, case, findings):
+    """A CUDA graph captured in a serving hot-path function is the torch
+    meaning of a ``jax.jit`` minted per call: flagged (both the
+    ``CUDAGraph()`` and the ``torch.cuda.graph(...)`` capture) unless the
+    function shows the bucket ladder, or is ``__init__`` / ``warmup``."""
+    src = R001_CAPTURE_BAD if case == "bad" else R001_CAPTURE_CLEAN
+    code, report = run_lint(tmp_path, {"serve/handler.py": src})
+    assert len(report["findings"]) == findings, report["findings"]
+    if findings:
+        assert code == 1 and rules_hit(report) == {"R001"}
+        msgs = " ".join(f["message"] for f in report["findings"])
+        assert "torch.cuda.CUDAGraph" in msgs and "torch.cuda.graph" in msgs
+        assert "handle" in msgs
+    else:
+        assert code == 0
+    code, _ = run_lint(tmp_path / "other",
+                       {"training/handler.py": R001_CAPTURE_BAD})
+    assert code == 0
+
+
 R001_LOOP_BAD = """\
 import torch
 

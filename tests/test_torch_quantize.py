@@ -311,7 +311,7 @@ def test_fp16_bank_under_bf16_compute(fitted):
     construction (fp16 -> float32 exactly, then to nearest even, as the
     reference's decide program does): the resident bank is those bits,
     and it serves what the fp32 pack of the fp16 values serves under
-    bf16 compute, bit for bit (there the cast comes per call)."""
+    bf16 compute, bit for bit (that bank is rounded from float32)."""
     x, _, _, tpack = fitted["ovo"]
     cfg = TKE.EngineConfig(backend="pallas", gram_dtype="bf16")
     from_fp16 = tserve.Predictor(tserve.quantize(tpack, "fp16"), engine=cfg,

@@ -38,6 +38,7 @@ card::
     PYTHONPATH=src python -m pytest -q tests/test_torch_smo_graph.py
 """
 import contextlib
+import threading
 
 import numpy as np
 import pytest
@@ -222,12 +223,22 @@ def test_cpu_solves_capture_nothing():
 
 
 def test_take_and_add_launches_move_a_captured_blocks_count():
+    """A capture's launches (this thread's, inside ``captured_launches``)
+    are taken out of the counts; another thread's launches meanwhile
+    stay counted; each replay adds the captured ones back."""
     before = dict(ops.launches)
-    ops.launches["kkt_select"] += 3
-    ops.launches["rbf_gram_row_cached"] += 6
-    taken = ops.take_launches(before)
+    with ops.captured_launches() as taken:
+        for name, n in (("kkt_select", 3), ("rbf_gram_row_cached", 6)):
+            for _ in range(n):
+                ops._count(name)
+        other = threading.Thread(target=ops._count, args=("kkt_select",))
+        other.start()
+        other.join(timeout=10)
+    assert not other.is_alive()
     assert taken == {"kkt_select": 3, "rbf_gram_row_cached": 6}
-    assert ops.launches == before
+    assert ops.launches == {**before,
+                            "kkt_select": before["kkt_select"] + 1}
+    ops.launches["kkt_select"] -= 1
     ops.add_launches(taken)
     ops.add_launches(taken)
     assert ops.launches["kkt_select"] == before["kkt_select"] + 6
